@@ -3,21 +3,41 @@
 
     python3 chip_smoke.py [--seed N]
 
-Builds the CUDA kernel of ``fftw3_tpu_torch`` from ``csrc/`` with nvcc,
-checks it against its plain PyTorch twin and a float64 oracle, then drives
-the main path — ``plan_many_dft([1024], howmany=65536)`` through
-``apply_split`` and ``execute`` — and checks every row against
-``torch.fft`` in complex128 (an oracle only).  Then the gradient, the
-kernel's and the twin's times at the main-path shape, the planner's ESTIMATE
-choice against the kernel at sizes where its cost model leaves the kernel,
-one MEASURE plan, and a ``torch.profiler`` breakdown of the main path (wall
-vs device time per call, idle share, time per device kernel).  Exits
-non-zero at the first failed check, and without printing a result when torch
-sees no CUDA device.
+Builds the CUDA kernels of ``fftw3_tpu_torch`` from ``csrc/`` with nvcc
+(one process per source, in parallel) and checks each against its plain
+PyTorch twin and a float64 oracle.  Then it drives the port's paths through
+the entry points a user calls, each at full width, with every kernel's
+launch count set to 0 just before the path and read just after:
 
-The last two lines of standard output are JSON: the kernels of the path
-(name, source, launches on the main path, error against the twin, times),
-then ``{"ok": true, "device": {...}}``.
+* 1-D c2c, ``plan_many_dft([1024], howmany=65536)`` through ``apply_split``
+  and ``execute`` (the last-axis kernel K1), then its gradient, times, the
+  planner's ESTIMATE choice against K1 off n = 1024, one MEASURE plan and a
+  ``torch.profiler`` breakdown (phases 3-7);
+* 3-D c2c, ``plan_dft_3d(512, 512, 512)``: axis 0 through the axis -2
+  kernel K2, axes 1-2 through the fused 2-D kernel K3, one launch of each
+  per call and no copy kernel (phase 9);
+* 2-D batched, ``plan_many_dft([512, 512], howmany=64``): K3 alone
+  (phase 10);
+* 1-D c2c at n = 4096, B = 4096: the MEASURE plan (the four-step
+  ``pallas4`` raced against ``mixed``) and a plan pinned to
+  ``pallas4-32x128`` by a reference-format wisdom import: K2, then K1 with
+  the fused pre-twiddle (phase 11);
+* 3-D c2c at 256^3, wherever ESTIMATE sends it (phase 12).
+
+Every path is checked against ``torch.fft`` in complex128 (an oracle only),
+and every kernel route's gradient against its opposite-sign launches.
+Phase 13 profiles the new paths with ``torch.profiler`` in a child process
+(``--profile-paths``), phase 14 times each kernel, its twin and the one
+PyTorch call that computes the same function at its path's shape, and
+holds each against its twin there.  Phase 15 times the 3-D and 2-D batched
+plans against the other routes the port could take for them: K2 on every
+non-last axis with K1 on the last (no fusion), and a ``movedim`` lift
+around K1 on every axis.  Exits non-zero at the first failed check, and
+without printing a result when torch sees no CUDA device.
+
+The last two lines of standard output are JSON: the kernels of the paths
+(name, source, launches, error against the twin, times, bound), then
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -32,9 +52,11 @@ import numpy as np
 import torch
 
 import fftw3_tpu_torch as ft
+from fftw3_tpu_torch import plan as plan_mod
 from fftw3_tpu_torch import planner as P
 from fftw3_tpu_torch.ops import _build
 from fftw3_tpu_torch.ops import c2c as c2c_ops
+from fftw3_tpu_torch.ops import fused2d, inner
 from fftw3_tpu_torch.ops import stockham as S
 from fftw3_tpu_torch.utils import timing
 
@@ -53,6 +75,57 @@ TIMED_RADICES = [[64, 16], [32, 32], [128, 8]]
 #: cost model, 512 is a control it keeps on the kernel
 OFF_HEADLINE = [192, 256, 512]
 PROFILE_CALLS = 5
+
+#: the case grid of the multi-axis and four-step kernels against their twins
+INNER_NS = [8, 32, 128, 512, 1000, 2048]
+INNER_LS = [1, 37, 130, 4096]
+PLANES_2D = [(128, 128), (256, 1024), (512, 512), (384, 768)]
+PRES = [1, 3, 64]
+#: K1 with the four-step options: (q, radices, P, transposed store)
+PRETWIDDLE_CASES = [(128, [128], 32, False), (128, [128], 128, True),
+                    (512, [32, 16], 8, False), (2048, [128, 16], 64, True)]
+PRETWIDDLE_GROUPS = [1, 37, 512]
+#: oracle checks in the grid up to this many points per case
+GRID_ORACLE_POINTS = 1 << 24
+
+CUBE = 512                  # the 3-D path: plan_dft_3d(512, 512, 512)
+MANY_2D = (64, 512, 512)    # the 2-D batched path
+N4 = 4096                   # the four-step path: n = 4096, B = 4096
+B4 = 4096
+SUITE_CUBE = 256            # the reference suite's 3-D shape
+
+#: a ``fftw3_tpu`` wisdom export (reference format) that pins
+#: plan_many_dft([4096], howmany=4096) to the four-step pallas4-32x128: the
+#: reference package's own ESTIMATE export for that problem, as
+#: ``tests/test_torch_fourstep.py`` checks
+REFERENCE_WISDOM = """{
+ "format": "fftw3-tpu-wisdom-2",
+ "signature": "cpu-cpu-jax0.9.0-jl0.9.0-pvd9747e2d",
+ "entries": {
+  "c2c:4096:float32:cpu-cpu-jax0.9.0-jl0.9.0-pvd9747e2d:b6": {
+   "desc": {
+    "alg": "pallas4",
+    "n": 4096,
+    "p": 32,
+    "q": 128
+   },
+   "patience": 0,
+   "cost": 4.2762239999999993e-07
+  }
+ }
+}"""
+PALLAS4_DESC = {"alg": "pallas4", "n": N4, "p": 32, "q": 128}
+
+#: NVIDIA H100 SXM data sheet: HBM3 rate and FP32 rate outside the tensor
+#: cores; a bound is the larger of bytes / HBM and 5*N*log2(N) flops / FP32
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+#: launch counters: kernel name -> (module, attribute)
+COUNTERS = {"stockham_c2c": (S, "launches"),
+            "stockham_c2c_fourstep": (S, "fourstep_launches"),
+            "inner_c2c": (inner, "launches"),
+            "c2c_2d": (fused2d, "launches")}
 
 
 def fail(msg: str) -> None:
@@ -82,8 +155,42 @@ def np_oracle(xr, xi, sign, rows=ORACLE_ROWS):
     return torch.from_numpy(y)
 
 
+def oracle(x: torch.Tensor, dims, sign: int) -> torch.Tensor:
+    """Unnormalized DFT over `dims` in complex128 on the card."""
+    x = x.to(torch.complex128)
+    if sign < 0:
+        return torch.fft.fftn(x, dim=dims)
+    return torch.fft.ifftn(x, dim=dims, norm="forward")
+
+
 def gflops(n: int, batch: int, seconds: float) -> float:
     return 5.0 * n * math.log2(n) * batch / seconds / 1e9
+
+
+def bound(bytes_moved: float, flops: float):
+    """(ms, "bytes" | "operations"): the least time the card could take."""
+    tb = bytes_moved / HBM_BYTES_PER_S
+    tf = flops / FP32_FLOPS_PER_S
+    return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
+
+
+def fft_flops(points: int, *ns: int) -> float:
+    """5*N*log2(N) per transform, for every axis length in `ns`."""
+    return sum(5.0 * points * math.log2(n) for n in ns)
+
+
+def reset_counts() -> None:
+    for mod, attr in COUNTERS.values():
+        setattr(mod, attr, 0)
+
+
+def read_counts():
+    return {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
+
+
+def time_ms(fn, args) -> float:
+    """Median of 7 reps of 3 calls, CUDA events, in ms."""
+    return timing.time_dispatched(fn, args, iters=3, reps=7) * 1e3
 
 
 def time_vs_oracle(fn, xr, xi, ref):
@@ -94,10 +201,11 @@ def time_vs_oracle(fn, xr, xi, ref):
     return timing.time_dispatched(fn, (xr, xi), iters=3, reps=7), e
 
 
-def profile_calls(label, fn, args, smi_line):
+def profile_calls(label, fn, args, smi_line, tag="[7]"):
     """Wall time per call on the host clock (no profiler), device time per
     call and per device kernel from ``torch.profiler``, and the idle share
-    1 - device / wall."""
+    1 - device / wall.  Returns {kernel: (us per call, launches per call)},
+    empty when the profiler saw no device activity."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn(*args)
@@ -120,28 +228,145 @@ def profile_calls(label, fn, args, smi_line):
         if us is None:
             us = ev.self_cuda_time_total
         if us > 0:
-            kernels[ev.key] = us / PROFILE_CALLS
-    dev_us = sum(kernels.values())
+            kernels[ev.key] = (us / PROFILE_CALLS, ev.count / PROFILE_CALLS)
+    dev_us = sum(us for us, _ in kernels.values())
     if dev_us == 0:
-        print(f"[7] {label}: wall {wall_us:.1f} us/call; device time not "
+        print(f"{tag} {label}: wall {wall_us:.1f} us/call; device time not "
               f"measured (the profiler saw no device activity)")
-        return
-    print(f"[7] {label}: wall {wall_us:.1f} us/call, device "
-          f"{dev_us:.1f} us/call, idle share {1 - dev_us / wall_us:.3f} "
-          f"({smi_line})")
-    for key, us in sorted(kernels.items(), key=lambda kv: -kv[1]):
-        print(f"[7]   {us:10.1f} us/call  {key[:100]}")
+        return kernels
+    if any(abs(c - round(c)) > 1e-9 or c < 1 for _, c in kernels.values()):
+        # a launch missing from the trace would read as idle time
+        print(f"{tag} {label}: wall {wall_us:.1f} us/call; the profiler "
+              f"recorded only part of the launches (counts per call below), "
+              f"so device time and idle share are not measured here "
+              f"({smi_line})")
+    else:
+        print(f"{tag} {label}: wall {wall_us:.1f} us/call, device "
+              f"{dev_us:.1f} us/call, idle share {1 - dev_us / wall_us:.3f} "
+              f"({smi_line})")
+    for key, (us, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0]):
+        print(f"{tag}   {us:10.1f} us/call  x{count:g}  {key[:100]}")
+    return kernels
+
+
+def grid_case(label, kern, twin, ref_fn, points):
+    """One kernel-vs-twin case: returns the error against the twin; also
+    checks against the complex128 oracle up to GRID_ORACLE_POINTS."""
+    kr, ki = kern()
+    tr, ti = twin()
+    torch.cuda.synchronize()
+    k = torch.complex(kr, ki)
+    e_kt = relerr(k, torch.complex(tr, ti))
+    del tr, ti
+    e_ko = None
+    if points <= GRID_ORACLE_POINTS:
+        e_ko = relerr(k.to(torch.complex128), ref_fn())
+    check(e_kt <= TOL and (e_ko is None or e_ko <= TOL),
+          f"{label}: kernel-twin {e_kt:.2e}, kernel-f64 {e_ko}")
+    return e_kt, e_ko
+
+
+def twin_err(label, kr, ki, tr, ti):
+    """Max abs error of a kernel's output against its twin's, checked at
+    max-abs over max-abs <= TOL; returns (max abs, relative)."""
+    t = torch.complex(tr, ti)
+    e = float((torch.complex(kr, ki) - t).abs().max())
+    rel = e / float(t.abs().max())
+    check(rel <= TOL, f"{label}: kernel-twin {rel:.2e} over {TOL}")
+    return e, rel
+
+
+def compose(stages):
+    def apply(xr, xi):
+        for s in stages:
+            xr, xi = s(xr, xi)
+        return xr, xi
+    return apply
+
+
+def routes(plan, dev):
+    """The routes the port could take for a multi-axis c2c `plan`, on the
+    plan's own descriptors: the plan as built; K2 on every non-last axis
+    and K1 on the last (no fusion); a ``movedim`` lift around K1 on every
+    axis."""
+    shape, sign = plan.problem.shape, plan.problem.sign
+    axes = sorted(plan.descriptors)
+    d = plan.descriptors
+    return {
+        "plan": plan.apply_split,
+        "K2 + K1": compose([plan_mod._c2c_stage(d[a], sign, np.float32, a,
+                                                shape, dev) for a in axes]),
+        "movedim + K1": compose([plan_mod._along_axis_split(
+            c2c_ops.build_c2c_split(d[a], sign, np.float32, dev),
+            a - len(shape)) for a in axes]),
+    }
+
+
+def grad_equals(label, fwd, adj, shape, rng, dev, exact=True):
+    """Backward of `fwd` (a split apply) against `adj` on the cotangent."""
+    gxr, gxi = (t.requires_grad_() for t in planes(rng, shape, dev))
+    gr, gi = planes(rng, shape, dev)
+    outr, outi = fwd(gxr, gxi)
+    torch.autograd.backward([outr, outi], [gr, gi])
+    del outr, outi
+    wr, wi = adj(gr, gi)
+    e = relerr(torch.complex(gxr.grad, gxi.grad), torch.complex(wr, wi))
+    print(f"[grad] {label}: backward vs opposite-sign launches {e:.2e}")
+    check(e == 0.0 if exact else e <= TOL, f"{label}: gradient mismatch")
+
+
+def profile_paths(rng, dev) -> None:
+    """``torch.profiler`` breakdowns of the 3-D, 2-D batched and four-step
+    paths: wall and device time per call, idle share, time per kernel.  The
+    3-D path must show K2 and K3 and no other kernel (no copy)."""
+    smi_line = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    _build.library()
+    cube = (CUBE,) * 3
+    p3 = ft.plan_dft_3d(*cube, device="cuda")
+    xr, xi = planes(rng, cube, dev)
+    prof3 = profile_calls(f"plan_dft_3d{cube} apply_split", p3.apply_split,
+                          (xr, xi), smi_line, tag="[13]")
+    names = sorted(prof3)
+    check(len(names) == 2 and any("inner_c2c_kernel" in k for k in names)
+          and any("c2c_2d_kernel" in k for k in names),
+          f"the 3-D profile is not K2 and K3 alone: {names}")
+    for label, fn in routes(p3, dev).items():
+        if label != "plan":
+            profile_calls(f"plan_dft_3d{cube} by {label}", fn, (xr, xi),
+                          smi_line, tag="[13]")
+    del xr, xi, p3
+    torch.cuda.empty_cache()
+    p2 = ft.plan_many_dft(list(MANY_2D[1:]), howmany=MANY_2D[0],
+                          device="cuda")
+    profile_calls(f"plan_many_dft {MANY_2D} apply_split", p2.apply_split,
+                  planes(rng, MANY_2D, dev), smi_line, tag="[13]")
+    ft.forget_wisdom()
+    check(ft.import_reference_wisdom(REFERENCE_WISDOM, device="cuda"),
+          "reference wisdom refused")
+    p4 = ft.plan_many_dft([N4], howmany=B4, device="cuda")
+    check(p4.descriptors == {1: PALLAS4_DESC}, f"pinned plan {p4!r}")
+    profile_calls(f"pallas4 ({B4}, {N4}) apply_split", p4.apply_split,
+                  planes(rng, (B4, N4), dev), smi_line, tag="[13]")
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--profile-paths", action="store_true",
+                    help="only profile the 3-D, 2-D batched and four-step "
+                    "paths (the full run starts this in a child process)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch sees no CUDA device", file=sys.stderr)
         sys.exit(2)
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
+    if args.profile_paths:
+        profile_paths(rng, dev)
+        return
+    t_start = time.perf_counter()
 
     # -- 1. the card -------------------------------------------------------
     name = torch.cuda.get_device_name(0)
@@ -159,7 +384,8 @@ def main() -> None:
     t0 = time.perf_counter()
     _build.library()
     print(f"[2] kernel library ready in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.build_seconds:.1f} s)", flush=True)
+          f"(nvcc {_build.build_seconds:.1f} s, "
+          f"{len(_build.sources())} sources)", flush=True)
 
     # -- 3. kernel vs twin vs float64 --------------------------------------
     for n, rad in CASES:
@@ -192,12 +418,13 @@ def main() -> None:
     xr, xi = planes(rng, (BATCH, N), dev)
     xc = torch.complex(xr, xi)
     torch.cuda.synchronize()
-    S.launches = 0
+    reset_counts()
     yr, yi = plan.apply_split(xr, xi)
     yc = plan.execute(xc)
     torch.cuda.synchronize()
-    launches = S.launches
-    print(f"[4] kernel launches on the main path: {launches}")
+    counts = read_counts()
+    launches = counts["stockham_c2c"]
+    print(f"[4] kernel launches on the main path: {counts}")
     check(launches >= 2, "the main path did not run the kernel")
     ref = torch.fft.fft(xc.to(torch.complex128), dim=-1)
     y = torch.complex(yr, yi)
@@ -263,8 +490,10 @@ def main() -> None:
         print(f"[6] {label}: {t * 1e6:.1f} us, "
               f"{gflops(N, BATCH, t):.1f} GFLOPS(5NlogN), rel err {e:.2e} "
               f"(n={N}, B={BATCH}; {smi_line})")
-    print(f"[6] kernel r64x16 vs twin: max abs err {max_abs:.3e}")
-    check(max_abs <= TOL * float(ref.abs().max()), "kernel vs twin")
+    rel_k1 = max_abs / float(ref.abs().max())
+    print(f"[6] kernel r64x16 vs twin: max abs err {max_abs:.3e}, over "
+          f"max |f64 output| {rel_k1:.2e}")
+    check(rel_k1 <= TOL, "kernel vs twin")
     del ref, y, yr, yi, outs      # xr, xi, xc stay for phase 7
     torch.cuda.empty_cache()
 
@@ -317,17 +546,458 @@ def main() -> None:
     sr, si = xr[:64].contiguous(), xi[:64].contiguous()
     profile_calls(f"apply_split (64, {N})", p64.apply_split, (sr, si),
                   smi_line)
-
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "stockham_c2c",
         "route": "cuda",
         "source": "fftw3_tpu_torch/csrc/stockham_c2c.cu",
         "replaces": "fftw3_tpu/ops/pallas_stockham.py:641",
         "launches": launches,
         "max_abs_err": max_abs,
+        "rel_err": rel_k1,
         "ms": rows[0][1] * 1e3,
         "plain_ms": t_twin * 1e3,
-    }]}))
+        "library_ms": t_fft * 1e3,
+    }]
+    kernels[0]["bound_ms"], kernels[0]["bound_by"] = bound(
+        16.0 * BATCH * N, fft_flops(BATCH * N, N))
+    del xr, xi, xc, sr, si, plan, p64, pm
+    torch.cuda.empty_cache()
+    print(f"[7] phases 1-7 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
+    # -- 8. the multi-axis and four-step kernels vs twins vs float64 --------
+    worst = {"inner_c2c": 0.0, "c2c_2d": 0.0, "stockham_c2c_fourstep": 0.0}
+    ncases = dict.fromkeys(worst, 0)
+    for n in INNER_NS:
+        rad = S.choose_radices(n)
+        for sign in (-1, +1):
+            table = S._device_table(n, tuple(rad), sign, dev)
+            for pre in PRES:
+                for L in INNER_LS:
+                    xr, xi = planes(rng, (pre, n, L), dev)
+                    e, eo = grid_case(
+                        f"inner n={n} L={L} pre={pre} sign={sign}",
+                        lambda: inner.inner_c2c_cuda(xr, xi, rad, table),
+                        lambda: inner.inner_c2c_torch(xr, xi, rad, sign),
+                        lambda: oracle(torch.complex(xr, xi), (-2,), sign),
+                        pre * n * L)
+                    worst["inner_c2c"] = max(worst["inner_c2c"], e)
+                    ncases["inner_c2c"] += 1
+                    del xr, xi
+        print(f"[8] inner_c2c n={n} r={rad}: {len(PRES) * len(INNER_LS) * 2}"
+              f" cases, worst kernel-twin so far "
+              f"{worst['inner_c2c']:.2e}", flush=True)
+    for n1, n2 in PLANES_2D:
+        r1, r2 = S.choose_radices(n1), S.choose_radices(n2)
+        for sign in (-1, +1):
+            table = fused2d._device_table_2d(n1, tuple(r1), n2, tuple(r2),
+                                             sign, dev)
+            for pre in PRES:
+                xr, xi = planes(rng, (pre, n1, n2), dev)
+                e, eo = grid_case(
+                    f"c2c_2d ({n1}, {n2}) pre={pre} sign={sign}",
+                    lambda: fused2d.c2c_2d_cuda(xr, xi, r1, r2, table),
+                    lambda: fused2d.c2c_2d_torch(xr, xi, r1, r2, sign),
+                    lambda: oracle(torch.complex(xr, xi), (-2, -1), sign),
+                    pre * n1 * n2)
+                worst["c2c_2d"] = max(worst["c2c_2d"], e)
+                ncases["c2c_2d"] += 1
+                print(f"[8] c2c_2d ({n1}, {n2}) r={r1},{r2} pre={pre} "
+                      f"sign={sign:+d}: kernel-twin {e:.2e} kernel-f64 "
+                      f"{eo if eo is None else f'{eo:.2e}'}")
+                del xr, xi
+    for q, rad, p, store in PRETWIDDLE_CASES:
+        for sign in (-1, +1):
+            table = S._device_table(q, tuple(rad), sign, dev)
+            w = S._device_pretwiddle(p, q, sign, dev)
+            for g in PRETWIDDLE_GROUPS:
+                xr, xi = planes(rng, (g * p, q), dev)
+
+                def pt_oracle():
+                    # rows b*p + k1: pre-twiddle, DFT over q (row order), then
+                    # the kernel's (g, q, p) layout when it stores transposed
+                    x = torch.complex(xr, xi).to(torch.complex128).reshape(
+                        g, p, q) * torch.complex(w[0], w[1]).to(
+                            torch.complex128)
+                    y = oracle(x, (-1,), sign)
+                    return y.transpose(1, 2) if store else y.reshape(g * p, q)
+                e, eo = grid_case(
+                    f"stockham_c2c pretwiddle q={q} p={p} store={store} "
+                    f"groups={g} sign={sign}",
+                    lambda: S.stockham_c2c_cuda(xr, xi, rad, table,
+                                                pretwiddle=w,
+                                                store_transposed=store),
+                    lambda: S.stockham_c2c_torch(xr, xi, rad, sign,
+                                                 pretwiddle_p=p,
+                                                 store_transposed=store),
+                    pt_oracle, g * p * q)
+                worst["stockham_c2c_fourstep"] = max(
+                    worst["stockham_c2c_fourstep"], e)
+                ncases["stockham_c2c_fourstep"] += 1
+                del xr, xi
+        print(f"[8] stockham_c2c pretwiddle q={q} r={rad} p={p} "
+              f"store_transposed={store}: worst kernel-twin so far "
+              f"{worst['stockham_c2c_fourstep']:.2e}")
+    for k, e in worst.items():
+        print(f"[8] {k}: {ncases[k]} cases, worst kernel-twin {e:.2e} "
+              f"(max-abs over max-abs; tolerance {TOL})")
+    torch.cuda.empty_cache()
+    print(f"[8] done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # -- 9. the 3-D path: plan_dft_3d(512, 512, 512) ------------------------
+    cube = (CUBE,) * 3
+    p3 = ft.plan_dft_3d(*cube, device="cuda")
+    print(f"[9] {p3!r}")
+    d512 = {"alg": "pallas", "n": CUBE, "radices": S.choose_radices(CUBE)}
+    check(p3.descriptors == {0: d512, 1: d512, 2: d512},
+          f"3-D descriptors {p3.descriptors}")
+    xr, xi = planes(rng, cube, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    yr, yi = p3.apply_split(xr, xi)
+    torch.cuda.synchronize()
+    counts3 = read_counts()
+    print(f"[9] launches, one apply_split call: {counts3}")
+    check(counts3 == {"stockham_c2c": 0, "stockham_c2c_fourstep": 0,
+                      "inner_c2c": 1, "c2c_2d": 1},
+          "the 3-D path is not one K2 and one K3 launch")
+    check(bool(torch.isfinite(yr).all() and torch.isfinite(yi).all()),
+          "non-finite 3-D output")
+    y = torch.complex(yr, yi)
+    del yr, yi
+    ref = oracle(torch.complex(xr, xi), (0, 1, 2), -1)
+    e3 = relerr(y.to(torch.complex128), ref)
+    del ref
+    torch.cuda.empty_cache()
+    yc = p3.execute(torch.complex(xr, xi))
+    e3x = relerr(yc, y)
+    del yc
+    print(f"[9] rel err vs torch.fft.fftn complex128: {e3:.3e}; execute vs "
+          f"apply_split {e3x:.1e}")
+    check(e3 <= TOL and e3x == 0.0, "3-D path over tolerance")
+    del y
+    t3 = time_ms(p3.apply_split, (xr, xi))
+    xc = torch.complex(xr, xi)
+    t3_lib = time_ms(lambda z: torch.fft.fftn(z), (xc,))
+    del xc
+    b3, _ = bound(2 * 16.0 * CUBE ** 3, fft_flops(CUBE ** 3, CUBE, CUBE,
+                                                    CUBE))
+    print(f"[9] plan {t3:.3f} ms vs torch.fft.fftn {t3_lib:.3f} ms; bound "
+          f"{b3:.3f} ms (two passes of 16 B per point over HBM) "
+          f"({smi_line})")
+    torch.cuda.empty_cache()
+
+    # gradient: K3's adjoint, then K2's, each the opposite-sign launch
+    t_in = S._device_table(CUBE, tuple(d512["radices"]), +1, dev)
+    t_2d = fused2d._device_table_2d(CUBE, tuple(d512["radices"]), CUBE,
+                                    tuple(d512["radices"]), +1, dev)
+
+    def adj3(gr, gi):
+        ar, ai = fused2d.c2c_2d_cuda(gr, gi, d512["radices"],
+                                     d512["radices"], t_2d)
+        ar, ai = inner.inner_c2c_cuda(ar.reshape(1, CUBE, -1),
+                                      ai.reshape(1, CUBE, -1),
+                                      d512["radices"], t_in)
+        return ar.reshape(cube), ai.reshape(cube)
+    grad_equals(f"plan_dft_3d{cube}", p3.apply_split, adj3, cube, rng, dev)
+    del xr, xi, p3
+    torch.cuda.empty_cache()
+    print(f"[9] done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # -- 10. the 2-D batched path: plan_many_dft([512, 512], howmany=64) ----
+    p2 = ft.plan_many_dft(list(MANY_2D[1:]), howmany=MANY_2D[0],
+                          device="cuda")
+    print(f"[10] {p2!r}")
+    xr, xi = planes(rng, MANY_2D, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    yr, yi = p2.apply_split(xr, xi)
+    torch.cuda.synchronize()
+    counts2 = read_counts()
+    print(f"[10] launches, one apply_split call: {counts2}")
+    check(counts2 == {"stockham_c2c": 0, "stockham_c2c_fourstep": 0,
+                      "inner_c2c": 0, "c2c_2d": 1},
+          "the 2-D batched path is not one K3 launch")
+    e2 = relerr(torch.complex(yr, yi).to(torch.complex128),
+                oracle(torch.complex(xr, xi), (1, 2), -1))
+    print(f"[10] rel err vs torch.fft.fft2 complex128: {e2:.3e}")
+    check(e2 <= TOL, "2-D batched path over tolerance")
+    del yr, yi
+    t2 = time_ms(p2.apply_split, (xr, xi))
+    xc = torch.complex(xr, xi)
+    t2_lib = time_ms(lambda z: torch.fft.fft2(z), (xc,))
+    b2, _ = bound(16.0 * math.prod(MANY_2D),
+                  fft_flops(math.prod(MANY_2D), *MANY_2D[1:]))
+    print(f"[10] plan {t2:.3f} ms vs torch.fft.fft2 {t2_lib:.3f} ms; bound "
+          f"{b2:.3f} ms ({smi_line})")
+    p2b = ft.plan_many_dft(list(MANY_2D[1:]), howmany=MANY_2D[0],
+                           sign=ft.BACKWARD, device="cuda")
+    grad_equals(f"plan_many_dft {MANY_2D}", p2.apply_split, p2b.apply_split,
+                MANY_2D, rng, dev)
+    del xr, xi, xc, p2, p2b
+    torch.cuda.empty_cache()
+
+    # -- 11. n = 4096, B = 4096: MEASURE, then the wisdom-pinned four-step --
+    ft.forget_wisdom()
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_counts()
+    pm4 = ft.plan_many_dft([N4], howmany=B4, flags=ft.MEASURE, device="cuda")
+    torch.cuda.synchronize()
+    race = read_counts()
+    print(f"[11] (a) MEASURE in {time.perf_counter() - t0:.1f} s: {pm4!r}; "
+          f"kernel launches while it timed its candidates: {race}")
+    # the four-step's pre-twiddled K1 runs nowhere else: it was timed
+    check(race["stockham_c2c_fourstep"] > 0, "MEASURE did not race pallas4")
+    check(pl.stats["nmeasure_failed"] == 0,
+          f"MEASURE candidate failed: {pl.stats.get('last_measure_error')}")
+    xr, xi = planes(rng, (B4, N4), dev)
+    ref4 = oracle(torch.complex(xr, xi), (-1,), -1)
+    ym = pm4.execute(torch.complex(xr, xi))
+    e4m = relerr(ym.to(torch.complex128), ref4)
+    del ym
+    print(f"[11] (a) MEASURE plan rel err vs torch.fft complex128 {e4m:.2e}")
+    check(e4m <= TOL, "MEASURE plan at n=4096 over tolerance")
+
+    ft.forget_wisdom()
+    check(ft.import_reference_wisdom(REFERENCE_WISDOM, device="cuda"),
+          "reference wisdom refused")
+    p4 = ft.plan_many_dft([N4], howmany=B4, device="cuda")
+    print(f"[11] (b) wisdom-pinned plan: {p4!r}")
+    check(p4.descriptors == {1: PALLAS4_DESC}, f"pinned plan {p4!r}")
+    torch.cuda.synchronize()
+    reset_counts()
+    yr, yi = p4.apply_split(xr, xi)
+    torch.cuda.synchronize()
+    counts4 = read_counts()
+    print(f"[11] (b) launches, one apply_split call: {counts4}")
+    check(counts4 == {"stockham_c2c": 0, "stockham_c2c_fourstep": 1,
+                      "inner_c2c": 1, "c2c_2d": 0},
+          "the four-step is not one K2 and one pre-twiddled K1 launch")
+    e4 = relerr(torch.complex(yr, yi).to(torch.complex128), ref4)
+    print(f"[11] (b) rel err vs torch.fft complex128 {e4:.2e}")
+    check(e4 <= TOL, "four-step over tolerance")
+    del yr, yi, ref4
+    t4 = time_ms(p4.apply_split, (xr, xi))
+    t4m = time_ms(pm4.apply_split, (xr, xi))
+    xc = torch.complex(xr, xi)
+    t4_lib = time_ms(lambda z: torch.fft.fft(z), (xc,))
+    b4, _ = bound(16.0 * N4 * B4, fft_flops(N4 * B4, N4))
+    print(f"[11] pallas4-32x128 plan {t4:.3f} ms; MEASURE's plan "
+          f"{P.sprint_desc(pm4.descriptors[1])} {t4m:.3f} ms; "
+          f"torch.fft.fft {t4_lib:.3f} ms; bound {b4:.3f} ms ({smi_line})")
+    p4b = ft.plan_many_dft([N4], howmany=B4, sign=ft.BACKWARD, device="cuda")
+    check(p4b.descriptors == {1: PALLAS4_DESC}, f"pinned plan {p4b!r}")
+    grad_equals(f"pallas4 ({B4}, {N4})", p4.apply_split, p4b.apply_split,
+                (B4, N4), rng, dev)
+    del xr, xi, xc, p4, p4b, pm4
+    ft.forget_wisdom()
+    torch.cuda.empty_cache()
+
+    # -- 12. the suite's 256^3, wherever ESTIMATE sends it -------------------
+    c256 = (SUITE_CUBE,) * 3
+    p256 = ft.plan_dft_3d(*c256, device="cuda")
+    print(f"[12] {p256!r}")
+    xr, xi = planes(rng, c256, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    yr, yi = p256.apply_split(xr, xi)
+    torch.cuda.synchronize()
+    print(f"[12] launches, one apply_split call: {read_counts()}")
+    e256 = relerr(torch.complex(yr, yi).to(torch.complex128),
+                  oracle(torch.complex(xr, xi), (0, 1, 2), -1))
+    print(f"[12] rel err vs torch.fft.fftn complex128 {e256:.2e}")
+    check(e256 <= TOL, "256^3 over tolerance")
+    del yr, yi
+    t256 = time_ms(p256.apply_split, (xr, xi))
+    xc = torch.complex(xr, xi)
+    t256_lib = time_ms(lambda z: torch.fft.fftn(z), (xc,))
+    print(f"[12] plan {t256:.3f} ms vs torch.fft.fftn {t256_lib:.3f} ms "
+          f"({smi_line})")
+    p256b = ft.plan_dft_3d(*c256, sign=ft.BACKWARD, device="cuda")
+    grad_equals(f"plan_dft_3d{c256} (autograd through its solvers)",
+                p256.apply_split, p256b.apply_split, c256, rng, dev,
+                exact=False)
+    del xr, xi, xc, p256, p256b
+    torch.cuda.empty_cache()
+
+    # -- 13. torch.profiler over the new paths, in a fresh process ---------
+    # On the card machine the profiler stops seeing device activity about a
+    # minute into a process, so these profiles run in a child process.
+    sys.stdout.flush()
+    res = subprocess.run([sys.executable, __file__, "--profile-paths",
+                          "--seed", str(args.seed)], timeout=600)
+    check(res.returncode == 0, "the profile of the paths failed")
+
+    # -- 14. each kernel at its path's shape: kernel, twin, library call ----
+    rows14 = []
+    rad = S.choose_radices(CUBE)
+
+    # K2: axis 0 of 512^3, as the 3-D plan runs it
+    shape = (1, CUBE, CUBE * CUBE)
+    xr, xi = planes(rng, shape, dev)
+    tab = S._device_table(CUBE, tuple(rad), -1, dev)
+    kr, ki = inner.inner_c2c_cuda(xr, xi, rad, tab)
+    tr, ti = inner.inner_c2c_torch(xr, xi, rad, -1)
+    err, rel = twin_err(f"inner_c2c {shape}", kr, ki, tr, ti)
+    del kr, ki, tr, ti
+    xc = torch.complex(xr, xi)
+    rows14.append({
+        "name": "inner_c2c", "route": "cuda",
+        "source": "fftw3_tpu_torch/csrc/inner_c2c.cu",
+        "replaces": "fftw3_tpu/ops/pallas_stockham.py:683",
+        "launches": counts3["inner_c2c"], "max_abs_err": err,
+        "rel_err": rel,
+        "ms": time_ms(lambda a, b: inner.inner_c2c_cuda(a, b, rad, tab),
+                      (xr, xi)),
+        "plain_ms": time_ms(lambda a, b: inner.inner_c2c_torch(a, b, rad,
+                                                               -1),
+                            (xr, xi)),
+        "library_ms": time_ms(lambda z: torch.fft.fft(z, dim=-2), (xc,)),
+        "shape": shape})
+    del xr, xi, xc
+    torch.cuda.empty_cache()
+
+    # K3: axes 1-2 of 512^3 (512 planes), and the 2-D batched shape
+    for shape in ((CUBE,) * 3, MANY_2D):
+        xr, xi = planes(rng, shape, dev)
+        tab = fused2d._device_table_2d(CUBE, tuple(rad), CUBE, tuple(rad),
+                                       -1, dev)
+        kr, ki = fused2d.c2c_2d_cuda(xr, xi, rad, rad, tab)
+        tr, ti = fused2d.c2c_2d_torch(xr, xi, rad, rad, -1)
+        err, rel = twin_err(f"c2c_2d {shape}", kr, ki, tr, ti)
+        del kr, ki, tr, ti
+        xc = torch.complex(xr, xi)
+        rows14.append({
+            "name": "c2c_2d", "route": "cuda",
+            "source": "fftw3_tpu_torch/csrc/c2c_2d.cu",
+            "replaces": "fftw3_tpu/ops/pallas_stockham.py:897",
+            "launches": (counts3 if shape[0] == CUBE else counts2)["c2c_2d"],
+            "max_abs_err": err, "rel_err": rel,
+            "ms": time_ms(lambda a, b: fused2d.c2c_2d_cuda(a, b, rad, rad,
+                                                           tab), (xr, xi)),
+            "plain_ms": time_ms(lambda a, b: fused2d.c2c_2d_torch(
+                a, b, rad, rad, -1), (xr, xi)),
+            "library_ms": time_ms(lambda z: torch.fft.fft2(z), (xc,)),
+            "shape": shape})
+        del xr, xi, xc
+        torch.cuda.empty_cache()
+
+    # K1 with the pre-twiddle: the four-step's q pass at n = 4096, B = 4096
+    p, q = PALLAS4_DESC["p"], PALLAS4_DESC["q"]
+    radq = S.choose_radices(q)
+    shape = (B4 * p, q)
+    xr, xi = planes(rng, shape, dev)
+    tab = S._device_table(q, tuple(radq), -1, dev)
+    w = S._device_pretwiddle(p, q, -1, dev)
+    kr, ki = S.stockham_c2c_cuda(xr, xi, radq, tab, pretwiddle=w)
+    tr, ti = S.stockham_c2c_torch(xr, xi, radq, -1, pretwiddle_p=p)
+    err, rel = twin_err(f"stockham_c2c pretwiddle {shape}", kr, ki, tr, ti)
+    del kr, ki, tr, ti
+    rows14.append({
+        "name": "stockham_c2c_fourstep", "route": "cuda",
+        "source": "fftw3_tpu_torch/csrc/stockham_c2c.cu",
+        "replaces": "fftw3_tpu/ops/pallas_stockham.py:654",
+        "launches": counts4["stockham_c2c_fourstep"], "max_abs_err": err,
+        "rel_err": rel,
+        "ms": time_ms(lambda a, b: S.stockham_c2c_cuda(a, b, radq, tab,
+                                                       pretwiddle=w),
+                      (xr, xi)),
+        "plain_ms": time_ms(lambda a, b: S.stockham_c2c_torch(
+            a, b, radq, -1, pretwiddle_p=p), (xr, xi)),
+        # no single PyTorch call computes a pre-twiddled DFT; the four-step
+        # as a whole is timed against torch.fft.fft in phase 11
+        "library_ms": None,
+        "shape": shape})
+    del xr, xi
+    torch.cuda.empty_cache()
+
+    for r in rows14:
+        pts = math.prod(r["shape"])
+        n_ax = r["shape"][-2:] if r["name"] == "c2c_2d" else \
+            (r["shape"][-2],) if r["name"] == "inner_c2c" else \
+            (r["shape"][-1],)
+        extra = 8.0 * p * q if r["name"] == "stockham_c2c_fourstep" else 0.0
+        r["bound_ms"], r["bound_by"] = bound(16.0 * pts + extra,
+                                             fft_flops(pts, *n_ax))
+        lib = r["library_ms"]
+        print(f"[14] {r['name']} {r['shape']}: kernel {r['ms']:.3f} ms, "
+              f"twin {r['plain_ms']:.3f} ms, library "
+              f"{'none' if lib is None else f'{lib:.3f} ms'}, bound "
+              f"{r['bound_ms']:.3f} ms ({r['bound_by']}); kernel-twin max "
+              f"abs err {r['max_abs_err']:.3e}, over max |twin| "
+              f"{r['rel_err']:.2e} ({smi_line})")
+    # what K2's narrow tile costs at n = 2048 (4 columns: 16-byte row
+    # segments, half a sector): K2 against K1 on the same 2**26 points and
+    # the same schedule, where K1 reads and writes whole rows
+    n, rad = 2048, S.choose_radices(2048)
+    tab = S._device_table(n, tuple(rad), -1, dev)
+    xr, xi = planes(rng, (1, n, (1 << 26) // n), dev)
+    t_k2 = time_ms(lambda a, b: inner.inner_c2c_cuda(a, b, rad, tab),
+                   (xr, xi))
+    yr, yi = xr.reshape(-1, n), xi.reshape(-1, n)
+    t_k1 = time_ms(lambda a, b: S.stockham_c2c_cuda(a, b, rad, tab),
+                   (yr, yi))
+    print(f"[14] n={n} r={rad}, 2^26 points: K2 (tile of "
+          f"{inner.tile_width(n, xr.shape[-1])} columns) {t_k2:.3f} ms vs K1 "
+          f"(whole rows) {t_k1:.3f} ms, ratio {t_k2 / t_k1:.2f} ({smi_line})")
+    del xr, xi, yr, yi
+    torch.cuda.empty_cache()
+
+    # -- 15. the multi-axis plans against the port's other routes ----------
+    # On each plan's own descriptors: launches counted, output held against
+    # the plan's, then timed in the order plan, K2 + K1, movedim + K1, and
+    # back again, in this one process.
+    for label, make in (
+            (f"plan_dft_3d{(CUBE,) * 3}",
+             lambda: ft.plan_dft_3d(CUBE, CUBE, CUBE, device="cuda")),
+            (f"plan_many_dft {MANY_2D}",
+             lambda: ft.plan_many_dft(list(MANY_2D[1:]), howmany=MANY_2D[0],
+                                      device="cuda"))):
+        pr = make()
+        naxes = len(pr.descriptors)
+        rt = routes(pr, dev)
+        want_launches = {"K2 + K1": {"inner_c2c": naxes - 1,
+                                     "stockham_c2c": 1},
+                         "movedim + K1": {"stockham_c2c": naxes}}
+        xr, xi = planes(rng, pr.problem.shape, dev)
+        wr, wi = pr.apply_split(xr, xi)
+        want = torch.complex(wr, wi)
+        del wr, wi
+        for rname, fn in rt.items():
+            torch.cuda.synchronize()
+            reset_counts()
+            yr, yi = fn(xr, xi)
+            torch.cuda.synchronize()
+            c = {k: v for k, v in read_counts().items() if v}
+            e = relerr(torch.complex(yr, yi), want)
+            del yr, yi
+            print(f"[15] {label} by {rname}: launches {c}, vs the plan "
+                  f"{e:.2e}")
+            check(e <= TOL, f"{label} by {rname} disagrees with the plan")
+            check(rname not in want_launches or c == want_launches[rname],
+                  f"{label} by {rname} launched {c}")
+        del want
+        times = {k: [] for k in rt}
+        for k in list(rt) + list(rt)[::-1]:
+            times[k].append(time_ms(rt[k], (xr, xi)))
+        for k, ts in times.items():
+            print(f"[15] {label} by {k}: {ts[0]:.3f} / {ts[1]:.3f} ms, "
+                  f"best {min(ts) / min(times['plan']):.3f}x the plan's "
+                  f"({smi_line})")
+        del xr, xi, pr, rt
+        torch.cuda.empty_cache()
+
+    # the JSON line keeps one row per kernel: K3 at its 3-D path shape
+    for r in rows14:
+        if r["name"] == "c2c_2d" and r["shape"] != (CUBE,) * 3:
+            continue
+        kernels.append({k: v for k, v in r.items() if k != "shape"})
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was not launched on its path")
+
+    print(f"[15] whole run {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -2,8 +2,9 @@
 
 FFTW3's planned c2c surface on PyTorch tensors: batched and
 multidimensional complex DFTs with the cost-driven planner and wisdom of
-the reference package, the last-axis Stockham transform as a hand-written
-CUDA kernel for Hopper (``csrc/stockham_c2c.cu``), and a plain PyTorch
+the reference package, the Stockham transforms as hand-written CUDA
+kernels for Hopper (``csrc/``: the last axis, axis -2, both trailing axes
+fused, and the four-step above the one-kernel window), and a plain PyTorch
 twin of every kernel for the CPU.  Imports ``torch``, never ``jax``.
 """
 from . import config  # noqa: F401

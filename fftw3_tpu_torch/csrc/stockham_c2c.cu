@@ -3,11 +3,21 @@
 //
 // Replaces the fused Pallas TPU kernel of the reference package:
 // fftw3_tpu/ops/pallas_stockham.py, _kernel (the last-axis form) and its stage
-// loop _stages, reached through _make_call.  It computes exactly what _stages
-// computes, in the same autosorted order: stage s views the row as
-// (p, q, done) with index j1*q*done + j2*done + d, contracts j1 with the
-// p-point DFT matrix F_p, multiplies by w = exp(sign*2*pi*i*k1*j2/rest) when
-// q > 1, and writes to (j2*p + k1)*done + d.  The transform is unnormalized.
+// loop _stages, reached through _make_call, with _make_call's two four-step
+// options.  It computes exactly what _stages computes, in the same autosorted
+// order (the stage loop is stockham_stage.cuh, shared with the axis -2 and
+// fused 2-D kernels).  The transform is unnormalized.
+//
+// The four-step options (build_pallas_c2c_split_fourstep):
+//  * pretwiddle (ptw != nullptr, ptw_p = P): row r of the input is multiplied
+//    point by point by w[k1, j] = exp(sign*2*pi*i*k1*j/(P*n)), k1 = r mod P,
+//    as it is loaded.  w is a (P, n) table (re then im) built on the host in
+//    f64, the reference's own constant; it is read from global memory (at
+//    most 2 MB, L2-resident; shared memory keeps its size per launch).
+//  * store_transposed (store_p = P): row r = b*P + k1 writes its point k2 to
+//    out[b, k2, k1] of a (rows/P, n, P) output: the four-step's reorder folded
+//    into the store.  Neighbouring threads then write P floats apart, so the
+//    store is not coalesced; the reference uses it only at P = 128.
 //
 // What bounds it on an H100: the data moves once, 8 bytes read and 8 bytes
 // written per point (16 B per point in all) against 3.35 TB/s of HBM; the
@@ -27,76 +37,48 @@
 //    plane pair).  The first stage reads the loaded row and writes a second
 //    buffer; the last stage (q == 1 there, so its output index is the thread's
 //    own index) writes straight to global memory, coalesced.
-//  * F_p and the stage twiddle come from root tables r_p[e] = w_p^e and
-//    r_rest[e] = w_rest^e, computed on the host in f64 by the same expression
-//    as the reference's dft_matrix and cast to f32, so F[j,k] = r_p[(j*k)%p]
-//    is bit-identical to the reference's constants.  No (2p x 2p) G matrix is
-//    stored: at p = 256 it would take 512 KB.
-//  * Thread t computes outputs t, t + blockDim, ...; consecutive threads read
-//    consecutive words of the input view, so the p-term sum is free of bank
-//    conflicts.
-//
-// Table layout (floats), stage by stage: re(r_p), im(r_p), then re(r_rest),
-// im(r_rest) when q > 1.  With two stages the second has q == 1.
+//  * No (2p x 2p) G matrix is stored: at p = 256 it would take 512 KB.  The
+//    root tables (stockham_stage.cuh) sit in shared memory.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include <initializer_list>
+
+#include "stockham_stage.cuh"
 
 namespace {
 
+using fftw3_tpu_torch::run_stages;
+using fftw3_tpu_torch::Schedule;
+
 constexpr int kThreads = 256;
 
-// One Stockham stage over a row: src (n points, split) -> dst (n points).
-__device__ __forceinline__ void stage(const float* __restrict__ sr,
-                                      const float* __restrict__ si,
-                                      float* __restrict__ dr,
-                                      float* __restrict__ di,
-                                      const float* __restrict__ rootr,
-                                      const float* __restrict__ rooti,
-                                      const float* __restrict__ twr,
-                                      const float* __restrict__ twi,
-                                      int n, int p, int q, int done,
-                                      int rest) {
-  const int qd = q * done;
-  for (int t = threadIdx.x; t < n; t += blockDim.x) {
-    const int k1 = t / qd;
-    const int c = t - k1 * qd;  // j2 * done + d
-    float ar = 0.f, ai = 0.f;
-    int e = 0;  // (j1 * k1) mod p, advanced by k1 each step
-#pragma unroll 4
-    for (int j1 = 0; j1 < p; ++j1) {
-      const float xr = sr[j1 * qd + c];
-      const float xi = si[j1 * qd + c];
-      const float fr = rootr[e];
-      const float fi = rooti[e];
-      ar = fmaf(fr, xr, ar);
-      ar = fmaf(-fi, xi, ar);
-      ai = fmaf(fi, xr, ai);
-      ai = fmaf(fr, xi, ai);
-      e += k1;
-      if (e >= p) e -= p;
-    }
-    const int j2 = c / done;
-    const int d = c - j2 * done;
-    if (q > 1) {
-      const int ew = (k1 * j2) % rest;
-      const float wr = twr[ew];
-      const float wi = twi[ew];
-      const float tr = ar * wr - ai * wi;
-      ai = ar * wi + ai * wr;
-      ar = tr;
-    }
-    const int o = (j2 * p + k1) * done + d;
-    dr[o] = ar;
-    di[o] = ai;
+// Last stage's store, natural order: point o of the row.
+struct RowMap {
+  __device__ __forceinline__ bool stored(int) const { return true; }
+  __device__ __forceinline__ int operator()(int, int o, int) const {
+    return o;
   }
-}
+};
 
+// Last stage's store, transposed: row b*P + k1 writes point k2 to
+// out[b, k2, k1] of a (rows/P, n, P) output (counted from out[b, 0, k1]).
+struct RowMapTransposed {
+  int p;
+  __device__ __forceinline__ bool stored(int) const { return true; }
+  __device__ __forceinline__ int64_t operator()(int, int o, int) const {
+    return static_cast<int64_t>(o) * p;
+  }
+};
+
+// The plain kernel and the four-step's two forms are separate
+// instantiations, so the plain form's loads and stores are those of a kernel
+// without the options.
+template <bool kPretwiddle, bool kTransposed>
 __global__ void __launch_bounds__(kThreads)
 stockham_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                     float* __restrict__ yr, float* __restrict__ yi,
                     const float* __restrict__ tab, int tab_len, int rows,
-                    int n, int nstages, int p0, int p1) {
+                    int n, int nstages, int p0, int p1,
+                    const float* __restrict__ ptw, int ptw_p) {
   extern __shared__ float smem[];
   float* tb = smem;
   float* ar = smem + tab_len;
@@ -105,32 +87,37 @@ stockham_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   float* bi = br + n;
 
   for (int i = threadIdx.x; i < tab_len; i += blockDim.x) tb[i] = tab[i];
-
-  const int q0 = n / p0;
-  const float* r0r = tb;
-  const float* r0i = tb + p0;
-  const float* t0r = tb + 2 * p0;
-  const float* t0i = t0r + n;
-  const int off1 = 2 * p0 + (q0 > 1 ? 2 * n : 0);
-  const float* r1r = tb + off1;
-  const float* r1i = r1r + p1;
+  const Schedule sched(tb, n, nstages, p0, p1);
 
   for (int row = blockIdx.x; row < rows; row += gridDim.x) {
     const int64_t off = static_cast<int64_t>(row) * n;
     __syncthreads();  // tables staged; previous row's readers are done
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      ar[i] = xr[off + i];
-      ai[i] = xi[off + i];
+    if (!kPretwiddle) {
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        ar[i] = xr[off + i];
+        ai[i] = xi[off + i];
+      }
+    } else {
+      const float* wr = ptw + static_cast<int64_t>(row % ptw_p) * n;
+      const float* wi = wr + static_cast<int64_t>(ptw_p) * n;
+      for (int i = threadIdx.x; i < n; i += blockDim.x) {
+        const float a = xr[off + i];
+        const float b = xi[off + i];
+        const float c = wr[i];
+        const float d = wi[i];
+        ar[i] = a * c - b * d;
+        ai[i] = a * d + b * c;
+      }
     }
     __syncthreads();
-    if (nstages == 1) {
-      stage(ar, ai, yr + off, yi + off, r0r, r0i, nullptr, nullptr, n, p0,
-            1, 1, n);
+    if (kTransposed) {
+      const int b = row / ptw_p;
+      const int64_t toff =
+          static_cast<int64_t>(b) * n * ptw_p + (row - b * ptw_p);
+      run_stages(ar, ai, br, bi, sched, 1, 1, yr + toff, yi + toff,
+                 RowMapTransposed{ptw_p});
     } else {
-      stage(ar, ai, br, bi, r0r, r0i, t0r, t0i, n, p0, q0, 1, n);
-      __syncthreads();
-      stage(br, bi, yr + off, yi + off, r1r, r1i, nullptr, nullptr, n, p1,
-            1, p0, q0);
+      run_stages(ar, ai, br, bi, sched, 1, 1, yr + off, yi + off, RowMap{});
     }
   }
 }
@@ -145,34 +132,49 @@ stockham_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 constexpr int kMaxSmem =
     static_cast<int>(sizeof(float)) * (2 * 256 + 2 * 2048 + 2 * 256 + 4 * 2048);
 
-// Allow the kernel kMaxSmem bytes of dynamic shared memory on the current
-// device (always the same value, so no launch is ever capped below its own
-// size by a later call) and report how many blocks of `smem` bytes fit on one
-// SM.  Returns the CUDA error code, 0 on success.  Called once per
-// (device, smem); the caller keeps the resulting grid size.
+// Allow every form of the kernel kMaxSmem bytes of dynamic shared memory on
+// the current device (always the same value, so no launch is ever capped
+// below its own size by a later call) and report how many blocks of `smem`
+// bytes fit on one SM.  Returns the CUDA error code, 0 on success.  Called
+// once per (device, smem); the caller keeps the resulting grid size.
 extern "C" int stockham_c2c_occupancy(int smem, int* blocks_per_sm) {
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      stockham_c2c_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  for (auto fn : {stockham_c2c_kernel<false, false>,
+                  stockham_c2c_kernel<true, false>,
+                  stockham_c2c_kernel<true, true>}) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, stockham_c2c_kernel, kThreads,
+      blocks_per_sm, stockham_c2c_kernel<false, false>, kThreads,
       static_cast<size_t>(smem)));
 }
 
 // Launch `grid` blocks on `stream` (a cudaStream_t passed as a pointer).
 // Returns the CUDA error code of the launch, 0 on success.  The caller checks
 // shapes: rows >= 1, n = p0 (one stage) or n = p0 * p1 (two stages),
-// n <= 2048, radices <= 256, tab_len matching the table layout above, and
+// n <= 2048, radices <= 256, tab_len matching the table layout, and
 // smem = 4 * (tab_len + 4 * n) bytes, allowed by stockham_c2c_occupancy.
+// ptw is nullptr (no pretwiddle) or a (ptw_p, n) re table followed by the im
+// table; store_p is 0 or ptw_p, a divisor of rows.
 extern "C" int stockham_c2c_launch(const float* xr, const float* xi,
                                    float* yr, float* yi, const float* tab,
                                    int tab_len, int rows, int n, int nstages,
-                                   int p0, int p1, int grid, int smem,
+                                   int p0, int p1, const float* ptw,
+                                   int ptw_p, int store_p, int grid, int smem,
                                    void* stream) {
-  stockham_c2c_kernel<<<grid, kThreads, static_cast<size_t>(smem),
-                        static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, yr, yi, tab, tab_len, rows, n, nstages, p0, p1);
+  auto fn = stockham_c2c_kernel<false, false>;
+  if (ptw != nullptr)
+    fn = store_p ? stockham_c2c_kernel<true, true>
+                 : stockham_c2c_kernel<true, false>;
+  else if (store_p)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (store_p && store_p != ptw_p)
+    return static_cast<int>(cudaErrorInvalidValue);
+  fn<<<grid, kThreads, static_cast<size_t>(smem),
+       static_cast<cudaStream_t>(stream)>>>(xr, xi, yr, yi, tab, tab_len,
+                                            rows, n, nstages, p0, p1, ptw,
+                                            ptw_p);
   return static_cast<int>(cudaGetLastError());
 }

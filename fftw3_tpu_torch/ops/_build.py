@@ -1,11 +1,13 @@
 """Build and bind the CUDA kernels of ``csrc/``.
 
-At first use, ``nvcc`` compiles ``csrc/stockham_c2c.cu`` for ``sm_90a`` into
-a shared library with a plain C interface under ``fftw3_tpu_torch/_build/``
-(listed in ``.gitignore``), named by the hash of the source, so an edited
-source is rebuilt and an unchanged one is loaded as it is.  The library is
-bound with ``ctypes``: pointers and the stream as ``c_void_p``, ints as
-``c_int``.  ``nvcc`` is found through ``CUDA_HOME``, else through
+At first use, ``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` (one
+process per source, all started together) and links the objects into one
+shared library with a plain C interface under ``fftw3_tpu_torch/_build/``
+(listed in ``.gitignore``), named by a hash over every file in ``csrc/``, so
+an edited source or header is rebuilt and an unchanged tree is loaded as it
+is.  The library is bound with ``ctypes``: pointers and the stream as
+``c_void_p``, ints as ``c_int``, 64-bit extents as ``c_longlong``.  ``nvcc``
+is found through ``CUDA_HOME``, else through
 ``torch.utils.cpp_extension.CUDA_HOME``.  A failed build raises with nvcc's
 own error output.
 """
@@ -14,24 +16,56 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import List, Optional
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "stockham_c2c.cu"
+CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
+
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+#: C signature (argument types) of every bound entry point; each returns
+#: the CUDA error code as an int
+SIGNATURES = {
+    # xr xi yr yi tab, tab_len rows n nstages p0 p1, ptw, ptw_p store_p
+    # grid smem, stream
+    "stockham_c2c_launch": [_P] * 5 + [_I] * 6 + [_P] + [_I] * 4 + [_P],
+    "stockham_c2c_occupancy": [_I, ctypes.POINTER(_I)],
+    # xr xi yr yi tab, tab_len pre n, L, tl nstages p0 p1 grid smem, stream
+    "inner_c2c_launch": [_P] * 5 + [_I] * 3 + [_L] + [_I] * 6 + [_P],
+    "inner_c2c_occupancy": [_I, ctypes.POINTER(_I)],
+    # xr xi yr yi tab, tab2_len tab1_len pre n1 n2 rows tc ns2 p20 p21 ns1
+    # p10 p11 grid csize smem, stream
+    "c2c_2d_launch": [_P] * 5 + [_I] * 16 + [_P],
+    "c2c_2d_occupancy": [_I, _I, ctypes.POINTER(_I)],
+}
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 #: seconds the last build of this process took (0.0 when it loaded a
 #: library built before)
 build_seconds: float = 0.0
+
+
+def sources() -> List[Path]:
+    """The kernel sources, one object each."""
+    return sorted(CSRC.glob("*.cu"))
+
+
+def digest() -> str:
+    """Hash over every file of ``csrc/`` (sources and headers)."""
+    h = hashlib.sha256()
+    for f in sorted(CSRC.iterdir()):
+        if f.is_file():
+            h.update(f.name.encode() + b"\0" + f.read_bytes() + b"\0")
+    return h.hexdigest()[:16]
 
 
 def nvcc_path() -> str:
@@ -48,42 +82,57 @@ def nvcc_path() -> str:
     return str(nvcc)
 
 
+def _check(res: subprocess.CompletedProcess, cmd: List[str]) -> None:
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({res.returncode}): "
+                           f"{' '.join(cmd)}\n{res.stderr}{res.stdout}")
+
+
 def _build(out: Path) -> None:
     global build_seconds
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    nvcc = nvcc_path()
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     t0 = time.perf_counter()
+    objs, procs = [], []
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}): "
-                               f"{' '.join(cmd)}\n{res.stderr}{res.stdout}")
+        for src in sources():
+            obj = work / (src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+            objs.append(str(obj))
+        for cmd, proc in procs:
+            stdout, stderr = proc.communicate()
+            _check(subprocess.CompletedProcess(cmd, proc.returncode, stdout,
+                                               stderr), cmd)
+        tmp = work / "lib.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]
+        _check(subprocess.run(cmd, capture_output=True, text=True), cmd)
         os.replace(tmp, out)           # atomic: a reader never sees a partial
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        for _, proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
     build_seconds = time.perf_counter() - t0
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if the source changed."""
+    """The loaded kernel library, built first if ``csrc/`` changed."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-        out = BUILD_DIR / f"libstockham_c2c_{digest}.so"
+        out = BUILD_DIR / f"libfftw3_tpu_torch_{digest()}.so"
         if not out.exists():
             _build(out)
         lib = ctypes.CDLL(str(out))
-        fn = lib.stockham_c2c_launch
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        occ = lib.stockham_c2c_occupancy
-        occ.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-        occ.restype = ctypes.c_int
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
         _lib = lib
         return lib

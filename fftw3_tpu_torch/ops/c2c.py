@@ -14,9 +14,10 @@ closure is built.
 
 Solvers: ``nop``, ``direct`` (one dense DFT-matrix product), ``mixed``
 (one Cooley-Tukey stage plus a child), ``pallas`` (the fused Stockham
-kernel, ops/stockham.py), ``rader``, ``bluestein`` and ``xla``, which is
-``torch.fft`` here: a competitor MEASURE may time, as the reference times
-XLA's FFT.  ``df32``, ``df32p`` and ``pallas4`` wait for their kernels.
+kernel, ops/stockham.py), ``pallas4`` (the four-step over the axis -2 and
+last-axis kernels, ops/fourstep.py), ``rader``, ``bluestein`` and ``xla``,
+which is ``torch.fft`` here: a competitor MEASURE may time, as the reference
+times XLA's FFT.  ``df32`` and ``df32p`` wait for the f64 tier.
 """
 from __future__ import annotations
 
@@ -163,10 +164,14 @@ def build_c2c_split(desc: Dict, sign: int, rdtype, device) -> SplitApply:
         from . import stockham
         return stockham.build_pallas_c2c_split(desc, sign, rdtype, device)
 
-    if alg in ("df32", "df32p", "pallas4"):
+    if alg == "pallas4":
+        from . import fourstep
+        return fourstep.build_pallas_c2c_split_fourstep(desc, sign, rdtype,
+                                                        device)
+
+    if alg in ("df32", "df32p"):
         waits = {"df32": "the f64 tier (ROADMAP queue 1 item 10)",
-                 "df32p": "kernel K7 (ROADMAP queue 2)",
-                 "pallas4": "kernel K2 (ROADMAP queue 2, queue 1 item 7)"}
+                 "df32p": "kernel K7 (ROADMAP queue 2)"}
         raise NotImplementedError(f"c2c alg {alg!r} is not ported yet: it "
                                   f"waits for {waits[alg]}")
 
@@ -316,6 +321,22 @@ def c2c_opcount(desc: Dict) -> Dict[str, float]:
                 total["add"] += 2.0 * n
             rest = q
         return total
+    if alg == "pallas4":
+        # inner axis pass over p + pretwiddled outer pass over q, each with
+        # its own radix schedule (exact per the stacked-G form)
+        from . import stockham
+        total = {"add": 0.0, "mul": 4.0 * n, "fma": 0.0}   # four-step tw
+        total["add"] += 2.0 * n
+        for f in (desc["p"], desc["q"]):
+            rest = f
+            for r in stockham.choose_radices(f):
+                q2 = rest // r
+                total["fma"] += 4.0 * r * n       # (n/f)*4*r*f MACs
+                if q2 > 1:
+                    total["mul"] += 4.0 * n
+                    total["add"] += 2.0 * n
+                rest = q2
+        return total
     if alg == "bluestein":
         child = c2c_opcount(desc["child"])
         return {
@@ -330,6 +351,6 @@ def c2c_opcount(desc: Dict) -> Dict[str, float]:
             "mul": 2 * child["mul"] + 6.0 * n,
             "fma": 2 * child["fma"],
         }
-    if alg in ("df32", "df32p", "pallas4"):
+    if alg in ("df32", "df32p"):
         raise NotImplementedError(f"c2c alg {alg!r} is not ported yet")
     raise ValueError(alg)

@@ -1,0 +1,176 @@
+"""c2c over both trailing axes in one launch (K3) — the port of the fused
+2-D form of ``fftw3_tpu/ops/pallas_stockham.py`` (``_kernel_2d``,
+``_make_call_2d``, ``build_pallas_c2c_split_2d``).
+
+Split f32 planes (pre, n1, n2) get the n2 schedule along the rows and then
+the n1 schedule along the columns.  Multi-axis plans send the trailing axis
+pair here when ``stockham.applicable_2d`` admits it and both axes' planner
+descriptors are ``pallas``.
+
+* :func:`c2c_2d_torch`, the plain twin: the last-axis twin over the rows,
+  then the axis -2 twin over the columns.
+* :func:`c2c_2d_cuda`, the wrapper of ``csrc/c2c_2d.cu``.  A plane does not
+  fit a block's shared memory, so one cluster of 8 blocks owns a plane: a
+  row pass to the output, a barrier across the cluster, then a column pass
+  in place, with the plane in L2 between the two.
+
+The reference's ``tile_b``/``tile_g`` plane grouping is TPU tuning and is
+ignored; so is its ``_inner_radices`` cap.  The kernel runs the
+descriptors' own schedules.
+"""
+from __future__ import annotations
+
+import ctypes
+from functools import lru_cache
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import inner
+from . import stockham as S
+
+#: points of a row chunk or a column tile (``kTilePoints`` in
+#: csrc/c2c_2d.cu): two split buffers of 64 KB
+TILE_POINTS = 8192
+#: blocks per plane: one thread-block cluster, the portable maximum size
+CLUSTER = 8
+
+#: launches of the CUDA kernel, counted by :func:`c2c_2d_cuda`
+launches = 0
+
+
+def tiles(n1: int, n2: int) -> Tuple[int, int]:
+    """(rows per row chunk, columns per column tile, a power of two), each
+    tile at most TILE_POINTS points."""
+    rows = max(1, min(n1, TILE_POINTS // n2))
+    tc = 1
+    while 2 * tc <= n2 and 2 * tc * n1 <= TILE_POINTS:
+        tc *= 2
+    return rows, tc
+
+
+def c2c_2d_torch(xr: torch.Tensor, xi: torch.Tensor, rad1: Sequence[int],
+                 rad2: Sequence[int], sign: int, vpu=None):
+    """Plain PyTorch twin of the kernel: unnormalized c2c over both
+    trailing axes of split f32 planes (..., n1, n2), n2 first."""
+    yr, yi = S.stockham_c2c_torch(xr, xi, rad2, sign, vpu)
+    return inner.inner_c2c_torch(yr, yi, rad1, sign, vpu)
+
+
+@lru_cache(maxsize=None)
+def _device_table_2d(n1: int, rad1: Tuple[int, ...], n2: int,
+                     rad2: Tuple[int, ...], sign: int,
+                     device: torch.device) -> torch.Tensor:
+    """The n2 schedule's root tables, then the n1 schedule's, as one f32
+    tensor on `device`, made once."""
+    return torch.from_numpy(np.concatenate([
+        S._kernel_table(n2, rad2, sign),
+        S._kernel_table(n1, rad1, sign)])).to(device)
+
+
+#: (device index, shared-memory bytes) -> clusters resident on the card
+_clusters: Dict[Tuple[int, int], int] = {}
+
+
+def _resident_clusters(lib, device: torch.device, smem: int) -> int:
+    """How many clusters of CLUSTER blocks of `smem` bytes the card runs at
+    once; the first call per (device, smem) also allows the kernel its
+    shared memory.  The caller has made `device` current."""
+    key = (device.index, smem)
+    got = _clusters.get(key)
+    if got is None:
+        n = ctypes.c_int(0)
+        rc = lib.c2c_2d_occupancy(smem, CLUSTER, ctypes.byref(n))
+        if rc != 0 or n.value < 1:
+            raise RuntimeError(f"c2c_2d occupancy query failed: CUDA error "
+                               f"{rc}, {n.value} clusters of {CLUSTER} "
+                               f"blocks at smem={smem} bytes")
+        got = _clusters[key] = n.value
+    return got
+
+
+def c2c_2d_cuda(xr: torch.Tensor, xi: torch.Tensor, rad1: Sequence[int],
+                rad2: Sequence[int], table: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel on split (pre, n1, n2) f32 planes on one
+    card.  ``table`` is ``_device_table_2d(n1, rad1, n2, rad2, sign,
+    device)``.  Returns new (yr, yi); raises on anything the kernel does not
+    take, and when the launch fails."""
+    global launches
+    S.check_planes("c2c_2d_cuda", xr, xi, table, 3)
+    pre, n1, n2 = xr.shape
+    rad1 = [int(r) for r in rad1]
+    rad2 = [int(r) for r in rad2]
+    if not (S.radices_ok(n1, rad1) and S.radices_ok(n2, rad2)):
+        raise ValueError(f"kernel schedules {rad1}, {rad2} do not fit "
+                         f"({n1}, {n2})")
+    len2, len1 = S._table_len(n2, rad2), S._table_len(n1, rad1)
+    if table.numel() != len2 + len1:
+        raise ValueError(f"root tables of {table.numel()} floats do not "
+                         f"match schedules {rad1}, {rad2}")
+    if pre >= 2 ** 31:
+        raise ValueError(f"{pre} planes exceed the kernel's int count")
+    yr = torch.empty_like(xr)
+    yi = torch.empty_like(xi)
+    if pre == 0:
+        return yr, yi
+    rows, tc = tiles(n1, n2)
+    from . import _build
+    lib = _build.library()
+    smem = 4 * (len2 + len1 + 4 * max(rows * n2, n1 * tc))
+    p21 = rad2[1] if len(rad2) == 2 else 1
+    p11 = rad1[1] if len(rad1) == 2 else 1
+    with S.device_guard(xr.device):
+        grid = CLUSTER * min(pre, _resident_clusters(lib, xr.device, smem))
+        stream = torch.cuda.current_stream(xr.device).cuda_stream
+        rc = lib.c2c_2d_launch(
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            table.data_ptr(), len2, len1, pre, n1, n2, rows, tc, len(rad2),
+            rad2[0], p21, len(rad1), rad1[0], p11, grid, CLUSTER, smem,
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"c2c_2d kernel launch failed: CUDA error {rc} "
+                           f"(pre={pre}, n1={n1}, n2={n2}, radices {rad1}, "
+                           f"{rad2})")
+    launches += 1
+    return yr, yi
+
+
+def build_pallas_c2c_split_2d(n1: int, n2: int, sign: int, rdtype,
+                              desc1: Optional[Dict] = None,
+                              desc2: Optional[Dict] = None,
+                              device: Optional[torch.device] = None):
+    """Split-complex apply transforming both trailing axes of (..., n1, n2)
+    in one kernel pass.  ``desc1``/``desc2`` are the per-axis planner
+    descriptors; their ``radices`` and ``vpu`` pins are honoured (``vpu``
+    by the twin only)."""
+    desc1, desc2 = desc1 or {}, desc2 or {}
+    rad1 = list(desc1.get("radices") or S.choose_radices(n1))
+    rad2 = list(desc2.get("radices") or S.choose_radices(n2))
+    if not (S.radices_ok(n1, rad1) and S.radices_ok(n2, rad2)):
+        raise ValueError(f"schedules {rad1}, {rad2} do not fit ({n1}, {n2})")
+    if np.dtype(rdtype) != np.float32:
+        raise ValueError(f"the Stockham kernel is float32 only, got "
+                         f"{np.dtype(rdtype)}")
+    vpu = desc1.get("vpu", desc2.get("vpu"))
+    key = (n1, tuple(rad1), n2, tuple(rad2))
+    if device is not None and torch.device(device).type == "cuda":
+        for s in (sign, -sign):                # move the tables once
+            _device_table_2d(*key, s, torch.device(device))
+
+    def run(xr, xi, s):
+        if xr.dim() < 2 or tuple(xr.shape[-2:]) != (n1, n2) \
+                or xi.shape != xr.shape:
+            raise ValueError(f"2-D pass expects split planes of shape (..., "
+                             f"{n1}, {n2}), got {tuple(xr.shape)} and "
+                             f"{tuple(xi.shape)}")
+        if xr.device.type == "cpu":
+            return c2c_2d_torch(xr, xi, rad1, rad2, s, vpu)
+        shp = xr.shape
+        yr, yi = c2c_2d_cuda(xr.reshape(-1, n1, n2).contiguous(),
+                             xi.reshape(-1, n1, n2).contiguous(), rad1, rad2,
+                             _device_table_2d(*key, s, xr.device))
+        return yr.reshape(shp), yi.reshape(shp)
+
+    return S.differentiable(run, sign)

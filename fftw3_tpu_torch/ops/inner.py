@@ -1,0 +1,140 @@
+"""c2c along axis -2 as one Stockham kernel (K2) — the port of the axis -2
+form of ``fftw3_tpu/ops/pallas_stockham.py`` (``_kernel_inner``,
+``_make_call_inner``, ``build_pallas_c2c_split_inner``).
+
+Split f32 planes (pre, n, L) are transformed along n for each of the L
+columns, with no transpose: multi-axis plans send every non-last axis here
+through a reshape, and the four-step sends its p pass here.
+
+* :func:`inner_c2c_torch`, the plain twin: the shared stage loop
+  (``stockham._stages_torch``) with the L columns in the place of the
+  reference's lane tile.
+* :func:`inner_c2c_cuda`, the wrapper of ``csrc/inner_c2c.cu``.  A block
+  holds an (n, tl) tile of tl consecutive columns in shared memory through
+  every stage; the edge tile of an L that is not a multiple of tl is
+  masked, nothing is padded.
+
+The reference's TPU tuning of this form is not carried over: the narrower
+schedule of ``_inner_radices`` (``INNER_NP_MAX``), the ``INNER_AREA`` and
+desc ``inner_area`` working-set budget, and ``pad_align``.  The kernel runs
+the descriptor's own schedule; its results differ from the reference's by
+rounding only.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import stockham as S
+
+#: points of the kernel's largest tile, n * tl (``kTilePoints`` in
+#: csrc/inner_c2c.cu): two split buffers of 64 KB
+TILE_POINTS = 8192
+#: widest tile, in columns
+MAX_TILE_L = 128
+
+#: launches of the CUDA kernel, counted by :func:`inner_c2c_cuda`
+launches = 0
+
+
+def tile_width(n: int, L: int) -> int:
+    """Columns per block: the largest power of two with n*tl within
+    TILE_POINTS, at most MAX_TILE_L, and no wider than L needs."""
+    tl = 1
+    while tl < L and tl < MAX_TILE_L and 2 * tl * n <= TILE_POINTS:
+        tl *= 2
+    return tl
+
+
+def inner_c2c_torch(xr: torch.Tensor, xi: torch.Tensor,
+                    radices: Sequence[int], sign: int, vpu=None):
+    """Plain PyTorch twin of the kernel: unnormalized c2c along axis -2 of
+    split f32 planes (..., n, L)."""
+    n, L = xr.shape[-2:]
+    if math.prod(radices) != n:
+        raise ValueError(f"radices {list(radices)} do not multiply to {n}")
+    shp = xr.shape
+    st = torch.stack([xr.reshape(-1, n * L), xi.reshape(-1, n * L)], 1)
+    st = S._stages_torch(st, n, L, radices, sign, vpu)
+    return st[:, 0].reshape(shp), st[:, 1].reshape(shp)
+
+
+def inner_c2c_cuda(xr: torch.Tensor, xi: torch.Tensor,
+                   radices: Sequence[int], table: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel on split (pre, n, L) f32 planes on one card.
+    ``table`` is ``stockham._device_table(n, radices, sign, device)``.
+    Returns new (yr, yi); raises on anything the kernel does not take, and
+    when the launch fails."""
+    global launches
+    S.check_planes("inner_c2c_cuda", xr, xi, table, 3)
+    pre, n, L = xr.shape
+    radices = [int(r) for r in radices]
+    if not S.radices_ok(n, radices):
+        raise ValueError(f"kernel schedule {radices} does not fit n={n}")
+    if table.numel() != S._table_len(n, radices):
+        raise ValueError(f"root table of {table.numel()} floats does not "
+                         f"match schedule {radices}")
+    if pre >= 2 ** 31:
+        raise ValueError(f"{pre} leading rows exceed the kernel's int count")
+    yr = torch.empty_like(xr)
+    yi = torch.empty_like(xi)
+    if pre == 0 or L == 0:
+        return yr, yi
+    tl = tile_width(n, L)
+    from . import _build
+    lib = _build.library()
+    smem = 4 * (table.numel() + 4 * n * tl)   # root tables + 2 split tiles
+    p1 = radices[1] if len(radices) == 2 else 1
+    with S.device_guard(xr.device):
+        tiles = pre * -(-L // tl)
+        grid = min(tiles, S.resident_blocks(lib, "inner_c2c", xr.device,
+                                            smem))
+        stream = torch.cuda.current_stream(xr.device).cuda_stream
+        rc = lib.inner_c2c_launch(
+            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+            table.data_ptr(), table.numel(), pre, n, L, tl, len(radices),
+            radices[0], p1, grid, smem, stream)
+    if rc != 0:
+        raise RuntimeError(f"inner_c2c kernel launch failed: CUDA error {rc} "
+                           f"(pre={pre}, n={n}, L={L}, radices={radices})")
+    launches += 1
+    return yr, yi
+
+
+def build_pallas_c2c_split_inner(desc: Dict, sign: int, rdtype,
+                                 device: Optional[torch.device] = None):
+    """Split-complex apply over axis -2 of (..., n, L) tensors for a
+    ``{"alg": "pallas", ...}`` descriptor: its schedule and ``vpu`` pin
+    (the twin's stage form; the kernel runs the dense form)."""
+    n = desc["n"]
+    radices = list(desc.get("radices") or S.choose_radices(n))
+    if not S.radices_ok(n, radices):
+        raise ValueError(f"pallas schedule {radices} does not fit n={n}")
+    if np.dtype(rdtype) != np.float32:
+        raise ValueError(f"the Stockham kernel is float32 only, got "
+                         f"{np.dtype(rdtype)}")
+    vpu = desc.get("vpu")
+    key = (n, tuple(radices))
+    if device is not None and torch.device(device).type == "cuda":
+        for s in (sign, -sign):                # move the tables once
+            S._device_table(*key, s, torch.device(device))
+
+    def run(xr, xi, s):
+        if xr.dim() < 2 or xr.shape[-2] != n or xi.shape != xr.shape:
+            raise ValueError(f"axis -2 pass expects split planes of shape "
+                             f"(..., {n}, L), got {tuple(xr.shape)} and "
+                             f"{tuple(xi.shape)}")
+        if xr.device.type == "cpu":
+            return inner_c2c_torch(xr, xi, radices, s, vpu)
+        shp = xr.shape
+        L = shp[-1]
+        yr, yi = inner_c2c_cuda(xr.reshape(-1, n, L).contiguous(),
+                                xi.reshape(-1, n, L).contiguous(), radices,
+                                S._device_table(*key, s, xr.device))
+        return yr.reshape(shp), yi.reshape(shp)
+
+    return S.differentiable(run, sign)

@@ -1,25 +1,35 @@
 """Batched 1-D c2c as one Stockham kernel — the port of the K1 part of
-``fftw3_tpu/ops/pallas_stockham.py``.
+``fftw3_tpu/ops/pallas_stockham.py``, and what the port's three c2c kernels
+share.
 
 The reference runs the whole transform of a tile of rows inside one Pallas
 kernel: one or two radix stages, each a p-point complex DFT contraction, a
 twiddle and an autosort permute, with one HBM read and one HBM write per
 point.  Here the same stage loop exists twice:
 
-* :func:`stockham_c2c_torch`, the plain PyTorch twin.  It follows
-  ``_stages`` exactly: the stage contraction is one real (2p, 2p) matmul by
-  the stacked matrix G = [[Fr, -Fi], [Fi, Fr]] over the stacked (re, im)
-  planes, or the ``_vpu_dft`` butterflies that the descriptor's ``vpu`` key
-  selects, in full f32 (the reference's bf16 hi/lo stage arithmetic is a TPU
-  matter and is not copied).
+* :func:`stockham_c2c_torch`, the plain PyTorch twin, on the stage loop
+  :func:`_stages_torch` that the twins of the axis -2 and fused 2-D kernels
+  (``ops/inner.py``, ``ops/fused2d.py``) share.  It follows ``_stages``
+  exactly: the stage contraction is one real (2p, 2p) matmul by the stacked
+  matrix G = [[Fr, -Fi], [Fi, Fr]] over the stacked (re, im) planes, or the
+  ``_vpu_dft`` butterflies that the descriptor's ``vpu`` key selects, in
+  full f32 (the reference's bf16 hi/lo stage arithmetic is a TPU matter and
+  is not copied).
 * :func:`stockham_c2c_cuda`, the wrapper of the hand-written CUDA kernel in
-  ``csrc/stockham_c2c.cu``.  It computes every stage by the dense p-term sum,
-  whatever ``vpu`` says; the butterfly form on the card is later work.
+  ``csrc/stockham_c2c.cu`` (stage loop in ``csrc/stockham_stage.cuh``).  It
+  computes every stage by the dense p-term sum, whatever ``vpu`` says; the
+  butterfly form on the card is later work.  Its two four-step options
+  (pre-twiddle on load, transposed store) serve ``ops/fourstep.py``.
 
 :func:`build_pallas_c2c_split` turns a ``{"alg": "pallas", ...}`` descriptor
 into a split apply backed by a ``torch.autograd.Function`` whose backward is
 the same transform with the opposite sign.  A CUDA tensor runs the kernel
 (or raises); only a CPU tensor runs the twin.
+
+The route gates of the multi-axis and four-step paths (``INNER_TILE_L``,
+``MAX_2D_POINTS``, :func:`inner_applicable`, :func:`applicable_2d`,
+:func:`choose_fourstep`, :func:`fourstep_applicable`) live here too, as in
+the reference.
 """
 from __future__ import annotations
 
@@ -46,8 +56,10 @@ MAX_SINGLE = 256
 MIN_N = 128
 MAX_N = 2048
 
-#: launches of the CUDA kernel, counted by :func:`stockham_c2c_cuda`
+#: launches of the CUDA kernel, counted by :func:`stockham_c2c_cuda`:
+#: plain ones, and those with the four-step pre-twiddle
 launches = 0
+fourstep_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -130,6 +142,87 @@ def applicable(n: int, rdtype, device) -> bool:
     except ValueError:
         return False
     return True
+
+
+# ---------------------------------------------------------------------------
+# route gates of the multi-axis and four-step paths
+# ---------------------------------------------------------------------------
+
+# These are the reference's gates, value for value, so that the port takes
+# the same route for the same problem.  They were derived on a TPU (lane
+# tiles of 128, the 16 MB scoped VMEM); the port's kernels take wider
+# shapes, and the gates are to be measured again on the card (ROADMAP).
+
+#: lane tile of the reference's axis -2 kernel: a non-last axis goes through
+#: K2 when the product of the axes after it reaches one tile
+INNER_TILE_L = 128
+
+#: VMEM-resident point budget of the reference's fused 2-D kernel: the
+#: trailing axis pair goes through K3 when n1*n2 stays within it
+MAX_2D_POINTS = 300_000
+
+
+def inner_applicable(desc: Dict, trail: int) -> bool:
+    """Can the axis -2 kernel serve a transform whose trailing-dims product
+    is `trail`?  Any trail of at least one lane tile (the kernel masks the
+    edge tile)."""
+    return desc.get("alg") == "pallas" and trail >= INNER_TILE_L
+
+
+def applicable_2d(n1: int, n2: int, rdtype, device) -> bool:
+    """Can the fused 2-D kernel take the last two transform axes whole?"""
+    if not backend_allows(rdtype, device):
+        return False
+    if n1 % 128 or n2 % 128:
+        return False
+    if n1 * n2 > MAX_2D_POINTS:
+        return False
+    try:
+        choose_radices(n1), choose_radices(n2)
+    except ValueError:
+        return False
+    return n1 <= MAX_N and n2 <= MAX_N
+
+
+def choose_fourstep(n: int):
+    """(p, q) with p a power of two in [8, 128] and q a 128-multiple in the
+    fused-kernel window, the largest such p; None when there is none.  The
+    reference's rule (its p | TB row-phase mapping and measured ranking)."""
+    best = None
+    for p in (8, 16, 32, 64, 128):
+        if n % p:
+            continue
+        q = n // p
+        if q % INNER_TILE_L or q < MIN_N or q > MAX_N:
+            continue
+        try:
+            choose_radices(q), choose_radices(p)
+        except ValueError:
+            continue
+        if best is None or p > best[0]:
+            best = (p, q)
+    return best
+
+
+def fourstep_applicable(n: int, rdtype, device) -> bool:
+    if not backend_allows(rdtype, device):
+        return False
+    return n > MAX_N and choose_fourstep(n) is not None
+
+
+def fourstep_ok(desc) -> bool:
+    """Can the four-step build this ``pallas4`` descriptor?  p * q = n, the
+    p pass a schedule the axis -2 kernel runs, the q pass one K1 runs."""
+    n, p, q = desc.get("n"), desc.get("p"), desc.get("q")
+    if not all(isinstance(v, int) and v > 1 for v in (n, p, q)) \
+            or p * q != n:
+        return False
+    try:
+        rad_p = choose_radices(p)
+        rad_q = desc.get("radices") or choose_radices(q)
+    except ValueError:
+        return False
+    return radices_ok(p, rad_p) and radices_ok(q, rad_q)
 
 
 def radices_ok(n: int, radices) -> bool:
@@ -219,6 +312,17 @@ def _device_table(n: int, radices: Tuple[int, ...], sign: int,
                   device: torch.device) -> torch.Tensor:
     """The kernel's root tables as one f32 tensor on `device`, made once."""
     return torch.from_numpy(_kernel_table(n, radices, sign)).to(device)
+
+
+@lru_cache(maxsize=None)
+def _device_pretwiddle(p: int, n: int, sign: int,
+                       device: torch.device) -> torch.Tensor:
+    """The four-step twiddle w[k1, j] = exp(sign*2*pi*i*k1*j/(p*n)) as a
+    (2, p, n) f32 tensor (re, im) on `device`, made once: the reference's
+    ``_make_call`` pretwiddle constant, bit for bit."""
+    w = matrices.twiddle_2d(p, n, sign)
+    return torch.from_numpy(np.ascontiguousarray(
+        np.stack([w.real, w.imag]), np.float32)).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -318,24 +422,21 @@ def _vpu_dft(xr, xi, m: int, sign: int):
     return yr, yi
 
 
-def stockham_c2c_torch(xr: torch.Tensor, xi: torch.Tensor,
-                       radices: Sequence[int], sign: int, vpu=None):
-    """Plain PyTorch twin of the kernel: unnormalized c2c along the last
-    axis of split f32 planes of any leading shape, stage by stage as the
-    reference's ``_stages`` orders it."""
-    n = xr.shape[-1]
-    if math.prod(radices) != n:
-        raise ValueError(f"radices {list(radices)} do not multiply to {n}")
-    shp = xr.shape[:-1]
-    consts = _device_consts(n, tuple(radices), sign, xr.device)
-    st = torch.stack([xr.reshape(-1, n), xi.reshape(-1, n)], 1)  # (B, 2, n)
+def _stages_torch(st: torch.Tensor, n: int, L: int, radices: Sequence[int],
+                  sign: int, vpu=None) -> torch.Tensor:
+    """The stage loop of the twins on stacked planes ``st`` of shape
+    (B, 2, n*L): point i of column l at i*L + l, transformed along the n
+    points of every column (L = 1 is the last-axis form).  Stage by stage as
+    the reference's ``_stages`` orders it, with L in the place of its
+    lane tile."""
+    consts = _device_consts(n, tuple(radices), sign, st.device)
     B = st.shape[0]
     vsign = _vpu_sign(sign, vpu)
     vpu_all = abs(vsign) == 2
     done, rest = 1, n
     for p, c in zip(radices, consts):
         q = rest // p
-        M = q * done
+        M = q * done * L
         if _vpu_last_ok(p, vsign) and (q == 1 or vpu_all):
             x = st.reshape(B, 2, p, M)
             yr, yi = _vpu_dft(x[:, 0], x[:, 1], p, sign)
@@ -346,15 +447,50 @@ def stockham_c2c_torch(xr: torch.Tensor, xi: torch.Tensor,
         if q > 1:
             wr = c[1][:, :, None]
             wi = c[2][:, :, None]
-            y = y.reshape(B, 2, p, q, done)
+            y = y.reshape(B, 2, p, q, done * L)
             tr = y[:, 0] * wr - y[:, 1] * wi
             ti = y[:, 0] * wi + y[:, 1] * wr
             # (p, q, done) -> (q, p, done): the autosort permute
-            st = torch.stack([tr, ti], 1).transpose(2, 3).reshape(B, 2, n)
+            st = torch.stack([tr, ti], 1).transpose(2, 3).reshape(B, 2, n * L)
         else:
-            st = y.reshape(B, 2, n)
+            st = y.reshape(B, 2, n * L)
         done *= p
         rest = q
+    return st
+
+
+def stockham_c2c_torch(xr: torch.Tensor, xi: torch.Tensor,
+                       radices: Sequence[int], sign: int, vpu=None,
+                       pretwiddle_p: int = 0, store_transposed: bool = False):
+    """Plain PyTorch twin of the kernel: unnormalized c2c along the last
+    axis of split f32 planes of any leading shape, stage by stage as the
+    reference's ``_stages`` orders it.
+
+    The four-step options, as the kernel has them: ``pretwiddle_p`` = P
+    multiplies row r (of the rows flattened to (R, n)) by w[r mod P, j] =
+    exp(sign*2*pi*i*(r mod P)*j/(P*n)) before the stages;
+    ``store_transposed`` (with P) returns (R/P, n, P) planes holding row
+    b*P + k1's point k2 at [b, k2, k1]."""
+    n = xr.shape[-1]
+    if math.prod(radices) != n:
+        raise ValueError(f"radices {list(radices)} do not multiply to {n}")
+    if store_transposed and not pretwiddle_p:
+        raise ValueError("store_transposed needs pretwiddle_p")
+    shp = xr.shape[:-1]
+    xr2, xi2 = xr.reshape(-1, n), xi.reshape(-1, n)
+    R = xr2.shape[0]
+    P = pretwiddle_p
+    if P:
+        if R % P:
+            raise ValueError(f"{R} rows are not whole groups of {P}")
+        w = _device_pretwiddle(P, n, sign, xr.device)
+        x3r, x3i = xr2.reshape(-1, P, n), xi2.reshape(-1, P, n)
+        xr2 = (x3r * w[0] - x3i * w[1]).reshape(R, n)
+        xi2 = (x3r * w[1] + x3i * w[0]).reshape(R, n)
+    st = _stages_torch(torch.stack([xr2, xi2], 1), n, 1, radices, sign, vpu)
+    if store_transposed:
+        st = st.reshape(R // P, P, 2, n).permute(2, 0, 3, 1)
+        return st[0].contiguous(), st[1].contiguous()
     return st[:, 0].reshape(*shp, n), st[:, 1].reshape(*shp, n)
 
 
@@ -362,31 +498,49 @@ def stockham_c2c_torch(xr: torch.Tensor, xi: torch.Tensor,
 # the CUDA kernel
 # ---------------------------------------------------------------------------
 
-def stockham_c2c_cuda(xr: torch.Tensor, xi: torch.Tensor,
-                      radices: Sequence[int],
-                      table: torch.Tensor) -> Tuple[torch.Tensor,
-                                                    torch.Tensor]:
-    """Launch the CUDA kernel on split (B, n) f32 planes on one card.
-    ``table`` is ``_device_table(n, radices, sign, device)``: the sign lives
-    in it.  Returns new (yr, yi); raises on anything the kernel does not
-    take, and when the launch fails."""
-    global launches
+def check_planes(name: str, xr: torch.Tensor, xi: torch.Tensor,
+                 table: torch.Tensor, ndim: int) -> None:
+    """The checks every kernel wrapper makes before a launch: one CUDA
+    device, float32, two contiguous planes of one `ndim`-D shape."""
     if xr.device.type != "cuda" or xi.device != xr.device \
             or table.device != xr.device:
-        raise ValueError(f"stockham_c2c_cuda needs all tensors on one CUDA "
-                         f"device, got {xr.device}, {xi.device}, "
-                         f"{table.device}")
+        raise ValueError(f"{name} needs all tensors on one CUDA device, got "
+                         f"{xr.device}, {xi.device}, {table.device}")
     if xr.dtype != torch.float32 or xi.dtype != torch.float32 \
             or table.dtype != torch.float32:
-        raise ValueError(f"stockham_c2c_cuda takes float32, got {xr.dtype}, "
+        raise ValueError(f"{name} takes float32, got {xr.dtype}, "
                          f"{xi.dtype}, {table.dtype}")
-    if xr.dim() != 2 or xi.shape != xr.shape:
-        raise ValueError(f"stockham_c2c_cuda takes two (B, n) planes of one "
-                         f"shape, got {tuple(xr.shape)} and "
-                         f"{tuple(xi.shape)}")
+    if xr.dim() != ndim or xi.shape != xr.shape:
+        raise ValueError(f"{name} takes two {ndim}-D planes of one shape, "
+                         f"got {tuple(xr.shape)} and {tuple(xi.shape)}")
     if not (xr.is_contiguous() and xi.is_contiguous()
             and table.is_contiguous()):
-        raise ValueError("stockham_c2c_cuda takes contiguous tensors")
+        raise ValueError(f"{name} takes contiguous tensors")
+
+
+def device_guard(device: torch.device):
+    """The kernels launch on the current device: make it `device` for the
+    call (and restore it after), at no cost when it already is."""
+    if torch.cuda.current_device() == device.index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def stockham_c2c_cuda(xr: torch.Tensor, xi: torch.Tensor,
+                      radices: Sequence[int], table: torch.Tensor,
+                      pretwiddle: Optional[torch.Tensor] = None,
+                      store_transposed: bool = False
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the CUDA kernel on split (B, n) f32 planes on one card.
+    ``table`` is ``_device_table(n, radices, sign, device)``: the sign lives
+    in it.  The four-step options: ``pretwiddle`` is
+    ``_device_pretwiddle(P, n, sign, device)``, multiplied into row r by
+    its row r mod P on load; ``store_transposed`` (with ``pretwiddle``)
+    returns (B/P, n, P) planes, row b*P + k1's point k2 at [b, k2, k1].
+    Returns new (yr, yi); raises on anything the kernel does not take, and
+    when the launch fails."""
+    global launches, fourstep_launches
+    check_planes("stockham_c2c_cuda", xr, xi, table, 2)
     B, n = xr.shape
     radices = [int(r) for r in radices]
     if not radices_ok(n, radices):
@@ -396,48 +550,66 @@ def stockham_c2c_cuda(xr: torch.Tensor, xi: torch.Tensor,
                          f"match schedule {radices}")
     if B >= 2 ** 31:
         raise ValueError(f"batch {B} exceeds the kernel's int row count")
-    yr = torch.empty_like(xr)
-    yi = torch.empty_like(xi)
+    P = 0
+    if pretwiddle is not None:
+        P = pretwiddle.shape[1] if pretwiddle.dim() == 3 else 0
+        if (pretwiddle.shape != (2, P, n) or P < 1
+                or pretwiddle.device != xr.device
+                or pretwiddle.dtype != torch.float32
+                or not pretwiddle.is_contiguous()):
+            raise ValueError(f"pretwiddle must be a contiguous float32 "
+                             f"(2, P, {n}) tensor on {xr.device}, got "
+                             f"{tuple(pretwiddle.shape)}")
+    if store_transposed and not P:
+        raise ValueError("store_transposed needs a pretwiddle")
+    if store_transposed and B % P:
+        raise ValueError(f"{B} rows are not whole groups of {P}")
+    shape = (B // P, n, P) if store_transposed else (B, n)
+    yr = torch.empty(shape, dtype=xr.dtype, device=xr.device)
+    yi = torch.empty(shape, dtype=xi.dtype, device=xi.device)
     if B == 0:
         return yr, yi
     from . import _build
     lib = _build.library()
     smem = 4 * (table.numel() + 4 * n)       # root tables + 2 split rows
     p1 = radices[1] if len(radices) == 2 else 1
-    # the kernel launches on the current device: make it xr's for the call
-    # (and restore it after), at no cost when it already is
-    guard = contextlib.nullcontext() \
-        if torch.cuda.current_device() == xr.device.index \
-        else torch.cuda.device(xr.device)
-    with guard:
-        grid = min(B, _resident_blocks(lib, xr.device, smem))
+    with device_guard(xr.device):
+        grid = min(B, resident_blocks(lib, "stockham_c2c", xr.device, smem))
         stream = torch.cuda.current_stream(xr.device).cuda_stream
         rc = lib.stockham_c2c_launch(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             table.data_ptr(), table.numel(), B, n, len(radices), radices[0],
-            p1, grid, smem, stream)
+            p1, pretwiddle.data_ptr() if P else None, P,
+            P if store_transposed else 0, grid, smem, stream)
     if rc != 0:
         raise RuntimeError(f"stockham_c2c kernel launch failed: CUDA error "
-                           f"{rc} (n={n}, radices={radices}, B={B})")
-    launches += 1
+                           f"{rc} (n={n}, radices={radices}, B={B}, "
+                           f"pretwiddle {P}, transposed {store_transposed})")
+    if P:
+        fourstep_launches += 1
+    else:
+        launches += 1
     return yr, yi
 
 
-#: (device index, shared-memory bytes) -> blocks resident on the whole card
-_grids: Dict[Tuple[int, int], int] = {}
+#: (kernel, device index, shared-memory bytes) -> blocks resident on the
+#: whole card
+_grids: Dict[Tuple[str, int, int], int] = {}
 
 
-def _resident_blocks(lib, device: torch.device, smem: int) -> int:
-    """The grid that fills `device` at `smem` bytes per block; the first
-    call per (device, smem) also allows that much shared memory for the
-    kernel.  The caller has made `device` current."""
-    key = (device.index, smem)
+def resident_blocks(lib, kernel: str, device: torch.device,
+                    smem: int) -> int:
+    """The grid that fills `device` with `kernel` at `smem` bytes per
+    block; the first call per (kernel, device, smem) also allows the kernel
+    its shared memory (``<kernel>_occupancy``).  The caller has made
+    `device` current."""
+    key = (kernel, device.index, smem)
     grid = _grids.get(key)
     if grid is None:
         per_sm = ctypes.c_int(0)
-        rc = lib.stockham_c2c_occupancy(smem, ctypes.byref(per_sm))
+        rc = getattr(lib, f"{kernel}_occupancy")(smem, ctypes.byref(per_sm))
         if rc != 0:
-            raise RuntimeError(f"stockham_c2c occupancy query failed: CUDA "
+            raise RuntimeError(f"{kernel} occupancy query failed: CUDA "
                                f"error {rc} (smem={smem} bytes)")
         sms = torch.cuda.get_device_properties(device).multi_processor_count
         grid = _grids[key] = sms * max(1, per_sm.value)
@@ -508,6 +680,12 @@ def build_pallas_c2c_split(desc: Dict, sign: int, rdtype,
                                    _device_table(*key, s, xr.device))
         return yr.reshape(*shp, n), yi.reshape(*shp, n)
 
+    return differentiable(run, sign)
+
+
+def differentiable(run, sign: int):
+    """The split apply ``run(xr, xi, sign)`` with the opposite-sign run as
+    its backward."""
     def fwd(xr, xi):
         return run(xr, xi, sign)
 

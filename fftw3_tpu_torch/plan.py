@@ -5,10 +5,16 @@ precision); strides and vector ranks are expressed by the tensor shape.  A
 :class:`Plan` is a composed function of tensors on one device plus
 introspection (op counts, printable tree), built from planner descriptors.
 
-Multidimensional transforms compose 1-D axis passes: every axis runs the
-last-axis solver behind a ``movedim`` lift.  The reference's transpose-free
-axis -2 kernel and fused 2-D kernel (K2, K3) are not ported yet, so the
-descriptors are the same and the passes cost one extra copy each.
+Multidimensional transforms compose 1-D axis passes, as the reference
+does:
+
+* the trailing axis pair goes through the fused 2-D kernel (K3,
+  ``ops/fused2d.py``) in one pass when ``stockham.applicable_2d`` admits it
+  and both axes' descriptors are ``pallas``;
+* a non-last axis with a ``pallas`` descriptor whose trailing-dims product
+  reaches ``stockham.INNER_TILE_L`` goes through the axis -2 kernel (K2,
+  ``ops/inner.py``) behind a reshape, with no copy;
+* every other axis runs its last-axis solver behind a ``movedim`` lift.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ from . import config
 from . import kinds as K
 from . import planner as planner_mod
 from .ops import c2c as c2c_ops
+from .ops import fused2d, inner, stockham
 
 
 def _along_axis_split(fn: Callable, axis: int) -> Callable:
@@ -37,10 +44,25 @@ def _along_axis_split(fn: Callable, axis: int) -> Callable:
 
 def _c2c_stage(desc: Dict, sign: int, rdtype, axis: int,
                shape: Tuple[int, ...], device) -> Callable:
-    """One c2c axis pass.  Axes are applied right-relative, so extra
-    *leading* batch dims at call time work."""
+    """One c2c axis pass.  A non-last axis whose trailing-dims product is at
+    least one lane tile takes the axis -2 kernel behind a reshape (the
+    trailing dims become its columns: no ``movedim`` copies); everything
+    else lifts the last-axis transform with ``movedim``.  Axes are applied
+    right-relative, so extra *leading* batch dims at call time work."""
+    neg = axis - len(shape)                  # right-relative axis (< 0)
+    trail = math.prod(shape[axis + 1:])
+    if neg != -1 and stockham.inner_applicable(desc, trail):
+        fn = inner.build_pallas_c2c_split_inner(desc, sign, rdtype, device)
+
+        def apply_inner(xr, xi):
+            s = xr.shape
+            cut = xr.dim() + neg + 1         # runtime position after axis
+            yr, yi = fn(xr.reshape(*s[:cut], trail),
+                        xi.reshape(*s[:cut], trail))
+            return yr.reshape(s), yi.reshape(s)
+        return apply_inner
     fn = c2c_ops.build_c2c_split(desc, sign, rdtype, device)
-    return _along_axis_split(fn, axis - len(shape))
+    return _along_axis_split(fn, neg)
 
 
 @dataclass(frozen=True)
@@ -163,14 +185,27 @@ def _make_plan_inner(problem: Problem, pl: planner_mod.Planner,
 
     # split-complex through the whole multi-axis pipeline: one real/imag
     # split at entry, one combine at exit
-    descriptors: Dict[int, Dict] = {}
-    split_stages = []
-    for a in problem.axes:
-        desc = pl.plan_c2c(shape[a], rdtype, patience, batch=_vec(a),
-                           device=device)
-        descriptors[a] = desc
-        split_stages.append(
-            _c2c_stage(desc, problem.sign, rdtype, a, shape, device))
+    descriptors: Dict[int, Dict] = {
+        a: pl.plan_c2c(shape[a], rdtype, patience, batch=_vec(a),
+                       device=device) for a in problem.axes}
+    rest_axes = list(problem.axes)
+    nd = len(shape)
+    # fuse the trailing axis pair into ONE kernel pass when both axes are
+    # kernel-served anyway (2 HBM passes -> 1)
+    fuse = (len(rest_axes) >= 2 and rest_axes[-2:] == [nd - 2, nd - 1]
+            and stockham.applicable_2d(shape[nd - 2], shape[nd - 1], rdtype,
+                                       device)
+            and descriptors[nd - 2].get("alg") == "pallas"
+            and descriptors[nd - 1].get("alg") == "pallas")
+    if fuse:
+        rest_axes = rest_axes[:-2]
+    split_stages = [_c2c_stage(descriptors[a], problem.sign, rdtype, a,
+                               shape, device) for a in rest_axes]
+    if fuse:
+        split_stages.append(fused2d.build_pallas_c2c_split_2d(
+            shape[nd - 2], shape[nd - 1], problem.sign, rdtype,
+            desc1=descriptors[nd - 2], desc2=descriptors[nd - 1],
+            device=device))
 
     def apply_split(xr, xi):
         if tuple(xr.shape[xr.dim() - len(shape):]) != shape \

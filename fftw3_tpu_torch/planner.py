@@ -111,6 +111,14 @@ def _c2c_cost(desc: Dict, hw: HardwareModel = HW, f64: bool = False) -> float:
         for p in desc["radices"]:
             t += 6.0 * p * n / (hw.peak_flops * hw.matmul_eff(p))
         return t
+    if alg == "pallas4":
+        # four-step composition: three HBM passes (two kernels + the output
+        # transpose) plus the contraction time of each kernel's schedule
+        t = 3.3 * 2 * el * n / hw.hbm_bw
+        for f in (desc["p"], desc["q"]):
+            for r in stockham.choose_radices(f):
+                t += 6.0 * r * n / (hw.peak_flops * hw.matmul_eff(r))
+        return t
     raise ValueError(alg)
 
 
@@ -134,8 +142,10 @@ def _mixed_factor_candidates(n: int, patience: int) -> List[int]:
 WISDOM_FORMAT = "fftw3-tpu-torch-wisdom-1"
 #: the ``fftw3_tpu`` export format that :func:`import_reference_wisdom` reads
 REFERENCE_WISDOM_FORMAT = "fftw3-tpu-wisdom-2"
-#: descriptor keys that only the reference's TPU kernels read
-_TPU_ONLY_KEYS = ("k2", "gsplit")
+#: descriptor keys that only the reference's TPU kernels read: its bf16
+#: hi/lo stage arithmetic, the axis -2 form's VMEM budget and its padding
+#: variant
+_TPU_ONLY_KEYS = ("k2", "gsplit", "inner_area", "pad_align")
 
 
 class WisdomOnlyMiss(ValueError):
@@ -268,8 +278,11 @@ class Planner:
                     if all(stockham._vpu_last_ok(r, 1)
                            for r in cand["radices"]):
                         out.append({**cand, "vpu": "all"})
-        # (above MAX_N the reference offers its four-step pallas4 and an
-        # all-butterfly pallas variant; both wait for kernel K2)
+        # (above MAX_N the reference also races an all-butterfly pallas
+        # schedule under MEASURE; not ported, ROADMAP queue 1 item 7)
+        if stockham.fourstep_applicable(n, rdtype, device):
+            fp, fq = stockham.choose_fourstep(n)
+            out.append({"alg": "pallas4", "n": n, "p": fp, "q": fq})
         for p in _mixed_factor_candidates(n, patience):
             child = self.plan_c2c(n // p, rdtype, patience,
                                   None if batch is None else batch * p,
@@ -455,6 +468,8 @@ def validate_desc(kind: str, n: int, desc) -> bool:
                 and validate_desc("c2c", n // p, desc.get("child")))
     if alg == "pallas":
         return stockham.radices_ok(n, desc.get("radices"))
+    if alg == "pallas4":
+        return stockham.fourstep_ok(desc)
     if alg == "bluestein":
         m = desc.get("m")
         return (isinstance(m, int) and m >= 2 * n - 1
@@ -517,6 +532,8 @@ def sprint_desc(desc: Dict) -> str:
         v = {True: " vpu", False: " mxu",
              "all": " vpuall"}.get(desc.get("vpu"), "")
         return f"(pallas-{n} r{'x'.join(map(str, desc['radices']))}{v})"
+    if alg == "pallas4":
+        return f"(pallas4-{desc['p']}x{desc['q']})"
     if alg == "bluestein":
         return f"(bluestein-{n}->{desc['m']} {sprint_desc(desc['child'])})"
     if alg == "rader":

@@ -1,0 +1,161 @@
+"""fftw3_tpu_torch.ops.fused2d (K3, c2c over both trailing axes in one pass)
+against the reference.
+
+The same numpy inputs go through ``fftw3_tpu``'s ``build_pallas_c2c_split_2d``
+(Pallas in interpret mode on the CPU) and through the port's plain twin.
+Errors are max-abs error over max-abs: 2e-5 between the packages, 1e-5 for
+each against numpy in float64.  The kernel runs only on a card: the tests
+that launch it are marked ``cuda``.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fftw3_tpu import config as ref_config
+from fftw3_tpu.ops import pallas_stockham as PS
+
+from fftw3_tpu_torch import config
+from fftw3_tpu_torch.ops import fused2d
+from fftw3_tpu_torch.ops import stockham as S
+
+TOL_PKG = 2e-5
+TOL_F64 = 1e-5
+
+
+@pytest.fixture(autouse=True)
+def _modes(monkeypatch):
+    monkeypatch.setattr(ref_config, "pallas_mode", "interpret")
+    monkeypatch.setattr(config, "kernel_mode", "on")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card; torch sees none")
+    return torch.device("cuda")
+
+
+def _relerr(got, want):
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+def _planes(seed, shape):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape).astype(np.float32),
+            rng.standard_normal(shape).astype(np.float32))
+
+
+def _oracle(xr, xi, sign):
+    x = xr.astype(np.float64) + 1j * xi
+    if sign < 0:
+        return np.fft.fft2(x)
+    return np.fft.ifft2(x) * x.shape[-1] * x.shape[-2]
+
+
+@pytest.mark.parametrize("n1,n2", [(128, 128), (128, 256)])
+@pytest.mark.parametrize("pre", [1, 3])
+@pytest.mark.parametrize("sign", [-1, +1])
+def test_twin_matches_reference(n1, n2, pre, sign):
+    xr, xi = _planes(n2 + pre, (pre, n1, n2))
+    ref = PS.build_pallas_c2c_split_2d(n1, n2, sign, np.float32)
+    wr, wi = jax.jit(ref)(jnp.asarray(xr), jnp.asarray(xi))
+    want = np.asarray(wr) + 1j * np.asarray(wi)
+    split = fused2d.build_pallas_c2c_split_2d(n1, n2, sign, np.float32,
+                                              device="cpu")
+    before = fused2d.launches
+    yr, yi = split(torch.from_numpy(xr), torch.from_numpy(xi))
+    assert fused2d.launches == before            # the twin ran
+    got = yr.numpy() + 1j * yi.numpy()
+    oracle = _oracle(xr, xi, sign)
+    assert got.shape == want.shape == (pre, n1, n2)
+    assert _relerr(got, want) <= TOL_PKG
+    assert _relerr(got, oracle) <= TOL_F64
+    assert _relerr(want, oracle) <= TOL_F64
+
+
+def test_descriptor_pins_reach_the_twin():
+    """The per-axis descriptors' schedules and ``vpu`` pin are honoured."""
+    n1, n2 = 128, 256
+    d1 = {"alg": "pallas", "n": n1, "radices": [16, 8], "vpu": "all"}
+    d2 = {"alg": "pallas", "n": n2, "radices": [16, 16], "vpu": "all"}
+    xr, xi = _planes(3, (2, n1, n2))
+    ref = PS.build_pallas_c2c_split_2d(n1, n2, -1, np.float32, d1, d2)
+    wr, wi = jax.jit(ref)(jnp.asarray(xr), jnp.asarray(xi))
+    split = fused2d.build_pallas_c2c_split_2d(n1, n2, -1, np.float32, d1, d2,
+                                              device="cpu")
+    yr, yi = split(torch.from_numpy(xr), torch.from_numpy(xi))
+    got = yr.numpy() + 1j * yi.numpy()
+    assert _relerr(got, np.asarray(wr) + 1j * np.asarray(wi)) <= TOL_PKG
+    assert _relerr(got, _oracle(xr, xi, -1)) <= TOL_F64
+
+
+def test_split_grads_equal_jax_vjp():
+    n1, n2 = 128, 128
+    xr, xi = _planes(7, (2, n1, n2))
+    gr, gi = _planes(8, (2, n1, n2))
+    ref = PS.build_pallas_c2c_split_2d(n1, n2, +1, np.float32)
+    _, vjp = jax.vjp(ref, jnp.asarray(xr), jnp.asarray(xi))
+    wr, wi = (np.asarray(g) for g in vjp((jnp.asarray(gr), jnp.asarray(gi))))
+    split = fused2d.build_pallas_c2c_split_2d(n1, n2, +1, np.float32,
+                                              device="cpu")
+    tr = torch.from_numpy(xr).requires_grad_()
+    ti = torch.from_numpy(xi).requires_grad_()
+    yr, yi = split(tr, ti)
+    torch.autograd.backward([yr, yi], [torch.from_numpy(gr),
+                                       torch.from_numpy(gi)])
+    assert _relerr(tr.grad.numpy(), wr) <= TOL_PKG
+    assert _relerr(ti.grad.numpy(), wi) <= TOL_PKG
+
+
+@pytest.mark.parametrize("n1,n2,rows,tc", [(512, 512, 16, 16),
+                                           (384, 768, 10, 16),
+                                           (128, 2048, 4, 64),
+                                           (2048, 128, 64, 4),
+                                           (256, 1024, 8, 32)])
+def test_tiles(n1, n2, rows, tc):
+    assert fused2d.tiles(n1, n2) == (rows, tc)
+    assert rows * n2 <= fused2d.TILE_POINTS
+    assert n1 * tc <= fused2d.TILE_POINTS
+
+
+@pytest.mark.parametrize("n1,n2,ok", [(128, 128, True), (384, 768, True),
+                                      (512, 512, True), (512, 1024, False),
+                                      (128, 130, False), (64, 128, False)])
+def test_applicable_2d_equals_reference(n1, n2, ok):
+    assert S.applicable_2d(n1, n2, np.float32, "cpu") is ok
+    assert PS.applicable_2d(n1, n2, np.float32) is ok
+    assert S.MAX_2D_POINTS == PS.MAX_2D_POINTS
+
+
+def test_kernel_wrapper_refuses_cpu_tensors():
+    x = torch.ones(1, 128, 128)
+    table = fused2d._device_table_2d(128, (128,), 128, (128,), -1,
+                                     torch.device("cpu"))
+    with pytest.raises(ValueError, match="CUDA"):
+        fused2d.c2c_2d_cuda(x, x, [128], [128], table)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n1,n2,rad1,rad2", [
+    (128, 128, [128], [128]), (256, 1024, [256], [64, 16]),
+    (512, 512, [32, 16], [32, 16]), (384, 768, [24, 16], [48, 16])])
+@pytest.mark.parametrize("pre", [1, 3])
+@pytest.mark.parametrize("sign", [-1, +1])
+def test_kernel_matches_twin_on_card(cuda_device, n1, n2, rad1, rad2, pre,
+                                     sign):
+    xr, xi = (torch.from_numpy(a).to(cuda_device)
+              for a in _planes(n1 + pre, (pre, n1, n2)))
+    table = fused2d._device_table_2d(n1, tuple(rad1), n2, tuple(rad2), sign,
+                                     cuda_device)
+    before = fused2d.launches
+    kr, ki = fused2d.c2c_2d_cuda(xr, xi, rad1, rad2, table)
+    torch.cuda.synchronize()
+    assert fused2d.launches == before + 1
+    tr, ti = fused2d.c2c_2d_torch(xr, xi, rad1, rad2, sign)
+    got = (kr + 1j * ki).cpu().numpy()
+    twin = (tr + 1j * ti).cpu().numpy()
+    assert _relerr(got, twin) <= TOL_F64
+    assert _relerr(got, _oracle(xr.cpu().numpy(), xi.cpu().numpy(),
+                                sign)) <= TOL_F64

@@ -97,7 +97,8 @@ def test_complex_wrapper():
     assert np.max(np.abs(got.numpy() - want)) / np.max(np.abs(want)) <= 2e-5
 
 
-PALLAS = [{"alg": "pallas", "n": 1024, "radices": [64, 16]},
+PALLAS = [{"alg": "pallas4", "n": 4096, "p": 32, "q": 128},
+          {"alg": "pallas", "n": 1024, "radices": [64, 16]},
           {"alg": "pallas", "n": 1024, "radices": [64, 16], "vpu": True},
           {"alg": "pallas", "n": 1024, "radices": [32, 32], "vpu": "all"},
           {"alg": "pallas", "n": 1000, "radices": [50, 20], "vpu": "all"},
@@ -111,7 +112,7 @@ def test_opcount_equals_reference(desc):
     assert c2c.c2c_opcount(desc) == ref_c2c.c2c_opcount(desc)
 
 
-@pytest.mark.parametrize("alg", ["df32", "df32p", "pallas4"])
+@pytest.mark.parametrize("alg", ["df32", "df32p"])
 def test_unported_algs_raise(alg):
     desc = {"alg": alg, "n": 4096, "p": 64, "q": 64, "radices": [64, 64]}
     with pytest.raises(NotImplementedError, match="not ported"):

@@ -4,9 +4,8 @@ With the reference's hardware constants (read here from
 ``fftw3_tpu.planner.HW``) the port's ESTIMATE search must pick the
 reference's descriptors: kernels offered in both (port ``kernel_mode =
 "on"``, reference ``pallas_mode = "interpret"``) and kernels left out in
-both (``"auto"`` on the CPU).  n = 4096 is compared only in the second
-pair: with kernels on, the reference offers its four-step ``pallas4``,
-which waits for kernel K2 here.
+both (``"auto"`` on the CPU), n = 4096 included: with kernels on, both
+offer the four-step ``pallas4``.
 """
 import dataclasses
 import json
@@ -40,7 +39,7 @@ def _port_planner():
 
 
 @pytest.mark.parametrize("port_mode,ref_mode,ns", [
-    ("on", "interpret", NS),
+    ("on", "interpret", NS + [4096]),
     ("auto", "auto", NS + [4096]),
 ])
 @pytest.mark.parametrize("batch", BATCHES)
@@ -90,7 +89,8 @@ def test_main_path_descriptor_with_port_defaults():
     (1024, {"alg": "pallas", "n": 1024, "radices": [64, 8]}, False),
     (1024, {"alg": "pallas", "n": 1024, "radices": [16, 8, 8]}, False),
     (4096, {"alg": "pallas", "n": 4096, "radices": [64, 64]}, False),
-    (4096, {"alg": "pallas4", "n": 4096, "p": 64, "q": 64}, False),
+    (4096, {"alg": "pallas4", "n": 4096, "p": 64, "q": 64}, True),
+    (4096, {"alg": "pallas4", "n": 4096, "p": 64, "q": 32}, False),
     (1024, {"alg": "df32", "n": 1024, "radices": [4, 4, 64]}, False),
     (48, {"alg": "mixed", "n": 48, "p": 5,
           "child": {"alg": "direct", "n": 9}}, False),

@@ -16,6 +16,7 @@ import torch
 
 from fftw3_tpu import config as ref_config
 from fftw3_tpu import plan_many_dft as ref_plan_many_dft
+from fftw3_tpu import planner as ref_planner
 from fftw3_tpu.ops import pallas_stockham as PS
 
 import fftw3_tpu_torch as ft
@@ -27,10 +28,15 @@ TOL_F64 = 1e-5
 
 
 @pytest.fixture(autouse=True)
-def _modes():
+def _modes(monkeypatch):
+    """Kernels on in both packages, and both global planners without
+    wisdom, so that no plan made by another test under other modes is
+    served from it."""
     old = ref_config.pallas_mode, config.kernel_mode
     ref_config.pallas_mode = "interpret"
     config.kernel_mode = "on"
+    monkeypatch.setattr(ref_planner.the_planner, "wisdom", {})
+    monkeypatch.setattr(ft.the_planner, "wisdom", {})
     yield
     ref_config.pallas_mode, config.kernel_mode = old
 
