@@ -22,18 +22,30 @@ launch count set to 0 just before the path and read just after:
   ``pallas4`` raced against ``mixed``) and a plan pinned to
   ``pallas4-32x128`` by a reference-format wisdom import: K2, then K1 with
   the fused pre-twiddle (phase 11);
-* 3-D c2c at 256^3, wherever ESTIMATE sends it (phase 12).
+* 3-D c2c at 256^3, wherever ESTIMATE sends it (phase 12);
+* 1-D r2c and c2r, ``plan_dft_r2c((65536, 1024), axes=(1,))`` and its
+  inverse: one launch of the r2c kernel K4 (of the c2r kernel K6) per
+  call, their gradients through K1 (K4) (phase 17);
+* 2-D r2c and c2r at full width, ``plan_dft_r2c((8, 2048, 2048),
+  axes=(1, 2))`` and its inverse: K4 then K2, K2 then K6; with
+  ``config.r2c_swapped`` the axis -2 r2c kernel K5 then K1; the three arms
+  timed interleaved, and K2 and K1 held against their twins on this path's
+  own planes (phase 18).
 
 Every path is checked against ``torch.fft`` in complex128 (an oracle only),
 and every kernel route's gradient against its opposite-sign launches.
-Phase 13 profiles the new paths with ``torch.profiler`` in a child process
-(``--profile-paths``), phase 14 times each kernel, its twin and the one
+Phase 13 profiles the c2c paths with ``torch.profiler`` in a child process
+(``--profile-paths c2c``), phase 14 times each kernel, its twin and the one
 PyTorch call that computes the same function at its path's shape, and
 holds each against its twin there.  Phase 15 times the 3-D and 2-D batched
 plans against the other routes the port could take for them: K2 on every
 non-last axis with K1 on the last (no fusion), and a ``movedim`` lift
-around K1 on every axis.  Exits non-zero at the first failed check, and
-without printing a result when torch sees no CUDA device.
+around K1 on every axis.  Phase 16 holds K4, K5 and K6 against their twins
+and float64 over a case grid; phase 19 profiles the real paths in a second
+child (``--profile-paths real``) and times the three real kernels against
+their twins and ``torch.fft.rfft``/``irfft``.  Exits non-zero at the first
+failed check, and without printing a result when torch sees no CUDA
+device.
 
 The last two lines of standard output are JSON: the kernels of the paths
 (name, source, launches, error against the twin, times, bound), then
@@ -57,6 +69,7 @@ from fftw3_tpu_torch import planner as P
 from fftw3_tpu_torch.ops import _build
 from fftw3_tpu_torch.ops import c2c as c2c_ops
 from fftw3_tpu_torch.ops import fused2d, inner
+from fftw3_tpu_torch.ops import real_stockham as RS
 from fftw3_tpu_torch.ops import stockham as S
 from fftw3_tpu_torch.utils import timing
 
@@ -94,6 +107,15 @@ N4 = 4096                   # the four-step path: n = 4096, B = 4096
 B4 = 4096
 SUITE_CUBE = 256            # the reference suite's 3-D shape
 
+#: the real kernels' case grid: n, batches (K4, K6), and pre and L (K5)
+REAL_NS = [256, 512, 1024, 2048, 4096]
+REAL_BATCHES = [1, 37, 4096]
+R2C_INNER_PRES = [1, 3, 8]
+R2C_INNER_LS = [1, 37, 128, 1025, 2048]
+REAL_1D = (65536, 1024)     # the 1-D real path: plan_dft_r2c(REAL_1D, (1,))
+REAL_2D = (8, 2048, 2048)   # the full-width 2-D path, axes (1, 2): the
+#                             reference suite's r2c_2d_2048 cell
+
 #: a ``fftw3_tpu`` wisdom export (reference format) that pins
 #: plan_many_dft([4096], howmany=4096) to the four-step pallas4-32x128: the
 #: reference package's own ESTIMATE export for that problem, as
@@ -125,7 +147,10 @@ FP32_FLOPS_PER_S = 67e12
 COUNTERS = {"stockham_c2c": (S, "launches"),
             "stockham_c2c_fourstep": (S, "fourstep_launches"),
             "inner_c2c": (inner, "launches"),
-            "c2c_2d": (fused2d, "launches")}
+            "c2c_2d": (fused2d, "launches"),
+            "r2c": (RS, "r2c_launches"),
+            "r2c_inner": (RS, "r2c_inner_launches"),
+            "c2r": (RS, "c2r_launches")}
 
 
 def fail(msg: str) -> None:
@@ -145,6 +170,10 @@ def relerr(got: torch.Tensor, want: torch.Tensor) -> float:
 def planes(rng, shape, device):
     return tuple(torch.from_numpy(rng.standard_normal(shape, np.float32))
                  .to(device) for _ in range(2))
+
+
+def real_rows(rng, shape, device):
+    return torch.from_numpy(rng.standard_normal(shape, np.float32)).to(device)
 
 
 def np_oracle(xr, xi, sign, rows=ORACLE_ROWS):
@@ -186,6 +215,12 @@ def reset_counts() -> None:
 
 def read_counts():
     return {k: getattr(mod, attr) for k, (mod, attr) in COUNTERS.items()}
+
+
+def only(**launches):
+    """The full count dict with the named kernels at the given counts and
+    every other kernel at 0."""
+    return {**dict.fromkeys(COUNTERS, 0), **launches}
 
 
 def time_ms(fn, args) -> float:
@@ -315,14 +350,55 @@ def grad_equals(label, fwd, adj, shape, rng, dev, exact=True):
     check(e == 0.0 if exact else e <= TOL, f"{label}: gradient mismatch")
 
 
-def profile_paths(rng, dev) -> None:
-    """``torch.profiler`` breakdowns of the 3-D, 2-D batched and four-step
-    paths: wall and device time per call, idle share, time per kernel.  The
-    3-D path must show K2 and K3 and no other kernel (no copy)."""
+def real_2d_plans():
+    """The full-width 2-D real arms: the r2c as planned, with
+    ``config.r2c_swapped``, and the c2r."""
+    plans = {"r2c": ft.plan_dft_r2c(REAL_2D, axes=(1, 2), device="cuda")}
+    ft.config.r2c_swapped = True
+    try:
+        plans["r2c swapped"] = ft.plan_dft_r2c(REAL_2D, axes=(1, 2),
+                                               device="cuda")
+    finally:
+        ft.config.r2c_swapped = False
+    plans["c2r"] = ft.plan_dft_c2r(REAL_2D, axes=(1, 2), device="cuda")
+    return plans
+
+
+def profile_real_paths(rng, dev, smi_line) -> None:
+    """``torch.profiler`` breakdowns of the real paths: the 1-D r2c and
+    c2r, and the three full-width 2-D arms (the swapped arm's Hermitian
+    rebuild shows as its own kernels)."""
+    x = real_rows(rng, REAL_1D, dev)
+    p = ft.plan_dft_r2c(REAL_1D, axes=(1,), device="cuda")
+    q = ft.plan_dft_c2r(REAL_1D, axes=(1,), device="cuda")
+    profile_calls(f"r2c {REAL_1D} apply_split", p.apply_split, (x,),
+                  smi_line, tag="[19]")
+    profile_calls(f"r2c {REAL_1D} execute", p.execute, (x,), smi_line,
+                  tag="[19]")
+    y = p.apply_split(x)
+    profile_calls(f"c2r {REAL_1D} apply_split", q.apply_split, y, smi_line,
+                  tag="[19]")
+    del x, y, p, q
+    x = real_rows(rng, REAL_2D, dev)
+    arms = real_2d_plans()
+    y = arms["r2c"].apply_split(x)
+    for label, plan in arms.items():
+        profile_calls(f"{label} {REAL_2D} apply_split", plan.apply_split,
+                      y if label == "c2r" else (x,), smi_line, tag="[19]")
+
+
+def profile_paths(rng, dev, group) -> None:
+    """``torch.profiler`` breakdowns, group ``c2c``: the 3-D, 2-D batched
+    and four-step paths: wall and device time per call, idle share, time
+    per kernel (the 3-D path must show K2 and K3 and no other kernel, no
+    copy); group ``real``: :func:`profile_real_paths`."""
     smi_line = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
     _build.library()
+    if group == "real":
+        profile_real_paths(rng, dev, smi_line)
+        return
     cube = (CUBE,) * 3
     p3 = ft.plan_dft_3d(*cube, device="cuda")
     xr, xi = planes(rng, cube, dev)
@@ -354,9 +430,10 @@ def profile_paths(rng, dev) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--profile-paths", action="store_true",
-                    help="only profile the 3-D, 2-D batched and four-step "
-                    "paths (the full run starts this in a child process)")
+    ap.add_argument("--profile-paths", choices=["c2c", "real"],
+                    help="only profile the c2c paths (3-D, 2-D batched, "
+                    "four-step) or the real paths (the full run starts "
+                    "each in a child process)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch sees no CUDA device", file=sys.stderr)
@@ -364,7 +441,7 @@ def main() -> None:
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
     if args.profile_paths:
-        profile_paths(rng, dev)
+        profile_paths(rng, dev, args.profile_paths)
         return
     t_start = time.perf_counter()
 
@@ -658,8 +735,7 @@ def main() -> None:
     torch.cuda.synchronize()
     counts3 = read_counts()
     print(f"[9] launches, one apply_split call: {counts3}")
-    check(counts3 == {"stockham_c2c": 0, "stockham_c2c_fourstep": 0,
-                      "inner_c2c": 1, "c2c_2d": 1},
+    check(counts3 == only(inner_c2c=1, c2c_2d=1),
           "the 3-D path is not one K2 and one K3 launch")
     check(bool(torch.isfinite(yr).all() and torch.isfinite(yi).all()),
           "non-finite 3-D output")
@@ -715,8 +791,7 @@ def main() -> None:
     torch.cuda.synchronize()
     counts2 = read_counts()
     print(f"[10] launches, one apply_split call: {counts2}")
-    check(counts2 == {"stockham_c2c": 0, "stockham_c2c_fourstep": 0,
-                      "inner_c2c": 0, "c2c_2d": 1},
+    check(counts2 == only(c2c_2d=1),
           "the 2-D batched path is not one K3 launch")
     e2 = relerr(torch.complex(yr, yi).to(torch.complex128),
                 oracle(torch.complex(xr, xi), (1, 2), -1))
@@ -771,8 +846,7 @@ def main() -> None:
     torch.cuda.synchronize()
     counts4 = read_counts()
     print(f"[11] (b) launches, one apply_split call: {counts4}")
-    check(counts4 == {"stockham_c2c": 0, "stockham_c2c_fourstep": 1,
-                      "inner_c2c": 1, "c2c_2d": 0},
+    check(counts4 == only(stockham_c2c_fourstep=1, inner_c2c=1),
           "the four-step is not one K2 and one pre-twiddled K1 launch")
     e4 = relerr(torch.complex(yr, yi).to(torch.complex128), ref4)
     print(f"[11] (b) rel err vs torch.fft complex128 {e4:.2e}")
@@ -825,7 +899,7 @@ def main() -> None:
     # On the card machine the profiler stops seeing device activity about a
     # minute into a process, so these profiles run in a child process.
     sys.stdout.flush()
-    res = subprocess.run([sys.executable, __file__, "--profile-paths",
+    res = subprocess.run([sys.executable, __file__, "--profile-paths", "c2c",
                           "--seed", str(args.seed)], timeout=600)
     check(res.returncode == 0, "the profile of the paths failed")
 
@@ -988,15 +1062,364 @@ def main() -> None:
         del xr, xi, pr, rt
         torch.cuda.empty_cache()
 
-    # the JSON line keeps one row per kernel: K3 at its 3-D path shape
-    for r in rows14:
+    print(f"[15] done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    c128 = torch.complex128
+
+    # -- 16. the real kernels vs twins vs float64 ---------------------------
+    worst = dict.fromkeys(("r2c", "c2r", "r2c_inner"), 0.0)
+    ncases = dict.fromkeys(worst, 0)
+    for n in REAL_NS:
+        rad = S.choose_radices(n // 2)
+        t_fwd = RS._device_table(n, tuple(rad), -1, dev)
+        t_inv = RS._device_table(n, tuple(rad), +1, dev)
+        for b in REAL_BATCHES:
+            x = real_rows(rng, (b, n), dev)
+            kr, ki = RS.r2c_cuda(x, rad, t_fwd)
+            tr, ti = RS.r2c_torch(x, rad)
+            torch.cuda.synchronize()
+            k = torch.complex(kr, ki)
+            e_kt = relerr(k, torch.complex(tr, ti))
+            e_ko = relerr(k.to(c128), torch.fft.rfft(x.double()))
+            check(e_kt <= TOL and e_ko <= TOL, f"r2c n={n} B={b}: "
+                  f"kernel-twin {e_kt:.2e}, kernel-f64 {e_ko:.2e}")
+            worst["r2c"] = max(worst["r2c"], e_kt)
+            # random half spectra: Im X[0] and Im X[n/2] must drop out
+            xr, xi = planes(rng, (b, n // 2 + 1), dev)
+            y = RS.c2r_cuda(xr, xi, rad, t_inv)
+            e_kt = relerr(y, RS.c2r_torch(xr, xi, rad))
+            e_ko = relerr(y.double(), torch.fft.irfft(
+                torch.complex(xr, xi).to(c128), n) * n)
+            check(e_kt <= TOL and e_ko <= TOL, f"c2r n={n} B={b}: "
+                  f"kernel-twin {e_kt:.2e}, kernel-f64 {e_ko:.2e}")
+            worst["c2r"] = max(worst["c2r"], e_kt)
+            ncases["r2c"] += 1
+            ncases["c2r"] += 1
+            del x, kr, ki, tr, ti, k, xr, xi, y
+        for pre in R2C_INNER_PRES:
+            for L in R2C_INNER_LS:
+                x = real_rows(rng, (pre, n, L), dev)
+                kr, ki = RS.r2c_inner_cuda(x, rad, t_fwd)
+                tr, ti = RS.r2c_inner_torch(x, rad)
+                torch.cuda.synchronize()
+                k = torch.complex(kr, ki)
+                e_kt = relerr(k, torch.complex(tr, ti))
+                e_ko = relerr(k.to(c128), torch.fft.rfft(x.double(), dim=-2)) \
+                    if pre * n * L <= GRID_ORACLE_POINTS else None
+                check(e_kt <= TOL and (e_ko is None or e_ko <= TOL),
+                      f"r2c_inner n={n} pre={pre} L={L}: kernel-twin "
+                      f"{e_kt:.2e}, kernel-f64 {e_ko}")
+                worst["r2c_inner"] = max(worst["r2c_inner"], e_kt)
+                ncases["r2c_inner"] += 1
+                del x, kr, ki, tr, ti, k
+        print(f"[16] n={n} r={rad}: worst kernel-twin so far "
+              + ", ".join(f"{k} {e:.2e}" for k, e in worst.items()),
+              flush=True)
+    for k, e in worst.items():
+        print(f"[16] {k}: {ncases[k]} cases, worst kernel-twin {e:.2e} "
+              f"(max-abs over max-abs; tolerance {TOL}), each also within "
+              f"{TOL} of complex128 up to {GRID_ORACLE_POINTS} points")
+    torch.cuda.empty_cache()
+
+    # -- 17. the 1-D real path: plan_dft_r2c((65536, 1024), axes=(1,)) -----
+    n1 = REAL_1D[1]
+    rad1 = S.choose_radices(n1 // 2)
+    p1 = ft.plan_dft_r2c(REAL_1D, axes=(1,), device="cuda")
+    q1 = ft.plan_dft_c2r(REAL_1D, axes=(1,), device="cuda")
+    print(f"[17] {p1!r}; {q1!r}")
+    check(p1.descriptors == {1: {"alg": "pallas_r2c", "n": n1,
+                                 "radices": rad1}}, f"1-D r2c plan {p1!r}")
+    check(q1.descriptors == {1: {"alg": "pallas_c2r", "n": n1,
+                                 "radices": rad1}}, f"1-D c2r plan {q1!r}")
+    x = real_rows(rng, REAL_1D, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    yr, yi = p1.apply_split(x)
+    torch.cuda.synchronize()
+    c17_r2c = read_counts()
+    check(c17_r2c == only(r2c=1), f"1-D r2c launched {c17_r2c}")
+    yc = p1.execute(x)
+    torch.cuda.synchronize()
+    reset_counts()
+    z = q1.apply_split(yr, yi)
+    torch.cuda.synchronize()
+    c17_c2r = read_counts()
+    check(c17_c2r == only(c2r=1), f"1-D c2r launched {c17_c2r}")
+    zc = q1.execute(yc)
+    ref = torch.fft.rfft(x.double())
+    e_r = relerr(torch.complex(yr, yi).to(c128), ref)
+    e_rx = relerr(yc.to(c128), ref)
+    del ref
+    e_c = relerr(z.double(), torch.fft.irfft(yc.to(c128), n1) * n1)
+    e_rt = relerr(zc.double(), n1 * x.double())
+    check(bool(torch.isfinite(yc).all() and torch.isfinite(zc).all()),
+          "non-finite 1-D real output")
+    check(tuple(yc.shape) == (REAL_1D[0], n1 // 2 + 1)
+          and tuple(zc.shape) == REAL_1D, "wrong 1-D real output shape")
+    print(f"[17] launches per call: r2c {c17_r2c['r2c']} K4, c2r "
+          f"{c17_c2r['c2r']} K6; rel err vs torch.fft complex128: r2c "
+          f"apply_split {e_r:.3e}, execute {e_rx:.3e}; c2r vs irfft * n "
+          f"{e_c:.3e}; c2r(r2c(x)) vs n x {e_rt:.3e}")
+    check(max(e_r, e_rx, e_c, e_rt) <= TOL, "1-D real path over tolerance")
+    del yc, z, zc
+
+    # gradients: r2c's backward is one K1 launch, c2r's one K4 launch
+    xg = x.clone().requires_grad_()
+    gr, gi = planes(rng, (REAL_1D[0], n1 // 2 + 1), dev)
+    outr, outi = p1.apply_split(xg)
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.autograd.backward([outr, outi], [gr, gi])
+    torch.cuda.synchronize()
+    c_back = read_counts()
+    check(c_back == only(stockham_c2c=1),
+          f"r2c's backward launched {c_back}")
+    x64 = x.double().requires_grad_()
+    y64 = torch.fft.rfft(x64)
+    torch.autograd.backward([y64.real, y64.imag], [gr.double(), gi.double()])
+    e_gr = relerr(xg.grad.double(), x64.grad)
+    del xg, outr, outi, x64, y64
+    hr, hi = yr.clone().requires_grad_(), yi.clone().requires_grad_()
+    g = real_rows(rng, REAL_1D, dev)
+    out = q1.apply_split(hr, hi)
+    torch.cuda.synchronize()
+    reset_counts()
+    out.backward(g)
+    torch.cuda.synchronize()
+    c_backc = read_counts()
+    check(c_backc == only(r2c=1), f"c2r's backward launched {c_backc}")
+    X64 = torch.complex(yr, yi).to(c128).requires_grad_()
+    (torch.fft.irfft(X64, n1) * n1).backward(g.double())
+    e_gc = relerr(torch.complex(hr.grad, hi.grad).to(c128), X64.grad)
+    print(f"[17] gradients vs torch.fft autograd in complex128: r2c "
+          f"{e_gr:.2e} (one K1 launch), c2r {e_gc:.2e} (one K4 launch)")
+    check(e_gr <= TOL and e_gc <= TOL, "1-D real gradients over tolerance")
+    del x, yr, yi, gr, gi, hr, hi, g, out, X64, p1, q1
+    torch.cuda.empty_cache()
+
+    # -- 18. the full-width 2-D path: plan_dft_r2c((8, 2048, 2048), (1, 2)) -
+    arms = real_2d_plans()
+    for label, plan in arms.items():
+        print(f"[18] {label}: {plan!r}")
+    n2 = REAL_2D[-1]
+    d_r2c = {"alg": "pallas_r2c", "n": n2,
+             "radices": S.choose_radices(n2 // 2)}
+    d_c2c = {"alg": "pallas", "n": n2, "radices": S.choose_radices(n2)}
+    check(arms["r2c"].descriptors == {1: d_c2c, 2: d_r2c}, "2-D r2c plan")
+    check(arms["r2c swapped"].descriptors == {
+        1: dict(d_r2c, alg="pallas_r2c_inner"), 2: d_c2c}, "swapped plan")
+    check(arms["c2r"].descriptors == {1: d_c2c,
+                                      2: dict(d_r2c, alg="pallas_c2r")},
+          "2-D c2r plan")
+    x = real_rows(rng, REAL_2D, dev)
+    ref = torch.fft.rfftn(x.double(), dim=(1, 2))
+    want18 = {"r2c": only(r2c=1, inner_c2c=1),
+              "r2c swapped": only(r2c_inner=1, stockham_c2c=1)}
+    counts18 = {}
+    for label, want_c in want18.items():
+        torch.cuda.synchronize()
+        reset_counts()
+        yr, yi = arms[label].apply_split(x)
+        torch.cuda.synchronize()
+        counts18[label] = c = read_counts()
+        e = relerr(torch.complex(yr, yi).to(c128), ref)
+        print(f"[18] {label}: launches {({k: v for k, v in c.items() if v})}"
+              f", rel err vs torch.fft.rfftn complex128 {e:.3e}")
+        check(c == want_c, f"{label} launched {c}")
+        check(e <= TOL, f"{label} over tolerance at {REAL_2D}")
+        if label == "r2c":
+            y2 = (yr, yi)
+        del yr, yi
+    del ref
+    npts = REAL_2D[1] * REAL_2D[2]
+    torch.cuda.synchronize()
+    reset_counts()
+    z = arms["c2r"].apply_split(*y2)
+    torch.cuda.synchronize()
+    counts18["c2r"] = c = read_counts()
+    check(c == only(inner_c2c=1, c2r=1), f"2-D c2r launched {c}")
+    e_c = relerr(z.double(), torch.fft.irfftn(
+        torch.complex(*y2).to(c128), s=REAL_2D[1:], dim=(1, 2)) * npts)
+    e_rt = relerr(z.double(), npts * x.double())
+    print(f"[18] c2r: launches {({k: v for k, v in c.items() if v})}, "
+          f"rel err vs irfftn * N complex128 {e_c:.3e}, c2r(r2c(x)) vs N x "
+          f"{e_rt:.3e}")
+    check(e_c <= TOL and e_rt <= TOL, "2-D c2r over tolerance")
+    del z
+
+    # gradients through K2, K4's and K6's backward, against torch.fft's
+    xg = x.clone().requires_grad_()
+    w = torch.complex(*planes(rng, y2[0].shape, dev))
+    (torch.complex(*arms["r2c"].apply_split(xg)) * w).real.sum().backward()
+    x64 = x.double().requires_grad_()
+    (torch.fft.rfftn(x64, dim=(1, 2)) * w.to(c128)).real.sum().backward()
+    e_gr = relerr(xg.grad.double(), x64.grad)
+    del xg, x64
+    hr, hi = (t.clone().requires_grad_() for t in y2)
+    g = real_rows(rng, REAL_2D, dev)
+    (arms["c2r"].apply_split(hr, hi) * g).sum().backward()
+    X64 = torch.complex(*y2).to(c128).requires_grad_()
+    (torch.fft.irfftn(X64, s=REAL_2D[1:], dim=(1, 2)) * npts
+     * g.double()).sum().backward()
+    e_gc = relerr(torch.complex(hr.grad, hi.grad).to(c128), X64.grad)
+    print(f"[18] gradients vs torch.fft autograd in complex128: r2c "
+          f"{e_gr:.2e}, c2r {e_gc:.2e}")
+    check(e_gr <= TOL and e_gc <= TOL, "2-D real gradients over tolerance")
+    del w, hr, hi, g, X64
+    torch.cuda.empty_cache()
+
+    # K2 and K1 against their twins on this path's own planes: K2 on the
+    # (8, 2048, 1025) half spectrum (the r2c's sign -1 pass on K4's output,
+    # the c2r's sign +1 pass on its input: 256 full tiles and a 1-column
+    # edge tile per plane), K1 on the swapped route's (8 * 1025, 2048) rows
+    # (K5's output).  Launches made here are not counted.
+    n_a = REAL_2D[1]
+    rad_a, rad_h = S.choose_radices(n_a), S.choose_radices(n_a // 2)
+    t_h = RS._device_table(n_a, tuple(rad_h), -1, dev)
+    kr, ki = RS.r2c_cuda(x.reshape(-1, n2), rad_h, t_h)
+    half = (kr.view(*REAL_2D[:2], -1), ki.view(*REAL_2D[:2], -1))
+    for sign, (pr, pi) in ((-1, half), (+1, y2)):
+        t_a = S._device_table(n_a, tuple(rad_a), sign, dev)
+        kr, ki = inner.inner_c2c_cuda(pr, pi, rad_a, t_a)
+        tr, ti = inner.inner_c2c_torch(pr, pi, rad_a, sign)
+        err, rel = twin_err(f"inner_c2c {tuple(pr.shape)} sign {sign:+d}",
+                            kr, ki, tr, ti)
+        print(f"[18] K2 on {tuple(pr.shape)} sign {sign:+d} (tile "
+              f"{inner.tile_width(n_a, pr.shape[-1])} columns): kernel-twin "
+              f"max abs {err:.3e}, over max |twin| {rel:.2e}")
+        del kr, ki, tr, ti
+    del half
+    kr, ki = RS.r2c_inner_cuda(x, rad_h, t_h)
+    rows = (kr.reshape(-1, n2), ki.reshape(-1, n2))
+    del kr, ki
+    kr, ki = S.stockham_c2c_cuda(*rows, rad_a, S._device_table(
+        n2, tuple(rad_a), -1, dev))
+    tr, ti = S.stockham_c2c_torch(*rows, rad_a, -1)
+    err, rel = twin_err(f"stockham_c2c {tuple(rows[0].shape)}", kr, ki, tr,
+                        ti)
+    print(f"[18] K1 on {tuple(rows[0].shape)} sign -1: kernel-twin max abs "
+          f"{err:.3e}, over max |twin| {rel:.2e}")
+    del rows, kr, ki, tr, ti
+    torch.cuda.empty_cache()
+
+    # the three arms, interleaved: each timed twice, in the order r2c,
+    # swapped, c2r, then back
+    args18 = {label: (y2 if label == "c2r" else (x,)) for label in arms}
+    times18 = {label: [] for label in arms}
+    for label in list(arms) + list(arms)[::-1]:
+        times18[label].append(time_ms(arms[label].apply_split,
+                                      args18[label]))
+    yc2 = torch.complex(*y2)
+    t_rfftn = time_ms(lambda a: torch.fft.rfftn(a, dim=(1, 2)), (x,))
+    t_irfftn = time_ms(lambda a: torch.fft.irfftn(a, s=REAL_2D[1:],
+                                                  dim=(1, 2)), (yc2,))
+    b18, by18 = bound(4.0 * x.numel() + 8.0 * y2[0].numel(),
+                      fft_flops(x.numel(), *REAL_2D[1:]) / 2)
+    for label, ts in times18.items():
+        print(f"[18] {label} {REAL_2D}: {ts[0]:.3f} / {ts[1]:.3f} ms "
+              f"({smi_line})")
+    print(f"[18] torch.fft.rfftn {t_rfftn:.3f} ms, irfftn {t_irfftn:.3f} "
+          f"ms; bound {b18:.3f} ms ({by18}: real in, half spectrum out, "
+          f"once) ({smi_line})")
+    del x, y2, yc2, arms
+    torch.cuda.empty_cache()
+
+    # -- 19. the real paths profiled in a fresh process; kernel times -------
+    sys.stdout.flush()
+    res = subprocess.run([sys.executable, __file__, "--profile-paths",
+                          "real", "--seed", str(args.seed)], timeout=600)
+    check(res.returncode == 0, "the profile of the real paths failed")
+    rows19 = []
+
+    def zeros(t):
+        return torch.zeros_like(t)
+    # K4 and K6 at the 1-D path's shape (the JSON rows) and at the 2-D
+    # path's rows (printed for PERF.md)
+    for shape, launches in ((REAL_1D, (c17_r2c["r2c"], c17_c2r["c2r"])),
+                            ((REAL_2D[0] * REAL_2D[1], REAL_2D[2]),
+                             (counts18["r2c"]["r2c"],
+                              counts18["c2r"]["c2r"]))):
+        B, n = shape
+        rad = S.choose_radices(n // 2)
+        tf = RS._device_table(n, tuple(rad), -1, dev)
+        ti_ = RS._device_table(n, tuple(rad), +1, dev)
+        x = real_rows(rng, shape, dev)
+        kr, ki = RS.r2c_cuda(x, rad, tf)
+        tr, ti = RS.r2c_torch(x, rad)
+        err, rel = twin_err(f"r2c {shape}", kr, ki, tr, ti)
+        del tr, ti
+        rows19.append({
+            "name": "r2c", "route": "cuda",
+            "source": "fftw3_tpu_torch/csrc/r2c.cu",
+            "replaces": "fftw3_tpu/ops/pallas_stockham.py:1245",
+            "launches": launches[0], "max_abs_err": err, "rel_err": rel,
+            "ms": time_ms(lambda a: RS.r2c_cuda(a, rad, tf), (x,)),
+            "plain_ms": time_ms(lambda a: RS.r2c_torch(a, rad), (x,)),
+            "library_ms": time_ms(lambda a: torch.fft.rfft(a), (x,)),
+            "shape": shape, "bytes": 4.0 * B * n + 8.0 * kr.numel(),
+            "flops": fft_flops(B * n, n) / 2})
+        y = RS.c2r_cuda(kr, ki, rad, ti_)
+        ty = RS.c2r_torch(kr, ki, rad)
+        err, rel = twin_err(f"c2r {shape}", y, zeros(y), ty, zeros(ty))
+        del y, ty
+        kc = torch.complex(kr, ki)
+        rows19.append({
+            "name": "c2r", "route": "cuda",
+            "source": "fftw3_tpu_torch/csrc/c2r.cu",
+            "replaces": "fftw3_tpu/ops/pallas_stockham.py:1578",
+            "launches": launches[1], "max_abs_err": err, "rel_err": rel,
+            "ms": time_ms(lambda a, b: RS.c2r_cuda(a, b, rad, ti_),
+                          (kr, ki)),
+            "plain_ms": time_ms(lambda a, b: RS.c2r_torch(a, b, rad),
+                                (kr, ki)),
+            "library_ms": time_ms(lambda z: torch.fft.irfft(z, n) * n,
+                                  (kc,)),
+            "shape": (B, n // 2 + 1), "bytes": 8.0 * kr.numel() + 4.0 * B * n,
+            "flops": fft_flops(B * n, n) / 2})
+        del x, kr, ki, kc
+        torch.cuda.empty_cache()
+    # K5 at the swapped path's shape
+    n = REAL_2D[1]
+    rad = S.choose_radices(n // 2)
+    tf = RS._device_table(n, tuple(rad), -1, dev)
+    x = real_rows(rng, REAL_2D, dev)
+    kr, ki = RS.r2c_inner_cuda(x, rad, tf)
+    tr, ti = RS.r2c_inner_torch(x, rad)
+    err, rel = twin_err(f"r2c_inner {REAL_2D}", kr, ki, tr, ti)
+    rows19.append({
+        "name": "r2c_inner", "route": "cuda",
+        "source": "fftw3_tpu_torch/csrc/r2c_inner.cu",
+        "replaces": "fftw3_tpu/ops/pallas_stockham.py:1343",
+        "launches": counts18["r2c swapped"]["r2c_inner"],
+        "max_abs_err": err, "rel_err": rel,
+        "ms": time_ms(lambda a: RS.r2c_inner_cuda(a, rad, tf), (x,)),
+        "plain_ms": time_ms(lambda a: RS.r2c_inner_torch(a, rad), (x,)),
+        "library_ms": time_ms(lambda a: torch.fft.rfft(a, dim=-2), (x,)),
+        "shape": REAL_2D, "bytes": 4.0 * x.numel() + 8.0 * kr.numel(),
+        "flops": fft_flops(x.numel(), n) / 2})
+    del x, kr, ki, tr, ti
+    torch.cuda.empty_cache()
+    for r in rows19:
+        r["bound_ms"], r["bound_by"] = bound(r.pop("bytes"), r.pop("flops"))
+        print(f"[19] {r['name']} {r['shape']}: kernel {r['ms']:.3f} ms, "
+              f"twin {r['plain_ms']:.3f} ms, library "
+              f"{r['library_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms "
+              f"({r['bound_by']}); launches per call on its path "
+              f"{r['launches']}; kernel-twin max abs err "
+              f"{r['max_abs_err']:.3e}, over max |twin| {r['rel_err']:.2e} "
+              f"({smi_line})")
+
+    # the JSON line keeps one row per kernel: K3 at its 3-D path shape, K4
+    # and K6 at the 1-D real path's shape
+    for r in rows14 + rows19:
         if r["name"] == "c2c_2d" and r["shape"] != (CUBE,) * 3:
+            continue
+        if r["name"] in ("r2c", "c2r") and r["shape"][0] != REAL_1D[0]:
             continue
         kernels.append({k: v for k, v in r.items() if k != "shape"})
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
 
-    print(f"[15] whole run {time.perf_counter() - t_start:.1f} s")
+    print(f"[19] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

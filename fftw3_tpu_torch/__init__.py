@@ -1,17 +1,20 @@
 """fftw3_tpu_torch — the PyTorch/CUDA port of ``fftw3_tpu``.
 
-FFTW3's planned c2c surface on PyTorch tensors: batched and
-multidimensional complex DFTs with the cost-driven planner and wisdom of
-the reference package, the Stockham transforms as hand-written CUDA
-kernels for Hopper (``csrc/``: the last axis, axis -2, both trailing axes
-fused, and the four-step above the one-kernel window), and a plain PyTorch
-twin of every kernel for the CPU.  Imports ``torch``, never ``jax``.
+FFTW3's planned c2c, r2c and c2r surface on PyTorch tensors: batched and
+multidimensional complex and real DFTs with the cost-driven planner and
+wisdom of the reference package, the Stockham transforms as hand-written
+CUDA kernels for Hopper (``csrc/``: the last axis, axis -2, both trailing
+axes fused, the four-step above the one-kernel window, and the real r2c,
+axis -2 r2c and c2r kernels), and a plain PyTorch twin of every kernel for
+the CPU.  Imports ``torch``, never ``jax``.
 """
 from . import config  # noqa: F401
 from .api import (  # noqa: F401
     Plan, Problem, cost, execute, export_wisdom_to_string, flops,
     forget_wisdom, import_reference_wisdom, import_wisdom_from_string,
-    plan_dft, plan_dft_1d, plan_dft_2d, plan_dft_3d, plan_many_dft,
+    plan_dft, plan_dft_1d, plan_dft_2d, plan_dft_3d, plan_dft_c2r,
+    plan_dft_c2r_1d, plan_dft_c2r_2d, plan_dft_c2r_3d, plan_dft_r2c,
+    plan_dft_r2c_1d, plan_dft_r2c_2d, plan_dft_r2c_3d, plan_many_dft,
     print_plan, set_timelimit, sprint_plan)
 from .kinds import (  # noqa: F401
     BACKWARD, ESTIMATE, EXHAUSTIVE, FORWARD, MEASURE, PATIENT, WISDOM_ONLY,

@@ -1,9 +1,9 @@
-"""Public planned API — the c2c part of ``fftw3_tpu/api.py``.
+"""Public planned API — the c2c, r2c and c2r part of ``fftw3_tpu/api.py``.
 
-FFTW-style: ``plan_dft*`` and ``plan_many_dft`` build a :class:`Plan` for a
-device (``device=``, default ``config.device``), ``execute`` runs it, and
-wisdom moves to and from strings.  Transforms are unnormalized, like
-FFTW's.
+FFTW-style: ``plan_dft*``, ``plan_many_dft``, ``plan_dft_r2c*`` and
+``plan_dft_c2r*`` build a :class:`Plan` for a device (``device=``, default
+``config.device``), ``execute`` runs it, and wisdom moves to and from
+strings.  Transforms are unnormalized, like FFTW's.
 """
 from __future__ import annotations
 
@@ -76,6 +76,58 @@ def plan_many_dft(n: Sequence[int], howmany: int, sign: int = FORWARD,
     shape = (howmany,) + n
     axes = tuple(range(1, len(n) + 1))
     return plan_dft(shape, axes, sign, flags, dtype, device)
+
+
+def plan_dft_r2c(shape: Sequence[int], axes=None, flags: int = ESTIMATE,
+                 dtype="float32", device=None) -> Plan:
+    """Real-input DFT plan over `axes` of real tensors of `shape`: the last
+    transform axis keeps n//2+1 bins (FFTW's rdft2 layout)."""
+    shape = tuple(shape)
+    prob = Problem(shape=shape, axes=_axes_tuple(shape, axes), kind="r2c",
+                   rdtype=_rdtype_of(dtype))
+    with _lock:
+        return plan_mod.make_plan(prob, flags, device=device)
+
+
+def plan_dft_r2c_1d(n: int, flags: int = ESTIMATE, dtype="float32",
+                    device=None) -> Plan:
+    return plan_dft_r2c((n,), (0,), flags, dtype, device)
+
+
+def plan_dft_r2c_2d(n0: int, n1: int, flags: int = ESTIMATE,
+                    dtype="float32", device=None) -> Plan:
+    return plan_dft_r2c((n0, n1), (0, 1), flags, dtype, device)
+
+
+def plan_dft_r2c_3d(n0: int, n1: int, n2: int, flags: int = ESTIMATE,
+                    dtype="float32", device=None) -> Plan:
+    return plan_dft_r2c((n0, n1, n2), (0, 1, 2), flags, dtype, device)
+
+
+def plan_dft_c2r(shape: Sequence[int], axes=None, flags: int = ESTIMATE,
+                 dtype="float32", device=None) -> Plan:
+    """Real-output inverse of :func:`plan_dft_r2c`, unnormalized.  `shape`
+    is the *logical real output* shape (FFTW convention)."""
+    shape = tuple(shape)
+    prob = Problem(shape=shape, axes=_axes_tuple(shape, axes), kind="c2r",
+                   rdtype=_rdtype_of(dtype))
+    with _lock:
+        return plan_mod.make_plan(prob, flags, device=device)
+
+
+def plan_dft_c2r_1d(n: int, flags: int = ESTIMATE, dtype="float32",
+                    device=None) -> Plan:
+    return plan_dft_c2r((n,), (0,), flags, dtype, device)
+
+
+def plan_dft_c2r_2d(n0: int, n1: int, flags: int = ESTIMATE,
+                    dtype="float32", device=None) -> Plan:
+    return plan_dft_c2r((n0, n1), (0, 1), flags, dtype, device)
+
+
+def plan_dft_c2r_3d(n0: int, n1: int, n2: int, flags: int = ESTIMATE,
+                    dtype="float32", device=None) -> Plan:
+    return plan_dft_c2r((n0, n1, n2), (0, 1, 2), flags, dtype, device)
 
 
 def execute(plan: Plan, x) -> torch.Tensor:

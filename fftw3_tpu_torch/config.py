@@ -33,6 +33,13 @@ measure_hysteresis: float = 0.95
 #: pick.  None = off (real costs).
 random_estimator = None
 
+#: Swapped rank-2 r2c composition (plan.py): r2c over axis -2 first (K5),
+#: then the last-axis c2c over the half spectrum's rows, then a Hermitian
+#: rebuild to the contract layout (half spectrum on the last axis).  Off,
+#: as in the reference, where it lost; it has no gradient (K5 is
+#: forward-only).  ``chip_smoke.py`` times it on the card (PERF.md).
+r2c_swapped: bool = False
+
 #: Surface best-effort failures instead of counting them: under ``True`` a
 #: MEASURE candidate on the CPU that raises re-raises instead of being
 #: dropped (on a CUDA device it always re-raises).

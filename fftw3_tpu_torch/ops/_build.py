@@ -45,6 +45,15 @@ SIGNATURES = {
     # p10 p11 grid csize smem, stream
     "c2c_2d_launch": [_P] * 5 + [_I] * 16 + [_P],
     "c2c_2d_occupancy": [_I, _I, ctypes.POINTER(_I)],
+    # x yr yi tab, tab_len rows n nstages p0 p1 grid smem, stream
+    "r2c_launch": [_P] * 4 + [_I] * 8 + [_P],
+    "r2c_occupancy": [_I, ctypes.POINTER(_I)],
+    # xr xi y tab, tab_len rows n nstages p0 p1 grid smem, stream
+    "c2r_launch": [_P] * 4 + [_I] * 8 + [_P],
+    "c2r_occupancy": [_I, ctypes.POINTER(_I)],
+    # x yr yi tab, tab_len pre n, L, tl nstages p0 p1 grid smem, stream
+    "r2c_inner_launch": [_P] * 4 + [_I] * 3 + [_L] + [_I] * 6 + [_P],
+    "r2c_inner_occupancy": [_I, ctypes.POINTER(_I)],
 }
 
 _lock = threading.Lock()

@@ -85,22 +85,13 @@ def inner_c2c_cuda(xr: torch.Tensor, xi: torch.Tensor,
     if pre == 0 or L == 0:
         return yr, yi
     tl = tile_width(n, L)
-    from . import _build
-    lib = _build.library()
-    smem = 4 * (table.numel() + 4 * n * tl)   # root tables + 2 split tiles
     p1 = radices[1] if len(radices) == 2 else 1
-    with S.device_guard(xr.device):
-        tiles = pre * -(-L // tl)
-        grid = min(tiles, S.resident_blocks(lib, "inner_c2c", xr.device,
-                                            smem))
-        stream = torch.cuda.current_stream(xr.device).cuda_stream
-        rc = lib.inner_c2c_launch(
-            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            table.data_ptr(), table.numel(), pre, n, L, tl, len(radices),
-            radices[0], p1, grid, smem, stream)
-    if rc != 0:
-        raise RuntimeError(f"inner_c2c kernel launch failed: CUDA error {rc} "
-                           f"(pre={pre}, n={n}, L={L}, radices={radices})")
+    S.launch("inner_c2c", xr.device, 4 * (table.numel() + 4 * n * tl),
+             pre * -(-L // tl),
+             (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+              table.data_ptr(), table.numel(), pre, n, L, tl, len(radices),
+              radices[0], p1),
+             f"pre={pre}, n={n}, L={L}, radices={radices}")
     launches += 1
     return yr, yi
 

@@ -569,27 +569,38 @@ def stockham_c2c_cuda(xr: torch.Tensor, xi: torch.Tensor,
     yi = torch.empty(shape, dtype=xi.dtype, device=xi.device)
     if B == 0:
         return yr, yi
-    from . import _build
-    lib = _build.library()
-    smem = 4 * (table.numel() + 4 * n)       # root tables + 2 split rows
     p1 = radices[1] if len(radices) == 2 else 1
-    with device_guard(xr.device):
-        grid = min(B, resident_blocks(lib, "stockham_c2c", xr.device, smem))
-        stream = torch.cuda.current_stream(xr.device).cuda_stream
-        rc = lib.stockham_c2c_launch(
-            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+    launch("stockham_c2c", xr.device, 4 * (table.numel() + 4 * n), B,
+           (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             table.data_ptr(), table.numel(), B, n, len(radices), radices[0],
             p1, pretwiddle.data_ptr() if P else None, P,
-            P if store_transposed else 0, grid, smem, stream)
-    if rc != 0:
-        raise RuntimeError(f"stockham_c2c kernel launch failed: CUDA error "
-                           f"{rc} (n={n}, radices={radices}, B={B}, "
-                           f"pretwiddle {P}, transposed {store_transposed})")
+            P if store_transposed else 0),
+           f"n={n}, radices={radices}, B={B}, pretwiddle {P}, transposed "
+           f"{store_transposed}")
     if P:
         fourstep_launches += 1
     else:
         launches += 1
     return yr, yi
+
+
+def launch(kernel: str, device: torch.device, smem: int, work: int, args,
+           what: str) -> None:
+    """Launch ``<kernel>_launch(*args, grid, smem, stream)`` with `smem`
+    bytes of shared memory per block (the root tables and the row or tile
+    buffers) on `device`'s current stream, with a grid that fills the card
+    and is at most `work` blocks; raises when the launch fails, naming
+    `what`.  Every single-block kernel launches here (K1, K2, K4, K5, K6);
+    K3 launches clusters (``ops/fused2d.py``)."""
+    from . import _build
+    lib = _build.library()
+    with device_guard(device):
+        grid = min(work, resident_blocks(lib, kernel, device, smem))
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, f"{kernel}_launch")(*args, grid, smem, stream)
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc} "
+                           f"({what})")
 
 
 #: (kernel, device index, shared-memory bytes) -> blocks resident on the

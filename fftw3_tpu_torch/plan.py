@@ -1,4 +1,4 @@
-"""Problem and Plan — the c2c part of ``fftw3_tpu/plan.py``.
+"""Problem and Plan — the c2c, r2c and c2r part of ``fftw3_tpu/plan.py``.
 
 A :class:`Problem` is a logical transform spec (shape, axes, kind, sign,
 precision); strides and vector ranks are expressed by the tensor shape.  A
@@ -10,17 +10,27 @@ does:
 
 * the trailing axis pair goes through the fused 2-D kernel (K3,
   ``ops/fused2d.py``) in one pass when ``stockham.applicable_2d`` admits it
-  and both axes' descriptors are ``pallas``;
+  and both axes' descriptors are ``pallas`` (c2c only);
 * a non-last axis with a ``pallas`` descriptor whose trailing-dims product
   reaches ``stockham.INNER_TILE_L`` goes through the axis -2 kernel (K2,
   ``ops/inner.py``) behind a reshape, with no copy;
 * every other axis runs its last-axis solver behind a ``movedim`` lift.
+
+Real transforms (the last transform axis is the real one): r2c runs its
+last axis first (K4 for a ``pallas_r2c`` descriptor), then c2c passes over
+the half spectrum; c2r runs the c2c passes first and its last axis last
+(K6).  The planes stay split between passes and are combined once, at the
+exit of the complex entry point.  One option of the reference, off by
+default: ``config.r2c_swapped`` (rank-2 r2c as K5 over axis -2, then the
+last-axis c2c, then a Hermitian rebuild).  The reference's other r2c option,
+the DC/Nyquist column pack, is not carried over: on the H100 it computes
+right but loses (PERF.md, ROADMAP queue 3).
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +39,8 @@ from . import config
 from . import kinds as K
 from . import planner as planner_mod
 from .ops import c2c as c2c_ops
-from .ops import fused2d, inner, stockham
+from .ops import fused2d, inner, real_stockham, stockham
+from .ops import real as real_ops
 
 
 def _along_axis_split(fn: Callable, axis: int) -> Callable:
@@ -65,13 +76,79 @@ def _c2c_stage(desc: Dict, sign: int, rdtype, axis: int,
     return _along_axis_split(fn, neg)
 
 
+def _r2c_along_axis(fn: Callable, axis: int) -> Callable:
+    """Lift a last-axis r2c (real -> split planes) to an arbitrary axis."""
+    def apply(x):
+        if axis in (-1, x.dim() - 1):
+            return fn(x)
+        yr, yi = fn(x.movedim(axis, -1))
+        return yr.movedim(-1, axis), yi.movedim(-1, axis)
+    return apply
+
+
+def _c2r_along_axis(fn: Callable, axis: int) -> Callable:
+    """Lift a last-axis c2r (split planes -> real) to an arbitrary axis."""
+    def apply(xr, xi):
+        if axis in (-1, xr.dim() - 1):
+            return fn(xr, xi)
+        return fn(xr.movedim(axis, -1), xi.movedim(axis, -1)).movedim(-1, axis)
+    return apply
+
+
+def _r2c_swapped(problem: "Problem", pl: planner_mod.Planner, patience: int,
+                 rdtype, vec: Callable, device):
+    """The swapped rank-2 r2c composition (``config.r2c_swapped``): r2c
+    over axis -2 first (K5, no transposes), then the last-axis c2c over the
+    (n_a/2+1)-row half spectrum, then a Hermitian rebuild back to the
+    contract layout (half spectrum on the last axis).  The transforms
+    commute, and real input gives X[u, v] = conj X[n_a-u, (n_l-v) % n_l], so
+    the missing rows u > n_a/2 are a gather of the computed ones.  The
+    rebuild is plain torch and copies (the reference measured this route
+    as the loser on the TPU).
+
+    Returns (descriptors, split apply), or None when it does not apply and
+    the normal last-axis-first composition runs."""
+    shape, axes = problem.shape, problem.axes
+    nd = len(shape)
+    if not (config.r2c_swapped and axes == (nd - 2, nd - 1)):
+        return None
+    n_a, n_l = shape[-2:]
+    if not real_stockham.r2c_inner_applicable(n_a, n_l, rdtype, device):
+        return None
+    rdesc = pl.plan_r2c(n_a, rdtype, patience, batch=vec(nd - 2),
+                        device=device)
+    if rdesc.get("alg") != "pallas_r2c":
+        return None             # the planner chose a non-kernel path
+    idesc = dict(rdesc, alg="pallas_r2c_inner")
+    r2c = real_stockham.build_pallas_r2c_inner(idesc, rdtype, device)
+    cdesc = pl.plan_c2c(n_l, rdtype, patience, batch=vec(nd - 1),
+                        device=device)
+    m_a, m_l = n_a // 2, n_l // 2
+    c2c = _c2c_stage(cdesc, K.FORWARD, rdtype, nd - 1,
+                     shape[:-2] + (m_a + 1, n_l), device)
+    # rows m_a-1 .. 1 and columns (n_l - v) % n_l, v = 0..m_l, of the
+    # computed half give the rows m_a+1 .. n_a-1 of the output (conjugated)
+    rows = torch.arange(m_a - 1, 0, -1, device=device)
+    cols = torch.tensor([(n_l - v) % n_l for v in range(m_l + 1)],
+                        device=device)
+
+    def apply(x):
+        cr, ci = c2c(*r2c(x))
+        br = cr.index_select(-2, rows).index_select(-1, cols)
+        bi = ci.index_select(-2, rows).index_select(-1, cols)
+        return (torch.cat([cr[..., :m_l + 1], br], -2),
+                torch.cat([ci[..., :m_l + 1], -bi], -2))
+    return {nd - 2: idesc, nd - 1: cdesc}, apply
+
+
 @dataclass(frozen=True)
 class Problem:
-    """Logical transform specification (problem ADT analog)."""
+    """Logical transform specification (problem ADT analog).  For c2r,
+    ``shape`` is the logical real (output) shape, as in FFTW."""
     shape: Tuple[int, ...]
     axes: Tuple[int, ...]
-    kind: str                      # only 'c2c' has a solver so far
-    sign: int = K.FORWARD
+    kind: str                      # 'c2c' | 'r2c' | 'c2r'
+    sign: int = K.FORWARD          # c2c only
     rdtype: str = "float32"        # base real precision
 
     def __post_init__(self):
@@ -84,18 +161,20 @@ class Plan:
 
     def __init__(self, problem: Problem, descriptors: Dict[int, Dict],
                  apply_fn: Callable, in_shape: Tuple[int, ...],
-                 out_shape: Tuple[int, ...], out_dtype: torch.dtype,
-                 device: torch.device,
+                 out_shape: Tuple[int, ...], in_dtype: torch.dtype,
+                 out_dtype: torch.dtype, device: torch.device,
                  apply_split: Optional[Callable] = None):
         self.problem = problem
         self.descriptors = descriptors          # axis -> planner descriptor
         self._apply = apply_fn
         self.in_shape = in_shape
         self.out_shape = out_shape
+        self.in_dtype = in_dtype
         self.out_dtype = out_dtype
         self.device = device
-        #: split-complex entry point (c2c): (xr, xi) -> (yr, yi) on real
-        #: tensors, differentiable; the form the kernels take
+        #: the entry point on real tensors, differentiable; the form the
+        #: kernels take: (xr, xi) -> (yr, yi) for c2c, x -> (yr, yi) for
+        #: r2c, (xr, xi) -> y for c2r
         self.apply_split = apply_split
 
     # -- execution (fftw_execute + new-array execute) ----------------------
@@ -104,17 +183,18 @@ class Plan:
 
     def execute(self, x) -> torch.Tensor:
         """Transform `x` (a tensor or array of ``in_shape``), moved to the
-        plan's device and complex dtype first."""
+        plan's device and input dtype first: complex for c2c and c2r, real
+        for r2c."""
         x = torch.as_tensor(x, device=self.device)
         if tuple(x.shape) != self.in_shape:
             raise ValueError(
                 f"plan expects shape {self.in_shape}, got {tuple(x.shape)}")
-        return self._apply(x.to(self.out_dtype))
+        return self._apply(x.to(self.in_dtype))
 
     @property
     def apply(self) -> Callable:
-        """The raw complex function, with no shape check: leading batch
-        dims beyond the plan's shape work."""
+        """The raw function on tensors of the plan's dtypes, with no shape
+        check: leading batch dims beyond the plan's shape work."""
         return self._apply
 
     # -- introspection (fftw_flops/fftw_cost) --------------------------------
@@ -125,7 +205,7 @@ class Plan:
         for axis, desc in self.descriptors.items():
             n = shape[axis]
             batch = math.prod(shape) // max(n, 1)
-            ops = c2c_ops.c2c_opcount(desc)
+            ops = _opcount_of(desc)
             for k in total:
                 total[k] += batch * ops[k]
         return (total["add"], total["mul"], total["fma"])
@@ -143,6 +223,17 @@ class Plan:
 
     def print_plan(self) -> None:
         print(repr(self))
+
+
+def _opcount_of(desc: Dict) -> Dict[str, float]:
+    """Op counts of one axis pass, by the descriptor's kind: the real
+    solvers' (the last axis of r2c/c2r, and K5 in the swapped route), else
+    c2c's."""
+    if desc["alg"] == "pallas_r2c_inner":
+        return real_ops.r2c_opcount(dict(desc, alg="pallas_r2c"))
+    if desc["alg"] in real_ops.ALGS:
+        return real_ops.r2c_opcount(desc)
+    return c2c_ops.c2c_opcount(desc)
 
 
 # ---------------------------------------------------------------------------
@@ -172,21 +263,37 @@ def make_plan(problem: Problem, flags: int = K.ESTIMATE,
 
 def _make_plan_inner(problem: Problem, pl: planner_mod.Planner,
                      patience: int, device: torch.device) -> Plan:
-    if problem.kind != "c2c":
+    build = {"c2c": _plan_c2c, "r2c": _plan_r2c,
+             "c2r": _plan_c2r}.get(problem.kind)
+    if build is None:
         raise NotImplementedError(
             f"{problem.kind} plans are not ported yet (ROADMAP queue 1)")
     rdtype = np.dtype(problem.rdtype)
-    shape = problem.shape
-    npoints = math.prod(shape)
+    npoints = math.prod(problem.shape)
 
-    def _vec(a):
+    def vec(a):
         # vector size seen by the axis-a pass: everything except axis a
-        return max(1, npoints // max(shape[a], 1))
+        return max(1, npoints // max(problem.shape[a], 1))
+    return build(problem, pl, patience, device, rdtype, vec)
 
+
+def _check_trailing(shape, *planes) -> None:
+    """Raise unless every plane ends in `shape` (leading dims are free)."""
+    for t in planes:
+        if tuple(t.shape[t.dim() - len(shape):]) != tuple(shape) \
+                or t.shape != planes[0].shape:
+            raise ValueError(
+                f"plan expects {len(planes)} tensor(s) of shape (..., "
+                f"{', '.join(map(str, shape))}), got "
+                f"{' and '.join(str(tuple(p.shape)) for p in planes)}")
+
+
+def _plan_c2c(problem, pl, patience, device, rdtype, vec) -> Plan:
+    shape = problem.shape
     # split-complex through the whole multi-axis pipeline: one real/imag
     # split at entry, one combine at exit
     descriptors: Dict[int, Dict] = {
-        a: pl.plan_c2c(shape[a], rdtype, patience, batch=_vec(a),
+        a: pl.plan_c2c(shape[a], rdtype, patience, batch=vec(a),
                        device=device) for a in problem.axes}
     rest_axes = list(problem.axes)
     nd = len(shape)
@@ -208,11 +315,7 @@ def _make_plan_inner(problem: Problem, pl: planner_mod.Planner,
             device=device))
 
     def apply_split(xr, xi):
-        if tuple(xr.shape[xr.dim() - len(shape):]) != shape \
-                or xi.shape != xr.shape:
-            raise ValueError(f"plan expects split planes of shape (..., "
-                             f"{', '.join(map(str, shape))}), got "
-                             f"{tuple(xr.shape)} and {tuple(xi.shape)}")
+        _check_trailing(shape, xr, xi)
         for s in split_stages:
             xr, xi = s(xr, xi)
         return xr, xi
@@ -220,6 +323,93 @@ def _make_plan_inner(problem: Problem, pl: planner_mod.Planner,
     def apply_c2c(x):
         return torch.complex(*apply_split(x.real, x.imag))
 
-    return Plan(problem, descriptors, apply_c2c, shape, shape,
-                c2c_ops.complex_dtype(rdtype), device,
+    ctype = c2c_ops.complex_dtype(rdtype)
+    return Plan(problem, descriptors, apply_c2c, shape, shape, ctype, ctype,
+                device, apply_split=apply_split)
+
+
+def _plan_r2c(problem, pl, patience, device, rdtype, vec) -> Plan:
+    shape, axes = problem.shape, problem.axes
+    nd = len(shape)
+    last = axes[-1]
+    n_last = shape[last]
+    out = list(shape)
+    out[last] = n_last // 2 + 1
+    swapped = _r2c_swapped(problem, pl, patience, rdtype, vec, device)
+    if swapped is not None:
+        descriptors, split = swapped
+    else:
+        desc = pl.plan_r2c(n_last, rdtype, patience, batch=vec(last),
+                           device=device)
+        descriptors = {last: desc}
+        first = _r2c_along_axis(
+            real_ops.build_r2c_split(desc, rdtype, device), last - nd)
+        # the non-last axes run on the half spectrum (K2 where the trailing
+        # layout allows), on split planes
+        stages: List[Callable] = []
+        for a in axes[:-1]:
+            d = pl.plan_c2c(shape[a], rdtype, patience, batch=vec(a),
+                            device=device)
+            descriptors[a] = d
+            stages.append(_c2c_stage(d, K.FORWARD, rdtype, a, tuple(out),
+                                     device))
+
+        def split(x):
+            yr, yi = first(x)
+            for s in stages:
+                yr, yi = s(yr, yi)
+            return yr, yi
+
+    def apply_split(x):
+        _check_trailing(shape, x)
+        return split(x)
+
+    def apply_r2c(x):
+        return torch.complex(*apply_split(x))
+
+    return Plan(problem, descriptors, apply_r2c, shape, tuple(out),
+                _real_dtype(rdtype), c2c_ops.complex_dtype(rdtype), device,
                 apply_split=apply_split)
+
+
+def _plan_c2r(problem, pl, patience, device, rdtype, vec) -> Plan:
+    # problem.shape is the logical real shape; the input is the half
+    # spectrum, used as it is (numpy and the reference take whatever columns
+    # 0 and n/2 hold, Hermitian-valid or not)
+    shape, axes = problem.shape, problem.axes
+    nd = len(shape)
+    last = axes[-1]
+    n_last = shape[last]
+    ins = list(shape)
+    ins[last] = n_last // 2 + 1
+    ins = tuple(ins)
+    descriptors: Dict[int, Dict] = {}
+    stages: List[Callable] = []
+    for a in axes[:-1]:
+        d = pl.plan_c2c(shape[a], rdtype, patience, batch=vec(a),
+                        device=device)
+        descriptors[a] = d
+        stages.append(_c2c_stage(d, K.BACKWARD, rdtype, a, ins, device))
+    desc = pl.plan_c2r(n_last, rdtype, patience, batch=vec(last),
+                       device=device)
+    descriptors[last] = desc
+    final = _c2r_along_axis(real_ops.build_c2r_split(desc, rdtype, device),
+                            last - nd)
+
+    def apply_split(xr, xi):
+        _check_trailing(ins, xr, xi)
+        for s in stages:
+            xr, xi = s(xr, xi)
+        return final(xr, xi)
+
+    def apply_c2r(X):
+        return apply_split(X.real, X.imag)
+
+    return Plan(problem, descriptors, apply_c2r, ins, shape,
+                c2c_ops.complex_dtype(rdtype), _real_dtype(rdtype), device,
+                apply_split=apply_split)
+
+
+def _real_dtype(rdtype) -> torch.dtype:
+    return torch.float32 if np.dtype(rdtype) == np.float32 \
+        else torch.float64

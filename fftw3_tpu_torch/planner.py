@@ -1,9 +1,9 @@
 """The planner: cost-driven algorithm search with persistent wisdom — the
-c2c part of ``fftw3_tpu/planner.py``.
+c2c, r2c and c2r part of ``fftw3_tpu/planner.py``.
 
-A memoized recursive search over the registered c2c solvers, with an
-ESTIMATE cost model, a MEASURE mode that times built candidates on the
-plan's device, the patience ladder, and JSON wisdom memoizing results per
+A memoized recursive search over the registered c2c, r2c and c2r solvers,
+with an ESTIMATE cost model, a MEASURE mode that times built candidates on
+the plan's device, the patience ladder, and JSON wisdom memoizing results per
 (kind, n, dtype, device, batch bucket).  The search is the reference's,
 line for line, so that with the reference's hardware constants both
 packages pick the same descriptors; what differs is the device (a plan's
@@ -27,7 +27,8 @@ import torch
 from . import config
 from . import kinds as K
 from .ops import c2c as c2c_ops
-from .ops import stockham
+from .ops import real as real_ops
+from .ops import real_stockham, stockham
 from .utils import primes
 
 # ---------------------------------------------------------------------------
@@ -65,6 +66,9 @@ HW = HardwareModel()
 DIRECT_MAX = 128
 #: Cap for the O(n^2) last-resort dense solver (dft-generic analog).
 GENERIC_MAX = 2048
+#: Cap for the dense real solvers (``r2c_dense``/``c2r_dense``), the
+#: reference's value.
+R2R_GENERIC_MAX = 4096
 
 #: f64 slowdowns of the reference's cost model, kept so that complex128
 #: searches rank as the reference ranks them.
@@ -122,6 +126,32 @@ def _c2c_cost(desc: Dict, hw: HardwareModel = HW, f64: bool = False) -> float:
     raise ValueError(alg)
 
 
+def _model_cost(kind: str, desc: Dict, hw: HardwareModel = HW,
+                f64: bool = False) -> float:
+    """Estimated seconds per single 1-D transform of a `kind` descriptor:
+    :func:`_c2c_cost` for c2c, and the reference's r2c/c2r formulas."""
+    if kind == "c2c":
+        return _c2c_cost(desc, hw, f64)
+    alg, n = desc["alg"], desc["n"]
+    if alg in ("pallas_r2c", "pallas_c2r"):
+        # one fused pass plus the contraction time of the m-point stages
+        m = n // 2
+        t = 1.1 * 8.0 * n / hw.hbm_bw
+        for p in desc["radices"]:
+            t += 6.0 * p * m / (hw.peak_flops * hw.matmul_eff(p))
+        return t
+    if alg in ("r2c_dense", "c2r_dense"):
+        mxu = hw.peak_flops / (_F64_MXU_PENALTY if f64 else 1.0)
+        return (12.0 * n / hw.hbm_bw
+                + 2.0 * n * (n // 2 + 1) / (mxu * hw.matmul_eff(n)))
+    if alg in ("r2c_pack", "c2r_pack"):
+        # half-size complex child plus a separate untangle pass
+        return 0.55 * _c2c_cost(desc["child"], hw, f64) + 16.0 * n / hw.hbm_bw
+    if alg in ("r2c_via_c2c", "c2r_via_c2c"):
+        return _c2c_cost(desc["child"], hw, f64) + 16.0 * n / hw.hbm_bw
+    raise ValueError(alg)
+
+
 def _mixed_factor_candidates(n: int, patience: int) -> List[int]:
     """Divisor choices p<=DIRECT_MAX for one Cooley-Tukey split, best first:
     p close to sqrt(n) first, then larger p (fftw_choose_radix's role)."""
@@ -138,14 +168,17 @@ def _mixed_factor_candidates(n: int, patience: int) -> List[int]:
     return divs[:width]
 
 
+#: problem kinds with solvers in this package
+KINDS = ("c2c", "r2c", "c2r")
+
 #: wisdom format of this package.  Keys carry the batch bucket (":b<N>").
 WISDOM_FORMAT = "fftw3-tpu-torch-wisdom-1"
 #: the ``fftw3_tpu`` export format that :func:`import_reference_wisdom` reads
 REFERENCE_WISDOM_FORMAT = "fftw3-tpu-wisdom-2"
 #: descriptor keys that only the reference's TPU kernels read: its bf16
-#: hi/lo stage arithmetic, the axis -2 form's VMEM budget and its padding
-#: variant
-_TPU_ONLY_KEYS = ("k2", "gsplit", "inner_area", "pad_align")
+#: hi/lo stage arithmetic, the axis -2 form's VMEM budget, its padding
+#: variant and the real kernels' double-lane-width variant
+_TPU_ONLY_KEYS = ("k2", "gsplit", "inner_area", "pad_align", "merge")
 
 
 class WisdomOnlyMiss(ValueError):
@@ -185,10 +218,18 @@ class Planner:
                  batch: Optional[int] = None, device=None) -> Dict:
         return self._plan("c2c", n, rdtype, patience, batch, device)
 
+    def plan_r2c(self, n: int, rdtype, patience: int,
+                 batch: Optional[int] = None, device=None) -> Dict:
+        return self._plan("r2c", n, rdtype, patience, batch, device)
+
+    def plan_c2r(self, n: int, rdtype, patience: int,
+                 batch: Optional[int] = None, device=None) -> Dict:
+        return self._plan("c2r", n, rdtype, patience, batch, device)
+
     # -- core search --------------------------------------------------------
     def _plan(self, kind: str, n: int, rdtype, patience: int,
               batch: Optional[int] = None, device=None) -> Dict:
-        if kind != "c2c":
+        if kind not in KINDS:
             raise NotImplementedError(
                 f"{kind} planning is not ported yet (ROADMAP queue 1)")
         device = torch.device(config.device if device is None else device)
@@ -216,7 +257,7 @@ class Planner:
                 f"FFTW_WISDOM_ONLY: no wisdom for {kind} n={n}")
         self.stats["nplan"] += 1
         f64 = np.dtype(rdtype) == np.float64
-        cands = self._candidates_c2c(n, rdtype, patience, batch, device)
+        cands = self._candidates(kind, n, rdtype, patience, batch, device)
         if not cands:
             raise ValueError(f"no applicable solver for {kind} n={n}")
         if patience == K.PATIENCE_ESTIMATE or len(cands) == 1:
@@ -245,6 +286,27 @@ class Planner:
         if b is None:
             return True
         return self.timelimit is not None and self.timelimit <= b
+
+    def _candidates(self, kind: str, n: int, rdtype, patience: int,
+                    batch: Optional[int], device) -> List[Dict]:
+        if kind == "c2c":
+            return self._candidates_c2c(n, rdtype, patience, batch, device)
+        # r2c and c2r: the real kernel, the dense matrices, the half-size
+        # pack and the complex embedding, as in the reference
+        out: List[Dict] = []
+        if real_stockham.r2c_applicable(n, rdtype, device):
+            out.append({"alg": f"pallas_{kind}", "n": n,
+                        "radices": stockham.choose_radices(n // 2)})
+        if n <= R2R_GENERIC_MAX:
+            out.append({"alg": f"{kind}_dense", "n": n})
+        if n % 2 == 0 and n > 2:
+            out.append({"alg": f"{kind}_pack", "n": n,
+                        "child": self.plan_c2c(n // 2, rdtype, patience,
+                                               batch, device)})
+        out.append({"alg": f"{kind}_via_c2c", "n": n,
+                    "child": self.plan_c2c(n, rdtype, patience, batch,
+                                           device)})
+        return out
 
     def _candidates_c2c(self, n: int, rdtype, patience: int,
                         batch: Optional[int], device) -> List[Dict]:
@@ -318,9 +380,7 @@ class Planner:
             h = hashlib.md5(f"{config.random_estimator}:{kind}:"
                             f"{sprint_desc(desc)}".encode()).digest()
             return 1e-6 * (1 + int.from_bytes(h[:8], 'big') / 2**64)
-        if kind != "c2c":
-            raise NotImplementedError(f"{kind} costs are not ported yet")
-        return _c2c_cost(desc, self.hw, f64)
+        return _model_cost(kind, desc, self.hw, f64)
 
     # -- MEASURE mode ----------------------------------------------------
     def _measure_best(self, kind: str, n: int, rdtype, cands: List[Dict],
@@ -353,10 +413,13 @@ class Planner:
                     continue
                 try:
                     if rnd == 0:
-                        prepared[i] = _measure_fn(desc, n, rdtype, batch,
-                                                  device)
+                        prepared[i] = _measure_fn(kind, desc, n, rdtype,
+                                                  batch, device)
                     fn, args = prepared[i]
-                    t = timing.time_chained(fn, args, iters=10, reps=3)
+                    # a c2c output feeds its input; a real one cannot
+                    timer = timing.time_chained if kind == "c2c" \
+                        else timing.time_dispatched
+                    t = timer(fn, args, iters=10, reps=3)
                     if rnd == 0:
                         self.stats["nmeasure"] += 1
                 except Exception as e:                 # noqa: BLE001
@@ -402,8 +465,9 @@ class Planner:
     def import_reference_wisdom(self, s: str, device=None) -> bool:
         """Carry a ``fftw3_tpu`` wisdom export over to this planner.
 
-        Keeps the c2c entries whose descriptor :func:`validate_desc`
-        accepts (so nothing this package cannot build), drops the
+        Keeps the c2c, r2c and c2r entries whose descriptor
+        :func:`validate_desc` accepts (so nothing this package cannot
+        build), drops the
         reference's TPU-only descriptor keys, re-costs each entry with this
         planner's model and re-keys it to `device`'s signature.  Returns
         False for a string that is not a reference export."""
@@ -420,7 +484,7 @@ class Planner:
         sig = _device_signature(device)
         for key, entry in entries.items():
             parts = key.split(":")
-            if len(parts) != 5 or parts[0] != "c2c" \
+            if len(parts) != 5 or parts[0] not in KINDS \
                     or not isinstance(entry, dict):
                 continue                 # other kinds; random-estimator keys
             kind, n, dt, _, bucket = parts
@@ -430,7 +494,8 @@ class Planner:
             if not validate_desc(kind, int(n), desc):
                 continue
             new = {"desc": desc, "patience": entry.get("patience", 0),
-                   "cost": _c2c_cost(desc, self.hw, dt == "float64")}
+                   "cost": _model_cost(kind, desc, self.hw,
+                                       dt == "float64")}
             if "budget" in entry:
                 new["budget"] = entry["budget"]
             self.wisdom[f"{kind}:{n}:{dt}:{sig}:{bucket}"] = new
@@ -452,13 +517,25 @@ def _strip_tpu_keys(desc):
 # ---------------------------------------------------------------------------
 
 def validate_desc(kind: str, n: int, desc) -> bool:
-    """Structural sanity of a (possibly imported) c2c wisdom descriptor —
-    the bogus-wisdom detector of the recovery ladder.  Only descriptors
-    this package can build pass."""
-    if kind != "c2c" or not isinstance(desc, dict):
+    """Structural sanity of a (possibly imported) wisdom descriptor — the
+    bogus-wisdom detector of the recovery ladder.  Only descriptors this
+    package can build pass."""
+    if kind not in KINDS or not isinstance(desc, dict):
         return False
     alg = desc.get("alg")
     if desc.get("n") != n or not isinstance(alg, str):
+        return False
+    if kind != "c2c":
+        if alg == f"pallas_{kind}":
+            return n % 2 == 0 and stockham.radices_ok(n // 2,
+                                                      desc.get("radices"))
+        if alg == f"{kind}_dense":
+            return True
+        if alg == f"{kind}_pack":
+            return n % 2 == 0 and validate_desc("c2c", n // 2,
+                                                desc.get("child"))
+        if alg == f"{kind}_via_c2c":
+            return validate_desc("c2c", n, desc.get("child"))
         return False
     if alg in ("nop", "direct", "xla"):
         return True
@@ -480,17 +557,27 @@ def validate_desc(kind: str, n: int, desc) -> bool:
     return False
 
 
-def _measure_fn(desc: Dict, n: int, rdtype, batch: Optional[int], device):
+def _measure_fn(kind: str, desc: Dict, n: int, rdtype,
+                batch: Optional[int], device):
     """(split fn, args) for MEASURE timing at the caller's batch (capped
-    by config.measure_points), or at ~measure_points total points."""
+    by config.measure_points), or at ~measure_points total points: planes
+    of n points for c2c, real rows for r2c, half-spectrum planes for
+    c2r."""
     cap = max(1, config.measure_points // max(n, 1))
     batch = cap if batch is None else max(1, min(int(batch), cap))
     rng = np.random.default_rng(0)
     rdt = np.dtype(rdtype)
+
+    def rows(width):
+        return torch.from_numpy(rng.standard_normal((batch, width))
+                                .astype(rdt)).to(device)
+    if kind == "r2c":
+        return real_ops.build_r2c_split(desc, rdtype, device), (rows(n),)
+    if kind == "c2r":
+        return (real_ops.build_c2r_split(desc, rdtype, device),
+                (rows(n // 2 + 1), rows(n // 2 + 1)))
     fn = c2c_ops.build_c2c_split(desc, K.FORWARD, rdtype, device)
-    xr = torch.from_numpy(rng.standard_normal((batch, n)).astype(rdt))
-    xi = torch.from_numpy(rng.standard_normal((batch, n)).astype(rdt))
-    return fn, (xr.to(device), xi.to(device))
+    return fn, (rows(n), rows(n))
 
 
 def _batch_bucket(batch: Optional[int]) -> str:

@@ -103,7 +103,7 @@ def test_split_grads_equal_jax_vjp():
 @pytest.mark.parametrize("n,L,tl", [(2048, 4096, 4), (512, 262144, 16),
                                     (32, 128, 128), (8, 4096, 128),
                                     (1000, 37, 8), (128, 1, 1),
-                                    (128, 37, 64)])
+                                    (128, 37, 64), (2048, 1025, 4)])
 def test_tile_width(n, L, tl):
     assert inner.tile_width(n, L) == tl
     assert n * tl <= inner.TILE_POINTS
@@ -139,5 +139,27 @@ def test_kernel_matches_twin_on_card(cuda_device, n, radices, L, sign):
     got = (kr + 1j * ki).cpu().numpy()
     twin = (tr + 1j * ti).cpu().numpy()
     assert _relerr(got, twin) <= TOL_F64
+    assert _relerr(got, _oracle(xr.cpu().numpy(), xi.cpu().numpy(),
+                                sign)) <= TOL_F64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sign", [-1, +1])
+def test_kernel_on_real_path_half_spectrum(cuda_device, sign):
+    """The axis -2 pass of the full-width 2-D r2c (sign -1) and c2r (sign
+    +1): (8, 2048, 1025) half-spectrum planes, 256 full tiles of 4 columns
+    and a masked 1-column edge tile per plane."""
+    pre, n, L = 8, 2048, 1025
+    radices = S.choose_radices(n)
+    xr, xi = (torch.from_numpy(a).to(cuda_device)
+              for a in _planes(L + sign, (pre, n, L)))
+    table = S._device_table(n, tuple(radices), sign, cuda_device)
+    before = inner.launches
+    kr, ki = inner.inner_c2c_cuda(xr, xi, radices, table)
+    torch.cuda.synchronize()
+    assert inner.launches == before + 1
+    tr, ti = inner.inner_c2c_torch(xr, xi, radices, sign)
+    got = (kr + 1j * ki).cpu().numpy()
+    assert _relerr(got, (tr + 1j * ti).cpu().numpy()) <= TOL_F64
     assert _relerr(got, _oracle(xr.cpu().numpy(), xi.cpu().numpy(),
                                 sign)) <= TOL_F64

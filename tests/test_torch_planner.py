@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from fftw3_tpu import config as ref_config
+from fftw3_tpu import kinds as ref_kinds
 from fftw3_tpu import planner as ref_planner
 
 from fftw3_tpu_torch import config, kinds, plan as plan_mod
@@ -136,7 +137,7 @@ def test_import_reference_wisdom_gives_fresh_plan():
     ref = ref_planner.Planner()
     for n in (1009, 1024, 2048):
         ref.plan_c2c(n, np.float32, 0, 64)
-    ref.plan_r2c(512, np.float32, 0, 64)          # not a c2c entry: dropped
+    ref.plan_r2r(ref_kinds.Kind.DHT, 64, np.float32, 0, 64)  # dropped
     data = json.loads(ref.export_wisdom())
     key = next(k for k, v in data["entries"].items()
                if k.startswith("c2c:2048:"))
@@ -146,7 +147,7 @@ def test_import_reference_wisdom_gives_fresh_plan():
     assert not mine.import_reference_wisdom(mine.export_wisdom(),
                                             device="cpu")
     assert mine.import_reference_wisdom(json.dumps(data), device="cpu")
-    assert all(k.startswith("c2c:") for k in mine.wisdom)
+    assert all(k.startswith(("c2c:", "r2c:")) for k in mine.wisdom)
     fresh = _port_planner()
     for n in (1009, 1024, 2048):
         got = mine.plan_c2c(n, np.float32, 0, 64, "cpu")
@@ -195,7 +196,7 @@ def test_measure_failure_raises_on_cuda(device, debug, raises, monkeypatch):
     always re-raises on a CUDA device, so a CUDA plan never falls back to a
     plain PyTorch solver unnoticed.  No tensor is made: the candidate fails
     while it is built."""
-    def broken(desc, n, rdtype, batch, dev):
+    def broken(kind, desc, n, rdtype, batch, dev):
         raise RuntimeError("nvcc failed")
     monkeypatch.setattr(planner, "_measure_fn", broken)
     monkeypatch.setattr(config, "debug", debug)
@@ -256,7 +257,7 @@ def test_device_signature_names_device_and_versions():
     assert ":" not in sig and " " not in sig
 
 
-@pytest.mark.parametrize("kind", ["r2c", "dht"])
+@pytest.mark.parametrize("kind", ["r2hc", "dht"])
 def test_other_kinds_not_ported(kind):
     with pytest.raises(NotImplementedError):
         _port_planner()._plan(kind, 64, np.float32, 0, device="cpu")

@@ -211,6 +211,25 @@ def test_kernel_matches_twin_on_card(cuda_device, n, radices, sign):
 
 
 @pytest.mark.cuda
+def test_kernel_on_swapped_route_rows(cuda_device):
+    """The last-axis pass of the swapped 2-D r2c: 8 * 1025 rows of 2048
+    points, more rows than the card holds blocks at once."""
+    B, n = 8 * 1025, 2048
+    radices = S.choose_radices(n)
+    rng = np.random.default_rng(B)
+    xr, xi = (torch.from_numpy(rng.standard_normal((B, n)).astype(
+        np.float32)).to(cuda_device) for _ in range(2))
+    table = S._device_table(n, tuple(radices), -1, cuda_device)
+    kr, ki = S.stockham_c2c_cuda(xr, xi, radices, table)
+    tr, ti = S.stockham_c2c_torch(xr, xi, radices, -1)
+    got = (kr + 1j * ki).cpu().numpy()
+    assert _relerr(got, (tr + 1j * ti).cpu().numpy()) <= TOL_F64
+    oracle = _oracle(xr.cpu().numpy().astype(np.float64)
+                     + 1j * xi.cpu().numpy(), -1)
+    assert _relerr(got, oracle) <= TOL_F64
+
+
+@pytest.mark.cuda
 def test_kernel_shared_memory_sizes_interleave(cuda_device):
     """Launch geometry is cached per shared-memory size: a small schedule
     between two launches of the largest one must leave both launchable."""
