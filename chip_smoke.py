@@ -30,7 +30,17 @@ launch count set to 0 just before the path and read just after:
   axes=(1, 2))`` and its inverse: K4 then K2, K2 then K6; with
   ``config.r2c_swapped`` the axis -2 r2c kernel K5 then K1; the three arms
   timed interleaved, and K2 and K1 held against their twins on this path's
-  own planes (phase 18).
+  own planes (phase 18);
+* complex128 c2c, ``plan_many_dft([1024], howmany=8192,
+  dtype="complex128")``, the reference suite's f64 cell, planned four
+  ways: ESTIMATE (the eager ``df32`` solver, no kernel), ESTIMATE under
+  ``config.strict_f64`` (native FP64), MEASURE (``df32`` against the
+  double-float kernel K7 and the ``mixed`` splits) and a plan pinned to
+  ``df32p`` by a reference-format wisdom import (one K7 launch per call,
+  one of the opposite sign in its backward); the five arms timed
+  interleaved with ``torch.fft.fft`` (phase 21); then complex128
+  ``plan_many_dft([512, 512], howmany=64)`` on the same pin (two K7
+  launches, one behind ``movedim``) and a float64 r2c (phase 22).
 
 Every path is checked against ``torch.fft`` in complex128 (an oracle only),
 and every kernel route's gradient against its opposite-sign launches.
@@ -43,7 +53,11 @@ non-last axis with K1 on the last (no fusion), and a ``movedim`` lift
 around K1 on every axis.  Phase 16 holds K4, K5 and K6 against their twins
 and float64 over a case grid; phase 19 profiles the real paths in a second
 child (``--profile-paths real``) and times the three real kernels against
-their twins and ``torch.fft.rfft``/``irfft``.  Exits non-zero at the first
+their twins and ``torch.fft.rfft``/``irfft``.  Phase 20 holds K7 against
+its twin and complex128 (1e-12) over a case grid; phase 23 runs the dd64
+tier on the card against the same plan on the CPU, in mpmath (1e-28);
+phase 24 profiles the f64 path in a third child (``--profile-paths
+f64``).  Exits non-zero at the first
 failed check, and without printing a result when torch sees no CUDA
 device.
 
@@ -68,7 +82,7 @@ from fftw3_tpu_torch import plan as plan_mod
 from fftw3_tpu_torch import planner as P
 from fftw3_tpu_torch.ops import _build
 from fftw3_tpu_torch.ops import c2c as c2c_ops
-from fftw3_tpu_torch.ops import fused2d, inner
+from fftw3_tpu_torch.ops import df32, fused2d, inner
 from fftw3_tpu_torch.ops import real_stockham as RS
 from fftw3_tpu_torch.ops import stockham as S
 from fftw3_tpu_torch.utils import timing
@@ -138,10 +152,62 @@ REFERENCE_WISDOM = """{
 }"""
 PALLAS4_DESC = {"alg": "pallas4", "n": N4, "p": 32, "q": 128}
 
+#: a ``fftw3_tpu`` wisdom export (reference format) that pins complex128
+#: plan_many_dft([1024], howmany=8192) and the axes of plan_many_dft([512,
+#: 512], howmany=64) to the fused double-float kernel (df32p): the
+#: reference package's MEASURE export for those problems with its timing
+#: stubbed to pick df32p, as ``tests/test_torch_df32.py`` checks
+REFERENCE_WISDOM_F64 = """{
+ "format": "fftw3-tpu-wisdom-2",
+ "signature": "cpu-cpu-jax0.9.0-jl0.9.0-pvd9747e2d",
+ "entries": {
+  "c2c:1024:float64:cpu-cpu-jax0.9.0-jl0.9.0-pvd9747e2d:b7": {
+   "desc": {
+    "alg": "df32p",
+    "n": 1024,
+    "radices": [
+     64,
+     16
+    ]
+   },
+   "patience": 1,
+   "cost": 0.0
+  },
+  "c2c:512:float64:cpu-cpu-jax0.9.0-jl0.9.0-pvd9747e2d:b8": {
+   "desc": {
+    "alg": "df32p",
+    "n": 512,
+    "radices": [
+     32,
+     16
+    ]
+   },
+   "patience": 1,
+   "cost": 0.0
+  }
+ }
+}"""
+
 #: NVIDIA H100 SXM data sheet: HBM3 rate and FP32 rate outside the tensor
 #: cores; a bound is the larger of bytes / HBM and 5*N*log2(N) flops / FP32
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+#: the same FP32 rate in instructions (an FMA is one): the rate that bounds
+#: K7, whose error-free transforms are mostly single adds and multiplies
+FP32_INSTR_PER_S = 33.5e12
+
+#: the f64 tier (phases 20-23): max-abs error over max-abs against
+#: complex128; K7's case grid; the reference suite's c2c_1d_1024_f64_b8192
+#: path; the 2-D batched complex128 plan; the dd64 plan on the card
+F64_TOL = 1e-12
+K7_NS = [128, 256, 512, 1000, 1024]
+K7_BATCHES = [1, 37, 4096]
+F64_PATH = (8192, 1024)
+DF32_DESC = {"alg": "df32", "n": 1024, "radices": [4, 4, 4, 4, 4]}
+DF32P_DESC = {"alg": "df32p", "n": 1024, "radices": [64, 16]}
+F64_MANY_2D = (64, 512, 512)
+DD_N, DD_ROWS, DD_MP_ROWS = 1024, 64, 2
+DD_TOL = 1e-28
 
 #: launch counters: kernel name -> (module, attribute)
 COUNTERS = {"stockham_c2c": (S, "launches"),
@@ -150,7 +216,8 @@ COUNTERS = {"stockham_c2c": (S, "launches"),
             "c2c_2d": (fused2d, "launches"),
             "r2c": (RS, "r2c_launches"),
             "r2c_inner": (RS, "r2c_inner_launches"),
-            "c2r": (RS, "c2r_launches")}
+            "c2r": (RS, "c2r_launches"),
+            "df32_c2c": (df32, "launches")}
 
 
 def fail(msg: str) -> None:
@@ -387,6 +454,322 @@ def profile_real_paths(rng, dev, smi_line) -> None:
                       y if label == "c2r" else (x,), smi_line, tag="[19]")
 
 
+def f64_planes(rng, shape, device):
+    return tuple(torch.from_numpy(rng.standard_normal(shape)).to(device)
+                 for _ in range(2))
+
+
+def time_few(fn, args) -> float:
+    """Median of 3 single calls, CUDA events, in ms: for the eager df32
+    plan, which launches a few thousand small kernels per call."""
+    return timing.time_dispatched(fn, args, iters=1, reps=3) * 1e3
+
+
+def f64_plans():
+    """The complex128 plans of plan_many_dft([1024], howmany=8192): ESTIMATE
+    (df32), ESTIMATE under ``config.strict_f64`` (native FP64), MEASURE, and
+    the plan pinned to df32p by a reference-format wisdom import (left in
+    the planner's wisdom, where it also pins n = 512)."""
+    B, n = F64_PATH
+    plans = {}
+    for label in ("ESTIMATE", "strict_f64 ESTIMATE", "MEASURE", "pinned"):
+        ft.forget_wisdom()
+        ft.config.strict_f64 = label.startswith("strict")
+        flags = ft.MEASURE if label == "MEASURE" else ft.ESTIMATE
+        if label == "pinned":
+            check(ft.import_reference_wisdom(REFERENCE_WISDOM_F64,
+                                             device="cuda"),
+                  "reference f64 wisdom refused")
+        try:
+            plans[label] = ft.plan_many_dft([n], howmany=B, flags=flags,
+                                            dtype="complex128", device="cuda")
+        finally:
+            ft.config.strict_f64 = False
+    return plans
+
+
+def profile_f64_paths(rng, dev, smi_line) -> None:
+    """``torch.profiler`` breakdowns of the f64 path at (8192, 1024): the
+    ESTIMATE df32 plan (how many eager kernels per call) and the pinned
+    df32p plan's ``apply_split`` and ``execute`` (K7 and what surrounds
+    it)."""
+    B, n = F64_PATH
+    ft.forget_wisdom()
+    pe = ft.plan_many_dft([n], howmany=B, dtype="complex128", device="cuda")
+    check(pe.descriptors == {1: DF32_DESC}, f"ESTIMATE plan {pe!r}")
+    check(ft.import_reference_wisdom(REFERENCE_WISDOM_F64, device="cuda"),
+          "reference f64 wisdom refused")
+    pp = ft.plan_many_dft([n], howmany=B, dtype="complex128", device="cuda")
+    check(pp.descriptors == {1: DF32P_DESC}, f"pinned plan {pp!r}")
+    xr, xi = f64_planes(rng, F64_PATH, dev)
+    profile_calls(f"df32p plan {F64_PATH} apply_split", pp.apply_split,
+                  (xr, xi), smi_line, tag="[24]")
+    profile_calls(f"df32p plan {F64_PATH} execute complex128", pp.execute,
+                  (torch.complex(xr, xi),), smi_line, tag="[24]")
+    profile_calls(f"df32 plan {F64_PATH} apply_split", pe.apply_split,
+                  (xr, xi), smi_line, tag="[24]")
+
+
+def f64_phases(rng, dev, smi_line, seed, t_start):
+    """Phases 20-24, the double-precision tier; returns K7's row of the
+    kernels line."""
+    c128 = torch.complex128
+
+    # -- 20. K7 against its twin and complex128 -----------------------------
+    worst_kt = worst_ko = 0.0
+    ncases = 0
+    for n in K7_NS:
+        rad = df32.df32p_radices(n)
+        for sign in (-1, +1):
+            for b in K7_BATCHES:
+                xr, xi = f64_planes(rng, (b, n), dev)
+                kr, ki = df32.df32_c2c_cuda(xr, xi, rad, sign)
+                tr, ti = df32.df32_c2c_torch(xr, xi, rad, sign)
+                torch.cuda.synchronize()
+                k = torch.complex(kr, ki)
+                e_kt = relerr(k, torch.complex(tr, ti))
+                e_ko = relerr(k, oracle(torch.complex(xr, xi), (-1,), sign))
+                check(e_kt <= F64_TOL and e_ko <= F64_TOL,
+                      f"K7 n={n} r={rad} sign={sign} B={b}: kernel-twin "
+                      f"{e_kt:.2e}, kernel-complex128 {e_ko:.2e}")
+                worst_kt, worst_ko = max(worst_kt, e_kt), max(worst_ko, e_ko)
+                ncases += 1
+                del xr, xi, kr, ki, tr, ti, k
+        print(f"[20] K7 n={n} r={rad}: worst so far kernel-twin "
+              f"{worst_kt:.2e}, kernel-complex128 {worst_ko:.2e}", flush=True)
+    print(f"[20] K7: {ncases} cases, worst kernel-twin {worst_kt:.2e}, "
+          f"kernel vs torch.fft complex128 {worst_ko:.2e} (max-abs over "
+          f"max-abs; tolerance {F64_TOL})")
+
+    # -- 21. the f64 path: plan_many_dft([1024], howmany=8192, complex128) --
+    B, n = F64_PATH
+    xr, xi = f64_planes(rng, F64_PATH, dev)
+    xc = torch.complex(xr, xi)
+    ref = torch.fft.fft(xc)
+    pl = ft.the_planner
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    reset_counts()
+    plans = f64_plans()
+    torch.cuda.synchronize()
+    race = read_counts()
+    st = pl.stats
+    print(f"[21] four plans in {time.perf_counter() - t0:.1f} s; kernel "
+          f"launches while MEASURE timed its candidates: "
+          f"{({k: v for k, v in race.items() if v})}; "
+          f"nmeasure_failed={st['nmeasure_failed']}")
+    for label, plan in plans.items():
+        print(f"[21] {label}: {plan!r}")
+    check(plans["ESTIMATE"].descriptors == {1: DF32_DESC},
+          "ESTIMATE did not pick df32")
+    check(plans["pinned"].descriptors == {1: DF32P_DESC}, "pinned plan")
+    check("df32" not in repr(plans["strict_f64 ESTIMATE"]),
+          "strict_f64 kept the df32 tier")
+    check(race["df32_c2c"] > 0, "MEASURE did not race df32p")
+    check(st["nmeasure_failed"] == 0,
+          f"MEASURE candidate failed: {st.get('last_measure_error')}")
+    launches = {}
+    for label, plan in plans.items():
+        torch.cuda.synchronize()
+        reset_counts()
+        yr, yi = plan.apply_split(xr, xi)
+        torch.cuda.synchronize()
+        c_split = read_counts()
+        reset_counts()
+        yc = plan.execute(xc)
+        torch.cuda.synchronize()
+        c_exec = read_counts()
+        launches[label] = (c_split, c_exec)
+        e = relerr(torch.complex(yr, yi), ref)
+        e_x = relerr(yc, ref)
+        check(bool(torch.isfinite(yr).all() and torch.isfinite(yi).all())
+              and tuple(yc.shape) == F64_PATH and yc.dtype == c128,
+              f"{label}: bad output")
+        print(f"[21] {label}: K7 launches apply_split "
+              f"{c_split['df32_c2c']}, execute {c_exec['df32_c2c']}; rel "
+              f"err vs torch.fft complex128 apply_split {e:.3e}, execute "
+              f"{e_x:.3e}")
+        check(max(e, e_x) <= F64_TOL, f"{label} over {F64_TOL}")
+        del yr, yi, yc
+    check(launches["ESTIMATE"] == (only(), only()),
+          f"the df32 plan launched {launches['ESTIMATE']}")
+    check(launches["pinned"] == (only(df32_c2c=1), only(df32_c2c=1)),
+          f"the df32p plan launched {launches['pinned']}")
+
+    # the pinned plan's gradient: one K7 launch of the opposite sign
+    pp = plans["pinned"]
+    gxr, gxi = (t.clone().requires_grad_() for t in (xr, xi))
+    gr, gi = f64_planes(rng, F64_PATH, dev)
+    outr, outi = pp.apply_split(gxr, gxi)
+    torch.cuda.synchronize()
+    reset_counts()
+    torch.autograd.backward([outr, outi], [gr, gi])
+    torch.cuda.synchronize()
+    c_back = read_counts()
+    check(c_back == only(df32_c2c=1), f"df32p backward launched {c_back}")
+    wr, wi = df32.df32_c2c_cuda(gr, gi, DF32P_DESC["radices"], +1)
+    g = torch.complex(gxr.grad, gxi.grad)
+    e_g = relerr(g, torch.complex(wr, wi))
+    e_go = relerr(g, oracle(torch.complex(gr, gi), (-1,), +1))
+    print(f"[21] df32p backward: one K7 launch of sign +1; vs that launch "
+          f"{e_g:.2e}, vs torch.fft complex128 {e_go:.2e}")
+    check(e_g == 0.0 and e_go <= F64_TOL, "df32p gradient mismatch")
+    del gxr, gxi, gr, gi, outr, outi, wr, wi, g, ref
+    torch.cuda.empty_cache()
+
+    # K7 against its twin at the path's shape, and the kernels-line times
+    rad = DF32P_DESC["radices"]
+    kr, ki = df32.df32_c2c_cuda(xr, xi, rad, -1)
+    tr, ti = df32.df32_c2c_torch(xr, xi, rad, -1)
+    t = torch.complex(tr, ti)
+    max_abs = float((torch.complex(kr, ki) - t).abs().max())
+    rel_k7 = max_abs / float(t.abs().max())
+    check(rel_k7 <= F64_TOL, f"K7 vs twin at {F64_PATH}: {rel_k7:.2e}")
+    del kr, ki, tr, ti, t
+    ops = sum(c2c_ops.c2c_opcount(DF32P_DESC).values()) * B
+    t_b, t_o = 32.0 * B * n / HBM_BYTES_PER_S, ops / FP32_INSTR_PER_S
+    row = {
+        "name": "df32_c2c", "route": "cuda",
+        "source": "fftw3_tpu_torch/csrc/df32_c2c.cu",
+        "replaces": "fftw3_tpu/ops/df32.py:444",
+        "launches": launches["pinned"][0]["df32_c2c"],
+        "max_abs_err": max_abs, "rel_err": rel_k7,
+        "ms": time_ms(lambda a, b: df32.df32_c2c_cuda(a, b, rad, -1),
+                      (xr, xi)),
+        "plain_ms": time_few(lambda a, b: df32.df32_c2c_torch(a, b, rad, -1),
+                             (xr, xi)),
+        "library_ms": time_ms(lambda z: torch.fft.fft(z), (xc,)),
+        "bound_ms": max(t_b, t_o) * 1e3,
+        "bound_by": "bytes" if t_b >= t_o else "operations"}
+    print(f"[21] K7 {F64_PATH}: kernel {row['ms']:.3f} ms, twin "
+          f"{row['plain_ms']:.3f} ms, torch.fft.fft complex128 "
+          f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+          f"({row['bound_by']}: {ops:.3e} FP32 operations, "
+          f"{32.0 * B * n:.3e} bytes); kernel-twin max abs err "
+          f"{max_abs:.3e}, over max |twin| {rel_k7:.2e} ({smi_line})")
+
+    # the five arms, interleaved: each timed twice, in order and back; a
+    # plan on the eager df32 solver with few calls
+    arms = {"ESTIMATE df32": plans["ESTIMATE"],
+            "pinned df32p": pp,
+            "MEASURE's plan": plans["MEASURE"],
+            "strict_f64 ESTIMATE": plans["strict_f64 ESTIMATE"],
+            "torch.fft.fft complex128": None}
+    times = {k: [] for k in arms}
+    for label in list(arms) + list(arms)[::-1]:
+        plan = arms[label]
+        if plan is None:
+            times[label].append(time_ms(lambda z: torch.fft.fft(z), (xc,)))
+        else:
+            timer = time_few if "(df32-" in repr(plan) else time_ms
+            times[label].append(timer(plan.apply_split, (xr, xi)))
+    for label, ts in times.items():
+        print(f"[21] {label} {F64_PATH}: {ts[0]:.3f} / {ts[1]:.3f} ms "
+              f"({smi_line})")
+    del xr, xi, xc, plans, pp, arms
+    torch.cuda.empty_cache()
+    print(f"[21] done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # -- 22. complex128 beyond the last axis -------------------------------
+    # the df32p pin for n = 512 is still in the planner's wisdom
+    p2 = ft.plan_many_dft(list(F64_MANY_2D[1:]), howmany=F64_MANY_2D[0],
+                          dtype="complex128", device="cuda")
+    d512 = {"alg": "df32p", "n": 512, "radices": [32, 16]}
+    print(f"[22] {p2!r}")
+    check(p2.descriptors == {1: d512, 2: d512}, "2-D complex128 plan")
+    xr, xi = f64_planes(rng, F64_MANY_2D, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    yr, yi = p2.apply_split(xr, xi)
+    torch.cuda.synchronize()
+    c2 = read_counts()
+    check(c2 == only(df32_c2c=2), f"2-D complex128 plan launched {c2}")
+    e2 = relerr(torch.complex(yr, yi), torch.fft.fft2(torch.complex(xr, xi)))
+    print(f"[22] plan_many_dft {F64_MANY_2D} complex128: K7 launches "
+          f"{c2['df32_c2c']} (axis 1 behind movedim, axis 2); rel err vs "
+          f"torch.fft.fft2 complex128 {e2:.3e}")
+    check(e2 <= F64_TOL, "2-D complex128 plan over tolerance")
+    del yr, yi
+    t2 = time_ms(p2.apply_split, (xr, xi))
+    t2_lib = time_ms(lambda z: torch.fft.fft2(z), (torch.complex(xr, xi),))
+    print(f"[22] plan {t2:.3f} ms vs torch.fft.fft2 complex128 {t2_lib:.3f} "
+          f"ms ({smi_line})")
+    del xr, xi, p2
+    ft.forget_wisdom()
+    pr = ft.plan_dft_r2c(F64_PATH, axes=(1,), dtype="float64", device="cuda")
+    print(f"[22] {pr!r}")
+    x = torch.from_numpy(rng.standard_normal(F64_PATH)).to(dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    yr, yi = pr.apply_split(x)
+    torch.cuda.synchronize()
+    cr = read_counts()
+    check(yr.dtype == torch.float64, "the complex128 r2c left float64")
+    er = relerr(torch.complex(yr, yi), torch.fft.rfft(x))
+    print(f"[22] r2c {F64_PATH} float64: launches "
+          f"{({k: v for k, v in cr.items() if v})}; rel err vs torch.fft.rfft "
+          f"complex128 {er:.3e}")
+    check(er <= F64_TOL, "complex128 r2c over tolerance")
+    del x, yr, yi, pr
+    torch.cuda.empty_cache()
+
+    # -- 23. dd64 on the card ----------------------------------------------
+    try:
+        import mpmath
+    except ImportError:
+        fail("phase 23 needs mpmath (it comes with torch's sympy)")
+    mpmath.mp.dps = 50
+    pq = ft.plan_dft_1d_q(DD_N, device="cuda")
+    pcpu = ft.plan_dft_1d_q(DD_N, device="cpu")
+    pb = ft.plan_dft_1d_q(DD_N, sign=+1, device="cuda")
+    x = (rng.standard_normal((DD_ROWS, DD_N))
+         + 1j * rng.standard_normal((DD_ROWS, DD_N))).astype(np.clongdouble)
+    x += x * np.longdouble(1e-17)          # bits below float64
+    y = pq.execute(x)
+    want = np.fft.fft(x.astype(np.complex128))
+    e_ex = float(np.max(np.abs(y.astype(np.complex128) - want))
+                 / np.max(np.abs(want)))
+    check(y.dtype == np.clongdouble and e_ex <= 1e-13,
+          f"dd64 execute vs numpy: {e_ex:.2e}")
+    planes = [rng.standard_normal((DD_ROWS, DD_N)) * s
+              for s in (1.0, 1e-17, 1.0, 1e-17)]
+    got = [v.cpu().numpy() for v in
+           pq.apply_dd(*(torch.from_numpy(v).to(dev) for v in planes))]
+    cpu = [v.numpy() for v in
+           pcpu.apply_dd(*(torch.from_numpy(v) for v in planes))]
+    back = [v.cpu().numpy() for v in
+            pb.apply_dd(*(torch.from_numpy(v).to(dev) for v in got))]
+
+    def mp_rows(p):
+        """hi + lo of the first rows, exactly, as mpmath values."""
+        return [[(mpmath.mpf(float(p[0][r, k])) + mpmath.mpf(float(p[1][r, k])),
+                  mpmath.mpf(float(p[2][r, k])) + mpmath.mpf(float(p[3][r, k])))
+                 for k in range(DD_N)] for r in range(DD_MP_ROWS)]
+
+    def mp_err(a, b, scale=1):
+        num = max(abs(u[0] - scale * v[0]) + abs(u[1] - scale * v[1])
+                  for ra, rb in zip(a, b) for u, v in zip(ra, rb))
+        den = max(abs(v[0]) + abs(v[1]) for rb in b for v in rb) * scale
+        return float(num / den)
+    g_mp, c_mp = mp_rows(got), mp_rows(cpu)
+    e_cc = mp_err(g_mp, c_mp)
+    e_rt = mp_err(mp_rows(back), mp_rows(planes), DD_N)
+    same = all(np.array_equal(a, b) for a, b in zip(got, cpu))
+    print(f"[23] {pq!r} on {DD_ROWS} rows: execute (clongdouble) vs numpy "
+          f"{e_ex:.2e}; apply_dd on the card vs on the CPU {e_cc:.2e} "
+          f"(bit-identical: {same}); backward(forward(x)) vs n x {e_rt:.2e} "
+          f"({DD_MP_ROWS} rows rebuilt in mpmath)")
+    check(e_cc <= DD_TOL and e_rt <= DD_TOL, "dd64 over tolerance")
+
+    # -- 24. the f64 path profiled in a fresh process ----------------------
+    sys.stdout.flush()
+    res = subprocess.run([sys.executable, __file__, "--profile-paths", "f64",
+                          "--seed", str(seed)], timeout=600)
+    check(res.returncode == 0, "the profile of the f64 path failed")
+    print(f"[24] done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    return row
+
+
 def profile_paths(rng, dev, group) -> None:
     """``torch.profiler`` breakdowns, group ``c2c``: the 3-D, 2-D batched
     and four-step paths: wall and device time per call, idle share, time
@@ -398,6 +781,9 @@ def profile_paths(rng, dev, group) -> None:
     _build.library()
     if group == "real":
         profile_real_paths(rng, dev, smi_line)
+        return
+    if group == "f64":
+        profile_f64_paths(rng, dev, smi_line)
         return
     cube = (CUBE,) * 3
     p3 = ft.plan_dft_3d(*cube, device="cuda")
@@ -430,10 +816,10 @@ def profile_paths(rng, dev, group) -> None:
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--profile-paths", choices=["c2c", "real"],
+    ap.add_argument("--profile-paths", choices=["c2c", "real", "f64"],
                     help="only profile the c2c paths (3-D, 2-D batched, "
-                    "four-step) or the real paths (the full run starts "
-                    "each in a child process)")
+                    "four-step), the real paths or the f64 path (the full "
+                    "run starts each in a child process)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch sees no CUDA device", file=sys.stderr)
@@ -1408,6 +1794,8 @@ def main() -> None:
               f"{r['max_abs_err']:.3e}, over max |twin| {r['rel_err']:.2e} "
               f"({smi_line})")
 
+    k7_row = f64_phases(rng, dev, smi_line, args.seed, t_start)
+
     # the JSON line keeps one row per kernel: K3 at its 3-D path shape, K4
     # and K6 at the 1-D real path's shape
     for r in rows14 + rows19:
@@ -1416,10 +1804,11 @@ def main() -> None:
         if r["name"] in ("r2c", "c2r") and r["shape"][0] != REAL_1D[0]:
             continue
         kernels.append({k: v for k, v in r.items() if k != "shape"})
+    kernels.append(k7_row)
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
 
-    print(f"[19] whole run {time.perf_counter() - t_start:.1f} s")
+    print(f"[24] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

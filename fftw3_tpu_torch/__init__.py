@@ -5,8 +5,10 @@ multidimensional complex and real DFTs with the cost-driven planner and
 wisdom of the reference package, the Stockham transforms as hand-written
 CUDA kernels for Hopper (``csrc/``: the last axis, axis -2, both trailing
 axes fused, the four-step above the one-kernel window, and the real r2c,
-axis -2 r2c and c2r kernels), and a plain PyTorch twin of every kernel for
-the CPU.  Imports ``torch``, never ``jax``.
+axis -2 r2c and c2r kernels, and the double-float kernel of complex128
+plans), a plain PyTorch twin of every kernel for the CPU, and the
+double-double long-double/quad tier (``plan_dft_1d_l``/``_q``).  Imports
+``torch``, never ``jax``.
 """
 from . import config  # noqa: F401
 from .api import (  # noqa: F401
@@ -19,6 +21,8 @@ from .api import (  # noqa: F401
 from .kinds import (  # noqa: F401
     BACKWARD, ESTIMATE, EXHAUSTIVE, FORWARD, MEASURE, PATIENT, WISDOM_ONLY,
     Kind)
+from .ops.dd64 import (  # noqa: F401  (fftwl_/fftwq_ tier)
+    DdPlan, DdPlanNd, plan_dft_1d_l, plan_dft_1d_q, plan_dft_l, plan_dft_q)
 from .planner import the_planner  # noqa: F401
 
 __version__ = "0.1.0"

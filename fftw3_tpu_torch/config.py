@@ -33,6 +33,12 @@ measure_hysteresis: float = 0.95
 #: pick.  None = off (real costs).
 random_estimator = None
 
+#: Leave the double-float tier out of complex128/float64 plans
+#: (``ops/df32.py``): with ``strict_f64 = True`` every f64 plan computes in
+#: native FP64 (``torch.matmul`` stages, or cuFFT Z2Z for ``xla``), about
+#: 1e-16 instead of about 1e-13 — the reference's semantics.
+strict_f64: bool = False
+
 #: Swapped rank-2 r2c composition (plan.py): r2c over axis -2 first (K5),
 #: then the last-axis c2c over the half spectrum's rows, then a Hermitian
 #: rebuild to the contract layout (half spectrum on the last axis).  Off,

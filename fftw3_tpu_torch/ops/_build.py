@@ -54,6 +54,9 @@ SIGNATURES = {
     # x yr yi tab, tab_len pre n, L, tl nstages p0 p1 grid smem, stream
     "r2c_inner_launch": [_P] * 4 + [_I] * 3 + [_L] + [_I] * 6 + [_P],
     "r2c_inner_occupancy": [_I, ctypes.POINTER(_I)],
+    # xr xi yr yi tab, rows n nstages p0 p1 p2 p3 rpb sign grid smem, stream
+    "df32_c2c_launch": [_P] * 5 + [_I] * 11 + [_P],
+    "df32_c2c_occupancy": [_I, ctypes.POINTER(_I)],
 }
 
 _lock = threading.Lock()

@@ -17,7 +17,8 @@ Solvers: ``nop``, ``direct`` (one dense DFT-matrix product), ``mixed``
 kernel, ops/stockham.py), ``pallas4`` (the four-step over the axis -2 and
 last-axis kernels, ops/fourstep.py), ``rader``, ``bluestein`` and ``xla``,
 which is ``torch.fft`` here: a competitor MEASURE may time, as the reference
-times XLA's FFT.  ``df32`` and ``df32p`` wait for the f64 tier.
+times XLA's FFT; and the double-float tier of complex128 plans, ``df32``
+and ``df32p`` (the fused kernel K7), ops/df32.py.
 """
 from __future__ import annotations
 
@@ -169,11 +170,13 @@ def build_c2c_split(desc: Dict, sign: int, rdtype, device) -> SplitApply:
         return fourstep.build_pallas_c2c_split_fourstep(desc, sign, rdtype,
                                                         device)
 
-    if alg in ("df32", "df32p"):
-        waits = {"df32": "the f64 tier (ROADMAP queue 1 item 10)",
-                 "df32p": "kernel K7 (ROADMAP queue 2)"}
-        raise NotImplementedError(f"c2c alg {alg!r} is not ported yet: it "
-                                  f"waits for {waits[alg]}")
+    if alg == "df32":
+        from . import df32
+        return df32.build_df32_c2c_split(desc, sign, rdtype, device)
+
+    if alg == "df32p":
+        from . import df32
+        return df32.build_df32_pallas_split(desc, sign, rdtype, device)
 
     if alg == "bluestein":
         m = desc["m"]
@@ -351,6 +354,36 @@ def c2c_opcount(desc: Dict) -> Dict[str, float]:
             "mul": 2 * child["mul"] + 6.0 * n,
             "fma": 2 * child["fma"],
         }
-    if alg in ("df32", "df32p"):
-        raise NotImplementedError(f"c2c alg {alg!r} is not ported yet")
+    if alg == "df32":
+        # f32 ops of the double-float pipeline (df add = 11 real adds; df
+        # mul = 9 mul + 12 add; complex df mul = 4 df mul + 2 df add): per
+        # stage n(p-1) complex df adds, plus (p-1)^2 dense butterfly
+        # products per group for p not in {2, 4} (whose +-1/+-i
+        # coefficients are free), plus p-1 twiddle products per group
+        total = {"add": 0.0, "mul": 0.0, "fma": 0.0}
+        for p in desc["radices"]:
+            g = n / p
+            cmul = g * ((0 if p in (2, 4) else (p - 1) ** 2) + (p - 1))
+            cadd = n * (p - 1)
+            total["add"] += cadd * 22.0 + cmul * 70.0
+            total["mul"] += cmul * 36.0
+        return total
+    if alg == "df32p":
+        # the fused df kernel: the butterfly stage counts mapped to df
+        # costs (add -> df add, 11 f32 adds; cmul -> df cmul, 36 mul + 70
+        # add), plus the stage twiddle as one df cmul per point on every
+        # stage but the last
+        total = {"add": 0.0, "mul": 0.0, "fma": 0.0}
+        rest = n
+        for p in desc["radices"]:
+            q = rest // p
+            a, m = _vpu_stage_opcount(p)
+            cm = m / 4.0
+            total["add"] += (a * 11.0 + cm * 70.0) * (n / p)
+            total["mul"] += cm * 36.0 * (n / p)
+            if q > 1:
+                total["add"] += 70.0 * n
+                total["mul"] += 36.0 * n
+            rest = q
+        return total
     raise ValueError(alg)

@@ -1,5 +1,6 @@
 """The planner: cost-driven algorithm search with persistent wisdom — the
-c2c, r2c and c2r part of ``fftw3_tpu/planner.py``.
+c2c, r2c and c2r part of ``fftw3_tpu/planner.py``, the double-float
+candidates of complex128 plans included.
 
 A memoized recursive search over the registered c2c, r2c and c2r solvers,
 with an ESTIMATE cost model, a MEASURE mode that times built candidates on
@@ -27,6 +28,7 @@ import torch
 from . import config
 from . import kinds as K
 from .ops import c2c as c2c_ops
+from .ops import df32
 from .ops import real as real_ops
 from .ops import real_stockham, stockham
 from .utils import primes
@@ -84,6 +86,22 @@ def _c2c_cost(desc: Dict, hw: HardwareModel = HW, f64: bool = False) -> float:
     vpu = hw.vpu_flops / (_F64_VPU_PENALTY if f64 else 1.0)
     if alg == "nop" or n == 1:
         return 0.0
+    if alg == "df32":
+        # double-float pipeline: per stage one elementwise HBM sweep of the
+        # four f32 planes plus the df butterfly/twiddle chains (f32 whatever
+        # the plan dtype: the point of the tier)
+        t = 0.0
+        for p in desc["radices"]:
+            per_pt = 260.0 if p in (2, 4) else 170.0 * p
+            t += 32.0 * n / hw.hbm_bw + per_pt * n / hw.vpu_flops
+        return t
+    if alg == "df32p":
+        # fused df kernel: one HBM pass, df butterfly/twiddle chains per
+        # stage (f32 whatever the plan dtype)
+        t = 1.25 * 2 * el * n / hw.hbm_bw
+        for p in desc["radices"]:
+            t += 60.0 * math.log2(max(p, 2)) * n / hw.vpu_flops
+        return t
     if alg == "direct":
         bytes_moved = 2 * el * n
         flops = 8.0 * n * n
@@ -313,8 +331,16 @@ class Planner:
         out: List[Dict] = []
         if n == 1:
             return [{"alg": "nop", "n": 1}]
-        # (the reference's df32/df32p candidates for complex128 come here
-        # once the f64 tier is ported, ROADMAP K7)
+        if np.dtype(rdtype) == np.float64 and not config.strict_f64:
+            # the double-float tier: df32 wherever it applies, the fused
+            # kernel K7 (df32p) under MEASURE, as in the reference
+            if df32.df32_applicable(n):
+                out.append({"alg": "df32", "n": n,
+                            "radices": df32.df32_radices(n)})
+            if (patience >= K.PATIENCE_MEASURE
+                    and df32.df32p_applicable(n, device)):
+                out.append({"alg": "df32p", "n": n,
+                            "radices": df32.df32p_radices(n)})
         if n <= DIRECT_MAX or (n <= GENERIC_MAX and
                                primes.largest_prime_factor(n) > 64):
             out.append({"alg": "direct", "n": n})
@@ -545,6 +571,13 @@ def validate_desc(kind: str, n: int, desc) -> bool:
                 and validate_desc("c2c", n // p, desc.get("child")))
     if alg == "pallas":
         return stockham.radices_ok(n, desc.get("radices"))
+    if alg == "df32":
+        rad = desc.get("radices")
+        return (isinstance(rad, list)
+                and all(isinstance(r, int) and 1 < r for r in rad)
+                and math.prod(rad) == n)
+    if alg == "df32p":
+        return df32.radices_ok(n, desc.get("radices"))
     if alg == "pallas4":
         return stockham.fourstep_ok(desc)
     if alg == "bluestein":
@@ -619,6 +652,8 @@ def sprint_desc(desc: Dict) -> str:
         v = {True: " vpu", False: " mxu",
              "all": " vpuall"}.get(desc.get("vpu"), "")
         return f"(pallas-{n} r{'x'.join(map(str, desc['radices']))}{v})"
+    if alg == "df32p":
+        return f"(df32p-{n} r{'x'.join(map(str, desc['radices']))})"
     if alg == "pallas4":
         return f"(pallas4-{desc['p']}x{desc['q']})"
     if alg == "bluestein":

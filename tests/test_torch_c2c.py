@@ -110,10 +110,3 @@ PALLAS = [{"alg": "pallas4", "n": 4096, "p": 32, "q": 128},
                          ids=lambda d: f"{d['alg']}-{d['n']}")
 def test_opcount_equals_reference(desc):
     assert c2c.c2c_opcount(desc) == ref_c2c.c2c_opcount(desc)
-
-
-@pytest.mark.parametrize("alg", ["df32", "df32p"])
-def test_unported_algs_raise(alg):
-    desc = {"alg": alg, "n": 4096, "p": 64, "q": 64, "radices": [64, 64]}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        c2c.build_c2c_split(desc, -1, np.float32, "cpu")

@@ -28,10 +28,10 @@ BATCHES = [8, 65536]
 @pytest.fixture(autouse=True)
 def _restore():
     old = (ref_config.pallas_mode, ref_config.strict_f64, config.kernel_mode,
-           config.measure_points)
+           config.measure_points, config.strict_f64)
     yield
     (ref_config.pallas_mode, ref_config.strict_f64, config.kernel_mode,
-     config.measure_points) = old
+     config.measure_points, config.strict_f64) = old
 
 
 def _port_planner():
@@ -58,11 +58,12 @@ def test_estimate_descriptors_equal_reference(port_mode, ref_mode, ns,
 
 
 def test_complex128_descriptors_equal_strict_reference():
-    """The f64 compensated tier is not ported: the port's complex128
-    search equals the reference's under strict_f64."""
+    """With strict_f64 on both sides (no double-float tier) the port's
+    complex128 search equals the reference's; the default search is held
+    in tests/test_torch_df32.py."""
     config.kernel_mode = "on"
     ref_config.pallas_mode = "interpret"
-    ref_config.strict_f64 = True
+    ref_config.strict_f64 = config.strict_f64 = True
     mine, ref = _port_planner(), ref_planner.Planner()
     for n in (64, 1000, 1009, 1024):
         assert mine.plan_c2c(n, np.float64, 0, 64, device="cpu") == \
@@ -92,7 +93,7 @@ def test_main_path_descriptor_with_port_defaults():
     (4096, {"alg": "pallas", "n": 4096, "radices": [64, 64]}, False),
     (4096, {"alg": "pallas4", "n": 4096, "p": 64, "q": 64}, True),
     (4096, {"alg": "pallas4", "n": 4096, "p": 64, "q": 32}, False),
-    (1024, {"alg": "df32", "n": 1024, "radices": [4, 4, 64]}, False),
+    (1024, {"alg": "df32", "n": 1024, "radices": [4, 4, 64]}, True),
     (48, {"alg": "mixed", "n": 48, "p": 5,
           "child": {"alg": "direct", "n": 9}}, False),
     (37, {"alg": "bluestein", "n": 37, "m": 64,

@@ -260,16 +260,19 @@ SOLVERS = [  # (kind, descriptor without child, child size or None)
 
 
 @pytest.mark.parametrize(
-    "kind,desc,child,dtype",
-    [s + (dt,) for s in SOLVERS for dt in (np.float32, np.float64)
+    "kind,desc,child,dtype,strict",
+    [s + (dt, st) for s in SOLVERS for dt in (np.float32, np.float64)
+     for st in ((True, False) if dt == np.float64 else (True,))
      if dt == np.float32 or not s[1]["alg"].startswith("pallas")],
     ids=lambda v: v["alg"] + f"-{v['n']}" if isinstance(v, dict) else None)
-def test_solvers_match_reference(kind, desc, child, dtype, monkeypatch):
+def test_solvers_match_reference(kind, desc, child, dtype, strict,
+                                 monkeypatch):
     """Every solver of ops/real.py against the reference's on the same
     descriptor: same output, same op counts, and float64 stays float64 (the
     real kernels are float32 only).  The reference's float64 children are
-    its true-f64 solvers (``strict_f64``): the port has no df32 tier."""
-    monkeypatch.setattr(ref_config, "strict_f64", True)
+    its true-f64 solvers under ``strict_f64`` and its double-float ``df32``
+    solvers without it."""
+    monkeypatch.setattr(ref_config, "strict_f64", strict)
     desc = dict(desc)
     if child is not None:
         desc["child"] = ref_planner.the_planner.plan_c2c(child, dtype, 0, 8)

@@ -36,9 +36,11 @@ TOL = 2e-5
 def _modes(monkeypatch):
     """Kernels on in both packages, the port's global planner on the
     reference's hardware constants, both global planners without wisdom,
-    both packages' real options off (the port has only ``r2c_swapped``)."""
+    both packages' real options off (the port has only ``r2c_swapped``)
+    and their double-float tiers on (``strict_f64`` off)."""
     monkeypatch.setattr(ref_config, "pallas_mode", "interpret")
-    monkeypatch.setattr(ref_config, "strict_f64", True)
+    for cfg in (config, ref_config):
+        monkeypatch.setattr(cfg, "strict_f64", False)
     monkeypatch.setattr(config, "kernel_mode", "on")
     monkeypatch.setattr(ft.the_planner, "hw", _ref_hw())
     monkeypatch.setattr(ft.the_planner, "wisdom", {})
@@ -368,7 +370,8 @@ def test_plan_grads(shape, axes):
 @pytest.mark.parametrize("n", [96, 1024])
 def test_float64_plans_stay_float64(n):
     """Complex128/float64 plans never reach the f32 kernels: they stay on
-    the dense, pack or via-c2c solvers, in float64 end to end."""
+    the dense, pack or via-c2c solvers (over df32 children), in float64 end
+    to end."""
     shape = (3, n)
     p = ft.plan_dft_r2c(shape, axes=(1,), dtype="float64", device="cpu")
     q = ft.plan_dft_c2r(shape, axes=(1,), dtype="float64", device="cpu")
