@@ -626,7 +626,9 @@ def f64_phases(rng, dev, smi_line, seed, t_start):
     rel_k7 = max_abs / float(t.abs().max())
     check(rel_k7 <= F64_TOL, f"K7 vs twin at {F64_PATH}: {rel_k7:.2e}")
     del kr, ki, tr, ti, t
-    ops = sum(c2c_ops.c2c_opcount(DF32P_DESC).values()) * B
+    # K7's own FP32 instructions (its df multiply is fmaf's two_prod, not
+    # the reference count's Dekker split)
+    ops = df32.kernel_instructions(n, rad) * B
     t_b, t_o = 32.0 * B * n / HBM_BYTES_PER_S, ops / FP32_INSTR_PER_S
     row = {
         "name": "df32_c2c", "route": "cuda",
@@ -644,7 +646,7 @@ def f64_phases(rng, dev, smi_line, seed, t_start):
     print(f"[21] K7 {F64_PATH}: kernel {row['ms']:.3f} ms, twin "
           f"{row['plain_ms']:.3f} ms, torch.fft.fft complex128 "
           f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
-          f"({row['bound_by']}: {ops:.3e} FP32 operations, "
+          f"({row['bound_by']}: {ops:.3e} FP32 instructions, "
           f"{32.0 * B * n:.3e} bytes); kernel-twin max abs err "
           f"{max_abs:.3e}, over max |twin| {rel_k7:.2e} ({smi_line})")
 

@@ -22,10 +22,11 @@
 // contracts; the one FMA is the exact product error e = fmaf(a, b, -p) of
 // two_prod, exact where Dekker's form is and cheaper.
 //
-// What bounds it on an H100: the arithmetic.  A df add is 11 FP32
-// operations and a df complex multiply 106, so the reference's op count of
-// the [64, 16] schedule is 542 FP32 operations per point against 32 bytes
-// of HBM traffic (16 in, 16 out): about 0.14 ms of FP32 instructions against
+// What bounds it on an H100: the arithmetic.  A df add here is 11 FP32
+// instructions and a df multiply 9 (3 FMUL, 1 FFMA, 5 FADD), so a complex
+// df add is 22 and a complex df multiply 58; the [64, 16] schedule issues
+// 408.5 per point (ops/df32.py, kernel_instructions) against 32 bytes of
+// HBM traffic (16 in, 16 out): about 0.10 ms of FP32 instructions against
 // 0.08 ms of memory at (8192, 1024).  The design keeps every intermediate
 // on chip: a block holds its rows' four float planes in shared memory
 // through every stage (one HBM read and one write per point).  The simple
@@ -34,12 +35,12 @@
 // then the block synchronises; no tensor cores, no TMA.
 //
 // Layout and schedule:
-//  * A block takes a tile of rpb = max(1, 1024 / n) whole rows and walks the
-//    tiles with a grid stride, so any batch works with no padding; row
-//    offsets are 64-bit.  256 threads: one radix-4 butterfly each at
-//    n = 1024.
+//  * A block takes a tile of rpb whole rows (the caller's choice,
+//    ops/df32.py rows_per_block) and walks the tiles with a grid stride, so
+//    any batch works with no padding; row offsets are 64-bit.  256 threads:
+//    one radix-4 butterfly each at n = 1024.
 //  * Shared memory: two buffers (A, B) of four planes (rh, rl, ih, il) of
-//    rpb * n floats, 32 bytes per point in all (32 KB at most).
+//    rpb * n floats, 32 bytes per point in all.
 //  * A stage (p, q, done) sees a row as (p, q, done), column c = j2*done + d,
 //    stride S = q*done.  Its p-point DFT runs in place on every column as a
 //    decimation-in-frequency recursion: level l combines r points at
@@ -352,12 +353,12 @@ df32_c2c_kernel(const double* __restrict__ xr, const double* __restrict__ xi,
 
 // Both entry points act on the caller's current device; the caller sets it.
 
-// The most dynamic shared memory a launch asks for: two buffers of four
-// planes of 1024 floats (rpb * n <= 1024).
-constexpr int kMaxSmem = static_cast<int>(sizeof(float)) * 8 * 1024;
+// The most dynamic shared memory a launch gets without opting in; the
+// caller's tile (ops/df32.py, TILE_POINTS) keeps under it.
+constexpr int kMaxSmem = 48 * 1024;
 
-// Report how many blocks of `smem` bytes fit on one SM (under 48 KB, so no
-// opt-in is needed).  Returns the CUDA error code, 0 on success.
+// Report how many blocks of `smem` bytes fit on one SM.  Returns the CUDA
+// error code, 0 on success.
 extern "C" int df32_c2c_occupancy(int smem, int* blocks_per_sm) {
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -367,16 +368,16 @@ extern "C" int df32_c2c_occupancy(int smem, int* blocks_per_sm) {
 // Launch `grid` blocks on `stream` (a cudaStream_t passed as a pointer).
 // Returns the CUDA error code of the launch, 0 on success.  The caller
 // checks shapes: rows >= 1; 1 <= nstages <= 4 radices p0..p3 (unused ones
-// 1), each 2-3-5-smooth, whose product is n <= 1024; rpb = max(1, 1024 / n);
-// smem = 32 * rpb * n bytes; `tab` the constant table of this schedule and
-// `sign` (layout at the top of this file).
+// 1), each 2-3-5-smooth, whose product is n; rpb rows per block tile;
+// smem = 32 * rpb * n bytes, at most kMaxSmem; `tab` the constant table of
+// this schedule and `sign` (layout at the top of this file).
 extern "C" int df32_c2c_launch(const double* xr, const double* xi, double* yr,
                                double* yi, const float* tab, int rows, int n,
                                int nstages, int p0, int p1, int p2, int p3,
                                int rpb, int sign, int grid, int smem,
                                void* stream) {
-  if (nstages < 1 || nstages > kMaxStages || rpb * n > 1024 ||
-      smem != 32 * rpb * n)
+  if (nstages < 1 || nstages > kMaxStages || smem != 32 * rpb * n ||
+      smem > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   df32_c2c_kernel<<<grid, kThreads, static_cast<size_t>(smem),
                     static_cast<cudaStream_t>(stream)>>>(

@@ -22,13 +22,14 @@ Needs ``mpmath`` (a dependency of torch's ``sympy``).
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Tuple
 
 import numpy as np
 import torch
 
 from .. import config
-from .df32 import _canon, _coeff_mul, _on, df_cadd, df_cmul, df32_radices
+from . import df32
+from .df32 import _canon, _on, df32_radices
 
 _MP_DPS = 40
 
@@ -70,48 +71,27 @@ def _split_roots(n: int, ks, sign: int, shape) -> Tuple[np.ndarray, ...]:
     return tuple(a.reshape(shape) for a in (rh, rl, ih, il))
 
 
-def _build(n: int, radices: List[int], sign: int, device):
-    """Recursive CT level in dd64 arithmetic: the df32 recursion with
-    mpmath-split f64 constants (complex128 trig would cap the tier at
-    1e-16), as f64 tensors on `device`."""
-    if n == 1:
-        return lambda x: x
-    p = radices[0]
-    q = n // p
-    child = _build(q, radices[1:], sign, device)
+def _dd_consts(p: int, q: int, sign: int, device):
+    """One level's constants for df32's recursive builder, in dd64: the
+    radix-p butterfly coefficients and the (p, q) twiddle grid from mpmath,
+    split exactly into f64 (hi, lo) pairs (complex128 trig would cap the
+    tier at 1e-16), as f64 tensors on `device`."""
     # butterfly matrix F[j,k] = w^(jk), w = exp(sign*2*pi*i/p)
-    idx = [[(j * k) % p for j in range(p)] for k in range(p)]
     coeffs = []
     csplit = []
     for k in range(p):
-        rh, rl, ih, il = _split_roots(p, idx[k], sign, (p,))
+        rh, rl, ih, il = _split_roots(p, [(j * k) % p for j in range(p)],
+                                      sign, (p,))
         coeffs.append([_canon(complex(rh[j] + 1j * ih[j]))
                        for j in range(p)])
         csplit.append([(_on(np.array([rh[j], ih[j]]), device),
                         _on(np.array([rl[j], il[j]]), device))
                        for j in range(p)])
-    # twiddle grid w_n'^(k*j), n' = p*q, shaped (p, q)
+    # twiddle grid w_n^(k*j), n = p*q, shaped (p, q)
+    n = p * q
     ks = [(k * j) % n for k in range(p) for j in range(q)]
-    tw = [_on(a, device) for a in _split_roots(n, ks, sign, (p, q))]
-
-    def apply(x):
-        shp = x[0].shape[:-1]
-        xs = [tuple(v.reshape(*shp, p, q)[..., j, :] for v in x)
-              for j in range(p)]
-        outs = []
-        for k in range(p):
-            acc = None
-            for j in range(p):
-                t = _coeff_mul(xs[j], coeffs[k][j], *csplit[k][j])
-                acc = t if acc is None else df_cadd(acc, t)
-            if k > 0:
-                acc = df_cmul(acc, tuple(v[k] for v in tw))
-            outs.append(acc)
-        y = tuple(torch.stack([o[i] for o in outs], dim=-2)
-                  for i in range(4))
-        z = child(y)
-        return tuple(v.transpose(-1, -2).reshape(*shp, n) for v in z)
-    return apply
+    tw = tuple(_on(a, device) for a in _split_roots(n, ks, sign, (p, q)))
+    return coeffs, csplit, tw
 
 
 def dd64_applicable(n: int) -> bool:
@@ -170,8 +150,9 @@ class DdPlan:
         self.n = n
         self.sign = sign
         self.device = _device_of(device)
-        core = _build(n, df32_radices(n), sign, self.device)
-        adj = _build(n, df32_radices(n), -sign, self.device)
+        # df32's recursive builder on f64 planes, with dd64's constants
+        core, adj = (df32._build(n, df32_radices(n), s, self.device,
+                                 _dd_consts) for s in (sign, -sign))
 
         def apply_dd(rh, rl, ih, il):
             """Four (..., n) f64 planes on the plan's device in and out."""

@@ -169,24 +169,34 @@ def _on(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
-def _build(n: int, radices: Sequence[int], sign: int, device):
-    """Recursive CT level: butterfly radix p over axis -2 in df arithmetic,
-    fused df twiddle, child along the tail.  Returns a closure on df
-    complex 4-tuples of (..., n)-shaped f32 tensors; its constants are f32
-    tensors on `device`, made here once."""
-    if n == 1:
-        return lambda x: x
-    p = radices[0]
-    q = n // p
-    child = _build(q, radices[1:], sign, device)
+def _df32_consts(p: int, q: int, sign: int, device):
+    """One level's constants: the radix-p butterfly coefficients (snapped
+    by :func:`_canon`), their host-split f32 (hi, lo) pairs, and the (p, q)
+    twiddle grid as four f32 planes (rh, rl, ih, il), on `device`."""
     F = matrices.dft_matrix(p, sign)
     coeffs = [[_canon(complex(F[j, k])) for j in range(p)] for k in range(p)]
     csplit = [[tuple(_on(h, device) for h in _split_const(
         np.array([F[j, k].real, F[j, k].imag]))) for j in range(p)]
         for k in range(p)]
     tw = matrices.twiddle_2d(p, q, sign)
-    twr = [_on(h, device) for h in _split_const(tw.real)]
-    twi = [_on(h, device) for h in _split_const(tw.imag)]
+    return coeffs, csplit, tuple(
+        _on(h, device) for h in (*_split_const(tw.real),
+                                 *_split_const(tw.imag)))
+
+
+def _build(n: int, radices: Sequence[int], sign: int, device,
+           consts=_df32_consts):
+    """Recursive CT level: butterfly radix p over axis -2 in df arithmetic,
+    fused df twiddle, child along the tail.  Returns a closure on df
+    complex 4-tuples of (..., n)-shaped tensors; ``consts(p, q, sign,
+    device)`` makes each level's constants once (:func:`_df32_consts`, or
+    dd64's mpmath-split f64 ones)."""
+    if n == 1:
+        return lambda x: x
+    p = radices[0]
+    q = n // p
+    child = _build(q, radices[1:], sign, device, consts)
+    coeffs, csplit, tw = consts(p, q, sign, device)
 
     def apply(x):
         shp = x[0].shape[:-1]
@@ -199,8 +209,7 @@ def _build(n: int, radices: Sequence[int], sign: int, device):
                 t = _coeff_mul(xs[j], coeffs[k][j], *csplit[k][j])
                 acc = t if acc is None else df_cadd(acc, t)
             if k > 0:          # row 0 of the twiddle grid is all ones
-                acc = df_cmul(acc, (twr[0][k], twr[1][k],
-                                    twi[0][k], twi[1][k]))
+                acc = df_cmul(acc, tuple(v[k] for v in tw))
             outs.append(acc)
         y = tuple(torch.stack([o[i] for o in outs], dim=-2)
                   for i in range(4))
@@ -246,13 +255,23 @@ def build_df32_c2c_split(desc: Dict, sign: int, rdtype, device):
 #: for route parity: re-measuring it on the card is an open question)
 DF32P_MIN_N = 128
 DF32P_MAX_N = 1024
-#: the reference's batch tile; the port's kernel takes whole rows and pads
-#: nothing, so it is kept for reference only
-DF32P_TILE_B = 128
 #: most stages a df32p schedule may have (the kernel's arguments)
 DF32P_MAX_STAGES = 4
-#: points per block tile of the kernel: max(1, TILE_POINTS // n) rows
+#: points per block tile of the kernel: max(1, TILE_POINTS // n) rows, 32
+#: bytes of shared memory per point (the kernel checks only that a launch
+#: stays under the 48 KB it gets without opting in)
 TILE_POINTS = 1024
+
+#: FP32 instructions of one df add and one df multiply in K7's body
+#: (csrc/df32_c2c.cu): two_sum 6, two adds, fast_two_sum 3; the product
+#: one FMUL, its exact error one FFMA, two cross FMULs, two adds,
+#: fast_two_sum 3
+DF_ADD_INSTR = 11
+DF_MUL_INSTR = 9
+#: complex df adds and multiplies of one radix-r butterfly of K7 (r = 4:
+#: eight adds, the i-rotation free; r = 3 and 5 the direct coefficient
+#: form), before its level twiddles
+_BFLY_OPS = {2: (2, 0), 4: (8, 0), 3: (6, 4), 5: (20, 16)}
 
 #: launches of the CUDA kernel, counted by :func:`df32_c2c_cuda`
 launches = 0
@@ -486,6 +505,34 @@ def radices_ok(n: int, radices) -> bool:
 def rows_per_block(n: int) -> int:
     """Rows of one block tile of K7."""
     return max(1, TILE_POINTS // n)
+
+
+def kernel_instructions(n: int, radices: Sequence[int]) -> int:
+    """FP32 instructions K7 issues on one row: per recursion level of each
+    stage, n/r radix-r butterflies (:data:`_BFLY_OPS`) with r - 1 level
+    twiddle multiplies each when the level has twiddles; per stage with
+    q > 1, one twiddle multiply per point.  Trivial twiddles are multiplied
+    all the same, sign flips are operand modifiers, and the float64 split
+    and recombination are no FP32 instructions.  The twin runs the same df
+    adds and multiplies; the reference's ``c2c_opcount`` counts Dekker's
+    form, which K7 does not run."""
+    cadd = 2 * DF_ADD_INSTR
+    cmul = 4 * DF_MUL_INSTR + 2 * DF_ADD_INSTR
+    total, rest = 0, n
+    for p in radices:
+        q = rest // p
+        m = p
+        while m > 1:
+            r = _df_radix(m)
+            adds, muls = _BFLY_OPS[r]
+            if m > r:
+                muls += r - 1
+            total += n // r * (adds * cadd + muls * cmul)
+            m //= r
+        if q > 1:
+            total += n * cmul
+        rest = q
+    return total
 
 
 def df32_c2c_cuda(xr: torch.Tensor, xi: torch.Tensor,

@@ -11,6 +11,7 @@ float64.  The CUDA kernel runs only on a card: those tests are marked
 ``cuda``.
 """
 import dataclasses
+import functools
 import json
 import sys
 from pathlib import Path
@@ -91,16 +92,32 @@ def _port_split(fn, x):
     return yr.numpy() + 1j * yi.numpy()
 
 
-def _ref_split(fn, x, jit=True):
-    """The reference's split apply on x, compiled or op by op (its ops
-    then run one by one: no compile of the whole graph, which for the df
-    tiers costs far more than running it)."""
+def _ref_split(fn, x, jit=False):
+    """The reference's split apply on x, op by op or compiled.  Op by op
+    its ops run one by one: no trace and compile of the whole unrolled df
+    graph, which costs far more than running it, and each primitive is
+    compiled once per shape in the process, so cases on the same shapes
+    share that cost."""
     if jit:
         yr, yi = jax.jit(fn)(jnp.asarray(x.real), jnp.asarray(x.imag))
     else:
         with jax.disable_jit():
             yr, yi = fn(jnp.asarray(x.real), jnp.asarray(x.imag))
     return np.asarray(yr) + 1j * np.asarray(yi)
+
+
+#: the rows of every df32 solver case: cases of one n share their shapes
+ROWS = 3
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_df32(n, sign):
+    """The reference's df32 solver on ``_c128(n, (ROWS, n))``, op by op,
+    once per (n, sign) in the module: the solver, gradient and plan cases
+    share it."""
+    desc = {"alg": "df32", "n": n, "radices": ref_df32.df32_radices(n)}
+    return _ref_split(ref_df32.build_df32_c2c_split(desc, sign, np.float64),
+                      _c128(n, (ROWS, n)))
 
 
 # ---------------------------------------------------------------------------
@@ -174,9 +191,8 @@ def test_two_prod_is_exact():
 def test_df32_solver_matches_reference(n, sign):
     desc = {"alg": "df32", "n": n, "radices": df32.df32_radices(n)}
     assert desc["radices"] == ref_df32.df32_radices(n)
-    x = _c128(n, (3, n))
-    want = _ref_split(ref_df32.build_df32_c2c_split(desc, sign, np.float64),
-                      x, jit=False)
+    x = _c128(n, (ROWS, n))
+    want = _ref_df32(n, sign)
     got = _port_split(c2c.build_c2c_split(desc, sign, np.float64, "cpu"), x)
     assert _relerr(got, want) <= TOL_PKG, n
     assert _relerr(got, _oracle(x, sign)) <= TOL_F64, n
@@ -241,19 +257,21 @@ def _ref_kernel_body(n, radices, sign, x):
 
 
 @pytest.mark.parametrize("n,radices,interpret", [
-    (256, [16, 16], True), (1000, [50, 20], False), (1024, [64, 16], True)])
+    (256, [16, 16], True), (1000, [50, 20], False), (1024, [64, 16], False)])
 def test_twin_matches_reference_kernel(n, radices, interpret):
     """The twin against the reference kernel on ragged batches of 130 and
     37 rows (the reference pads to its 128-row tile, the port pads
-    nothing), and both against numpy.  The kernel runs as
-    ``build_df32_pallas_split`` in interpret mode; at n = 1000, whose
-    interpret-mode compile alone takes over a minute on a CPU, its stage
-    loop runs op by op instead."""
+    nothing), and both against numpy.  At n = 256 the kernel runs as
+    ``build_df32_pallas_split`` in interpret mode; at n = 1000 and 1024,
+    whose interpret-mode trace and compile alone take 20 s to over a minute
+    on a CPU, its stage loop runs op by op instead, with the builder's
+    split and recombination around it."""
     desc = {"alg": "df32p", "n": n, "radices": radices}
     x = _c128(n, (130, n))
     if interpret:
         want = _ref_split(ref_df32.build_df32_pallas_split(desc, -1,
-                                                           np.float64), x)
+                                                           np.float64), x,
+                          jit=True)
     else:
         want = _ref_kernel_body(n, radices, -1, x)
     fn = c2c.build_c2c_split(desc, -1, np.float64, "cpu")
@@ -278,6 +296,34 @@ def test_twin_other_schedules(n, radices, sign):
                                  sign)
     assert _relerr(yr.numpy() + 1j * yi.numpy(), _oracle(x, sign)) \
         <= TOL_F64
+
+
+@pytest.mark.parametrize("n,radices", [(1024, [64, 16]), (1000, [50, 20]),
+                                       (360, [8, 45]), (128, [16, 8]),
+                                       (1024, [4, 4, 64])])
+def test_kernel_instructions_count_the_twins_df_ops(n, radices, monkeypatch):
+    """K7's FP32 instruction count (its bound in ``chip_smoke.py``) is the
+    twin's df adds and multiplies on one row at 11 and 9 instructions each;
+    at [64, 16] that is 408.5 per point, under the reference's 542."""
+    counts = {"add": 0, "mul": 0}
+
+    def counting(kind, fn):
+        def op(*args):
+            out = fn(*args)
+            counts[kind] += out[0].numel()
+            return out
+        return op
+    monkeypatch.setattr(df32, "df_add", counting("add", df32.df_add))
+    monkeypatch.setattr(df32, "df_mul", counting("mul", df32.df_mul))
+    x = _c128(n, (1, n))
+    df32.df32_c2c_torch(torch.from_numpy(x.real.copy()),
+                        torch.from_numpy(x.imag.copy()), radices, -1)
+    assert df32.kernel_instructions(n, radices) == \
+        df32.DF_ADD_INSTR * counts["add"] + df32.DF_MUL_INSTR * counts["mul"]
+    if radices == [64, 16]:
+        assert df32.kernel_instructions(n, radices) == 408.5 * n
+        assert sum(c2c.c2c_opcount({"alg": "df32p", "n": n,
+                                    "radices": radices}).values()) == 542 * n
 
 
 def test_twin_leading_dims_and_float32_planes():
@@ -307,15 +353,24 @@ def test_twin_leading_dims_and_float32_planes():
 @pytest.mark.parametrize("alg", ["df32", "df32p"])
 def test_split_gradients_equal_reference(alg):
     """On the real planes the port's backward (the opposite-sign df
-    transform) equals the reference's custom VJP: no conjugation."""
-    n = 128
+    transform) equals what the reference's custom VJP computes: the
+    backward of ``build_df32_c2c_split`` and ``build_df32_pallas_split``
+    is the same builder's transform of the opposite sign, no conjugation.
+    That transform is the df32 case's cached output, and for df32p the
+    reference kernel's stage loop of sign +1, op by op on the twin case's
+    shapes.  (``test_complex_gradient_is_conj_of_jax`` differentiates the
+    reference's df32 plan through JAX itself.)"""
+    n = 1024
+    rows = ROWS if alg == "df32" else 130
     desc = {"alg": alg, "n": n, "radices": df32.df32_radices(n)
-            if alg == "df32" else [16, 8]}
+            if alg == "df32" else [64, 16]}
     rng = np.random.default_rng(5)
-    xr, xi, gr, gi = (rng.standard_normal((3, n)) for _ in range(4))
-    ref = ref_c2c.build_c2c_split(desc, -1, np.float64)
-    _, vjp = jax.vjp(ref, jnp.asarray(xr), jnp.asarray(xi))
-    wr, wi = (np.asarray(v) for v in vjp((jnp.asarray(gr), jnp.asarray(gi))))
+    xr, xi = (rng.standard_normal((rows, n)) for _ in range(2))
+    g = _c128(n, (rows, n))
+    gr, gi = g.real.copy(), g.imag.copy()
+    w = _ref_df32(n, +1) if alg == "df32" else \
+        _ref_kernel_body(n, desc["radices"], +1, g)
+    wr, wi = w.real, w.imag
     mine = c2c.build_c2c_split(desc, -1, np.float64, "cpu")
     tr, ti = (torch.from_numpy(v).requires_grad_() for v in (xr, xi))
     yr, yi = mine(tr, ti)
@@ -330,15 +385,18 @@ def test_split_gradients_equal_reference(alg):
 
 def test_complex_gradient_is_conj_of_jax():
     """At a complex tensor boundary torch's gradient is the conjugate of
-    JAX's (ROADMAP queue 3), through a df32 plan."""
-    ref = ref_ft.plan_many_dft([64], howmany=3, dtype="complex128")
-    mine = ft.plan_many_dft([64], howmany=3, dtype="complex128",
+    JAX's (ROADMAP queue 3), through a df32 plan (the reference op by op,
+    on the df32 cases' shapes)."""
+    n = 1024
+    ref = ref_ft.plan_many_dft([n], howmany=ROWS, dtype="complex128")
+    mine = ft.plan_many_dft([n], howmany=ROWS, dtype="complex128",
                             device="cpu")
-    assert mine.descriptors == {1: {"alg": "df32", "n": 64,
-                                    "radices": [4, 4, 4]}}
-    x, w = _c128(1, (3, 64)), _c128(2, (3, 64))
-    g_jax = np.asarray(jax.grad(
-        lambda z: jnp.sum(jnp.real(ref.apply(z) * w)))(jnp.asarray(x)))
+    assert mine.descriptors == {1: {"alg": "df32", "n": n,
+                                    "radices": [4, 4, 4, 4, 4]}}
+    x, w = _c128(1, (ROWS, n)), _c128(2, (ROWS, n))
+    with jax.disable_jit():
+        g_jax = np.asarray(jax.grad(
+            lambda z: jnp.sum(jnp.real(ref.apply(z) * w)))(jnp.asarray(x)))
     xt = torch.from_numpy(x).requires_grad_()
     (mine.execute(xt) * torch.from_numpy(w)).real.sum().backward()
     assert _relerr(xt.grad.numpy(), np.conj(g_jax)) <= TOL_F64
@@ -494,10 +552,11 @@ def test_complex128_plans_match_reference(name, monkeypatch):
     kind, _, dims = name.partition("_")
     shape = tuple(int(v) for v in dims.split("x"))
     if kind == "many":
-        ref = ref_ft.plan_many_dft([shape[0]], howmany=4, dtype="complex128")
-        mine = ft.plan_many_dft([shape[0]], howmany=4, dtype="complex128",
+        n = shape[0]
+        ref = ref_ft.plan_many_dft([n], howmany=ROWS, dtype="complex128")
+        mine = ft.plan_many_dft([n], howmany=ROWS, dtype="complex128",
                                 device="cpu")
-        x = _c128(0, (4, shape[0]))
+        x = _c128(n, (ROWS, n))
     elif kind == "3d":
         ref = ref_ft.plan_dft_3d(*shape, dtype="complex128")
         mine = ft.plan_dft_3d(*shape, dtype="complex128", device="cpu")
@@ -514,7 +573,11 @@ def test_complex128_plans_match_reference(name, monkeypatch):
         x = _c128(0, shape[:-1] + (shape[-1] // 2 + 1,))
     assert mine.descriptors == ref.descriptors
     assert "df32" in repr(mine)
-    want = np.asarray(ref.execute(x))
+    if kind == "many":          # op by op, on the df32 cases' shapes
+        with jax.disable_jit():
+            want = np.asarray(ref.apply(jnp.asarray(x)))
+    else:                       # compiled: cheaper than op by op here
+        want = np.asarray(ref.execute(x))
     got = mine.execute(torch.from_numpy(x)).numpy()
     assert got.dtype == want.dtype and got.dtype in (np.float64,
                                                      np.complex128)
@@ -532,8 +595,7 @@ def test_wisdom_pinned_df32p_plan_on_cpu():
     assert p.descriptors == {1: {"alg": "df32p", "n": 1024,
                                  "radices": [64, 16]}}
     assert "(df32p-1024 r64x16)" in repr(p)
-    # 542 f32 operations per point: the count behind K7's bound in
-    # chip_smoke.py
+    # 542 f32 operations per point: the reference's count, in Dekker's form
     add, mul, fma = p.flops()
     assert fma == 0.0 and round((add + mul) / (8192 * 1024)) == 542
 
