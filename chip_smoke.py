@@ -57,7 +57,11 @@ their twins and ``torch.fft.rfft``/``irfft``.  Phase 20 holds K7 against
 its twin and complex128 (1e-12) over a case grid; phase 23 runs the dd64
 tier on the card against the same plan on the CPU, in mpmath (1e-28);
 phase 24 profiles the f64 path in a third child (``--profile-paths
-f64``).  Exits non-zero at the first
+f64``); phase 25 runs E5, the stage ablation of K1 (``ops/ablate.py``), in
+both stage forms, interleaved with K1.  K1 and K3 run their stages as
+register butterflies (a radix with a prime factor of 7 or more keeps the
+dense sum); each of their rows in the kernels line names its stage form.
+Exits non-zero at the first
 failed check, and without printing a result when torch sees no CUDA
 device.
 
@@ -80,7 +84,7 @@ import torch
 import fftw3_tpu_torch as ft
 from fftw3_tpu_torch import plan as plan_mod
 from fftw3_tpu_torch import planner as P
-from fftw3_tpu_torch.ops import _build
+from fftw3_tpu_torch.ops import _build, ablate
 from fftw3_tpu_torch.ops import c2c as c2c_ops
 from fftw3_tpu_torch.ops import df32, fused2d, inner
 from fftw3_tpu_torch.ops import real_stockham as RS
@@ -92,8 +96,12 @@ BATCH = 65536
 MAIN_RADICES = [64, 16]
 MAIN_DESC = {"alg": "pallas", "n": N, "radices": MAIN_RADICES}
 TOL = 1e-5                  # max-abs error over max-abs, against float64
+#: K1's case grid: every stage of the first seven runs as butterflies;
+#: 896 and 1792 put a radix with the factor 7 (56, 112) on the dense sum
+#: beside a butterfly stage, and 131 is one prime dense stage
 CASES = [(128, [128]), (256, [256]), (512, [32, 16]), (1000, [50, 20]),
-         (1024, [64, 16]), (1024, [32, 32]), (2048, [128, 16])]
+         (1024, [64, 16]), (1024, [32, 32]), (2048, [128, 16]),
+         (192, [192]), (896, [56, 16]), (1792, [112, 16]), (131, [131])]
 CASE_BATCHES = [1, 37, 4096]
 ORACLE_ROWS = 256
 TIMED_RADICES = [[64, 16], [32, 32], [128, 8]]
@@ -815,6 +823,73 @@ def profile_paths(rng, dev, group) -> None:
                   planes(rng, (B4, N4), dev), smi_line, tag="[13]")
 
 
+def ablation_phase(rng, dev, smi_line, k1_row):
+    """Phase 25, E5: K1 at the main path's shape with one op class removed
+    at a time, in the dense form (the dense-sum K1 it replaced) and the
+    butterfly form (this K1), each arm timed twice in one interleaved order
+    and back, beside the K1 wrapper itself.  The full arms are held against
+    the twin (the bfly arm bit for bit against K1); the other arms compute
+    wrong numbers on purpose.  Returns the arms' rows of the kernels line
+    (launches: this phase's, the arms are on no user path)."""
+    B, n = BATCH, N
+    rad = MAIN_RADICES
+    table = S._device_table(n, tuple(rad), -1, dev)
+    xr, xi = planes(rng, (B, n), dev)
+    tr, ti = S.stockham_c2c_torch(xr, xi, rad, -1)
+    twin = torch.complex(tr, ti)
+    del tr, ti
+    kr, ki = S.stockham_c2c_cuda(xr, xi, rad, table)
+    k1 = torch.complex(kr, ki)
+    del kr, ki
+    arms = [(f, a) for f in ablate.FORMS for a in ablate.ARMS]
+    ablate.launches.clear()
+    errs = {}
+    for f, a in arms:
+        yr, yi = ablate.ablate_cuda(xr, xi, rad, table, f, a)
+        y = torch.complex(yr, yi)
+        errs[f, a] = float((y - twin).abs().max())
+        if (f, a) == ("bfly", "full"):
+            check(torch.equal(y, k1), "E5 bfly full arm differs from K1")
+        if a == "full":
+            check(errs[f, a] / float(twin.abs().max()) <= TOL,
+                  f"E5 {f} full arm vs twin: {errs[f, a]:.2e}")
+        del yr, yi, y
+    del twin, k1
+    torch.cuda.synchronize()
+    labels = arms + [("K1", "stockham_c2c_cuda")]
+    fns = {fa: (lambda a, b, fa=fa: ablate.ablate_cuda(a, b, rad, table,
+                                                       *fa))
+           for fa in arms}
+    fns["K1", "stockham_c2c_cuda"] = \
+        lambda a, b: S.stockham_c2c_cuda(a, b, rad, table)
+    times = {fa: [] for fa in labels}
+    for fa in labels + labels[::-1]:
+        times[fa].append(time_ms(fns[fa], (xr, xi)))
+    for fa, ts in times.items():
+        print(f"[25] E5 {fa[0]} {fa[1]} ({B}, {n}) {rad}: {ts[0]:.3f} / "
+              f"{ts[1]:.3f} ms ({smi_line})")
+    k1_ms = min(times["K1", "stockham_c2c_cuda"])
+    dense_ms = min(times["dense", "full"])
+    print(f"[25] K1 (butterflies) {k1_ms:.3f} ms vs the dense form's full "
+          f"arm {dense_ms:.3f} ms: {dense_ms / k1_ms:.2f}x ({smi_line})")
+    rows = []
+    for f, a in arms:
+        ts = times[f, a]
+        rows.append({
+            "name": f"ablate_stage {f} {a}", "route": "cuda",
+            "source": "fftw3_tpu_torch/csrc/ablate_stage.cu",
+            "replaces": "experiments/ablate_stage.py:142",
+            "launches": ablate.launches[f, a], "on_path": False,
+            "max_abs_err": errs[f, a], "ms": sum(ts) / 2,
+            "plain_ms": k1_row["plain_ms"], "bound_ms": k1_row["bound_ms"],
+            "bound_by": k1_row["bound_by"],
+            "library_ms": k1_row["library_ms"],
+            "stage_form": "dense" if f == "dense" else S.form_label(rad)})
+    del xr, xi
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -851,6 +926,9 @@ def main() -> None:
     print(f"[2] kernel library ready in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {_build.build_seconds:.1f} s, "
           f"{len(_build.sources())} sources)", flush=True)
+    for k, (regs, spill, stack) in sorted(_build.register_report().items()):
+        print(f"[2] ptxas {k}: {regs} registers, {spill} bytes of spill "
+              f"stores, {stack} bytes of stack frame")
 
     # -- 3. kernel vs twin vs float64 --------------------------------------
     for n, rad in CASES:
@@ -1022,6 +1100,7 @@ def main() -> None:
         "ms": rows[0][1] * 1e3,
         "plain_ms": t_twin * 1e3,
         "library_ms": t_fft * 1e3,
+        "stage_form": S.form_label(MAIN_RADICES),
     }]
     kernels[0]["bound_ms"], kernels[0]["bound_by"] = bound(
         16.0 * BATCH * N, fft_flops(BATCH * N, N))
@@ -1341,8 +1420,30 @@ def main() -> None:
             "plain_ms": time_ms(lambda a, b: fused2d.c2c_2d_torch(
                 a, b, rad, rad, -1), (xr, xi)),
             "library_ms": time_ms(lambda z: torch.fft.fft2(z), (xc,)),
-            "shape": shape})
-        del xr, xi, xc
+            "stage_form": f"rows: {S.form_label(rad)}; columns: "
+                          f"{S.form_label(rad)}",
+            "cluster": fused2d.CLUSTER, "shape": shape})
+        # K3's options, interleaved with the default (a: the plane in L2
+        # between the passes, a cluster of 8, the portable size): (a) with a
+        # non-portable cluster of 16 (half the planes in flight), and (b)
+        # the plane in the distributed shared memory of a 16-block cluster
+        opts = {"cluster 8": {}, "cluster 16": {"cluster": 16},
+                "DSMEM, cluster 16": {"dsmem": True}}
+        twin = torch.complex(*fused2d.c2c_2d_torch(xr, xi, rad, rad, -1))
+        times = {k: [] for k in opts}
+        for k in list(opts) + list(opts)[::-1]:
+            times[k].append(time_ms(
+                lambda a, b, o=opts[k]: fused2d.c2c_2d_cuda(
+                    a, b, rad, rad, tab, **o), (xr, xi)))
+        for k, o in opts.items():
+            kr, ki = fused2d.c2c_2d_cuda(xr, xi, rad, rad, tab, **o)
+            e = relerr(torch.complex(kr, ki), twin)
+            check(e <= TOL, f"c2c_2d {k} {shape}: {e:.2e}")
+            print(f"[14] c2c_2d {shape} {k}: {times[k][0]:.3f} / "
+                  f"{times[k][1]:.3f} ms, kernel-twin {e:.2e} ({smi_line})")
+            rows14[-1]["ms_" + k.replace(", ", "_").replace(" ", "")] = \
+                min(times[k])
+        del xr, xi, xc, kr, ki, twin
         torch.cuda.empty_cache()
 
     # K1 with the pre-twiddle: the four-step's q pass at n = 4096, B = 4096
@@ -1370,6 +1471,7 @@ def main() -> None:
         # no single PyTorch call computes a pre-twiddled DFT; the four-step
         # as a whole is timed against torch.fft.fft in phase 11
         "library_ms": None,
+        "stage_form": S.form_label(radq),
         "shape": shape})
     del xr, xi
     torch.cuda.empty_cache()
@@ -1383,8 +1485,9 @@ def main() -> None:
         r["bound_ms"], r["bound_by"] = bound(16.0 * pts + extra,
                                              fft_flops(pts, *n_ax))
         lib = r["library_ms"]
-        print(f"[14] {r['name']} {r['shape']}: kernel {r['ms']:.3f} ms, "
-              f"twin {r['plain_ms']:.3f} ms, library "
+        print(f"[14] {r['name']} {r['shape']} "
+              f"({r.get('stage_form', 'dense')}): kernel "
+              f"{r['ms']:.3f} ms, twin {r['plain_ms']:.3f} ms, library "
               f"{'none' if lib is None else f'{lib:.3f} ms'}, bound "
               f"{r['bound_ms']:.3f} ms ({r['bound_by']}); kernel-twin max "
               f"abs err {r['max_abs_err']:.3e}, over max |twin| "
@@ -1797,6 +1900,7 @@ def main() -> None:
               f"({smi_line})")
 
     k7_row = f64_phases(rng, dev, smi_line, args.seed, t_start)
+    e5_rows = ablation_phase(rng, dev, smi_line, kernels[0])
 
     # the JSON line keeps one row per kernel: K3 at its 3-D path shape, K4
     # and K6 at the 1-D real path's shape
@@ -1809,8 +1913,9 @@ def main() -> None:
     kernels.append(k7_row)
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
+    kernels += e5_rows
 
-    print(f"[24] whole run {time.perf_counter() - t_start:.1f} s")
+    print(f"[25] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -5,108 +5,213 @@
 // Replaces the fused Pallas TPU kernel of the reference package:
 // fftw3_tpu/ops/pallas_stockham.py, _kernel_2d, reached through _make_call_2d.
 // Like it, it runs the n2 schedule along the rows and then the n1 schedule
-// along the columns, each stage as _stages computes it (stockham_stage.cuh).
-// Unnormalized.
+// along the columns, each stage as _stages computes it.  Unnormalized.
 //
 // What bounds it on an H100: one read and one write of the plane from HBM,
-// 16 bytes per point, against two dense-sum schedules of arithmetic.  The TPU
-// kernel holds a whole plane in VMEM.  A plane here is up to 294,912 points
-// (2.4 MB split), ten times a block's 227 KB of shared memory, so this design
-// cannot copy it.  Instead one thread-block cluster (8 blocks, the portable
-// size) owns a plane:
-//  1. Row pass: each block takes whole rows, a chunk at a time, into shared
-//     memory, runs the n2 stages and writes the rows to the output tensor.
+// 16 bytes per point.  The TPU kernel holds a whole plane in VMEM.  A plane
+// here is up to 294,912 points (2.4 MB split), ten times a block's 227 KB
+// of shared memory, so one thread-block cluster owns a plane instead:
+//  1. Row pass: each block takes chunks of whole rows into shared memory
+//     (16-byte loads; on a compiled-in plan the first level reads them
+//     from the input directly), runs the n2 schedule and writes the rows
+//     to the output tensor.
 //  2. The cluster synchronises: __threadfence() and then cluster.sync(), so
 //     every row of the plane is in the output before any block reads it.
 //  3. Column pass: each block takes (n1, tc) tiles of tc whole columns from
-//     the output, runs the n1 stages along axis -2 and writes them back in
-//     place.  These reads bypass L1 (__ldcg): the data was written by other
-//     SMs during this launch, and only L2 is coherent between them.
-// Only about 16 clusters run at once (one block per SM), so at most ~38 MB of
-// planes are in flight: a plane stays in the 50 MB L2 between the two passes
-// and HBM sees about one read and one write per point, as on the TPU.
-//
-// Tiles: a row chunk is R rows with R*n2 <= 8192 points, a column tile tc
-// columns (a power of two) with n1*tc <= 8192; two split buffers of 64 KB.
-// Clusters walk the planes with a grid stride, so any pre works.
+//     the output (16-byte __ldcg loads: the data was written by other SMs
+//     during this launch, and only L2 is coherent between them), runs the
+//     n1 schedule along axis -2 with one column's butterfly per thread
+//     (consecutive threads on consecutive columns) and writes the tile back
+//     in place.
+// The stages are the register butterflies of stockham_bfly.cuh (a radix
+// with a prime factor of 7 or more keeps the dense sum); a butterfly level
+// runs in place, so a tile needs one buffer (two only with a dense stage):
+// at 8192 points and the tables about 90 KB.  A block of 512 threads holds
+// 16 points a thread in a level and takes up to 128 registers, so one block
+// runs per SM.  The cluster size is the caller's (8, the portable size, or
+// 16): with CL blocks per plane and B blocks resident per SM, about
+// 132*B/CL planes are in flight, and they must stay in the 50 MB L2
+// between the two passes for HBM to see one read and one write per point.
 
 #include <cooperative_groups.h>
 
-#include "stockham_stage.cuh"
+#include <initializer_list>
+#include <type_traits>
+
+#include "stockham_plans.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
-using fftw3_tpu_torch::run_stages;
-using fftw3_tpu_torch::Schedule;
+using fftw3_tpu_torch::Arm;
+using fftw3_tpu_torch::K3Plans;
+using fftw3_tpu_torch::LevelPlan;
+using fftw3_tpu_torch::PlanList;
+using fftw3_tpu_torch::read_plan;
+using fftw3_tpu_torch::run_levels;
+using fftw3_tpu_torch::run_static;
 
-constexpr int kThreads = 512;
-constexpr int kTilePoints = 8192;
+// Tuning knobs, set on nvcc's command line by tools/tune_kernels.py only
+// (the defaults are what it measured best, PERF.md): threads per
+// block, the blocks per SM the registers are held to (1: 128 a thread; at 2
+// the levels spill), and whether a compiled-in plan's row pass reads its
+// first level straight from the input.
+#ifndef FFTW3_TPU_TORCH_K3_THREADS
+#define FFTW3_TPU_TORCH_K3_THREADS 512
+#endif
+#ifndef FFTW3_TPU_TORCH_K3_MIN_BLOCKS
+#define FFTW3_TPU_TORCH_K3_MIN_BLOCKS 1
+#endif
+#ifndef FFTW3_TPU_TORCH_K3_DIRECT
+#define FFTW3_TPU_TORCH_K3_DIRECT 1
+#endif
+constexpr int kThreads = FFTW3_TPU_TORCH_K3_THREADS;
+// points a thread holds in one level: tiles of 8192 points
+constexpr int kPts = 8192 / kThreads;
+constexpr int kTilePoints = kPts * kThreads;
+// a cap on any pair of plans' shared memory, set once
+constexpr int kMaxSmem = 180224;
 
-// Row pass store: point o of row `row` of the chunk (counted from element
-// (plane, r0, 0)).
+// The plan tag of the run-time form; any other is a compiled-in PlanPair.
+struct DynPair {};
+
+// The n2 schedule over the nr rows in (ar, ai), then stored by `map`.
+// With (x0r, x0i) (a compiled-in plan only) the first level reads the rows
+// from there, else from (ar, ai).
+template <class PP, class Map>
+__device__ __forceinline__ void rows_levels(
+    const LevelPlan& plan, const float* tb, float* ar, float* ai, float* br,
+    float* bi, int n2, int nr, float* yr, float* yi, const Map& map,
+    const float* x0r = nullptr, const float* x0i = nullptr) {
+  if constexpr (std::is_same<PP, DynPair>::value)
+    run_levels<kPts, Arm::kFull>(plan, tb, ar, ai, br, bi, n2, 1, nr, yr, yi,
+                                 map);
+  else
+    run_static<kPts, Arm::kFull, typename PP::rows, 0>(tb, ar, ai, nr, yr,
+                                                       yi, map, x0r, x0i);
+}
+
+// The n1 schedule over one tile of tc columns in (ar, ai).
+template <class PP, class Map>
+__device__ __forceinline__ void cols_levels(const LevelPlan& plan,
+                                            const float* tb, float* ar,
+                                            float* ai, float* br, float* bi,
+                                            int n1, int tc, float* yr,
+                                            float* yi, const Map& map) {
+  if constexpr (std::is_same<PP, DynPair>::value)
+    run_levels<kPts, Arm::kFull>(plan, tb, ar, ai, br, bi, n1, tc, 1, yr,
+                                 yi, map);
+  else
+    run_static<kPts, Arm::kFull, typename PP::cols, 0>(tb, ar, ai, 1, yr, yi,
+                                                       map);
+}
+
+// Row pass store: point o of row `row` of the chunk.
 struct RowsMap {
+  int64_t base;  // element (plane, r0, 0)
   int n2;
   __device__ __forceinline__ bool stored(int) const { return true; }
   __device__ __forceinline__ int64_t operator()(int row, int o, int) const {
-    return static_cast<int64_t>(row) * n2 + o;
+    return base + static_cast<int64_t>(row) * n2 + o;
   }
 };
 
-// Column pass store: point o of column c of the tile, in place (counted from
-// element (plane, 0, c0)).
+// Column pass store: point o of column c of the tile, in place.
 struct ColsMap {
+  int64_t base;  // element (plane, 0, c0)
   int n2;
   int width;
   __device__ __forceinline__ bool stored(int c) const { return c < width; }
   __device__ __forceinline__ int64_t operator()(int, int o, int c) const {
-    return static_cast<int64_t>(o) * n2 + c;
+    return base + static_cast<int64_t>(o) * n2 + c;
   }
 };
 
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+__host__ __device__ inline int buffer_plane(const LevelPlan& p2,
+                                            const LevelPlan& p1, int rows) {
+  const int a = rows * p2.rs, b = p1.rs;
+  return ((a > b ? a : b) + 3) & ~3;
+}
+
+__host__ __device__ inline int smem_bytes(const LevelPlan& p2,
+                                          const LevelPlan& p1, int rows) {
+  const int nbuf = p2.nbuf > p1.nbuf ? p2.nbuf : p1.nbuf;
+  return static_cast<int>(sizeof(float)) *
+         (((p2.tab_len + p1.tab_len + 3) & ~3) +
+          2 * nbuf * buffer_plane(p2, p1, rows));
+}
+
 // yr, yi are written by the row pass and read back by other blocks of the
-// cluster in the column pass: no __restrict__ and no read-only loads on them
-// here (inside one stage, where they are only stored to, they are).
-__global__ void __launch_bounds__(kThreads)
-c2c_2d_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+// cluster in the column pass: no __restrict__ and no read-only loads on them.
+template <class PP>
+__global__ void __launch_bounds__(kThreads, FFTW3_TPU_TORCH_K3_MIN_BLOCKS)
+    c2c_2d_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
               float* yr, float* yi, const float* __restrict__ tab,
-              int tab2_len, int tab1_len, int pre, int n1, int n2, int rows,
-              int tc, int ns2, int p20, int p21, int ns1, int p10, int p11) {
-  extern __shared__ float smem[];
+              const LevelPlan plan2, const LevelPlan plan1, int pre, int n1,
+              int n2, int rows, int tc) {
+  extern __shared__ float4 smem4[];
   cg::cluster_group cluster = cg::this_cluster();
   const int csize = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
-  const int tile = rows * n2 > n1 * tc ? rows * n2 : n1 * tc;
-  float* tb2 = smem;
-  float* tb1 = smem + tab2_len;
-  float* ar = tb1 + tab1_len;
-  float* ai = ar + tile;
-  float* br = ai + tile;
-  float* bi = br + tile;
+  float* tb2 = reinterpret_cast<float*>(smem4);
+  float* tb1 = tb2 + plan2.tab_len;
+  const int plane = buffer_plane(plan2, plan1, rows);
+  float* ar = tb2 + ((plan2.tab_len + plan1.tab_len + 3) & ~3);
+  float* ai = ar + plane;
+  float* br = ai + plane;  // second buffer, only with a dense stage
+  float* bi = br + plane;
 
-  const int tab_len = tab2_len + tab1_len;
+  const int tab_len = plan2.tab_len + plan1.tab_len;
   for (int i = threadIdx.x; i < tab_len; i += blockDim.x) tb2[i] = tab[i];
-  const Schedule sched2(tb2, n2, ns2, p20, p21);
-  const Schedule sched1(tb1, n1, ns1, p10, p11);
+  const bool vec = aligned16(xr) && aligned16(xi) && aligned16(yr) &&
+                   aligned16(yi) && n2 % 4 == 0;
+  const bool vrow = vec && plan2.rs % 4 == 0;
+  const bool vcol = vec && tc % 4 == 0;
 
+  constexpr bool kDirectRows =
+      FFTW3_TPU_TORCH_K3_DIRECT && !std::is_same<PP, DynPair>::value;
   const int64_t npts = static_cast<int64_t>(n1) * n2;
-  for (int64_t plane = blockIdx.x / csize; plane < pre;
-       plane += gridDim.x / csize) {
-    const int64_t poff = plane * npts;
+  for (int64_t plane_i = blockIdx.x / csize; plane_i < pre;
+       plane_i += gridDim.x / csize) {
+    const int64_t poff = plane_i * npts;
     // 1. rows: chunks of `rows` whole rows, block `rank` takes every
     //    csize-th chunk
     for (int r0 = rank * rows; r0 < n1; r0 += csize * rows) {
       const int nr = n1 - r0 < rows ? n1 - r0 : rows;
       const int64_t base = poff + static_cast<int64_t>(r0) * n2;
       __syncthreads();  // tables staged; previous chunk's readers are done
-      for (int e = threadIdx.x; e < nr * n2; e += blockDim.x) {
-        ar[e] = xr[base + e];
-        ai[e] = xi[base + e];
+      if constexpr (kDirectRows) {
+        rows_levels<PP>(plan2, tb2, ar, ai, br, bi, n2, nr, yr, yi,
+                        RowsMap{base, n2}, xr + base, xi + base);
+        continue;
+      }
+      if (vrow) {
+        const int m4 = n2 / 4;
+        for (int i = threadIdx.x; i < nr * m4; i += blockDim.x) {
+          const int row = i / m4;
+          const int k = 4 * (i - row * m4);
+          const int64_t g = base + static_cast<int64_t>(row) * n2 + k;
+          *reinterpret_cast<float4*>(ar + row * plan2.rs + k) =
+              __ldg(reinterpret_cast<const float4*>(xr + g));
+          *reinterpret_cast<float4*>(ai + row * plan2.rs + k) =
+              __ldg(reinterpret_cast<const float4*>(xi + g));
+        }
+      } else {
+        for (int i = threadIdx.x; i < nr * n2; i += blockDim.x) {
+          const int row = i / n2;
+          const int k = i - row * n2;
+          ar[row * plan2.rs + k] = xr[base + i];
+          ai[row * plan2.rs + k] = xi[base + i];
+        }
       }
       __syncthreads();
-      run_stages(ar, ai, br, bi, sched2, 1, nr, yr + base, yi + base,
-                 RowsMap{n2});
+      rows_levels<PP>(plan2, tb2, ar, ai, br, bi, n2, nr, yr, yi,
+                      RowsMap{base, n2});
     }
     // 2. every row of the plane is written before any column is read
     __threadfence();
@@ -116,31 +221,139 @@ c2c_2d_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
       const int width = n2 - c0 < tc ? n2 - c0 : tc;
       const int64_t base = poff + c0;
       __syncthreads();  // previous tile's readers are done
-      for (int e = threadIdx.x; e < n1 * tc; e += blockDim.x) {
-        const int i = e / tc;
-        const int c = e - i * tc;
-        float vr = 0.f, vi = 0.f;
-        if (c < width) {
+      if (vcol && width == tc) {
+        const int t4 = tc / 4;
+        for (int e = threadIdx.x; e < n1 * t4; e += blockDim.x) {
+          const int i = e / t4;
+          const int c = 4 * (e - i * t4);
           const int64_t k = base + static_cast<int64_t>(i) * n2 + c;
-          vr = __ldcg(yr + k);
-          vi = __ldcg(yi + k);
+          *reinterpret_cast<float4*>(ar + i * tc + c) =
+              __ldcg(reinterpret_cast<const float4*>(yr + k));
+          *reinterpret_cast<float4*>(ai + i * tc + c) =
+              __ldcg(reinterpret_cast<const float4*>(yi + k));
         }
-        ar[e] = vr;
-        ai[e] = vi;
+      } else {
+        for (int e = threadIdx.x; e < n1 * tc; e += blockDim.x) {
+          const int i = e / tc;
+          const int c = e - i * tc;
+          float vr = 0.f, vi = 0.f;
+          if (c < width) {
+            const int64_t k = base + static_cast<int64_t>(i) * n2 + c;
+            vr = __ldcg(yr + k);
+            vi = __ldcg(yi + k);
+          }
+          ar[e] = vr;
+          ai[e] = vi;
+        }
       }
       __syncthreads();
-      run_stages(ar, ai, br, bi, sched1, tc, 1, yr + base, yi + base,
-                 ColsMap{n2, width});
+      cols_levels<PP>(plan1, tb1, ar, ai, br, bi, n1, tc, yr, yi,
+                      ColsMap{base, n2, width});
     }
   }
 }
 
-// The most dynamic shared memory any valid pair of schedules asks for: two
-// root tables of at most 2*256 + 2*2048 + 2*256 floats each and four planes
-// of kTilePoints floats (172032 bytes).
-constexpr int kMaxSmem = static_cast<int>(sizeof(float)) *
-                         (2 * (2 * 256 + 2 * 2048 + 2 * 256) +
-                          4 * kTilePoints);
+// Option (b): the plane in the cluster's distributed shared memory.  Block
+// `rank` of a cluster of csize owns columns [rank*w, rank*w + w), w =
+// n2/csize, as w/tc tiles of (n1, tc) in its own shared memory (the slice).
+// The row pass stores each transformed row straight into the owners'
+// slices; after cluster.sync() each block runs the column pass on its
+// tiles in place and writes them to the output.  The plane never goes
+// through L2 between the passes; a 512 x 512 plane takes 16 slices of two
+// tiles (about 145 KB each with the pads), one block per SM.
+struct DsMap {
+  float* slice;  // this block's slice: tile t at t * 2 * tplane, re then im
+  int r0, w, tc, tplane;
+  // the dense stage's interface, never reached: the launch refuses plans
+  // with a dense stage
+  __device__ __forceinline__ bool stored(int) const { return false; }
+  __device__ __forceinline__ int operator()(int, int, int) const { return 0; }
+};
+
+__device__ __forceinline__ void store_out(const DsMap& m, float*, float*,
+                                          int row, int o, int, float vr,
+                                          float vi) {
+  const int owner = o / m.w;
+  const int col = o - owner * m.w;
+  const int t = col / m.tc;
+  float* base = cg::this_cluster().map_shared_rank(m.slice, owner);
+  const int a = t * 2 * m.tplane + (m.r0 + row) * m.tc + (col - t * m.tc);
+  base[a] = vr;
+  base[a + m.tplane] = vi;
+}
+
+__host__ __device__ inline int ds_smem_bytes(const LevelPlan& p2,
+                                             const LevelPlan& p1, int rows,
+                                             int ntile) {
+  return static_cast<int>(sizeof(float)) *
+         (((p2.tab_len + p1.tab_len + 3) & ~3) +
+          2 * ntile * ((p1.rs + 3) & ~3) + 2 * ((rows * p2.rs + 3) & ~3));
+}
+
+template <class PP>
+__global__ void __launch_bounds__(kThreads, 1)
+c2c_2d_ds_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                 float* __restrict__ yr, float* __restrict__ yi,
+                 const float* __restrict__ tab, const LevelPlan plan2,
+                 const LevelPlan plan1, int pre, int n1, int n2, int rows,
+                 int tc) {
+  extern __shared__ float4 smem4[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int csize = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int w = n2 / csize;
+  const int ntile = w / tc;
+  const int tplane = (plan1.rs + 3) & ~3;
+  float* tb2 = reinterpret_cast<float*>(smem4);
+  float* tb1 = tb2 + plan2.tab_len;
+  float* slice = tb2 + ((plan2.tab_len + plan1.tab_len + 3) & ~3);
+  float* rr = slice + 2 * ntile * tplane;
+  float* ri = rr + ((rows * plan2.rs + 3) & ~3);
+  const int tab_len = plan2.tab_len + plan1.tab_len;
+  for (int i = threadIdx.x; i < tab_len; i += blockDim.x) tb2[i] = tab[i];
+  const bool vrow = aligned16(xr) && aligned16(xi) && n2 % 4 == 0 &&
+                    plan2.rs % 4 == 0;
+  const int64_t npts = static_cast<int64_t>(n1) * n2;
+  for (int64_t plane_i = blockIdx.x / csize; plane_i < pre;
+       plane_i += gridDim.x / csize) {
+    const int64_t poff = plane_i * npts;
+    for (int r0 = rank * rows; r0 < n1; r0 += csize * rows) {
+      const int nr = n1 - r0 < rows ? n1 - r0 : rows;
+      const int64_t base = poff + static_cast<int64_t>(r0) * n2;
+      __syncthreads();  // tables staged; previous chunk's readers are done
+      if (vrow) {
+        const int m4 = n2 / 4;
+        for (int i = threadIdx.x; i < nr * m4; i += blockDim.x) {
+          const int row = i / m4;
+          const int k = 4 * (i - row * m4);
+          const int64_t g = base + static_cast<int64_t>(row) * n2 + k;
+          *reinterpret_cast<float4*>(rr + row * plan2.rs + k) =
+              __ldg(reinterpret_cast<const float4*>(xr + g));
+          *reinterpret_cast<float4*>(ri + row * plan2.rs + k) =
+              __ldg(reinterpret_cast<const float4*>(xi + g));
+        }
+      } else {
+        for (int i = threadIdx.x; i < nr * n2; i += blockDim.x) {
+          const int row = i / n2;
+          const int k = i - row * n2;
+          rr[row * plan2.rs + k] = xr[base + i];
+          ri[row * plan2.rs + k] = xi[base + i];
+        }
+      }
+      __syncthreads();
+      rows_levels<PP>(plan2, tb2, rr, ri, nullptr, nullptr, n2, nr, yr, yi,
+                      DsMap{slice, r0, w, tc, tplane});
+    }
+    cluster.sync();  // every slice holds its columns of every row
+    for (int t = 0; t < ntile; ++t) {
+      float* ar = slice + 2 * t * tplane;
+      cols_levels<PP>(plan1, tb1, ar, ar + tplane, nullptr, nullptr, n1, tc,
+                      yr, yi, ColsMap{poff + rank * w + t * tc, n2, tc});
+      __syncthreads();
+    }
+    cluster.sync();  // no block writes a slice still being read
+  }
+}
 
 cudaLaunchConfig_t make_config(int grid, int smem, int csize,
                                cudaStream_t stream,
@@ -159,46 +372,115 @@ cudaLaunchConfig_t make_config(int grid, int smem, int csize,
   return cfg;
 }
 
+using Kernel2d = void (*)(const float*, const float*, float*, float*,
+                         const float*, const LevelPlan, const LevelPlan, int,
+                         int, int, int, int);
+
+// The run-time form, or the compiled-in form whose plans equal the host's.
+template <bool kDs, class... PPs>
+Kernel2d pick(PlanList<PPs...>, const int* plan2, const int* plan1, int tc) {
+  Kernel2d fn = kDs ? c2c_2d_ds_kernel<DynPair> : c2c_2d_kernel<DynPair>;
+  (void)(((PPs::rows::matches(plan2, 1) && PPs::cols::matches(plan1, tc))
+              ? (fn = kDs ? c2c_2d_ds_kernel<PPs> : c2c_2d_kernel<PPs>, true)
+              : false) ||
+         ...);
+  return fn;
+}
+
+// Allow every form `bytes` of dynamic shared memory and clusters of up to
+// 16 blocks.
+template <bool kDs, class... PPs>
+cudaError_t allow(PlanList<PPs...>, int bytes) {
+  for (Kernel2d fn :
+       {kDs ? c2c_2d_ds_kernel<DynPair> : c2c_2d_kernel<DynPair>,
+        (kDs ? c2c_2d_ds_kernel<PPs> : c2c_2d_kernel<PPs>)...}) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(
+          fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // Both entry points act on the caller's current device; the caller sets it.
 
-// Allow the kernel kMaxSmem bytes of dynamic shared memory on the current
-// device and report how many clusters of `csize` blocks of `smem` bytes the
-// whole card runs at once.  Returns the CUDA error code, 0 on success.
+// Allow the kernel kMaxSmem bytes of dynamic shared memory and clusters of
+// up to 16 blocks on the current device, and report how many clusters of
+// `csize` blocks of `smem` bytes the whole card runs at once.  Returns the
+// CUDA error code, 0 on success.
 extern "C" int c2c_2d_occupancy(int smem, int csize, int* clusters) {
-  if (smem > kMaxSmem || csize < 1 || csize > 8)
+  if (smem > kMaxSmem || csize < 1 || csize > 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      c2c_2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  cudaError_t err = allow<false>(K3Plans{}, kMaxSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = make_config(csize, smem, csize, nullptr, &attr);
-  return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(clusters, c2c_2d_kernel, &cfg));
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      clusters, c2c_2d_kernel<DynPair>, &cfg));
 }
 
 // Launch `grid` blocks (a multiple of csize) in clusters of `csize` on
-// `stream`.  Returns the CUDA error code of the launch, 0 on success.  The
-// caller checks shapes: pre >= 1, n1 and n2 each p0 or p0 * p1 with radices
-// <= 256 and n <= 2048, rows * n2 <= 8192 and n1 * tc <= 8192, tab holding
-// the n2 table (tab2_len floats) and then the n1 table, smem = 4 * (tab2_len
-// + tab1_len + 4 * max(rows * n2, n1 * tc)) bytes, allowed by
-// c2c_2d_occupancy.
+// `stream`, with the host's level plans of the n2 schedule (tl = 1) and the
+// n1 schedule (tl = tc), each 4 + 8 * nlev ints (stockham.level_plan).
+// Returns the CUDA error code of the launch, 0 on success.  The caller
+// checks shapes: pre >= 1, rows * n2 and n1 * tc within kTilePoints, tab
+// holding the n2 table (plan2's tab_len floats) and then the n1 table, smem
+// as smem_bytes computes it, allowed by c2c_2d_occupancy.
 extern "C" int c2c_2d_launch(const float* xr, const float* xi, float* yr,
-                             float* yi, const float* tab, int tab2_len,
-                             int tab1_len, int pre, int n1, int n2, int rows,
-                             int tc, int ns2, int p20, int p21, int ns1,
-                             int p10, int p11, int grid, int csize, int smem,
+                             float* yi, const float* tab, const int* plan2,
+                             const int* plan1, int pre, int n1, int n2,
+                             int rows, int tc, int grid, int csize, int smem,
                              void* stream) {
-  if (rows * n2 > kTilePoints || n1 * tc > kTilePoints || grid % csize)
+  LevelPlan p2, p1;
+  if (!read_plan(plan2, &p2) || !read_plan(plan1, &p1) ||
+      rows * n2 > kTilePoints || n1 * tc > kTilePoints || grid % csize ||
+      smem != smem_bytes(p2, p1, rows))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = make_config(
       grid, smem, csize, static_cast<cudaStream_t>(stream), &attr);
   cudaError_t err = cudaLaunchKernelEx(
-      &cfg, c2c_2d_kernel, xr, xi, yr, yi, tab, tab2_len, tab1_len, pre, n1,
-      n2, rows, tc, ns2, p20, p21, ns1, p10, p11);
+      &cfg, pick<false>(K3Plans{}, plan2, plan1, tc), xr, xi, yr, yi, tab,
+      p2, p1, pre, n1, n2, rows, tc);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Option (b), the same contract with the plane in distributed shared
+// memory: csize divides n2, tc divides w = n2/csize, no dense stage in
+// either plan, smem = ds_smem_bytes(plan2, plan1, rows, w/tc).
+extern "C" int c2c_2d_ds_occupancy(int smem, int csize, int* clusters) {
+  if (smem > 232448 || csize < 1 || csize > 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = allow<true>(K3Plans{}, 232448);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = make_config(csize, smem, csize, nullptr, &attr);
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      clusters, c2c_2d_ds_kernel<DynPair>, &cfg));
+}
+
+extern "C" int c2c_2d_ds_launch(const float* xr, const float* xi, float* yr,
+                                float* yi, const float* tab, const int* plan2,
+                                const int* plan1, int pre, int n1, int n2,
+                                int rows, int tc, int grid, int csize,
+                                int smem, void* stream) {
+  LevelPlan p2, p1;
+  if (!read_plan(plan2, &p2) || !read_plan(plan1, &p1) || p2.nbuf != 1 ||
+      p1.nbuf != 1 || n2 % csize || (n2 / csize) % tc ||
+      rows * n2 > kTilePoints || n1 * tc > kTilePoints || grid % csize ||
+      smem != ds_smem_bytes(p2, p1, rows, n2 / csize / tc))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchAttribute attr;
+  cudaLaunchConfig_t cfg = make_config(
+      grid, smem, csize, static_cast<cudaStream_t>(stream), &attr);
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, pick<true>(K3Plans{}, plan2, plan1, tc), xr, xi, yr, yi, tab, p2,
+      p1, pre, n1, n2, rows, tc);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

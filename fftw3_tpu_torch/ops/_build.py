@@ -6,23 +6,26 @@ shared library with a plain C interface under ``fftw3_tpu_torch/_build/``
 (listed in ``.gitignore``), named by a hash over every file in ``csrc/``, so
 an edited source or header is rebuilt and an unchanged tree is loaded as it
 is.  The library is bound with ``ctypes``: pointers and the stream as
-``c_void_p``, ints as ``c_int``, 64-bit extents as ``c_longlong``.  ``nvcc``
+``c_void_p``, ints as ``c_int``, 64-bit extents as ``c_longlong``, a
+level plan as a pointer to ``c_int``.  ``nvcc``
 is found through ``CUDA_HOME``, else through
 ``torch.utils.cpp_extension.CUDA_HOME``.  A failed build raises with nvcc's
-own error output.
+own error output.  Each build keeps what ``-Xptxas -v`` said of every
+kernel beside the library (:func:`register_report`).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
 import threading
 import time
 from pathlib import Path
-from typing import List, Optional
+from typing import Dict, List, Optional, Tuple
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -31,20 +34,22 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
 #: C signature (argument types) of every bound entry point; each returns
 #: the CUDA error code as an int
 SIGNATURES = {
-    # xr xi yr yi tab, tab_len rows n nstages p0 p1, ptw, ptw_p store_p
-    # grid smem, stream
-    "stockham_c2c_launch": [_P] * 5 + [_I] * 6 + [_P] + [_I] * 4 + [_P],
+    # xr xi yr yi tab, plan, rows n rpb, ptw, ptw_p store_p grid smem, stream
+    "stockham_c2c_launch": [_P] * 5 + [_IP] + [_I] * 3 + [_P] + [_I] * 4
+    + [_P],
     "stockham_c2c_occupancy": [_I, ctypes.POINTER(_I)],
     # xr xi yr yi tab, tab_len pre n, L, tl nstages p0 p1 grid smem, stream
     "inner_c2c_launch": [_P] * 5 + [_I] * 3 + [_L] + [_I] * 6 + [_P],
     "inner_c2c_occupancy": [_I, ctypes.POINTER(_I)],
-    # xr xi yr yi tab, tab2_len tab1_len pre n1 n2 rows tc ns2 p20 p21 ns1
-    # p10 p11 grid csize smem, stream
-    "c2c_2d_launch": [_P] * 5 + [_I] * 16 + [_P],
+    # xr xi yr yi tab, plan2 plan1, pre n1 n2 rows tc grid csize smem, stream
+    "c2c_2d_launch": [_P] * 5 + [_IP] * 2 + [_I] * 8 + [_P],
     "c2c_2d_occupancy": [_I, _I, ctypes.POINTER(_I)],
+    "c2c_2d_ds_launch": [_P] * 5 + [_IP] * 2 + [_I] * 8 + [_P],
+    "c2c_2d_ds_occupancy": [_I, _I, ctypes.POINTER(_I)],
     # x yr yi tab, tab_len rows n nstages p0 p1 grid smem, stream
     "r2c_launch": [_P] * 4 + [_I] * 8 + [_P],
     "r2c_occupancy": [_I, ctypes.POINTER(_I)],
@@ -57,6 +62,13 @@ SIGNATURES = {
     # xr xi yr yi tab, rows n nstages p0 p1 p2 p3 rpb sign grid smem, stream
     "df32_c2c_launch": [_P] * 5 + [_I] * 11 + [_P],
     "df32_c2c_occupancy": [_I, ctypes.POINTER(_I)],
+    # E5 (ablate_stage.cu), timing only: xr xi yr yi tab, tab_len rows n
+    # nstages p0 p1 arm grid smem, stream; xr xi yr yi tab, plan, rows n rpb
+    # arm grid smem, stream
+    "ablate_dense_launch": [_P] * 5 + [_I] * 9 + [_P],
+    "ablate_dense_occupancy": [_I, ctypes.POINTER(_I)],
+    "ablate_bfly_launch": [_P] * 5 + [_IP] + [_I] * 6 + [_P],
+    "ablate_bfly_occupancy": [_I, ctypes.POINTER(_I)],
 }
 
 _lock = threading.Lock()
@@ -106,11 +118,12 @@ def _build(out: Path) -> None:
     nvcc = nvcc_path()
     work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     t0 = time.perf_counter()
-    objs, procs = [], []
+    objs, procs, info = [], [], []
     try:
         for src in sources():
             obj = work / (src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj),
+                   str(src)]
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True)))
@@ -119,6 +132,8 @@ def _build(out: Path) -> None:
             stdout, stderr = proc.communicate()
             _check(subprocess.CompletedProcess(cmd, proc.returncode, stdout,
                                                stderr), cmd)
+            info.append(stderr)
+        out.with_suffix(".ptxas.txt").write_text("".join(info))
         tmp = work / "lib.so"
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]
         _check(subprocess.run(cmd, capture_output=True, text=True), cmd)
@@ -132,13 +147,60 @@ def _build(out: Path) -> None:
     build_seconds = time.perf_counter() - t0
 
 
+def _library_path() -> Path:
+    return BUILD_DIR / f"libfftw3_tpu_torch_{digest()}.so"
+
+
+def register_report() -> Dict[str, Tuple[int, int, int]]:
+    """What ptxas said of each kernel of the current build (``-Xptxas
+    -v``): {kernel: (registers, spill-store bytes, stack-frame bytes)},
+    the kernel named by its identifier and template arguments.  Empty when
+    the library was built before the report was kept."""
+    path = _library_path().with_suffix(".ptxas.txt")
+    if not path.exists():
+        return {}
+    report, name, frame = {}, None, (0, 0)
+    for line in path.read_text().splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = _kernel_name(m.group(1))
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores",
+                      line)
+        if m:
+            frame = (int(m.group(2)), int(m.group(1)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name and "kernel" in name:
+            report[name] = (int(m.group(1)),) + frame
+            name = None
+    return report
+
+
+def _kernel_name(mangled: str) -> str:
+    """``c2c_2d_kernel`` or ``stockham_c2c_kernel<0,1,1>`` from an Itanium
+    mangled name (identifiers are length-prefixed; template arguments
+    ``Li<int>E`` and ``Lb<0|1>E``)."""
+    for m in re.finditer(r"(?=(\d+))", mangled):
+        k = int(m.group(1))
+        end = m.start() + len(m.group(1))
+        ident = mangled[end:end + k]
+        if ident.endswith("_kernel") and len(ident) == k:
+            rest = mangled[end + k:]
+            if rest.startswith("I"):
+                args = re.findall(r"L[ib](\d+)E", rest[:rest.find("EE") + 2])
+                return f"{ident}<{','.join(args)}>"
+            return ident
+    return mangled
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built first if ``csrc/`` changed."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        out = BUILD_DIR / f"libfftw3_tpu_torch_{digest()}.so"
+        out = _library_path()
         if not out.exists():
             _build(out)
         lib = ctypes.CDLL(str(out))

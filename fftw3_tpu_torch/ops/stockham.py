@@ -16,10 +16,15 @@ point.  Here the same stage loop exists twice:
   full f32 (the reference's bf16 hi/lo stage arithmetic is a TPU matter and
   is not copied).
 * :func:`stockham_c2c_cuda`, the wrapper of the hand-written CUDA kernel in
-  ``csrc/stockham_c2c.cu`` (stage loop in ``csrc/stockham_stage.cuh``).  It
-  computes every stage by the dense p-term sum, whatever ``vpu`` says; the
-  butterfly form on the card is later work.  Its two four-step options
-  (pre-twiddle on load, transposed store) serve ``ops/fourstep.py``.
+  ``csrc/stockham_c2c.cu`` (body ``csrc/stockham_rows.cuh``).  The radix
+  alone picks each stage's form on the card: a 2-3-5-smooth radix runs as
+  register butterflies (``csrc/stockham_bfly.cuh``, the ``_vpu_dft`` form,
+  split into register levels of at most 16 points by :func:`bfly_levels`),
+  any other radix as the dense p-term sum (``csrc/stockham_stage.cuh``).
+  :func:`level_plan` is the host's side of that choice.  The descriptor's
+  ``vpu`` key selects the twin's form only, as ``tile_b`` means nothing
+  here.  Its two four-step options (pre-twiddle on load, transposed store)
+  serve ``ops/fourstep.py``.
 
 :func:`build_pallas_c2c_split` turns a ``{"alg": "pallas", ...}`` descriptor
 into a split apply backed by a ``torch.autograd.Function`` whose backward is
@@ -36,6 +41,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
+import textwrap
 from functools import lru_cache
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -52,7 +58,7 @@ MAX_RADIX = 256
 MAX_SINGLE = 256
 #: fused-kernel window of the planner.  Below MIN_N a dense matmul already
 #: runs in one pass; above MAX_N a row no longer fits the kernel's
-#: shared-memory buffers (4 f32 planes of n points plus the root tables).
+#: shared-memory tile (the reference's window, kept for route parity).
 MIN_N = 128
 MAX_N = 2048
 
@@ -238,13 +244,7 @@ def _vpu_last_ok(p: int, sign: int) -> bool:
     """Gate of the butterfly stage form: radix 2-3-5-smooth and <= 64.
     ``sign`` is the variant channel of :func:`_vpu_sign` (0 = dense form
     everywhere)."""
-    if sign == 0 or p > 64:
-        return False
-    m = p
-    for f in (2, 3, 5):
-        while m % f == 0:
-            m //= f
-    return m == 1
+    return sign != 0 and p <= 64 and stage_form(p) == "bfly"
 
 
 def _vpu_sign(sign: int, vpu) -> int:
@@ -569,11 +569,12 @@ def stockham_c2c_cuda(xr: torch.Tensor, xi: torch.Tensor,
     yi = torch.empty(shape, dtype=xi.dtype, device=xi.device)
     if B == 0:
         return yr, yi
-    p1 = radices[1] if len(radices) == 2 else 1
-    launch("stockham_c2c", xr.device, 4 * (table.numel() + 4 * n), B,
+    plan = level_plan(n, tuple(radices))
+    rpb = rows_per_block(n)
+    launch("stockham_c2c", xr.device, plan_smem(plan, rpb), -(-B // rpb),
            (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            table.data_ptr(), table.numel(), B, n, len(radices), radices[0],
-            p1, pretwiddle.data_ptr() if P else None, P,
+            table.data_ptr(), plan_array(plan), B, n, rpb,
+            pretwiddle.data_ptr() if P else None, P,
             P if store_transposed else 0),
            f"n={n}, radices={radices}, B={B}, pretwiddle {P}, transposed "
            f"{store_transposed}")
@@ -636,6 +637,186 @@ def _table_len(n: int, radices: Sequence[int]) -> int:
 
 
 # ---------------------------------------------------------------------------
+# the stage form on the card: butterfly levels or the dense sum
+# ---------------------------------------------------------------------------
+
+#: radices of one register level (``csrc/stockham_bfly.cuh`` instantiates
+#: exactly these); a 2-3-5-smooth stage radix is a product of them
+LEVEL_RADICES = (16, 8, 5, 4, 3, 2)
+#: points per group of rows in K1 (``kRowPts * kRowThreads`` in
+#: ``csrc/stockham_rows.cuh``)
+ROW_TILE_POINTS = 2048
+#: levels a plan holds (``kMaxLevels``)
+MAX_LEVELS = 8
+
+
+def stage_form(p: int) -> str:
+    """``"bfly"`` for a 2-3-5-smooth radix (register butterflies), else
+    ``"dense"`` (the p-term sum): the radix alone picks the form."""
+    m = p
+    for f in (2, 3, 5):
+        while m % f == 0:
+            m //= f
+    return "bfly" if m == 1 else "dense"
+
+
+@lru_cache(maxsize=None)
+def bfly_levels(p: int) -> Tuple[int, ...]:
+    """Register levels of a 2-3-5-smooth radix p: the fewest factors from
+    LEVEL_RADICES, then the smallest largest factor, largest first (64 ->
+    (8, 8), 128 -> (16, 8), 50 -> (5, 5, 2))."""
+    if p == 1:
+        return ()
+    best = None
+    for r in LEVEL_RADICES:
+        if p % r == 0 and stage_form(p // r) == "bfly":
+            rest = bfly_levels(p // r)
+            cand = tuple(sorted((r,) + rest, reverse=True))
+            if best is None or (len(cand), cand[0]) < (len(best), best[0]):
+                best = cand
+    if best is None:
+        raise ValueError(f"radix {p} is not 2-3-5-smooth")
+    return best
+
+
+def rows_per_block(n: int) -> int:
+    """Rows of one group of K1: as many whole rows as ROW_TILE_POINTS
+    holds."""
+    return max(1, ROW_TILE_POINTS // n)
+
+
+@lru_cache(maxsize=None)
+def level_plan(n: int, radices: Tuple[int, ...], tl: int = 1
+               ) -> Tuple[int, ...]:
+    """The kernel's level plan for schedule `radices` over tiles of n
+    points by tl columns (``LevelPlan`` in ``csrc/stockham_bfly.cuh``):
+    a header (levels, buffers, row stride of a buffer plane in floats,
+    root-table floats) and 8 ints per level (kind: 0 dense or the butterfly
+    radix; radix, done, rest; table offsets a and b; table length; the pad
+    of the buffer the level writes).
+
+    A butterfly level of stage (p, done, rest) reads its roots from the
+    stage's r_rest (r_p when q == 1), of length rest, at strides.  A level
+    that writes shared memory pads it as ``e + pad * (e >> 5)`` with
+    pad = min(done*tl, 32 // r), which spreads a warp's stores (runs of
+    done*tl words, r*done*tl apart) over the 32 banks; with done*tl >= 32 a
+    warp's stores are one run and need no pad.  A dense stage reads and writes
+    unpadded buffers out of place, so a schedule with one has no pads and
+    two buffers."""
+    dense = any(stage_form(p) == "dense" for p in radices)
+    levels = []
+    off, done, rest = 0, 1, n
+    for p in radices:
+        q = rest // p
+        off_tw = off + 2 * p
+        if stage_form(p) == "dense":
+            levels.append([0, p, done, rest, off, off_tw if q > 1 else 0, 0,
+                           0])
+        else:
+            t_off = off_tw if q > 1 else off
+            sub_done, sub_rest = done, rest
+            for r in bfly_levels(p):
+                w = sub_done * tl
+                pad = 0 if dense or w >= 32 else min(w, 32 // r)
+                levels.append([r, r, sub_done, sub_rest, t_off, 0, rest, pad])
+                sub_done *= r
+                sub_rest //= r
+        off = off_tw + (2 * rest if q > 1 else 0)
+        done *= p
+        rest = q
+    levels[-1][7] = 0
+    if len(levels) > MAX_LEVELS:
+        raise ValueError(f"schedule {list(radices)} needs {len(levels)} "
+                         f"levels, over {MAX_LEVELS}")
+    m = n * tl
+    smax = max(lv[7] for lv in levels)
+    rs = m if smax == 0 else -(-(m + smax * ((m - 1) >> 5)) // 4) * 4
+    head = [len(levels), 2 if dense else 1, rs, _table_len(n, radices)]
+    return tuple(head + [v for lv in levels for v in lv])
+
+
+#: plans compiled into the kernels (``csrc/stockham_plans.cuh``): a launch
+#: whose plan equals one runs a kernel with every index and pad a constant.
+#: K1's plain form: the main path's schedules and the sizes the paths of
+#: ``chip_smoke.py`` drive; its four-step forms: the q pass of
+#: ``pallas4-32x128``; E5's timing-only arms: the main path's; K3: the
+#: 512 x 512 planes (rows, then columns of 16).
+STATIC_PLANS = {
+    "K1": [(1024, (64, 16)), (1024, (32, 32)), (512, (32, 16)),
+           (2048, (128, 16)), (256, (256,)), (128, (128,))],
+    "K1_FOURSTEP": [(128, (128,))],
+    "E5": [(1024, (64, 16))],
+    "K3": [((512, (32, 16)), (512, (32, 16)))],
+}
+
+
+def _plan_type(n: int, radices: Sequence[int], tl: int) -> str:
+    return (f"Plan{n}_{'x'.join(map(str, radices))}_tl{tl}")
+
+
+def static_plans_header() -> str:
+    """The text of ``csrc/stockham_plans.cuh`` (a CPU test holds the
+    committed file to it)."""
+    from . import fused2d
+    seen, defs = set(), []
+
+    def plan(n, radices, tl):
+        name = _plan_type(n, radices, tl)
+        if name not in seen:
+            seen.add(name)
+            ints = textwrap.fill(
+                ", ".join(map(str, (tl,) + level_plan(n, tuple(radices),
+                                                      tl))),
+                76, initial_indent="    ", subsequent_indent="    ")
+            defs.append(f"using {name} = StaticPlan<\n{ints}>;")
+        return name
+    lists = {
+        "K1Plans": [plan(n, r, 1) for n, r in STATIC_PLANS["K1"]],
+        "K1FourstepPlans": [plan(n, r, 1)
+                            for n, r in STATIC_PLANS["K1_FOURSTEP"]],
+        "E5Plans": [plan(n, r, 1) for n, r in STATIC_PLANS["E5"]],
+        "K3Plans": [f"PlanPair<{plan(n2, r2, 1)}, "
+                    f"{plan(n1, r1, fused2d.tiles(n1, n2)[1])}>"
+                    for (n1, r1), (n2, r2) in STATIC_PLANS["K3"]],
+    }
+    body = "\n".join(defs) + "\n\n" + "\n".join(
+        f"using {k} = PlanList<\n" + textwrap.fill(
+            ", ".join(v), 76, initial_indent="    ",
+            subsequent_indent="    ", break_on_hyphens=False) + ">;"
+        for k, v in lists.items())
+    return (
+        "// The level plans compiled into K1 (stockham_rows.cuh) and K3\n"
+        "// (c2c_2d.cu).  Generated by\n"
+        "// fftw3_tpu_torch.ops.stockham.static_plans_header() from\n"
+        "// stockham.STATIC_PLANS; tests/test_torch_bfly.py holds this file\n"
+        "// to it.\n\n#pragma once\n\n#include \"stockham_bfly.cuh\"\n\n"
+        "namespace fftw3_tpu_torch {\n\n" + body +
+        "\n\n}  // namespace fftw3_tpu_torch\n")
+
+
+def form_label(radices: Sequence[int]) -> str:
+    """Each stage's form on the card, e.g. ``"bfly 64=8x8, bfly 16"``."""
+    return ", ".join(
+        f"dense {p}" if stage_form(p) == "dense" else
+        f"bfly {p}" + ("" if len(bfly_levels(p)) == 1 else
+                       "=" + "x".join(map(str, bfly_levels(p))))
+        for p in radices)
+
+
+def plan_smem(plan: Sequence[int], rows: int) -> int:
+    """Shared-memory bytes of K1 on `plan` with `rows` rows per group
+    (``rows_smem`` in ``csrc/stockham_rows.cuh``)."""
+    nbuf, rs, tab_len = plan[1], plan[2], plan[3]
+    plane = -(-rows * rs // 4) * 4
+    return 4 * (-(-tab_len // 4) * 4 + 2 * nbuf * plane)
+
+
+def plan_array(plan: Sequence[int]):
+    """The plan as a C int array for a launch."""
+    return (ctypes.c_int * len(plan))(*plan)
+
+
+# ---------------------------------------------------------------------------
 # descriptor -> split apply
 # ---------------------------------------------------------------------------
 
@@ -663,9 +844,10 @@ def build_pallas_c2c_split(desc: Dict, sign: int, rdtype,
     [...]}`` on any leading batch shape, ragged batches included (each CUDA
     block takes whole rows, so nothing is padded).
 
-    ``vpu`` selects the twin's butterfly stage form; the CUDA kernel runs
-    the dense form whatever it says.  ``tile_b`` is the reference's
-    batch-lane tile and means nothing here: it is accepted and ignored."""
+    ``vpu`` selects the twin's butterfly stage form; on the card the radix
+    alone picks each stage's form (:func:`stage_form`).  ``tile_b`` is the
+    reference's batch-lane tile and means nothing here: it is accepted and
+    ignored."""
     n = desc["n"]
     radices = list(desc.get("radices") or choose_radices(n))
     if not radices_ok(n, radices):
