@@ -96,11 +96,12 @@ BATCH = 65536
 MAIN_RADICES = [64, 16]
 MAIN_DESC = {"alg": "pallas", "n": N, "radices": MAIN_RADICES}
 TOL = 1e-5                  # max-abs error over max-abs, against float64
-#: K1's case grid: every stage of the first seven runs as butterflies;
+#: K1's case grid: every stage of the first nine runs as butterflies;
 #: 896 and 1792 put a radix with the factor 7 (56, 112) on the dense sum
 #: beside a butterfly stage, and 131 is one prime dense stage
 CASES = [(128, [128]), (256, [256]), (512, [32, 16]), (1000, [50, 20]),
-         (1024, [64, 16]), (1024, [32, 32]), (2048, [128, 16]),
+         (1024, [64, 16]), (1024, [32, 32]), (1024, [128, 8]),
+         (1536, [96, 16]), (2048, [128, 16]),
          (192, [192]), (896, [56, 16]), (1792, [112, 16]), (131, [131])]
 CASE_BATCHES = [1, 37, 4096]
 ORACLE_ROWS = 256
@@ -115,6 +116,8 @@ PROFILE_CALLS = 5
 INNER_NS = [8, 32, 128, 512, 1000, 2048]
 INNER_LS = [1, 37, 130, 4096]
 PLANES_2D = [(128, 128), (256, 1024), (512, 512), (384, 768)]
+#: K3 timed at planes off the main paths' 512 x 512, 2**26 points each
+K3_OFF_PLANES = [(256, 256, 1024), (341, 384, 512)]
 PRES = [1, 3, 64]
 #: K1 with the four-step options: (q, radices, P, transposed store)
 PRETWIDDLE_CASES = [(128, [128], 32, False), (128, [128], 128, True),
@@ -1423,27 +1426,31 @@ def main() -> None:
             "stage_form": f"rows: {S.form_label(rad)}; columns: "
                           f"{S.form_label(rad)}",
             "cluster": fused2d.CLUSTER, "shape": shape})
-        # K3's options, interleaved with the default (a: the plane in L2
-        # between the passes, a cluster of 8, the portable size): (a) with a
-        # non-portable cluster of 16 (half the planes in flight), and (b)
-        # the plane in the distributed shared memory of a 16-block cluster
-        opts = {"cluster 8": {}, "cluster 16": {"cluster": 16},
-                "DSMEM, cluster 16": {"dsmem": True}}
-        twin = torch.complex(*fused2d.c2c_2d_torch(xr, xi, rad, rad, -1))
-        times = {k: [] for k in opts}
-        for k in list(opts) + list(opts)[::-1]:
-            times[k].append(time_ms(
-                lambda a, b, o=opts[k]: fused2d.c2c_2d_cuda(
-                    a, b, rad, rad, tab, **o), (xr, xi)))
-        for k, o in opts.items():
-            kr, ki = fused2d.c2c_2d_cuda(xr, xi, rad, rad, tab, **o)
-            e = relerr(torch.complex(kr, ki), twin)
-            check(e <= TOL, f"c2c_2d {k} {shape}: {e:.2e}")
-            print(f"[14] c2c_2d {shape} {k}: {times[k][0]:.3f} / "
-                  f"{times[k][1]:.3f} ms, kernel-twin {e:.2e} ({smi_line})")
-            rows14[-1]["ms_" + k.replace(", ", "_").replace(" ", "")] = \
-                min(times[k])
-        del xr, xi, xc, kr, ki, twin
+        del xr, xi, xc
+        torch.cuda.empty_cache()
+    # K3 off the 512 x 512 planes: every schedule runs the same code, so a
+    # plane of other schedules should cost about the same per point
+    for shape in K3_OFF_PLANES:
+        r1, r2 = S.choose_radices(shape[1]), S.choose_radices(shape[2])
+        xr, xi = planes(rng, shape, dev)
+        tab = fused2d._device_table_2d(shape[1], tuple(r1), shape[2],
+                                       tuple(r2), -1, dev)
+        kr, ki = fused2d.c2c_2d_cuda(xr, xi, r1, r2, tab)
+        e = relerr(torch.complex(kr, ki),
+                   torch.complex(*fused2d.c2c_2d_torch(xr, xi, r1, r2, -1)))
+        check(e <= TOL, f"c2c_2d {shape}: {e:.2e}")
+        del kr, ki
+        xc = torch.complex(xr, xi)
+        ms = time_ms(lambda a, b: fused2d.c2c_2d_cuda(a, b, r1, r2, tab),
+                     (xr, xi))
+        lib = time_ms(lambda z: torch.fft.fft2(z), (xc,))
+        bms, by = bound(16.0 * math.prod(shape),
+                        fft_flops(math.prod(shape), *shape[1:]))
+        print(f"[14] c2c_2d {shape} (rows: {S.form_label(r2)}; columns: "
+              f"{S.form_label(r1)}): kernel {ms:.3f} ms, library {lib:.3f} "
+              f"ms, bound {bms:.3f} ms ({by}); kernel-twin {e:.2e} "
+              f"({smi_line})")
+        del xr, xi, xc
         torch.cuda.empty_cache()
 
     # K1 with the pre-twiddle: the four-step's q pass at n = 4096, B = 4096

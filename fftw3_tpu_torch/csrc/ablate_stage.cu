@@ -28,8 +28,6 @@
 namespace {
 
 using fftw3_tpu_torch::Arm;
-using fftw3_tpu_torch::E5Plans;
-using fftw3_tpu_torch::K1Plans;
 using fftw3_tpu_torch::Schedule;
 using fftw3_tpu_torch::SmemMap;
 
@@ -173,13 +171,12 @@ extern "C" int ablate_dense_launch(const float* xr, const float* xi,
 // The butterfly form: the K1 of stockham_c2c.cu with the arm as a template
 // argument.  Same arguments as stockham_c2c_launch's plain form.
 extern "C" int ablate_bfly_occupancy(int smem, int* blocks_per_sm) {
-  using fftw3_tpu_torch::rows_allow;
-  for (cudaError_t err : {rows_allow<Arm::kNoTwiddle, E5Plans>(),
-                          rows_allow<Arm::kConstRoots, E5Plans>(),
-                          rows_allow<Arm::kNoStage, E5Plans>()})
-    if (err != cudaSuccess) return static_cast<int>(err);
-  return fftw3_tpu_torch::rows_occupancy<Arm::kFull, K1Plans>(smem,
-                                                             blocks_per_sm);
+  using fftw3_tpu_torch::rows_occupancy;
+  for (int err : {rows_occupancy<Arm::kNoTwiddle>(smem, blocks_per_sm),
+                  rows_occupancy<Arm::kConstRoots>(smem, blocks_per_sm),
+                  rows_occupancy<Arm::kNoStage>(smem, blocks_per_sm)})
+    if (err != 0) return err;
+  return rows_occupancy<Arm::kFull>(smem, blocks_per_sm);
 }
 
 extern "C" int ablate_bfly_launch(const float* xr, const float* xi,
@@ -189,16 +186,16 @@ extern "C" int ablate_bfly_launch(const float* xr, const float* xi,
   using fftw3_tpu_torch::rows_launch;
   auto s = static_cast<cudaStream_t>(stream);
   switch (arm) {
-    case 0: return rows_launch<Arm::kFull, K1Plans>(
+    case 0: return rows_launch<Arm::kFull>(
         xr, xi, yr, yi, tab, plan, rows, n, rpb, nullptr, 0, 0, grid, smem,
         s);
-    case 1: return rows_launch<Arm::kNoTwiddle, E5Plans>(
+    case 1: return rows_launch<Arm::kNoTwiddle>(
         xr, xi, yr, yi, tab, plan, rows, n, rpb, nullptr, 0, 0, grid, smem,
         s);
-    case 2: return rows_launch<Arm::kConstRoots, E5Plans>(
+    case 2: return rows_launch<Arm::kConstRoots>(
         xr, xi, yr, yi, tab, plan, rows, n, rpb, nullptr, 0, 0, grid, smem,
         s);
-    case 3: return rows_launch<Arm::kNoStage, E5Plans>(
+    case 3: return rows_launch<Arm::kNoStage>(
         xr, xi, yr, yi, tab, plan, rows, n, rpb, nullptr, 0, 0, grid, smem,
         s);
   }

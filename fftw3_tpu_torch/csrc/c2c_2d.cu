@@ -11,10 +11,10 @@
 // 16 bytes per point.  The TPU kernel holds a whole plane in VMEM.  A plane
 // here is up to 294,912 points (2.4 MB split), ten times a block's 227 KB
 // of shared memory, so one thread-block cluster owns a plane instead:
-//  1. Row pass: each block takes chunks of whole rows into shared memory
-//     (16-byte loads; on a compiled-in plan the first level reads them
-//     from the input directly), runs the n2 schedule and writes the rows
-//     to the output tensor.
+//  1. Row pass: each block takes chunks of whole rows, runs the n2 schedule
+//     and writes the rows to the output tensor.  A first level of
+//     butterflies reads the rows from the input directly; a dense first
+//     stage reads them from shared memory, filled with 16-byte loads.
 //  2. The cluster synchronises: __threadfence() and then cluster.sync(), so
 //     every row of the plane is in the output before any block reads it.
 //  3. Column pass: each block takes (n1, tc) tiles of tc whole columns from
@@ -28,84 +28,39 @@
 // runs in place, so a tile needs one buffer (two only with a dense stage):
 // at 8192 points and the tables about 90 KB.  A block of 512 threads holds
 // 16 points a thread in a level and takes up to 128 registers, so one block
-// runs per SM.  The cluster size is the caller's (8, the portable size, or
-// 16): with CL blocks per plane and B blocks resident per SM, about
-// 132*B/CL planes are in flight, and they must stay in the 50 MB L2
-// between the two passes for HBM to see one read and one write per point.
+// runs per SM.  A cluster is 8 blocks, the portable size (16, and the plane
+// held in the distributed shared memory of a 16-block cluster, were slower:
+// PERF.md): about 132/8 planes are in flight, and they must stay in the
+// 50 MB L2 between the two passes for HBM to see one read and one write per
+// point.
 
 #include <cooperative_groups.h>
 
-#include <initializer_list>
-#include <type_traits>
-
-#include "stockham_plans.cuh"
+#include "stockham_bfly.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 using fftw3_tpu_torch::Arm;
-using fftw3_tpu_torch::K3Plans;
+using fftw3_tpu_torch::Level;
 using fftw3_tpu_torch::LevelPlan;
-using fftw3_tpu_torch::PlanList;
+using fftw3_tpu_torch::kMaxLevels;
 using fftw3_tpu_torch::read_plan;
 using fftw3_tpu_torch::run_levels;
-using fftw3_tpu_torch::run_static;
+using fftw3_tpu_torch::stage_levels;
 
-// Tuning knobs, set on nvcc's command line by tools/tune_kernels.py only
-// (the defaults are what it measured best, PERF.md): threads per
-// block, the blocks per SM the registers are held to (1: 128 a thread; at 2
-// the levels spill), and whether a compiled-in plan's row pass reads its
-// first level straight from the input.
-#ifndef FFTW3_TPU_TORCH_K3_THREADS
-#define FFTW3_TPU_TORCH_K3_THREADS 512
-#endif
-#ifndef FFTW3_TPU_TORCH_K3_MIN_BLOCKS
-#define FFTW3_TPU_TORCH_K3_MIN_BLOCKS 1
-#endif
-#ifndef FFTW3_TPU_TORCH_K3_DIRECT
-#define FFTW3_TPU_TORCH_K3_DIRECT 1
-#endif
-constexpr int kThreads = FFTW3_TPU_TORCH_K3_THREADS;
+// threads per block and the blocks per SM the registers are held to (one:
+// 128 a thread; at two the levels spill): the best of the sweep in PERF.md
+constexpr int kThreads = 512;
+constexpr int kMinBlocks = 1;
 // points a thread holds in one level: tiles of 8192 points
 constexpr int kPts = 8192 / kThreads;
 constexpr int kTilePoints = kPts * kThreads;
+// blocks per plane (fused2d.CLUSTER)
+constexpr int kCluster = 8;
 // a cap on any pair of plans' shared memory, set once
 constexpr int kMaxSmem = 180224;
-
-// The plan tag of the run-time form; any other is a compiled-in PlanPair.
-struct DynPair {};
-
-// The n2 schedule over the nr rows in (ar, ai), then stored by `map`.
-// With (x0r, x0i) (a compiled-in plan only) the first level reads the rows
-// from there, else from (ar, ai).
-template <class PP, class Map>
-__device__ __forceinline__ void rows_levels(
-    const LevelPlan& plan, const float* tb, float* ar, float* ai, float* br,
-    float* bi, int n2, int nr, float* yr, float* yi, const Map& map,
-    const float* x0r = nullptr, const float* x0i = nullptr) {
-  if constexpr (std::is_same<PP, DynPair>::value)
-    run_levels<kPts, Arm::kFull>(plan, tb, ar, ai, br, bi, n2, 1, nr, yr, yi,
-                                 map);
-  else
-    run_static<kPts, Arm::kFull, typename PP::rows, 0>(tb, ar, ai, nr, yr,
-                                                       yi, map, x0r, x0i);
-}
-
-// The n1 schedule over one tile of tc columns in (ar, ai).
-template <class PP, class Map>
-__device__ __forceinline__ void cols_levels(const LevelPlan& plan,
-                                            const float* tb, float* ar,
-                                            float* ai, float* br, float* bi,
-                                            int n1, int tc, float* yr,
-                                            float* yi, const Map& map) {
-  if constexpr (std::is_same<PP, DynPair>::value)
-    run_levels<kPts, Arm::kFull>(plan, tb, ar, ai, br, bi, n1, tc, 1, yr,
-                                 yi, map);
-  else
-    run_static<kPts, Arm::kFull, typename PP::cols, 0>(tb, ar, ai, 1, yr, yi,
-                                                       map);
-}
 
 // Row pass store: point o of row `row` of the chunk.
 struct RowsMap {
@@ -148,13 +103,13 @@ __host__ __device__ inline int smem_bytes(const LevelPlan& p2,
 
 // yr, yi are written by the row pass and read back by other blocks of the
 // cluster in the column pass: no __restrict__ and no read-only loads on them.
-template <class PP>
-__global__ void __launch_bounds__(kThreads, FFTW3_TPU_TORCH_K3_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
     c2c_2d_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-              float* yr, float* yi, const float* __restrict__ tab,
-              const LevelPlan plan2, const LevelPlan plan1, int pre, int n1,
-              int n2, int rows, int tc) {
+                  float* yr, float* yi, const float* __restrict__ tab,
+                  const LevelPlan plan2, const LevelPlan plan1, int pre,
+                  int n1, int n2, int rows, int tc) {
   extern __shared__ float4 smem4[];
+  __shared__ Level lev2[kMaxLevels], lev1[kMaxLevels];
   cg::cluster_group cluster = cg::this_cluster();
   const int csize = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -166,15 +121,17 @@ __global__ void __launch_bounds__(kThreads, FFTW3_TPU_TORCH_K3_MIN_BLOCKS)
   float* br = ai + plane;  // second buffer, only with a dense stage
   float* bi = br + plane;
 
+  stage_levels(plan2, lev2);
+  stage_levels(plan1, lev1);
   const int tab_len = plan2.tab_len + plan1.tab_len;
   for (int i = threadIdx.x; i < tab_len; i += blockDim.x) tb2[i] = tab[i];
   const bool vec = aligned16(xr) && aligned16(xi) && aligned16(yr) &&
                    aligned16(yi) && n2 % 4 == 0;
   const bool vrow = vec && plan2.rs % 4 == 0;
   const bool vcol = vec && tc % 4 == 0;
+  // a first level of butterflies reads the rows from the input
+  const bool direct = plan2.lev[0].kind != 0;
 
-  constexpr bool kDirectRows =
-      FFTW3_TPU_TORCH_K3_DIRECT && !std::is_same<PP, DynPair>::value;
   const int64_t npts = static_cast<int64_t>(n1) * n2;
   for (int64_t plane_i = blockIdx.x / csize; plane_i < pre;
        plane_i += gridDim.x / csize) {
@@ -184,34 +141,34 @@ __global__ void __launch_bounds__(kThreads, FFTW3_TPU_TORCH_K3_MIN_BLOCKS)
     for (int r0 = rank * rows; r0 < n1; r0 += csize * rows) {
       const int nr = n1 - r0 < rows ? n1 - r0 : rows;
       const int64_t base = poff + static_cast<int64_t>(r0) * n2;
-      __syncthreads();  // tables staged; previous chunk's readers are done
-      if constexpr (kDirectRows) {
-        rows_levels<PP>(plan2, tb2, ar, ai, br, bi, n2, nr, yr, yi,
-                        RowsMap{base, n2}, xr + base, xi + base);
-        continue;
-      }
-      if (vrow) {
-        const int m4 = n2 / 4;
-        for (int i = threadIdx.x; i < nr * m4; i += blockDim.x) {
-          const int row = i / m4;
-          const int k = 4 * (i - row * m4);
-          const int64_t g = base + static_cast<int64_t>(row) * n2 + k;
-          *reinterpret_cast<float4*>(ar + row * plan2.rs + k) =
-              __ldg(reinterpret_cast<const float4*>(xr + g));
-          *reinterpret_cast<float4*>(ai + row * plan2.rs + k) =
-              __ldg(reinterpret_cast<const float4*>(xi + g));
+      __syncthreads();  // levels and tables staged; previous chunk's
+                        // readers are done
+      if (!direct) {
+        if (vrow) {
+          const int m4 = n2 / 4;
+          for (int i = threadIdx.x; i < nr * m4; i += blockDim.x) {
+            const int row = i / m4;
+            const int k = 4 * (i - row * m4);
+            const int64_t g = base + static_cast<int64_t>(row) * n2 + k;
+            *reinterpret_cast<float4*>(ar + row * plan2.rs + k) =
+                __ldg(reinterpret_cast<const float4*>(xr + g));
+            *reinterpret_cast<float4*>(ai + row * plan2.rs + k) =
+                __ldg(reinterpret_cast<const float4*>(xi + g));
+          }
+        } else {
+          for (int i = threadIdx.x; i < nr * n2; i += blockDim.x) {
+            const int row = i / n2;
+            const int k = i - row * n2;
+            ar[row * plan2.rs + k] = xr[base + i];
+            ai[row * plan2.rs + k] = xi[base + i];
+          }
         }
-      } else {
-        for (int i = threadIdx.x; i < nr * n2; i += blockDim.x) {
-          const int row = i / n2;
-          const int k = i - row * n2;
-          ar[row * plan2.rs + k] = xr[base + i];
-          ai[row * plan2.rs + k] = xi[base + i];
-        }
+        __syncthreads();
       }
-      __syncthreads();
-      rows_levels<PP>(plan2, tb2, ar, ai, br, bi, n2, nr, yr, yi,
-                      RowsMap{base, n2});
+      run_levels<kPts, Arm::kFull>(plan2, lev2, tb2, ar, ai, br, bi, n2, 1,
+                                   nr, yr, yi, RowsMap{base, n2},
+                                   direct ? xr + base : nullptr,
+                                   direct ? xi + base : nullptr, n2);
     }
     // 2. every row of the plane is written before any column is read
     __threadfence();
@@ -247,116 +204,13 @@ __global__ void __launch_bounds__(kThreads, FFTW3_TPU_TORCH_K3_MIN_BLOCKS)
         }
       }
       __syncthreads();
-      cols_levels<PP>(plan1, tb1, ar, ai, br, bi, n1, tc, yr, yi,
-                      ColsMap{base, n2, width});
+      run_levels<kPts, Arm::kFull>(plan1, lev1, tb1, ar, ai, br, bi, n1, tc,
+                                   1, yr, yi, ColsMap{base, n2, width});
     }
   }
 }
 
-// Option (b): the plane in the cluster's distributed shared memory.  Block
-// `rank` of a cluster of csize owns columns [rank*w, rank*w + w), w =
-// n2/csize, as w/tc tiles of (n1, tc) in its own shared memory (the slice).
-// The row pass stores each transformed row straight into the owners'
-// slices; after cluster.sync() each block runs the column pass on its
-// tiles in place and writes them to the output.  The plane never goes
-// through L2 between the passes; a 512 x 512 plane takes 16 slices of two
-// tiles (about 145 KB each with the pads), one block per SM.
-struct DsMap {
-  float* slice;  // this block's slice: tile t at t * 2 * tplane, re then im
-  int r0, w, tc, tplane;
-  // the dense stage's interface, never reached: the launch refuses plans
-  // with a dense stage
-  __device__ __forceinline__ bool stored(int) const { return false; }
-  __device__ __forceinline__ int operator()(int, int, int) const { return 0; }
-};
-
-__device__ __forceinline__ void store_out(const DsMap& m, float*, float*,
-                                          int row, int o, int, float vr,
-                                          float vi) {
-  const int owner = o / m.w;
-  const int col = o - owner * m.w;
-  const int t = col / m.tc;
-  float* base = cg::this_cluster().map_shared_rank(m.slice, owner);
-  const int a = t * 2 * m.tplane + (m.r0 + row) * m.tc + (col - t * m.tc);
-  base[a] = vr;
-  base[a + m.tplane] = vi;
-}
-
-__host__ __device__ inline int ds_smem_bytes(const LevelPlan& p2,
-                                             const LevelPlan& p1, int rows,
-                                             int ntile) {
-  return static_cast<int>(sizeof(float)) *
-         (((p2.tab_len + p1.tab_len + 3) & ~3) +
-          2 * ntile * ((p1.rs + 3) & ~3) + 2 * ((rows * p2.rs + 3) & ~3));
-}
-
-template <class PP>
-__global__ void __launch_bounds__(kThreads, 1)
-c2c_2d_ds_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                 float* __restrict__ yr, float* __restrict__ yi,
-                 const float* __restrict__ tab, const LevelPlan plan2,
-                 const LevelPlan plan1, int pre, int n1, int n2, int rows,
-                 int tc) {
-  extern __shared__ float4 smem4[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int csize = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int w = n2 / csize;
-  const int ntile = w / tc;
-  const int tplane = (plan1.rs + 3) & ~3;
-  float* tb2 = reinterpret_cast<float*>(smem4);
-  float* tb1 = tb2 + plan2.tab_len;
-  float* slice = tb2 + ((plan2.tab_len + plan1.tab_len + 3) & ~3);
-  float* rr = slice + 2 * ntile * tplane;
-  float* ri = rr + ((rows * plan2.rs + 3) & ~3);
-  const int tab_len = plan2.tab_len + plan1.tab_len;
-  for (int i = threadIdx.x; i < tab_len; i += blockDim.x) tb2[i] = tab[i];
-  const bool vrow = aligned16(xr) && aligned16(xi) && n2 % 4 == 0 &&
-                    plan2.rs % 4 == 0;
-  const int64_t npts = static_cast<int64_t>(n1) * n2;
-  for (int64_t plane_i = blockIdx.x / csize; plane_i < pre;
-       plane_i += gridDim.x / csize) {
-    const int64_t poff = plane_i * npts;
-    for (int r0 = rank * rows; r0 < n1; r0 += csize * rows) {
-      const int nr = n1 - r0 < rows ? n1 - r0 : rows;
-      const int64_t base = poff + static_cast<int64_t>(r0) * n2;
-      __syncthreads();  // tables staged; previous chunk's readers are done
-      if (vrow) {
-        const int m4 = n2 / 4;
-        for (int i = threadIdx.x; i < nr * m4; i += blockDim.x) {
-          const int row = i / m4;
-          const int k = 4 * (i - row * m4);
-          const int64_t g = base + static_cast<int64_t>(row) * n2 + k;
-          *reinterpret_cast<float4*>(rr + row * plan2.rs + k) =
-              __ldg(reinterpret_cast<const float4*>(xr + g));
-          *reinterpret_cast<float4*>(ri + row * plan2.rs + k) =
-              __ldg(reinterpret_cast<const float4*>(xi + g));
-        }
-      } else {
-        for (int i = threadIdx.x; i < nr * n2; i += blockDim.x) {
-          const int row = i / n2;
-          const int k = i - row * n2;
-          rr[row * plan2.rs + k] = xr[base + i];
-          ri[row * plan2.rs + k] = xi[base + i];
-        }
-      }
-      __syncthreads();
-      rows_levels<PP>(plan2, tb2, rr, ri, nullptr, nullptr, n2, nr, yr, yi,
-                      DsMap{slice, r0, w, tc, tplane});
-    }
-    cluster.sync();  // every slice holds its columns of every row
-    for (int t = 0; t < ntile; ++t) {
-      float* ar = slice + 2 * t * tplane;
-      cols_levels<PP>(plan1, tb1, ar, ar + tplane, nullptr, nullptr, n1, tc,
-                      yr, yi, ColsMap{poff + rank * w + t * tc, n2, tc});
-      __syncthreads();
-    }
-    cluster.sync();  // no block writes a slice still being read
-  }
-}
-
-cudaLaunchConfig_t make_config(int grid, int smem, int csize,
-                               cudaStream_t stream,
+cudaLaunchConfig_t make_config(int grid, int smem, cudaStream_t stream,
                                cudaLaunchAttribute* attr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(static_cast<unsigned>(grid), 1, 1);
@@ -364,7 +218,7 @@ cudaLaunchConfig_t make_config(int grid, int smem, int csize,
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = stream;
   attr->id = cudaLaunchAttributeClusterDimension;
-  attr->val.clusterDim.x = static_cast<unsigned>(csize);
+  attr->val.clusterDim.x = kCluster;
   attr->val.clusterDim.y = 1;
   attr->val.clusterDim.z = 1;
   cfg.attrs = attr;
@@ -372,58 +226,25 @@ cudaLaunchConfig_t make_config(int grid, int smem, int csize,
   return cfg;
 }
 
-using Kernel2d = void (*)(const float*, const float*, float*, float*,
-                         const float*, const LevelPlan, const LevelPlan, int,
-                         int, int, int, int);
-
-// The run-time form, or the compiled-in form whose plans equal the host's.
-template <bool kDs, class... PPs>
-Kernel2d pick(PlanList<PPs...>, const int* plan2, const int* plan1, int tc) {
-  Kernel2d fn = kDs ? c2c_2d_ds_kernel<DynPair> : c2c_2d_kernel<DynPair>;
-  (void)(((PPs::rows::matches(plan2, 1) && PPs::cols::matches(plan1, tc))
-              ? (fn = kDs ? c2c_2d_ds_kernel<PPs> : c2c_2d_kernel<PPs>, true)
-              : false) ||
-         ...);
-  return fn;
-}
-
-// Allow every form `bytes` of dynamic shared memory and clusters of up to
-// 16 blocks.
-template <bool kDs, class... PPs>
-cudaError_t allow(PlanList<PPs...>, int bytes) {
-  for (Kernel2d fn :
-       {kDs ? c2c_2d_ds_kernel<DynPair> : c2c_2d_kernel<DynPair>,
-        (kDs ? c2c_2d_ds_kernel<PPs> : c2c_2d_kernel<PPs>)...}) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(
-          fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
 }  // namespace
 
 // Both entry points act on the caller's current device; the caller sets it.
 
-// Allow the kernel kMaxSmem bytes of dynamic shared memory and clusters of
-// up to 16 blocks on the current device, and report how many clusters of
-// `csize` blocks of `smem` bytes the whole card runs at once.  Returns the
-// CUDA error code, 0 on success.
-extern "C" int c2c_2d_occupancy(int smem, int csize, int* clusters) {
-  if (smem > kMaxSmem || csize < 1 || csize > 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow<false>(K3Plans{}, kMaxSmem);
+// Allow the kernel kMaxSmem bytes of dynamic shared memory on the current
+// device and report how many clusters of kCluster blocks of `smem` bytes the
+// whole card runs at once.  Returns the CUDA error code, 0 on success.
+extern "C" int c2c_2d_occupancy(int smem, int* clusters) {
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      c2c_2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = make_config(csize, smem, csize, nullptr, &attr);
-  return static_cast<int>(cudaOccupancyMaxActiveClusters(
-      clusters, c2c_2d_kernel<DynPair>, &cfg));
+  cudaLaunchConfig_t cfg = make_config(kCluster, smem, nullptr, &attr);
+  return static_cast<int>(
+      cudaOccupancyMaxActiveClusters(clusters, c2c_2d_kernel, &cfg));
 }
 
-// Launch `grid` blocks (a multiple of csize) in clusters of `csize` on
+// Launch `grid` blocks (a multiple of kCluster) in clusters of kCluster on
 // `stream`, with the host's level plans of the n2 schedule (tl = 1) and the
 // n1 schedule (tl = tc), each 4 + 8 * nlev ints (stockham.level_plan).
 // Returns the CUDA error code of the launch, 0 on success.  The caller
@@ -433,54 +254,18 @@ extern "C" int c2c_2d_occupancy(int smem, int csize, int* clusters) {
 extern "C" int c2c_2d_launch(const float* xr, const float* xi, float* yr,
                              float* yi, const float* tab, const int* plan2,
                              const int* plan1, int pre, int n1, int n2,
-                             int rows, int tc, int grid, int csize, int smem,
+                             int rows, int tc, int grid, int smem,
                              void* stream) {
   LevelPlan p2, p1;
-  if (!read_plan(plan2, &p2) || !read_plan(plan1, &p1) ||
-      rows * n2 > kTilePoints || n1 * tc > kTilePoints || grid % csize ||
+  if (!read_plan(plan2, 1, &p2) || !read_plan(plan1, tc, &p1) ||
+      rows * n2 > kTilePoints || n1 * tc > kTilePoints || grid % kCluster ||
       smem != smem_bytes(p2, p1, rows))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = make_config(
-      grid, smem, csize, static_cast<cudaStream_t>(stream), &attr);
-  cudaError_t err = cudaLaunchKernelEx(
-      &cfg, pick<false>(K3Plans{}, plan2, plan1, tc), xr, xi, yr, yi, tab,
-      p2, p1, pre, n1, n2, rows, tc);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Option (b), the same contract with the plane in distributed shared
-// memory: csize divides n2, tc divides w = n2/csize, no dense stage in
-// either plan, smem = ds_smem_bytes(plan2, plan1, rows, w/tc).
-extern "C" int c2c_2d_ds_occupancy(int smem, int csize, int* clusters) {
-  if (smem > 232448 || csize < 1 || csize > 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow<true>(K3Plans{}, 232448);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = make_config(csize, smem, csize, nullptr, &attr);
-  return static_cast<int>(cudaOccupancyMaxActiveClusters(
-      clusters, c2c_2d_ds_kernel<DynPair>, &cfg));
-}
-
-extern "C" int c2c_2d_ds_launch(const float* xr, const float* xi, float* yr,
-                                float* yi, const float* tab, const int* plan2,
-                                const int* plan1, int pre, int n1, int n2,
-                                int rows, int tc, int grid, int csize,
-                                int smem, void* stream) {
-  LevelPlan p2, p1;
-  if (!read_plan(plan2, &p2) || !read_plan(plan1, &p1) || p2.nbuf != 1 ||
-      p1.nbuf != 1 || n2 % csize || (n2 / csize) % tc ||
-      rows * n2 > kTilePoints || n1 * tc > kTilePoints || grid % csize ||
-      smem != ds_smem_bytes(p2, p1, rows, n2 / csize / tc))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaLaunchAttribute attr;
-  cudaLaunchConfig_t cfg = make_config(
-      grid, smem, csize, static_cast<cudaStream_t>(stream), &attr);
-  cudaError_t err = cudaLaunchKernelEx(
-      &cfg, pick<true>(K3Plans{}, plan2, plan1, tc), xr, xi, yr, yi, tab, p2,
-      p1, pre, n1, n2, rows, tc);
+  cudaLaunchConfig_t cfg =
+      make_config(grid, smem, static_cast<cudaStream_t>(stream), &attr);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, c2c_2d_kernel, xr, xi, yr, yi,
+                                       tab, p2, p1, pre, n1, n2, rows, tc);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

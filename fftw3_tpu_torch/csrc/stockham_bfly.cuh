@@ -34,6 +34,12 @@
 // butterflies, the block synchronises, then it computes and stores.  A stage
 // whose radix has a prime factor of 7 or more runs stage() of
 // stockham_stage.cuh instead (unpadded buffers, out of place).
+//
+// Plans: one form of the kernels runs every schedule.  The host's level plan
+// (stockham.level_plan) arrives as a kernel argument, the kernel copies its
+// levels to shared memory, and each level reads its geometry there at run
+// time; the levels are inlined, one butterfly body per radix of
+// LEVEL_RADICES.
 
 #pragma once
 
@@ -55,7 +61,28 @@ struct Arm {
 // within it), as their first template argument.
 constexpr int kMaxLevels = 8;
 
-// One level of the plan (stockham.level_plan writes the same 8 ints).
+// Division by a divisor fixed per level, as a multiply and a shift: q =
+// (umulhi(x, mul) + x) >> shift, exact for 0 <= x < 2^31 (Granlund and
+// Montgomery).  fast_div sets it up on the host.
+struct FastDiv {
+  unsigned mul;
+  int shift;
+  __device__ __forceinline__ int div(int x) const {
+    const unsigned u = static_cast<unsigned>(x);
+    return static_cast<int>((__umulhi(u, mul) + u) >> shift);
+  }
+};
+
+inline FastDiv fast_div(int d) {
+  int s = 0;
+  while ((1u << s) < static_cast<unsigned>(d)) ++s;
+  const uint64_t m =
+      ((uint64_t{1} << 32) * ((uint64_t{1} << s) - d)) / d + 1;
+  return FastDiv{static_cast<unsigned>(m), s};
+}
+
+// One level of the plan: the 8 ints stockham.level_plan writes, then what
+// read_plan derives from them for tiles of tl columns.
 struct Level {
   int kind;  // 0: a dense stage() of radix r; else the butterfly radix r
   int r, done, rest;
@@ -64,6 +91,11 @@ struct Level {
   int off_b;  // dense: r_rest (re, then im at +rest) when rest > r
   int len;    // butterfly: length of the root table
   int pad;    // pad of the buffer this level writes (0 for the last)
+  int q;      // rest / r
+  int wstep;  // butterfly: len / rest, the table step of w_rest^1
+  FastDiv per_row;  // q * done * tl, the butterflies of one transform
+  FastDiv cols;     // tl
+  FastDiv dn;       // done
 };
 
 // Header: number of levels, shared-memory buffers (1, or 2 with a dense
@@ -73,19 +105,42 @@ struct LevelPlan {
   Level lev[kMaxLevels];
 };
 
-// Reads a plan from the host's int array (4 + 8 * nlev ints); false when it
-// does not fit.
-inline bool read_plan(const int* p, LevelPlan* out) {
-  if (p == nullptr || p[0] < 1 || p[0] > kMaxLevels) return false;
+// Reads a plan for tiles of tl columns from the host's int array (4 + 8 *
+// nlev ints); false when it does not fit.
+inline bool read_plan(const int* p, int tl, LevelPlan* out) {
+  if (p == nullptr || p[0] < 1 || p[0] > kMaxLevels || tl < 1) return false;
+  *out = LevelPlan{};
   out->nlev = p[0];
   out->nbuf = p[1];
   out->rs = p[2];
   out->tab_len = p[3];
   for (int l = 0; l < out->nlev; ++l) {
-    const int* q = p + 4 + 8 * l;
-    out->lev[l] = Level{q[0], q[1], q[2], q[3], q[4], q[5], q[6], q[7]};
+    const int* v = p + 4 + 8 * l;
+    Level& L = out->lev[l];
+    L = Level{v[0], v[1], v[2], v[3], v[4], v[5], v[6], v[7]};
+    const bool bfly = L.kind != 0;
+    if (L.r < 2 || L.done < 1 || L.rest % L.r ||
+        (bfly && (L.kind != L.r || L.len < L.rest || L.len % L.rest)) ||
+        (bfly && L.r != 2 && L.r != 3 && L.r != 4 && L.r != 5 && L.r != 8 &&
+         L.r != 16))
+      return false;
+    L.q = L.rest / L.r;
+    L.wstep = bfly ? L.len / L.rest : 0;
+    L.per_row = fast_div(L.q * L.done * tl);
+    L.cols = fast_div(tl);
+    L.dn = fast_div(L.done);
   }
   return true;
+}
+
+// Copies the plan's levels into shared memory, where a level is read at a
+// run-time index (a kernel parameter read so is copied to local memory).
+// The caller synchronises before they are read.
+__device__ __forceinline__ void stage_levels(const LevelPlan& plan,
+                                             Level* lev) {
+#pragma unroll
+  for (int l = 0; l < kMaxLevels; ++l)
+    if (static_cast<int>(threadIdx.x) == l) lev[l] = plan.lev[l];
 }
 
 // A root table in shared memory: w_len^e = (re[e], im[e]).
@@ -272,8 +327,7 @@ __device__ __forceinline__ void dft(float (&xr)[N], float (&xi)[N], int b,
 }
 
 // The last level's store of output point o of column c of transform `row`:
-// to (dr, di)[map(row, o, c)] where the map stores column c.  A map that
-// stores elsewhere (another block's shared memory) overloads this.
+// to (dr, di)[map(row, o, c)] where the map stores column c.
 template <class Map>
 __device__ __forceinline__ void store_out(const Map& map, float* dr,
                                           float* di, int row, int o, int c,
@@ -285,47 +339,43 @@ __device__ __forceinline__ void store_out(const Map& map, float* dr,
   }
 }
 
-// The geometry of one butterfly level read at run time (the plan's ints):
-// columns per tile, row stride, done and rest of the level, root-table
-// length, and the pads of the buffer it reads and the one it writes.
-struct DynGeo {
-  int tl, rs, done, rest, len, pad_in, pad_out;
-  int rs_in;  // row stride of the buffer the level reads
-};
-
-// One butterfly level of radix R over nr transforms: reads (sr, si) with
-// pad_in, writes (dr, di) with pad_out (in place when they are the same
-// buffer) or, when kLast, the output planes at map(row, o, c).  G is
-// DynGeo, or StaticGeo (below), whose members are compile-time constants:
-// then every index, division and pad folds into the instruction stream.
-template <int kPts, int R, int kArm, bool kLast, class Map, class G>
-__device__ __forceinline__ void bfly_body(const float* sr, const float* si,
-                                          float* dr, float* di,
-                                          const Map& map, const Roots& rt,
-                                          const G& g, int nr) {
+// One butterfly level of radix R over nr transforms: reads (sr, si), rows
+// rs_in apart with pad_in, and writes (dr, di), rows rs apart with the
+// level's pad (in place when they are the same buffer) or, when kLast, the
+// output planes at map(row, o, c).  Every index is computed from the level's
+// ints at run time; the register arrays are indexed by constants only.
+template <int kPts, int R, int kArm, bool kLast, class Map>
+__device__ __forceinline__ void bfly_level(const float* sr, const float* si,
+                                           int rs_in, int pad_in, float* dr,
+                                           float* di, int rs, const Map& map,
+                                           const float* tb, const Level& L,
+                                           int tl, int nr) {
   constexpr int K = (kPts + R - 1) / R;
-  const int tl = g.tl, rs = g.rs, done = g.done, rest = g.rest;
-  const int q = rest / R;
+  const int done = L.done, rest = L.rest, q = L.q;
   const int qd = q * done;
   const int per_row = qd * tl;  // butterflies per transform
   const int total = nr * per_row;
-  const int unit = g.len / R;      // table step of w_R^1
-  const int wstep = g.len / rest;  // table step of w_rest^1
+  const int len = L.len;
+  const int unit = len / R;  // table step of w_R^1
+  const int wstep = L.wstep;
+  const int pad_out = L.pad;
+  const float* rre = tb + L.off_a;
+  const Roots rt{rre, rre + len, rre[len + 1] < 0.f};
   float xr[K][R], xi[K][R];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int w = threadIdx.x + k * blockDim.x;
     if (w < total) {
-      const int row = w / per_row;
+      const int row = L.per_row.div(w);
       const int t = w - row * per_row;
-      const int jd = tl == 1 ? t : t / tl;
+      const int jd = L.cols.div(t);
       const int c = t - jd * tl;
-      const float* br = sr + row * g.rs_in;
-      const float* bi = si + row * g.rs_in;
+      const float* br = sr + row * rs_in;
+      const float* bi = si + row * rs_in;
 #pragma unroll
       for (int j1 = 0; j1 < R; ++j1) {
         const int e = (j1 * qd + jd) * tl + c;
-        const int a = e + g.pad_in * (e >> 5);
+        const int a = e + pad_in * (e >> 5);
         xr[k][j1] = br[a];
         xi[k][j1] = bi[a];
       }
@@ -336,15 +386,15 @@ __device__ __forceinline__ void bfly_body(const float* sr, const float* si,
   for (int k = 0; k < K; ++k) {
     const int w = threadIdx.x + k * blockDim.x;
     if (w < total) {
-      const int row = w / per_row;
+      const int row = L.per_row.div(w);
       const int t = w - row * per_row;
-      const int jd = tl == 1 ? t : t / tl;
+      const int jd = L.cols.div(t);
       const int c = t - jd * tl;
       dft<R, kArm>(xr[k], xi[k], 0, rt, unit);
       float zr[R], zi[R];
       natural_order<R>(xr[k], zr);
       natural_order<R>(xi[k], zi);
-      const int j2 = jd / done;
+      const int j2 = L.dn.div(jd);
       const int d = jd - j2 * done;
       if (kArm != Arm::kNoTwiddle && q > 1) {
         // w^k1, w = w_rest^j2: the powers of two from the table (index
@@ -374,30 +424,17 @@ __device__ __forceinline__ void bfly_body(const float* sr, const float* si,
 #pragma unroll
       for (int k1 = 0; k1 < R; ++k1) {
         const int o = (j2 * R + k1) * done + d;
-        const float vr = zr[k1];
-        const float vi = zi[k1];
         if (kLast) {
-          store_out(map, dr, di, row, o, c, vr, vi);
+          store_out(map, dr, di, row, o, c, zr[k1], zi[k1]);
         } else {
           const int e = o * tl + c;
-          const int a = row * rs + e + g.pad_out * (e >> 5);
-          dr[a] = vr;
-          di[a] = vi;
+          const int a = row * rs + e + pad_out * (e >> 5);
+          dr[a] = zr[k1];
+          di[a] = zi[k1];
         }
       }
     }
   }
-}
-
-// The run-time form, not inlined: each (radix, last, map) form is compiled
-// as a function of its own, so its register arrays are unrolled and
-// allocated there, not inside one kernel body holding every form.
-template <int kPts, int R, int kArm, bool kLast, class Map>
-__device__ __noinline__ void bfly_level(const float* sr, const float* si,
-                                       float* dr, float* di, const Map map,
-                                       const Roots rt, const DynGeo g,
-                                       int nr) {
-  bfly_body<kPts, R, kArm, kLast>(sr, si, dr, di, map, rt, g, nr);
 }
 
 // Stores nothing: the map type of the levels that write shared memory.
@@ -406,49 +443,77 @@ struct NoMap {
   __device__ __forceinline__ int operator()(int, int, int) const { return 0; }
 };
 
-template <int kPts, int R, int kArm, class Map>
-__device__ __forceinline__ void bfly_dispatch(
-    bool last, float* br, float* bi, int pad_in, float* yr, float* yi,
-    const Map& map, const Roots& rt, const Level& L, int rs, int tl,
-    int nr) {
-  const DynGeo g{tl, rs, L.done, L.rest, L.len, pad_in, L.pad, rs};
-  if (last)
-    bfly_level<kPts, R, kArm, true>(br, bi, yr, yi, map, rt, g, nr);
-  else
-    bfly_level<kPts, R, kArm, false>(br, bi, br, bi, NoMap{}, rt, g, nr);
+// The butterfly level of radix L.kind.
+template <int kPts, int kArm, bool kLast, class Map>
+__device__ __forceinline__ void bfly_any(const float* sr, const float* si,
+                                         int rs_in, int pad_in, float* dr,
+                                         float* di, int rs, const Map& map,
+                                         const float* tb, const Level& L,
+                                         int tl, int nr) {
+  switch (L.kind) {
+    case 2:
+      bfly_level<kPts, 2, kArm, kLast>(sr, si, rs_in, pad_in, dr, di, rs,
+                                       map, tb, L, tl, nr);
+      break;
+    case 3:
+      bfly_level<kPts, 3, kArm, kLast>(sr, si, rs_in, pad_in, dr, di, rs,
+                                       map, tb, L, tl, nr);
+      break;
+    case 4:
+      bfly_level<kPts, 4, kArm, kLast>(sr, si, rs_in, pad_in, dr, di, rs,
+                                       map, tb, L, tl, nr);
+      break;
+    case 5:
+      bfly_level<kPts, 5, kArm, kLast>(sr, si, rs_in, pad_in, dr, di, rs,
+                                       map, tb, L, tl, nr);
+      break;
+    case 8:
+      bfly_level<kPts, 8, kArm, kLast>(sr, si, rs_in, pad_in, dr, di, rs,
+                                       map, tb, L, tl, nr);
+      break;
+    default:
+      bfly_level<kPts, 16, kArm, kLast>(sr, si, rs_in, pad_in, dr, di, rs,
+                                        map, tb, L, tl, nr);
+      break;
+  }
 }
 
 // A dense level: stage() of stockham_stage.cuh, out of place.
 template <class Map>
-__device__ __noinline__ void dense_level(const Level L, const float* tb,
-                                         const float* sr, const float* si,
-                                         float* dr, float* di, const Map map,
-                                         int n, int tl, int nr) {
-  const int q = L.rest / L.r;
+__device__ __forceinline__ void dense_level(const Level& L, const float* tb,
+                                            const float* sr, const float* si,
+                                            float* dr, float* di,
+                                            const Map& map, int n, int tl,
+                                            int nr) {
   const float* rr = tb + L.off_a;
-  const float* twr = q > 1 ? tb + L.off_b : nullptr;
-  stage(sr, si, dr, di, map, rr, rr + L.r, twr, q > 1 ? twr + L.rest : nullptr,
-        n, tl, nr, L.r, q, L.done, L.rest);
+  const float* twr = L.q > 1 ? tb + L.off_b : nullptr;
+  stage(sr, si, dr, di, map, rr, rr + L.r, twr,
+        L.q > 1 ? twr + L.rest : nullptr, n, tl, nr, L.r, L.q, L.done,
+        L.rest);
 }
 
 // The whole plan over the nr transforms in buffer (ar, ai); (br_, bi_) is
-// the second buffer (used by dense stages only).  The last level stores to
+// the second buffer (used by dense stages only); `lev` is the plan's levels
+// in shared memory.  With x0r (the caller has checked that level 0 is a
+// butterfly level) level 0 reads the transforms from (x0r, x0i), rows x0_rs
+// apart and unpadded, in place of the buffer.  The last level stores to
 // (yr, yi)[map(row, o, c)].  The caller has synchronised after filling the
 // buffer; nothing here synchronises after the last level.
 template <int kPts, int kArm, class Map>
-__device__ __forceinline__ void run_levels(const LevelPlan& plan,
-                                           const float* tb, float* ar,
-                                           float* ai, float* br_, float* bi_,
-                                           int n, int tl, int nr, float* yr,
-                                           float* yi, const Map& map) {
+__device__ __forceinline__ void run_levels(
+    const LevelPlan& plan, const Level* lev, const float* tb, float* ar,
+    float* ai, float* br_, float* bi_, int n, int tl, int nr, float* yr,
+    float* yi, const Map& map, const float* x0r = nullptr,
+    const float* x0i = nullptr, int x0_rs = 0) {
   float* cr = ar;
   float* ci = ai;
   float* orr = br_;
   float* oi = bi_;
+  const int nlev = plan.nlev, rs = plan.rs;
   int pad_in = 0;
-  for (int l = 0; l < plan.nlev; ++l) {
-    const Level& L = plan.lev[l];
-    const bool last = l == plan.nlev - 1;
+  for (int l = 0; l < nlev; ++l) {
+    const Level& L = lev[l];
+    const bool last = l == nlev - 1;
     if (L.kind == 0) {
       if (last) {
         dense_level(L, tb, cr, ci, yr, yi, map, n, tl, nr);
@@ -462,122 +527,19 @@ __device__ __forceinline__ void run_levels(const LevelPlan& plan,
         oi = t;
       }
     } else {
-      const float* rre = tb + L.off_a;
-      const Roots rt{rre, rre + L.len, rre[L.len + 1] < 0.f};
-      switch (L.kind) {
-        case 2:
-          bfly_dispatch<kPts, 2, kArm>(last, cr, ci, pad_in, yr, yi, map,
-                                       rt, L, plan.rs, tl, nr);
-          break;
-        case 3:
-          bfly_dispatch<kPts, 3, kArm>(last, cr, ci, pad_in, yr, yi, map,
-                                       rt, L, plan.rs, tl, nr);
-          break;
-        case 4:
-          bfly_dispatch<kPts, 4, kArm>(last, cr, ci, pad_in, yr, yi, map,
-                                       rt, L, plan.rs, tl, nr);
-          break;
-        case 5:
-          bfly_dispatch<kPts, 5, kArm>(last, cr, ci, pad_in, yr, yi, map,
-                                       rt, L, plan.rs, tl, nr);
-          break;
-        case 8:
-          bfly_dispatch<kPts, 8, kArm>(last, cr, ci, pad_in, yr, yi, map,
-                                       rt, L, plan.rs, tl, nr);
-          break;
-        default:
-          bfly_dispatch<kPts, 16, kArm>(last, cr, ci, pad_in, yr, yi, map,
-                                        rt, L, plan.rs, tl, nr);
-          break;
-      }
+      const bool direct = l == 0 && x0r != nullptr;
+      const float* sr = direct ? x0r : cr;
+      const float* si = direct ? x0i : ci;
+      const int rs_in = direct ? x0_rs : rs;
+      if (last)
+        bfly_any<kPts, kArm, true>(sr, si, rs_in, pad_in, yr, yi, rs, map, tb,
+                                   L, tl, nr);
+      else
+        bfly_any<kPts, kArm, false>(sr, si, rs_in, pad_in, cr, ci, rs,
+                                    NoMap{}, tb, L, tl, nr);
     }
     pad_in = L.pad;
     if (!last) __syncthreads();
-  }
-}
-
-// A level plan compiled in: the same ints as LevelPlan (stockham.level_plan)
-// as template arguments, for tiles of TL columns.  stockham_plans.cuh lists
-// the plans compiled in; a launch whose plan equals one of them runs it.
-template <int TL, int... V>
-struct StaticPlan {
-  static constexpr int tl = TL;
-  static constexpr int size = sizeof...(V);
-  static constexpr int v[sizeof...(V)] = {V...};
-  static constexpr int nlev = v[0];
-  static constexpr int rs = v[2];
-  // the host's plan equals this one
-  static bool matches(const int* p, int tl_) {
-    if (tl_ != TL) return false;
-    for (int i = 0; i < size; ++i)
-      if (p[i] != v[i]) return false;
-    return true;
-  }
-};
-
-template <class... Ps>
-struct PlanList {};
-
-// K3's two plans: the rows' (tl = 1) and the columns'.
-template <class Rows, class Cols>
-struct PlanPair {
-  using rows = Rows;
-  using cols = Cols;
-};
-
-// Level L of a compiled-in plan, as a geometry of constants.
-template <class P, int L>
-struct StaticGeo {
-  static constexpr int kind = P::v[4 + 8 * L];
-  static constexpr int r = P::v[5 + 8 * L];
-  static constexpr int done = P::v[6 + 8 * L];
-  static constexpr int rest = P::v[7 + 8 * L];
-  static constexpr int off = P::v[8 + 8 * L];
-  static constexpr int len = P::v[10 + 8 * L];
-  static constexpr int pad_out = P::v[11 + 8 * L];
-  static constexpr int pad_in = L == 0 ? 0 : P::v[3 + 8 * L];
-  static constexpr int tl = P::tl;
-  static constexpr int rs = P::rs;
-  static constexpr int rs_in = P::rs;
-};
-
-// Level 0 of a compiled-in plan read straight from the input planes (rows
-// of n points, no pad) in place of a shared-memory copy of them.
-template <class P>
-struct StaticGeoFromGlobal : StaticGeo<P, 0> {
-  static constexpr int rs_in = StaticGeo<P, 0>::rest;
-};
-
-// Levels L.. of the compiled-in plan P over the nr transforms in (ar, ai),
-// in place, the last one storing to (yr, yi)[map(row, o, c)].  Every level
-// is a butterfly level (the host compiles in no plan with a dense stage).
-// With (xr0, xi0) level 0 reads the rows from there (the input planes at
-// the group's first row) and writes (ar, ai).
-template <int kPts, int kArm, class P, int L, class Map>
-__device__ __forceinline__ void run_static(const float* tb, float* ar,
-                                           float* ai, int nr, float* yr,
-                                           float* yi, const Map& map,
-                                           const float* xr0 = nullptr,
-                                           const float* xi0 = nullptr) {
-  using G = StaticGeo<P, L>;
-  static_assert(G::kind == G::r, "a compiled-in plan has no dense stage");
-  const float* rre = tb + G::off;
-  const Roots rt{rre, rre + G::len, rre[G::len + 1] < 0.f};
-  if constexpr (L == P::nlev - 1) {
-    if (L == 0 && xr0 != nullptr)
-      bfly_body<kPts, G::r, kArm, true>(xr0, xi0, yr, yi, map, rt,
-                                  StaticGeoFromGlobal<P>{}, nr);
-    else
-      bfly_body<kPts, G::r, kArm, true>(ar, ai, yr, yi, map, rt, G{}, nr);
-  } else {
-    if (L == 0 && xr0 != nullptr)
-      bfly_body<kPts, G::r, kArm, false>(xr0, xi0, ar, ai, NoMap{}, rt,
-                                   StaticGeoFromGlobal<P>{}, nr);
-    else
-      bfly_body<kPts, G::r, kArm, false>(ar, ai, ar, ai, NoMap{}, rt, G{},
-                                         nr);
-    __syncthreads();
-    run_static<kPts, kArm, P, L + 1>(tb, ar, ai, nr, yr, yi, map);
   }
 }
 

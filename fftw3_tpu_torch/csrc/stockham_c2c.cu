@@ -32,16 +32,14 @@
 #include "stockham_rows.cuh"
 
 using fftw3_tpu_torch::Arm;
-using fftw3_tpu_torch::K1Plans;
 
 // Both entry points act on the caller's current device; the caller sets it.
 
-// Allow every form of the kernel (plain and four-step, on the run-time
-// plan and on each compiled-in one) its shared memory and report how many
-// blocks of `smem` bytes fit on one SM.  Returns the CUDA error code.
+// Allow every form of the kernel (plain and four-step) its shared memory
+// and report how many blocks of `smem` bytes fit on one SM.  Returns the
+// CUDA error code.
 extern "C" int stockham_c2c_occupancy(int smem, int* blocks_per_sm) {
-  return fftw3_tpu_torch::rows_occupancy<Arm::kFull, K1Plans>(smem,
-                                                           blocks_per_sm);
+  return fftw3_tpu_torch::rows_occupancy<Arm::kFull>(smem, blocks_per_sm);
 }
 
 // Launch `grid` blocks on `stream` (a cudaStream_t passed as a pointer):
@@ -54,7 +52,7 @@ extern "C" int stockham_c2c_launch(const float* xr, const float* xi,
                                    const int* plan, int rows, int n, int rpb,
                                    const float* ptw, int ptw_p, int store_p,
                                    int grid, int smem, void* stream) {
-  return fftw3_tpu_torch::rows_launch<Arm::kFull, K1Plans>(
+  return fftw3_tpu_torch::rows_launch<Arm::kFull>(
       xr, xi, yr, yi, tab, plan, rows, n, rpb, ptw, ptw_p, store_p, grid,
       smem, static_cast<cudaStream_t>(stream));
 }

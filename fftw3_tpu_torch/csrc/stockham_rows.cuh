@@ -11,36 +11,25 @@
 // pre-twiddle applied on the way; then the levels of the plan
 // (stockham_bfly.cuh), in place, the last one storing straight to global
 // memory through the row map (4-byte stores, coalesced across a warp).
-// The plain form on a compiled-in plan skips the load pass: its first
-// level reads its butterflies from global memory.
+// The plain form skips the load pass when the plan's first level is a
+// butterfly level: that level reads its butterflies from global memory.
+// Every index of a level is computed from the plan's ints at run time
+// (stockham_bfly.cuh), so every schedule runs the same code.
 
 #pragma once
 
-#include <initializer_list>
-#include <type_traits>
-
-#include "stockham_plans.cuh"
+#include "stockham_bfly.cuh"
 
 namespace fftw3_tpu_torch {
 namespace {
 
 constexpr int kRowThreads = 256;
-// Tuning knobs, set on nvcc's command line by tools/tune_kernels.py only
-// (the defaults are what it measured best, PERF.md): the points a
-// thread holds in one level (a group of rows holds kRowPts * kRowThreads
-// points, stockham.ROW_TILE_POINTS), the blocks per SM the registers are
-// held to, and whether a compiled-in plan's first level reads the rows
-// straight from global memory.
-#ifndef FFTW3_TPU_TORCH_K1_POINTS
-#define FFTW3_TPU_TORCH_K1_POINTS 8
-#endif
-#ifndef FFTW3_TPU_TORCH_K1_MIN_BLOCKS
-#define FFTW3_TPU_TORCH_K1_MIN_BLOCKS 3
-#endif
-#ifndef FFTW3_TPU_TORCH_K1_DIRECT
-#define FFTW3_TPU_TORCH_K1_DIRECT 1
-#endif
-constexpr int kRowPts = FFTW3_TPU_TORCH_K1_POINTS;
+// the points a thread holds in one level (a group of rows holds kRowPts *
+// kRowThreads points, stockham.ROW_TILE_POINTS), and the blocks per SM the
+// registers are held to: two, 128 registers a thread (at three, 80, the
+// levels spill more and run slower; PERF.md)
+constexpr int kRowPts = 8;
+constexpr int kRowMinBlocks = 2;
 // a cap on any plan's shared memory (tables, two buffers of up to
 // kRowPts * kRowThreads points, pads): set once per kernel
 constexpr int kRowMaxSmem = 98304;
@@ -81,39 +70,37 @@ __device__ __forceinline__ float4 cmul4(float4 a, float4 b, float4 c,
                      a.z * c.z - b.z * d.z, a.w * c.w - b.w * d.w);
 }
 
-// The plan tag of the run-time form (the plan read from the kernel's
-// argument); any other tag is a compiled-in StaticPlan.
-struct DynPlan {};
-
-template <int kArm, bool kPretwiddle, bool kTransposed, class P>
-__global__ void
-__launch_bounds__(kRowThreads, FFTW3_TPU_TORCH_K1_MIN_BLOCKS)
+template <int kArm, bool kPretwiddle, bool kTransposed>
+__global__ void __launch_bounds__(kRowThreads, kRowMinBlocks)
 stockham_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-            float* __restrict__ yr, float* __restrict__ yi,
-            const float* __restrict__ tab, const LevelPlan plan, int rows,
-            int n, int rpb, const float* __restrict__ ptw, int ptw_p) {
+                    float* __restrict__ yr, float* __restrict__ yi,
+                    const float* __restrict__ tab, const LevelPlan plan,
+                    int rows, int n, int rpb, const float* __restrict__ ptw,
+                    int ptw_p) {
   extern __shared__ float4 smem4[];
+  __shared__ Level lev[kMaxLevels];
   float* tb = reinterpret_cast<float*>(smem4);
   const int plane = (rpb * plan.rs + 3) & ~3;
   float* ar = tb + ((plan.tab_len + 3) & ~3);
   float* ai = ar + plane;
   float* br = ai + plane;  // second buffer, only with a dense stage
   float* bi = br + plane;
+  stage_levels(plan, lev);
   for (int i = threadIdx.x; i < plan.tab_len; i += blockDim.x) tb[i] = tab[i];
   const bool vec = n % 4 == 0 && plan.rs % 4 == 0 && aligned16(xr) &&
                    aligned16(xi) && (!kPretwiddle || aligned16(ptw));
   const int groups = (rows + rpb - 1) / rpb;
-  // a compiled-in plan's first level reads the rows straight from global
+  // a first level of butterflies reads the rows straight from global
   // memory (4-byte loads, coalesced across a warp), faster at (65536, 1024)
   // than the 16-byte load pass into shared memory that the other forms keep
-  constexpr bool kDirect = FFTW3_TPU_TORCH_K1_DIRECT && !kPretwiddle &&
-                           kArm != Arm::kNoStage &&
-                           !std::is_same<P, DynPlan>::value;
+  const bool direct = !kPretwiddle && kArm != Arm::kNoStage &&
+                      plan.lev[0].kind != 0;
   for (int g = blockIdx.x; g < groups; g += gridDim.x) {
     const int64_t r0 = static_cast<int64_t>(g) * rpb;
     const int nr = rows - r0 < rpb ? static_cast<int>(rows - r0) : rpb;
-    __syncthreads();  // tables staged; the previous group's readers are done
-    if constexpr (!kDirect) {
+    __syncthreads();  // levels and tables staged; the previous group's
+                      // readers are done
+    if (!direct) {
       if (vec) {
         const int n4 = n / 4;
         for (int i = threadIdx.x; i < nr * n4; i += blockDim.x) {
@@ -161,23 +148,14 @@ stockham_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
         yr[(r0 + row) * n + k] = ar[row * plan.rs + k];
         yi[(r0 + row) * n + k] = ai[row * plan.rs + k];
       }
-    } else if constexpr (!std::is_same<P, DynPlan>::value) {
-      if constexpr (kTransposed)
-        run_static<kRowPts, kArm, P, 0>(tb, ar, ai, nr, yr, yi,
-                               RowMapTransposed{r0, n, ptw_p});
-      else if constexpr (kDirect)
-        run_static<kRowPts, kArm, P, 0>(tb, ar, ai, nr, yr, yi,
-                                        RowMap{r0, n}, xr + r0 * n,
-                                        xi + r0 * n);
-      else
-        run_static<kRowPts, kArm, P, 0>(tb, ar, ai, nr, yr, yi,
-                                        RowMap{r0, n});
     } else if constexpr (kTransposed) {
-      run_levels<kRowPts, kArm>(plan, tb, ar, ai, br, bi, n, 1, nr, yr, yi,
-                       RowMapTransposed{r0, n, ptw_p});
+      run_levels<kRowPts, kArm>(plan, lev, tb, ar, ai, br, bi, n, 1, nr, yr,
+                                yi, RowMapTransposed{r0, n, ptw_p});
     } else {
-      run_levels<kRowPts, kArm>(plan, tb, ar, ai, br, bi, n, 1, nr, yr, yi,
-                       RowMap{r0, n});
+      run_levels<kRowPts, kArm>(plan, lev, tb, ar, ai, br, bi, n, 1, nr, yr,
+                                yi, RowMap{r0, n},
+                                direct ? xr + r0 * n : nullptr,
+                                direct ? xi + r0 * n : nullptr, n);
     }
   }
 }
@@ -194,79 +172,56 @@ using RowKernel = void (*)(const float*, const float*, float*, float*,
                           const float*, const LevelPlan, int, int, int,
                           const float*, int);
 
-// Every form a launch of arm kArm can take: the run-time plan and the
-// compiled-in plans of the list, plain; with kArm == kFull also the
-// four-step forms on FourstepPlans.
-template <int kArm, bool kPtw, bool kTr, class... Ps>
-RowKernel pick(PlanList<Ps...>, const int* plan_ints) {
-  RowKernel fn = stockham_c2c_kernel<kArm, kPtw, kTr, DynPlan>;
-  (void)((Ps::matches(plan_ints, 1)
-              ? (fn = stockham_c2c_kernel<kArm, kPtw, kTr, Ps>, true)
-              : false) ||
-         ...);
-  return fn;
+template <class Fn>
+cudaError_t allow_smem(Fn fn) {
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              kRowMaxSmem);
 }
 
-template <int kArm, bool kPtw, bool kTr, class... Ps>
-cudaError_t allow(PlanList<Ps...>) {
-  for (RowKernel fn : {stockham_c2c_kernel<kArm, kPtw, kTr, DynPlan>,
-                       stockham_c2c_kernel<kArm, kPtw, kTr, Ps>...}) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kRowMaxSmem);
-    if (err != cudaSuccess) return err;
-  }
-  return cudaSuccess;
-}
-
-template <int kArm, class Plans>
-cudaError_t rows_allow() {
-  cudaError_t err = allow<kArm, false, false>(Plans{});
-  if (kArm == Arm::kFull && err == cudaSuccess)
-    err = allow<kArm, true, false>(K1FourstepPlans{});
-  if (kArm == Arm::kFull && err == cudaSuccess)
-    err = allow<kArm, true, true>(K1FourstepPlans{});
-  return err;
-}
-
-// Allow every form of the kernel for the given arm kRowMaxSmem bytes of
-// dynamic shared memory (always the same value, so no launch is capped
-// below its own size by a later call) and report how many blocks of `smem`
-// bytes fit on one SM.  Returns the CUDA error code, 0 on success.
-template <int kArm, class Plans>
+// Allow the kernel's form for arm kArm (with kFull also the four-step
+// forms) kRowMaxSmem bytes of dynamic shared memory (always the same value,
+// so no launch is capped below its own size by a later call) and report
+// how many blocks of `smem` bytes fit on one SM.  Returns the CUDA error
+// code, 0 on success.
+template <int kArm>
 int rows_occupancy(int smem, int* blocks_per_sm) {
   if (smem > kRowMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = rows_allow<kArm, Plans>();
+  cudaError_t err = allow_smem(stockham_c2c_kernel<kArm, false, false>);
+  if constexpr (kArm == Arm::kFull) {
+    if (err == cudaSuccess)
+      err = allow_smem(stockham_c2c_kernel<kArm, true, false>);
+    if (err == cudaSuccess)
+      err = allow_smem(stockham_c2c_kernel<kArm, true, true>);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, stockham_c2c_kernel<kArm, false, false, DynPlan>,
-      kRowThreads, static_cast<size_t>(smem)));
+      blocks_per_sm, stockham_c2c_kernel<kArm, false, false>, kRowThreads,
+      static_cast<size_t>(smem)));
 }
 
-// Launch `grid` blocks on `stream`.  `plan` is the host's level plan
-// (stockham.level_plan): a plan of the list Plans (plain form) or of
-// K1FourstepPlans (four-step forms) runs its compiled-in kernel, any other
-// the run-time one.  The caller checks shapes: rows >= 1, rpb * n within
-// kRowPts * kRowThreads, smem = rows_smem(plan, rpb) allowed by
+// Launch `grid` blocks on `stream` on the host's level plan `plan_ints`
+// (stockham.level_plan).  The caller checks shapes: rows >= 1, rpb * n
+// within kRowPts * kRowThreads, smem = rows_smem(plan, rpb) allowed by
 // rows_occupancy.  ptw is nullptr (no pre-twiddle) or a (ptw_p, n) re table
 // followed by the im table; store_p is 0 or ptw_p, a divisor of rows.
 // Returns the CUDA error code, 0 on success.
-template <int kArm, class Plans>
+template <int kArm>
 int rows_launch(const float* xr, const float* xi, float* yr, float* yi,
                 const float* tab, const int* plan_ints, int rows, int n,
                 int rpb, const float* ptw, int ptw_p, int store_p, int grid,
                 int smem, cudaStream_t stream) {
   LevelPlan plan;
-  if (!read_plan(plan_ints, &plan) || rpb < 1 ||
+  if (!read_plan(plan_ints, 1, &plan) || rpb < 1 ||
       rpb * n > kRowPts * kRowThreads || smem != rows_smem(plan, rpb))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((ptw != nullptr && kArm != Arm::kFull) || (store_p && ptw == nullptr) ||
       (store_p && store_p != ptw_p))
     return static_cast<int>(cudaErrorInvalidValue);
-  RowKernel fn = pick<kArm, false, false>(Plans{}, plan_ints);
+  RowKernel fn = stockham_c2c_kernel<kArm, false, false>;
   if constexpr (kArm == Arm::kFull) {
     if (ptw != nullptr)
-      fn = store_p ? pick<kArm, true, true>(K1FourstepPlans{}, plan_ints)
-                   : pick<kArm, true, false>(K1FourstepPlans{}, plan_ints);
+      fn = store_p ? stockham_c2c_kernel<kArm, true, true>
+                   : stockham_c2c_kernel<kArm, true, false>;
   }
   fn<<<grid, kRowThreads, static_cast<size_t>(smem), stream>>>(
       xr, xi, yr, yi, tab, plan, rows, n, rpb, ptw, ptw_p);

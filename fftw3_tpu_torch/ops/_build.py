@@ -45,11 +45,9 @@ SIGNATURES = {
     # xr xi yr yi tab, tab_len pre n, L, tl nstages p0 p1 grid smem, stream
     "inner_c2c_launch": [_P] * 5 + [_I] * 3 + [_L] + [_I] * 6 + [_P],
     "inner_c2c_occupancy": [_I, ctypes.POINTER(_I)],
-    # xr xi yr yi tab, plan2 plan1, pre n1 n2 rows tc grid csize smem, stream
-    "c2c_2d_launch": [_P] * 5 + [_IP] * 2 + [_I] * 8 + [_P],
-    "c2c_2d_occupancy": [_I, _I, ctypes.POINTER(_I)],
-    "c2c_2d_ds_launch": [_P] * 5 + [_IP] * 2 + [_I] * 8 + [_P],
-    "c2c_2d_ds_occupancy": [_I, _I, ctypes.POINTER(_I)],
+    # xr xi yr yi tab, plan2 plan1, pre n1 n2 rows tc grid smem, stream
+    "c2c_2d_launch": [_P] * 5 + [_IP] * 2 + [_I] * 7 + [_P],
+    "c2c_2d_occupancy": [_I, ctypes.POINTER(_I)],
     # x yr yi tab, tab_len rows n nstages p0 p1 grid smem, stream
     "r2c_launch": [_P] * 4 + [_I] * 8 + [_P],
     "r2c_occupancy": [_I, ctypes.POINTER(_I)],

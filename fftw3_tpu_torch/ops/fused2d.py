@@ -37,7 +37,7 @@ from . import stockham as S
 #: csrc/c2c_2d.cu): one split buffer of 64 KB and its pads
 TILE_POINTS = 8192
 #: blocks per plane: one thread-block cluster of the portable maximum size
-#: (16, a non-portable size, is the kernel's other option)
+#: (``kCluster`` in csrc/c2c_2d.cu)
 CLUSTER = 8
 
 #: launches of the CUDA kernel, counted by :func:`c2c_2d_cuda`
@@ -82,63 +82,34 @@ def smem_2d(plan2: Sequence[int], plan1: Sequence[int], rows: int) -> int:
     return 4 * (tabs + 2 * max(plan2[1], plan1[1]) * plane)
 
 
-def ds_layout(n1: int, n2: int, plan2: Sequence[int],
-              plan1: Sequence[int]) -> Optional[Tuple[int, int, int]]:
-    """(rows per row chunk, columns per tile, shared-memory bytes) of the
-    distributed-shared-memory option on a cluster of DS_CLUSTER blocks
-    (``ds_smem_bytes`` in csrc/c2c_2d.cu), or None where it does not fit:
-    a dense stage, n2 not split evenly, or a slice over a block's 227 KB."""
-    w = n2 // DS_CLUSTER
-    tc = min(tiles(n1, n2)[1], w)
-    if n2 % DS_CLUSTER or w % tc or plan2[1] != 1 or plan1[1] != 1:
-        return None
-    rows = max(1, min(n1, DS_ROW_POINTS // n2))
-    smem = 4 * (-(-(plan2[3] + plan1[3]) // 4) * 4
-                + 2 * (w // tc) * (-(-plan1[2] // 4) * 4)
-                + 2 * (-(-rows * plan2[2] // 4) * 4))
-    return (rows, tc, smem) if smem <= 232448 else None
+#: (device index, shared-memory bytes) -> clusters resident on the card
+_clusters: Dict[Tuple[int, int], int] = {}
 
 
-#: blocks per plane of the distributed-shared-memory option, and the
-#: points of its row chunks (what fits beside a block's slice of the plane)
-DS_CLUSTER = 16
-DS_ROW_POINTS = 4096
-
-#: (kernel, device index, shared-memory bytes, cluster size) -> clusters
-#: resident on the card
-_clusters: Dict[Tuple[str, int, int, int], int] = {}
-
-
-def _resident_clusters(lib, kernel: str, device: torch.device, smem: int,
-                       csize: int) -> int:
-    """How many clusters of `csize` blocks of `smem` bytes the card runs at
+def _resident_clusters(lib, device: torch.device, smem: int) -> int:
+    """How many clusters of CLUSTER blocks of `smem` bytes the card runs at
     once; the first call per key also allows the kernel its shared memory.
     The caller has made `device` current."""
-    key = (kernel, device.index, smem, csize)
+    key = (device.index, smem)
     got = _clusters.get(key)
     if got is None:
         n = ctypes.c_int(0)
-        rc = getattr(lib, f"{kernel}_occupancy")(smem, csize, ctypes.byref(n))
+        rc = lib.c2c_2d_occupancy(smem, ctypes.byref(n))
         if rc != 0 or n.value < 1:
-            raise RuntimeError(f"{kernel} occupancy query failed: CUDA error "
-                               f"{rc}, {n.value} clusters of {csize} "
+            raise RuntimeError(f"c2c_2d occupancy query failed: CUDA error "
+                               f"{rc}, {n.value} clusters of {CLUSTER} "
                                f"blocks at smem={smem} bytes")
         got = _clusters[key] = n.value
     return got
 
 
 def c2c_2d_cuda(xr: torch.Tensor, xi: torch.Tensor, rad1: Sequence[int],
-                rad2: Sequence[int], table: torch.Tensor,
-                cluster: Optional[int] = None, dsmem: bool = False
+                rad2: Sequence[int], table: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on split (pre, n1, n2) f32 planes on one
     card.  ``table`` is ``_device_table_2d(n1, rad1, n2, rad2, sign,
-    device)``.  The options: ``cluster``, the blocks per plane with the
-    plane in L2 between the passes (default CLUSTER; 16 is non-portable);
-    ``dsmem``, the plane in the distributed shared memory of a cluster of
-    DS_CLUSTER blocks (where :func:`ds_layout` fits).  Returns new (yr, yi);
-    raises on anything the kernel does not take, and when the launch
-    fails."""
+    device)``.  Returns new (yr, yi); raises on anything the kernel does not
+    take, and when the launch fails."""
     global launches
     S.check_planes("c2c_2d_cuda", xr, xi, table, 3)
     pre, n1, n2 = xr.shape
@@ -159,35 +130,19 @@ def c2c_2d_cuda(xr: torch.Tensor, xi: torch.Tensor, rad1: Sequence[int],
         return yr, yi
     rows, tc = tiles(n1, n2)
     plan2 = S.level_plan(n2, tuple(rad2), 1)
-    if dsmem:
-        kernel, csize = "c2c_2d_ds", DS_CLUSTER
-        lay = ds_layout(n1, n2, plan2, S.level_plan(n1, tuple(rad1),
-                                                    min(tc, n2 // csize)))
-        if lay is None:
-            raise ValueError(f"({n1}, {n2}) with radices {rad1}, {rad2} "
-                             f"does not fit the distributed-shared-memory "
-                             f"option")
-        rows, tc, smem = lay
-        plan1 = S.level_plan(n1, tuple(rad1), tc)
-    else:
-        kernel, csize = "c2c_2d", cluster or CLUSTER
-        if csize not in (8, 16):
-            raise ValueError(f"cluster of {csize} blocks: the kernel takes "
-                             f"8 or 16")
-        plan1 = S.level_plan(n1, tuple(rad1), tc)
-        smem = smem_2d(plan2, plan1, rows)
+    plan1 = S.level_plan(n1, tuple(rad1), tc)
+    smem = smem_2d(plan2, plan1, rows)
     from . import _build
     lib = _build.library()
     with S.device_guard(xr.device):
-        grid = csize * min(pre, _resident_clusters(lib, kernel, xr.device,
-                                                   smem, csize))
+        grid = CLUSTER * min(pre, _resident_clusters(lib, xr.device, smem))
         stream = torch.cuda.current_stream(xr.device).cuda_stream
-        rc = getattr(lib, f"{kernel}_launch")(
+        rc = lib.c2c_2d_launch(
             xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             table.data_ptr(), S.plan_array(plan2), S.plan_array(plan1), pre,
-            n1, n2, rows, tc, grid, csize, smem, stream)
+            n1, n2, rows, tc, grid, smem, stream)
     if rc != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc} "
+        raise RuntimeError(f"c2c_2d kernel launch failed: CUDA error {rc} "
                            f"(pre={pre}, n1={n1}, n2={n2}, radices {rad1}, "
                            f"{rad2})")
     launches += 1

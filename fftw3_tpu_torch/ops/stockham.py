@@ -41,7 +41,6 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import math
-import textwrap
 from functools import lru_cache
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -733,65 +732,6 @@ def level_plan(n: int, radices: Tuple[int, ...], tl: int = 1
     rs = m if smax == 0 else -(-(m + smax * ((m - 1) >> 5)) // 4) * 4
     head = [len(levels), 2 if dense else 1, rs, _table_len(n, radices)]
     return tuple(head + [v for lv in levels for v in lv])
-
-
-#: plans compiled into the kernels (``csrc/stockham_plans.cuh``): a launch
-#: whose plan equals one runs a kernel with every index and pad a constant.
-#: K1's plain form: the main path's schedules and the sizes the paths of
-#: ``chip_smoke.py`` drive; its four-step forms: the q pass of
-#: ``pallas4-32x128``; E5's timing-only arms: the main path's; K3: the
-#: 512 x 512 planes (rows, then columns of 16).
-STATIC_PLANS = {
-    "K1": [(1024, (64, 16)), (1024, (32, 32)), (512, (32, 16)),
-           (2048, (128, 16)), (256, (256,)), (128, (128,))],
-    "K1_FOURSTEP": [(128, (128,))],
-    "E5": [(1024, (64, 16))],
-    "K3": [((512, (32, 16)), (512, (32, 16)))],
-}
-
-
-def _plan_type(n: int, radices: Sequence[int], tl: int) -> str:
-    return (f"Plan{n}_{'x'.join(map(str, radices))}_tl{tl}")
-
-
-def static_plans_header() -> str:
-    """The text of ``csrc/stockham_plans.cuh`` (a CPU test holds the
-    committed file to it)."""
-    from . import fused2d
-    seen, defs = set(), []
-
-    def plan(n, radices, tl):
-        name = _plan_type(n, radices, tl)
-        if name not in seen:
-            seen.add(name)
-            ints = textwrap.fill(
-                ", ".join(map(str, (tl,) + level_plan(n, tuple(radices),
-                                                      tl))),
-                76, initial_indent="    ", subsequent_indent="    ")
-            defs.append(f"using {name} = StaticPlan<\n{ints}>;")
-        return name
-    lists = {
-        "K1Plans": [plan(n, r, 1) for n, r in STATIC_PLANS["K1"]],
-        "K1FourstepPlans": [plan(n, r, 1)
-                            for n, r in STATIC_PLANS["K1_FOURSTEP"]],
-        "E5Plans": [plan(n, r, 1) for n, r in STATIC_PLANS["E5"]],
-        "K3Plans": [f"PlanPair<{plan(n2, r2, 1)}, "
-                    f"{plan(n1, r1, fused2d.tiles(n1, n2)[1])}>"
-                    for (n1, r1), (n2, r2) in STATIC_PLANS["K3"]],
-    }
-    body = "\n".join(defs) + "\n\n" + "\n".join(
-        f"using {k} = PlanList<\n" + textwrap.fill(
-            ", ".join(v), 76, initial_indent="    ",
-            subsequent_indent="    ", break_on_hyphens=False) + ">;"
-        for k, v in lists.items())
-    return (
-        "// The level plans compiled into K1 (stockham_rows.cuh) and K3\n"
-        "// (c2c_2d.cu).  Generated by\n"
-        "// fftw3_tpu_torch.ops.stockham.static_plans_header() from\n"
-        "// stockham.STATIC_PLANS; tests/test_torch_bfly.py holds this file\n"
-        "// to it.\n\n#pragma once\n\n#include \"stockham_bfly.cuh\"\n\n"
-        "namespace fftw3_tpu_torch {\n\n" + body +
-        "\n\n}  // namespace fftw3_tpu_torch\n")
 
 
 def form_label(radices: Sequence[int]) -> str:

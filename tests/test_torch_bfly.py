@@ -12,13 +12,14 @@ and its host side in ``fftw3_tpu_torch.ops.stockham``.
   butterfly levels read are checked against numpy's roots on the way.
 * The pads of the shared-memory buffers: a warp's stores of one level land
   on 32 distinct banks on the main paths' plans.
+* Every schedule the planner can hand K1, and every plane the route gate
+  sends to K3, has a plan the kernels' one run-time form runs, within
+  their shared memory and tiles.
 
 Tests marked ``cuda`` run the kernels on a card (K1 over its case grid,
 ragged batches, both signs, the dense fallback schedules and the four-step
 options; K3 over the 2-D grid; E5's full arms) and skip here.
 """
-from pathlib import Path
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -145,8 +146,9 @@ def _execute_plan(x, n, radices, sign):
 
 @pytest.mark.parametrize("n,radices", [
     (128, [128]), (1000, [50, 20]), (1024, [64, 16]), (1024, [32, 32]),
+    (1024, [128, 8]), (768, [48, 16]), (1536, [96, 16]), (1920, [120, 16]),
     (2048, [128, 16]), (896, [56, 16]), (1792, [112, 16]), (131, [131]),
-    (192, [192])])
+    (524, [131, 4]), (192, [192])])
 @pytest.mark.parametrize("sign", [-1, +1])
 def test_level_plan_computes_the_dft(n, radices, sign):
     rng = np.random.default_rng(n)
@@ -182,28 +184,62 @@ def test_pads_spread_a_warps_stores(n, radices, tl):
         assert (m - 1) + pad * ((m - 1) >> 5) < plan[2]
 
 
-@pytest.mark.parametrize("n1,n2,layout", [
-    (128, 128, (32, 8, 44544)), (512, 512, (8, 16, 196800)),
-    (384, 768, (5, 16, 215872)), (256, 1024, (4, 32, 178688)),
-    (128, 896, None)])
-def test_dsmem_layout(n1, n2, layout):
-    """K3's distributed-shared-memory option: rows per chunk, columns per
-    tile and shared memory; None where a dense stage or the 227 KB of a
-    block rule it out (896 = [56, 16] has a dense stage)."""
-    r1, r2 = S.choose_radices(n1), S.choose_radices(n2)
-    tc = min(fused2d.tiles(n1, n2)[1], n2 // fused2d.DS_CLUSTER)
-    assert fused2d.ds_layout(n1, n2, S.level_plan(n2, tuple(r2), 1),
-                             S.level_plan(n1, tuple(r1), tc)) == layout
+#: what the kernels take (csrc/stockham_rows.cuh kRowMaxSmem and kRowPts *
+#: kRowThreads; csrc/c2c_2d.cu kMaxSmem and kTilePoints)
+K1_MAX_SMEM, K1_TILE = 98304, 2048
+K3_MAX_SMEM, K3_TILE = 180224, 8192
 
 
-def test_compiled_in_plans_header_is_generated():
-    """``csrc/stockham_plans.cuh`` is what ``static_plans_header`` writes:
-    the kernels' compiled-in plans are the host's level plans."""
-    path = Path(S.__file__).resolve().parent.parent / "csrc" / \
-        "stockham_plans.cuh"
-    assert path.read_text() == S.static_plans_header()
-    for n, radices in S.STATIC_PLANS["K1"]:
-        assert all(S.stage_form(p) == "bfly" for p in radices)
+def _fits(plan, tl):
+    """Every level of a plan is one the run-time form runs: a dense stage
+    or a butterfly level of a radix it instantiates, whose root table steps
+    evenly (len a multiple of rest), within MAX_LEVELS."""
+    assert 1 <= plan[0] <= S.MAX_LEVELS
+    for lv in range(plan[0]):
+        kind, r, done, rest, _, _, ln, pad = plan[4 + 8 * lv:12 + 8 * lv]
+        assert rest % r == 0 and done >= 1 and pad >= 0
+        if kind:
+            assert kind == r and r in S.LEVEL_RADICES
+            assert ln % rest == 0 and ln >= rest
+            assert (rest // r) * done * tl < 2 ** 31
+
+
+@pytest.mark.parametrize("lo,hi", [(128, 512), (512, 1024), (1024, 1536),
+                                   (1536, 2049)])
+def test_every_schedule_fits_k1(lo, hi):
+    """Every schedule the planner can hand K1 in its window (the ranked one
+    and MEASURE's alternatives) has a plan the kernel runs, within its
+    shared memory and tile."""
+    for n in range(lo, hi):
+        try:
+            cands = [S.choose_radices(n)] + S.alternative_radices(n)
+        except ValueError:
+            continue
+        for radices in cands:
+            if not S.radices_ok(n, radices):
+                continue
+            plan = S.level_plan(n, tuple(radices))
+            _fits(plan, 1)
+            rpb = S.rows_per_block(n)
+            assert rpb * n <= K1_TILE
+            assert S.plan_smem(plan, rpb) <= K1_MAX_SMEM, (n, radices)
+
+
+@pytest.mark.parametrize("n1", [128, 256, 384, 512, 640, 768, 1024, 2048])
+def test_every_plane_fits_k3(n1):
+    """Every plane the route gate sends to K3 with n1 rows has plans the
+    kernel runs, within its shared memory and tiles."""
+    for n2 in range(128, 2049, 128):
+        if not S.applicable_2d(n1, n2, np.float32, "cuda"):
+            continue
+        r1, r2 = S.choose_radices(n1), S.choose_radices(n2)
+        rows, tc = fused2d.tiles(n1, n2)
+        p2 = S.level_plan(n2, tuple(r2), 1)
+        p1 = S.level_plan(n1, tuple(r1), tc)
+        _fits(p2, 1)
+        _fits(p1, tc)
+        assert rows * n2 <= K3_TILE and n1 * tc <= K3_TILE
+        assert fused2d.smem_2d(p2, p1, rows) <= K3_MAX_SMEM, (n1, n2)
 
 
 PTXAS = """\
@@ -254,8 +290,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
 # ---------------------------------------------------------------------------
 
 K1_CASES = [(128, [128]), (256, [256]), (512, [32, 16]), (1000, [50, 20]),
-            (1024, [64, 16]), (1024, [32, 32]), (2048, [128, 16]),
-            (192, [192]), (896, [56, 16]), (1792, [112, 16]), (131, [131])]
+            (1024, [64, 16]), (1024, [32, 32]), (1024, [128, 8]),
+            (768, [48, 16]), (1536, [96, 16]), (2048, [128, 16]),
+            (192, [192]), (896, [56, 16]), (1792, [112, 16]), (131, [131]),
+            (524, [131, 4])]
 
 
 @pytest.mark.cuda
@@ -307,11 +345,9 @@ def test_k1_fourstep_options(cuda_device, q, radices, p, store, sign):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n1,n2", [(128, 128), (256, 1024), (512, 512),
-                                   (384, 768)])
+                                   (384, 768), (1024, 256), (128, 896)])
 @pytest.mark.parametrize("pre", [1, 3, 64])
-@pytest.mark.parametrize("cluster,dsmem", [(8, False), (16, False),
-                                           (16, True)])
-def test_k3_over_the_2d_grid(cuda_device, n1, n2, pre, cluster, dsmem):
+def test_k3_over_the_2d_grid(cuda_device, n1, n2, pre):
     rng = np.random.default_rng(n1 + pre)
     r1, r2 = S.choose_radices(n1), S.choose_radices(n2)
     xr, xi = (torch.from_numpy(rng.standard_normal((pre, n1, n2)).astype(
@@ -319,8 +355,7 @@ def test_k3_over_the_2d_grid(cuda_device, n1, n2, pre, cluster, dsmem):
     for sign in (-1, +1):
         table = fused2d._device_table_2d(n1, tuple(r1), n2, tuple(r2), sign,
                                          cuda_device)
-        kr, ki = fused2d.c2c_2d_cuda(xr, xi, r1, r2, table, cluster=cluster,
-                                     dsmem=dsmem)
+        kr, ki = fused2d.c2c_2d_cuda(xr, xi, r1, r2, table)
         tr, ti = fused2d.c2c_2d_torch(xr, xi, r1, r2, sign)
         k = torch.complex(kr, ki)
         assert float((k - torch.complex(tr, ti)).abs().max()
