@@ -19,9 +19,11 @@ launch count set to 0 just before the path and read just after:
 * 2-D batched, ``plan_many_dft([512, 512], howmany=64``): K3 alone
   (phase 10);
 * 1-D c2c at n = 4096, B = 4096: the MEASURE plan (the four-step
-  ``pallas4`` raced against ``mixed``) and a plan pinned to
-  ``pallas4-32x128`` by a reference-format wisdom import: K2, then K1 with
-  the fused pre-twiddle (phase 11);
+  ``pallas4``, the all-butterfly ``pallas`` [64, 64] on K1's wide form and
+  ``mixed``, raced), a plan pinned to ``pallas4-32x128`` by a
+  reference-format wisdom import (K2, then K1 with the fused pre-twiddle)
+  and one pinned to [64, 64] (one launch of K1's wide form), timed
+  interleaved with ``torch.fft.fft`` (phase 11);
 * 3-D c2c at 256^3, wherever ESTIMATE sends it (phase 12);
 * 1-D r2c and c2r, ``plan_dft_r2c((65536, 1024), axes=(1,))`` and its
   inverse: one launch of the r2c kernel K4 (of the c2r kernel K6) per
@@ -58,9 +60,12 @@ its twin and complex128 (1e-12) over a case grid; phase 23 runs the dd64
 tier on the card against the same plan on the CPU, in mpmath (1e-28);
 phase 24 profiles the f64 path in a third child (``--profile-paths
 f64``); phase 25 runs E5, the stage ablation of K1 (``ops/ablate.py``), in
-both stage forms, interleaved with K1.  K1 and K3 run their stages as
-register butterflies (a radix with a prime factor of 7 or more keeps the
-dense sum); each of their rows in the kernels line names its stage form.
+both stage forms, interleaved with K1; phase 26 runs E8, the copy floors
+of K2 and K1 (``ops/copyfloor.py``), interleaved with K2 and K1 at the
+same shapes.  K1, K2, K3 and K4 run their stages as register butterflies
+(a radix with a prime factor of 7 or more keeps the dense sum), K5, K6 and
+K7 their own stage loops; each butterfly kernel's row in the kernels line
+names its stage form.
 Exits non-zero at the first
 failed check, and without printing a result when torch sees no CUDA
 device.
@@ -84,7 +89,7 @@ import torch
 import fftw3_tpu_torch as ft
 from fftw3_tpu_torch import plan as plan_mod
 from fftw3_tpu_torch import planner as P
-from fftw3_tpu_torch.ops import _build, ablate
+from fftw3_tpu_torch.ops import _build, ablate, copyfloor
 from fftw3_tpu_torch.ops import c2c as c2c_ops
 from fftw3_tpu_torch.ops import df32, fused2d, inner
 from fftw3_tpu_torch.ops import real_stockham as RS
@@ -98,11 +103,13 @@ MAIN_DESC = {"alg": "pallas", "n": N, "radices": MAIN_RADICES}
 TOL = 1e-5                  # max-abs error over max-abs, against float64
 #: K1's case grid: every stage of the first nine runs as butterflies;
 #: 896 and 1792 put a radix with the factor 7 (56, 112) on the dense sum
-#: beside a butterfly stage, and 131 is one prime dense stage
+#: beside a butterfly stage, and 131 is one prime dense stage; 4096 runs
+#: the wide form
 CASES = [(128, [128]), (256, [256]), (512, [32, 16]), (1000, [50, 20]),
          (1024, [64, 16]), (1024, [32, 32]), (1024, [128, 8]),
          (1536, [96, 16]), (2048, [128, 16]),
-         (192, [192]), (896, [56, 16]), (1792, [112, 16]), (131, [131])]
+         (192, [192]), (896, [56, 16]), (1792, [112, 16]), (131, [131]),
+         (4096, [64, 64])]
 CASE_BATCHES = [1, 37, 4096]
 ORACLE_ROWS = 256
 TIMED_RADICES = [[64, 16], [32, 32], [128, 8]]
@@ -162,6 +169,32 @@ REFERENCE_WISDOM = """{
  }
 }"""
 PALLAS4_DESC = {"alg": "pallas4", "n": N4, "p": 32, "q": 128}
+
+#: a ``fftw3_tpu`` wisdom export (reference format) that pins
+#: plan_many_dft([4096], howmany=4096) to the all-butterfly schedule
+#: [64, 64] that the reference races under MEASURE above MAX_N (K1's wide
+#: form here): the reference package's MEASURE export for that problem with
+#: its timing stubbed to pick it, as ``tests/test_torch_planner.py`` checks
+REFERENCE_WISDOM_WIDE = """{
+ "format": "fftw3-tpu-wisdom-2",
+ "signature": "cpu-cpu-jax0.9.0-jl0.9.0-pvd9747e2d",
+ "entries": {
+  "c2c:4096:float32:cpu-cpu-jax0.9.0-jl0.9.0-pvd9747e2d:b6": {
+   "desc": {
+    "alg": "pallas",
+    "n": 4096,
+    "radices": [
+     64,
+     64
+    ],
+    "vpu": "all"
+   },
+   "patience": 1,
+   "cost": 0.0
+  }
+ }
+}"""
+WIDE_DESC = {"alg": "pallas", "n": N4, "radices": [64, 64], "vpu": "all"}
 
 #: a ``fftw3_tpu`` wisdom export (reference format) that pins complex128
 #: plan_many_dft([1024], howmany=8192) and the axes of plan_many_dft([512,
@@ -223,6 +256,7 @@ DD_TOL = 1e-28
 #: launch counters: kernel name -> (module, attribute)
 COUNTERS = {"stockham_c2c": (S, "launches"),
             "stockham_c2c_fourstep": (S, "fourstep_launches"),
+            "stockham_c2c_wide": (S, "wide_launches"),
             "inner_c2c": (inner, "launches"),
             "c2c_2d": (fused2d, "launches"),
             "r2c": (RS, "r2c_launches"),
@@ -893,6 +927,99 @@ def ablation_phase(rng, dev, smi_line, k1_row):
     return rows
 
 
+#: E8's shapes: K2's at the 512^3 path's axis 0 and at the 2-D r2c's
+#: planes (L = 1024 in whole tiles, L = 1025 with the masked edge tile),
+#: the last-axis rows at the same points, and K2's tile width swept at the
+#: first shape
+E8_INNER = [(1, CUBE, CUBE * CUBE), (8, 2048, 1024), (8, 2048, 1025)]
+E8_ROWS = [(CUBE * CUBE, CUBE), (8 * 1024, 2048)]
+E8_TL_SWEEP = [4, 8]
+
+
+def copy_floor_phase(rng, dev, smi_line):
+    """Phase 26, E8: the copy floors of K2 and K1 (``ops/copyfloor.py``):
+    K2's tile load and store, at its own tile width and at narrower ones,
+    and K1's row load and store, each timed twice in one interleaved order
+    and back beside K2 (K1) at the same shape.  Every arm's output is held
+    against 1.0001 * x bit for bit, K2's and K1's against their twins.
+    Returns the arms' rows of the kernels line (launches: this phase's, the
+    arms are on no user path)."""
+    arms = {}                    # label -> (fn, args, kind, shape, tl)
+    for shape in E8_INNER:
+        xr, xi = planes(rng, shape, dev)
+        n = shape[1]
+        rad = S.choose_radices(n)
+        tab = S._device_table(n, tuple(rad), -1, dev)
+        tl = inner.tile_width(n, shape[2])
+        kr, ki = inner.inner_c2c_cuda(xr, xi, rad, tab)
+        tr, ti = inner.inner_c2c_torch(xr, xi, rad, -1)
+        twin_err(f"inner_c2c {shape}", kr, ki, tr, ti)
+        del kr, ki, tr, ti
+        arms[f"K2 {shape}"] = (
+            lambda a, b, rad=rad, tab=tab: inner.inner_c2c_cuda(a, b, rad,
+                                                                tab),
+            (xr, xi), "K2", shape, tl)
+        for t in [tl] + (E8_TL_SWEEP if shape == E8_INNER[0] else []):
+            arms[f"E8 inner {shape} tl={t}"] = (
+                lambda a, b, t=t, own=t == tl: copyfloor.copy_inner_cuda(
+                    a, b, None if own else t),
+                (xr, xi), "inner", shape, t)
+    for shape in E8_ROWS:
+        xr, xi = planes(rng, shape, dev)
+        n = shape[1]
+        rad = S.choose_radices(n)
+        tab = S._device_table(n, tuple(rad), -1, dev)
+        arms[f"K1 {shape}"] = (
+            lambda a, b, rad=rad, tab=tab: S.stockham_c2c_cuda(a, b, rad,
+                                                               tab),
+            (xr, xi), "K1", shape, 0)
+        arms[f"E8 rows {shape}"] = (copyfloor.copy_rows_cuda, (xr, xi),
+                                    "rows", shape, 0)
+    del xr, xi
+    copyfloor.launches.clear()
+    errs = {}
+    for label, (fn, args, kind, shape, _) in arms.items():
+        if kind in ("inner", "rows"):
+            yr, yi = fn(*args)
+            wr, wi = copyfloor.copy_twin(*args)
+            errs[label] = max(float((yr - wr).abs().max()),
+                              float((yi - wi).abs().max()))
+            check(errs[label] == 0.0, f"{label}: not 1.0001 * x")
+            del yr, yi, wr, wi
+    torch.cuda.synchronize()
+    times = {k: [] for k in arms}
+    for k in list(arms) + list(arms)[::-1]:
+        times[k].append(time_ms(arms[k][0], arms[k][1]))
+    for k, ts in times.items():
+        print(f"[26] {k}: {ts[0]:.3f} / {ts[1]:.3f} ms ({smi_line})")
+    best = {k: min(ts) for k, ts in times.items()}
+    rows = []
+    for label, (fn, args, kind, shape, tl) in arms.items():
+        if kind not in ("inner", "rows"):
+            continue
+        of = "K2" if kind == "inner" else "K1"
+        kern = best[f"{of} {shape}"]
+        print(f"[26] {of} {shape} {kern:.3f} ms over E8 {kind} tl={tl} "
+              f"{best[label]:.3f} ms: {kern / best[label]:.2f}x, "
+              f"+{kern - best[label]:.3f} ms ({smi_line})")
+        pts = math.prod(shape)
+        bms, by = bound(16.0 * pts, 0.0)
+        rows.append({
+            "name": f"copy_floor {kind} {shape} tl={tl}", "route": "cuda",
+            "source": "fftw3_tpu_torch/csrc/copy_floor.cu",
+            "replaces": "experiments/copy_inner.py:"
+                        + ("38" if kind == "inner" else "69"),
+            "launches": copyfloor.launches[kind, shape, tl],
+            "on_path": False, "max_abs_err": errs[label],
+            "ms": sum(times[label]) / 2,
+            "plain_ms": time_ms(copyfloor.copy_twin, args),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "floor_of": of, "kernel_ms": kern})
+    del arms, args
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1290,10 +1417,14 @@ def main() -> None:
     pm4 = ft.plan_many_dft([N4], howmany=B4, flags=ft.MEASURE, device="cuda")
     torch.cuda.synchronize()
     race = read_counts()
-    print(f"[11] (a) MEASURE in {time.perf_counter() - t0:.1f} s: {pm4!r}; "
-          f"kernel launches while it timed its candidates: {race}")
-    # the four-step's pre-twiddled K1 runs nowhere else: it was timed
+    print(f"[11] (a) MEASURE in {time.perf_counter() - t0:.1f} s: {pm4!r} "
+          f"picks {P.sprint_desc(pm4.descriptors[1])}; kernel launches while "
+          f"it timed its candidates: {race}")
+    # the four-step's pre-twiddled K1 and K1's wide form run nowhere else:
+    # both were timed
     check(race["stockham_c2c_fourstep"] > 0, "MEASURE did not race pallas4")
+    check(race["stockham_c2c_wide"] > 0,
+          "MEASURE did not race the all-butterfly pallas schedule")
     check(pl.stats["nmeasure_failed"] == 0,
           f"MEASURE candidate failed: {pl.stats.get('last_measure_error')}")
     xr, xi = planes(rng, (B4, N4), dev)
@@ -1321,20 +1452,87 @@ def main() -> None:
     e4 = relerr(torch.complex(yr, yi).to(torch.complex128), ref4)
     print(f"[11] (b) rel err vs torch.fft complex128 {e4:.2e}")
     check(e4 <= TOL, "four-step over tolerance")
-    del yr, yi, ref4
-    t4 = time_ms(p4.apply_split, (xr, xi))
-    t4m = time_ms(pm4.apply_split, (xr, xi))
-    xc = torch.complex(xr, xi)
-    t4_lib = time_ms(lambda z: torch.fft.fft(z), (xc,))
-    b4, _ = bound(16.0 * N4 * B4, fft_flops(N4 * B4, N4))
-    print(f"[11] pallas4-32x128 plan {t4:.3f} ms; MEASURE's plan "
-          f"{P.sprint_desc(pm4.descriptors[1])} {t4m:.3f} ms; "
-          f"torch.fft.fft {t4_lib:.3f} ms; bound {b4:.3f} ms ({smi_line})")
+    del yr, yi
     p4b = ft.plan_many_dft([N4], howmany=B4, sign=ft.BACKWARD, device="cuda")
     check(p4b.descriptors == {1: PALLAS4_DESC}, f"pinned plan {p4b!r}")
     grad_equals(f"pallas4 ({B4}, {N4})", p4.apply_split, p4b.apply_split,
                 (B4, N4), rng, dev)
-    del xr, xi, xc, p4, p4b, pm4
+    del p4b
+
+    # (c) the plan pinned to the reference's all-butterfly [64, 64]: one
+    # launch of K1's wide form per call
+    ft.forget_wisdom()
+    check(ft.import_reference_wisdom(REFERENCE_WISDOM_WIDE, device="cuda"),
+          "reference wisdom refused")
+    pw = ft.plan_many_dft([N4], howmany=B4, device="cuda")
+    print(f"[11] (c) wisdom-pinned plan: {pw!r}")
+    check(pw.descriptors == {1: WIDE_DESC}, f"pinned plan {pw!r}")
+    torch.cuda.synchronize()
+    reset_counts()
+    yr, yi = pw.apply_split(xr, xi)
+    torch.cuda.synchronize()
+    counts_w = read_counts()
+    print(f"[11] (c) launches, one apply_split call: {counts_w}")
+    check(counts_w == only(stockham_c2c_wide=1),
+          "the pinned [64, 64] plan is not one launch of K1's wide form")
+    ew = relerr(torch.complex(yr, yi).to(torch.complex128), ref4)
+    print(f"[11] (c) rel err vs torch.fft complex128 {ew:.2e}")
+    check(ew <= TOL, "the wide K1 plan over tolerance")
+    del yr, yi, ref4
+    pwb = ft.plan_many_dft([N4], howmany=B4, sign=ft.BACKWARD, device="cuda")
+    check(pwb.descriptors == {1: WIDE_DESC}, f"pinned plan {pwb!r}")
+    grad_equals(f"K1 wide ({B4}, {N4})", pw.apply_split, pwb.apply_split,
+                (B4, N4), rng, dev)
+    del pwb
+    # K1's wide form against its twin and complex128 in both signs, then
+    # the three plans interleaved with torch.fft.fft
+    rad_w = WIDE_DESC["radices"]
+    for sign in (-1, +1):
+        t_w = S._device_table(N4, tuple(rad_w), sign, dev)
+        kr, ki = S.stockham_c2c_cuda(xr, xi, rad_w, t_w)
+        tr, ti = S.stockham_c2c_torch(xr, xi, rad_w, sign)
+        err, rel = twin_err(f"stockham_c2c wide sign {sign:+d}", kr, ki, tr,
+                            ti)
+        eo = relerr(torch.complex(kr, ki).to(torch.complex128),
+                    oracle(torch.complex(xr, xi), (-1,), sign))
+        check(eo <= TOL, f"K1 wide sign {sign:+d} vs complex128 {eo:.2e}")
+        print(f"[11] K1 wide ({B4}, {N4}) {rad_w} sign {sign:+d}: "
+              f"kernel-twin max abs {err:.3e}, over max |twin| {rel:.2e}, "
+              f"kernel-f64 {eo:.2e}")
+        if sign < 0:
+            wide_err = (err, rel)
+        del kr, ki, tr, ti
+    t_w = S._device_table(N4, tuple(rad_w), -1, dev)
+    xc = torch.complex(xr, xi)
+    arms11 = {"pallas4-32x128": (p4.apply_split, (xr, xi)),
+              "K1 wide [64, 64]": (pw.apply_split, (xr, xi)),
+              f"MEASURE's {P.sprint_desc(pm4.descriptors[1])}":
+                  (pm4.apply_split, (xr, xi)),
+              "torch.fft.fft": (lambda z: torch.fft.fft(z), (xc,))}
+    times11 = {k: [] for k in arms11}
+    for k in list(arms11) + list(arms11)[::-1]:
+        times11[k].append(time_ms(*arms11[k]))
+    b4, by4 = bound(16.0 * N4 * B4, fft_flops(N4 * B4, N4))
+    for k, ts in times11.items():
+        print(f"[11] {k} ({B4}, {N4}): {ts[0]:.3f} / {ts[1]:.3f} ms "
+              f"({smi_line})")
+    print(f"[11] bound {b4:.3f} ms ({by4})")
+    wide_row = {
+        "name": "stockham_c2c_wide", "route": "cuda",
+        "source": "fftw3_tpu_torch/csrc/stockham_c2c.cu",
+        "replaces": "fftw3_tpu/ops/pallas_stockham.py:641",
+        "launches": counts_w["stockham_c2c_wide"],
+        "max_abs_err": wide_err[0], "rel_err": wide_err[1],
+        "ms": time_ms(lambda a, b: S.stockham_c2c_cuda(a, b, rad_w, t_w),
+                      (xr, xi)),
+        "plain_ms": time_ms(lambda a, b: S.stockham_c2c_torch(a, b, rad_w,
+                                                              -1), (xr, xi)),
+        "library_ms": min(times11["torch.fft.fft"]),
+        "bound_ms": b4, "bound_by": by4,
+        "stage_form": S.form_label(rad_w)}
+    print(f"[11] K1 wide kernel {wide_row['ms']:.3f} ms, twin "
+          f"{wide_row['plain_ms']:.3f} ms ({smi_line})")
+    del xr, xi, xc, p4, pm4, pw, arms11
     ft.forget_wisdom()
     torch.cuda.empty_cache()
 
@@ -1377,14 +1575,24 @@ def main() -> None:
     rows14 = []
     rad = S.choose_radices(CUBE)
 
-    # K2: axis 0 of 512^3, as the 3-D plan runs it
+    # K2: axis 0 of 512^3, as the 3-D plan runs it, in both signs against
+    # its twin and complex128
     shape = (1, CUBE, CUBE * CUBE)
     xr, xi = planes(rng, shape, dev)
-    tab = S._device_table(CUBE, tuple(rad), -1, dev)
-    kr, ki = inner.inner_c2c_cuda(xr, xi, rad, tab)
-    tr, ti = inner.inner_c2c_torch(xr, xi, rad, -1)
-    err, rel = twin_err(f"inner_c2c {shape}", kr, ki, tr, ti)
-    del kr, ki, tr, ti
+    for sign in (+1, -1):
+        tab = S._device_table(CUBE, tuple(rad), sign, dev)
+        kr, ki = inner.inner_c2c_cuda(xr, xi, rad, tab)
+        tr, ti = inner.inner_c2c_torch(xr, xi, rad, sign)
+        err, rel = twin_err(f"inner_c2c {shape} sign {sign:+d}", kr, ki, tr,
+                            ti)
+        del tr, ti
+        eo = relerr(torch.complex(kr, ki).to(torch.complex128),
+                    oracle(torch.complex(xr, xi), (-2,), sign))
+        del kr, ki
+        check(eo <= TOL, f"K2 {shape} sign {sign:+d} vs complex128 {eo:.2e}")
+        print(f"[14] K2 {shape} sign {sign:+d}: kernel-twin {rel:.2e}, "
+              f"kernel-f64 {eo:.2e}")
+        torch.cuda.empty_cache()
     xc = torch.complex(xr, xi)
     rows14.append({
         "name": "inner_c2c", "route": "cuda",
@@ -1398,6 +1606,7 @@ def main() -> None:
                                                                -1),
                             (xr, xi)),
         "library_ms": time_ms(lambda z: torch.fft.fft(z, dim=-2), (xc,)),
+        "stage_form": S.form_label(rad),
         "shape": shape})
     del xr, xi, xc
     torch.cuda.empty_cache()
@@ -1781,10 +1990,16 @@ def main() -> None:
         tr, ti = inner.inner_c2c_torch(pr, pi, rad_a, sign)
         err, rel = twin_err(f"inner_c2c {tuple(pr.shape)} sign {sign:+d}",
                             kr, ki, tr, ti)
+        del tr, ti
+        eo = relerr(torch.complex(kr, ki).to(c128),
+                    oracle(torch.complex(pr, pi), (-2,), sign))
+        check(eo <= TOL, f"K2 on {tuple(pr.shape)} sign {sign:+d} vs "
+              f"complex128 {eo:.2e}")
         print(f"[18] K2 on {tuple(pr.shape)} sign {sign:+d} (tile "
               f"{inner.tile_width(n_a, pr.shape[-1])} columns): kernel-twin "
-              f"max abs {err:.3e}, over max |twin| {rel:.2e}")
-        del kr, ki, tr, ti
+              f"max abs {err:.3e}, over max |twin| {rel:.2e}; kernel-f64 "
+              f"{eo:.2e}")
+        del kr, ki
     del half
     kr, ki = RS.r2c_inner_cuda(x, rad_h, t_h)
     rows = (kr.reshape(-1, n2), ki.reshape(-1, n2))
@@ -1845,6 +2060,10 @@ def main() -> None:
         tr, ti = RS.r2c_torch(x, rad)
         err, rel = twin_err(f"r2c {shape}", kr, ki, tr, ti)
         del tr, ti
+        eo = relerr(torch.complex(kr, ki).to(c128), torch.fft.rfft(x.double()))
+        check(eo <= TOL, f"K4 {shape} vs complex128 {eo:.2e}")
+        print(f"[19] K4 {shape} ({S.form_label(rad)}, "
+              f"{S.rows_per_block(n // 2)} rows a group): kernel-f64 {eo:.2e}")
         rows19.append({
             "name": "r2c", "route": "cuda",
             "source": "fftw3_tpu_torch/csrc/r2c.cu",
@@ -1853,6 +2072,7 @@ def main() -> None:
             "ms": time_ms(lambda a: RS.r2c_cuda(a, rad, tf), (x,)),
             "plain_ms": time_ms(lambda a: RS.r2c_torch(a, rad), (x,)),
             "library_ms": time_ms(lambda a: torch.fft.rfft(a), (x,)),
+            "stage_form": S.form_label(rad),
             "shape": shape, "bytes": 4.0 * B * n + 8.0 * kr.numel(),
             "flops": fft_flops(B * n, n) / 2})
         y = RS.c2r_cuda(kr, ki, rad, ti_)
@@ -1908,6 +2128,7 @@ def main() -> None:
 
     k7_row = f64_phases(rng, dev, smi_line, args.seed, t_start)
     e5_rows = ablation_phase(rng, dev, smi_line, kernels[0])
+    e8_rows = copy_floor_phase(rng, dev, smi_line)
 
     # the JSON line keeps one row per kernel: K3 at its 3-D path shape, K4
     # and K6 at the 1-D real path's shape
@@ -1917,12 +2138,12 @@ def main() -> None:
         if r["name"] in ("r2c", "c2r") and r["shape"][0] != REAL_1D[0]:
             continue
         kernels.append({k: v for k, v in r.items() if k != "shape"})
-    kernels.append(k7_row)
+    kernels += [wide_row, k7_row]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
-    kernels += e5_rows
+    kernels += e5_rows + e8_rows
 
-    print(f"[25] whole run {time.perf_counter() - t_start:.1f} s")
+    print(f"[26] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,92 +1,159 @@
 // Batched complex-to-complex Stockham FFT along axis -2 of split f32 planes
-// (pre, n, L) -> (pre, n, L), one or two radix stages.  Hand-written for
-// Hopper (sm_90a).
+// (pre, n, L) -> (pre, n, L), any schedule of one or two radix stages.
+// Hand-written for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel of the reference package's axis -2 form:
 // fftw3_tpu/ops/pallas_stockham.py, _kernel_inner, reached through
 // _make_call_inner.  Multi-axis plans run every non-last axis through it with
 // a reshape and no transpose, and the four-step runs its p pass through it.
 // It computes what _stages computes for each of the L columns, in the same
-// autosorted order (the stage loop is stockham_stage.cuh).  Unnormalized.
+// autosorted order.  Unnormalized.
 //
-// What bounds it on an H100: like the last-axis kernel, 16 bytes of HBM
-// traffic per point against a dense p-term complex sum per output.  The
-// design keeps the HBM side at one read and one write per point: a block
-// takes a (n, tl) tile (tl consecutive columns of one pre index) into shared
-// memory, runs every stage there, and the last stage writes straight to the
-// output.  Columns are independent, so the edge tile (L not a multiple of tl)
-// is masked: its missing columns are zero in shared memory and never stored.
-// Nothing is padded.
+// What bounds it on an H100: the data moves once, 8 bytes read and 8 bytes
+// written per point, 16 bytes per point against 3.35 TB/s of HBM (0.64 ms at
+// (1, 512, 262144)).  The dense p-term sum of stockham_stage.cuh would cost
+// 4p shared-memory words per point per stage; each 2-3-5-smooth stage runs
+// instead as the register butterfly levels of stockham_bfly.cuh, as in K1
+// and K3, 4 words per point per level, so the HBM traffic is the bound
+// again.  A radix with a prime factor of 7 or more keeps the dense sum.
 //
-// Tile width: the wrapper picks tl (a power of two) so that n*tl <= 8192
-// points, two split buffers of 64 KB each; tl = 4 at n = 2048, 16 at
-// n = 512, up to 128 for small n, and no wider than L needs.  A row segment
-// of the tile is tl*4 bytes: at n = 2048 that is 16 bytes, half of a 32-byte
-// sector, so the loads and stores there move twice the bytes they use.
+// Design (the column pass of c2c_2d.cu, reading from the input): a block
+// takes a group of gp planes of one (n, tl) tile each, tl consecutive
+// columns of gp consecutive pre indices, and runs the host's level plan for
+// tiles of tl columns (stockham.level_plan(n, radices, tl)) in place in one
+// shared-memory buffer, one column's butterfly per thread, consecutive
+// threads on consecutive columns.  A full tile whose plan starts with a
+// butterfly level is read by that level straight from the input (4-byte
+// loads, tl consecutive floats of a row across a warp), as K1 reads its
+// rows; an edge tile, or a plan that starts with a dense stage, is loaded
+// into the buffer first (16-byte loads when the tile is full and 16-byte
+// aligned, else 4-byte).  The last level
+// stores straight to the output (4-byte stores, tl consecutive floats of a
+// row across a warp).  Columns are independent, so the edge tile (L not a
+// multiple of tl) is masked: its missing columns are zero in shared memory
+// and never stored.  Nothing is padded in HBM.
 //
-// Blocks walk the (pre x tiles) grid with a grid stride, so any pre and L
-// work; offsets into the planes are 64-bit.
+// Tile: 512 threads of up to 16 points in a level, 8192 points a group
+// (inner.TILE_POINTS): tl = 16 at n = 512, 4 at n = 2048 (a row segment of
+// 16 bytes, half a 32-byte sector), and gp > 1 only when one tile holds a
+// whole plane (the four-step's (B, 32, 128) p pass: two planes a group).
+// One block per SM, 128 registers a thread, as K3.
+//
+// Blocks walk the (groups x tiles) grid with a grid stride, so any pre and
+// L work; offsets into the planes are 64-bit.
 
-#include "stockham_stage.cuh"
+#include "stockham_bfly.cuh"
 
 namespace {
 
-using fftw3_tpu_torch::run_stages;
-using fftw3_tpu_torch::Schedule;
+using fftw3_tpu_torch::Arm;
+using fftw3_tpu_torch::Level;
+using fftw3_tpu_torch::LevelPlan;
+using fftw3_tpu_torch::kMaxLevels;
+using fftw3_tpu_torch::plan_smem;
+using fftw3_tpu_torch::read_plan;
+using fftw3_tpu_torch::run_levels;
+using fftw3_tpu_torch::stage_levels;
 
 constexpr int kThreads = 512;
-// largest tile, in points (n * tl)
-constexpr int kTilePoints = 8192;
+constexpr int kMinBlocks = 1;
+// points a thread holds in one level: groups of 8192 points
+constexpr int kPts = 16;
+constexpr int kTilePoints = kPts * kThreads;
+// a cap on any plan's shared memory (tables, one padded buffer, or two
+// unpadded with a dense stage), set once
+constexpr int kMaxSmem = 180224;
 
-// Last stage's store: point o of column c of the tile, inside the L edge
-// (counted from element (b, 0, l0)).
+// Last level's store: point o of column c of plane `row` of the group,
+// inside the L edge (counted from element (b0, 0, l0)).
 struct ColMap {
+  int64_t base;
+  int64_t plane;  // n * L
   int64_t L;
   int width;  // columns of this tile inside L
   __device__ __forceinline__ bool stored(int c) const { return c < width; }
-  __device__ __forceinline__ int64_t operator()(int, int o, int c) const {
-    return o * L + c;
+  __device__ __forceinline__ int64_t operator()(int row, int o, int c) const {
+    return base + row * plane + o * L + c;
   }
 };
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 inner_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                  float* __restrict__ yr, float* __restrict__ yi,
-                 const float* __restrict__ tab, int tab_len, int pre, int n,
-                 int64_t L, int tl, int nstages, int p0, int p1) {
-  extern __shared__ float smem[];
-  float* tb = smem;
-  const int per = n * tl;
-  float* ar = smem + tab_len;
-  float* ai = ar + per;
-  float* br = ai + per;
-  float* bi = br + per;
-
-  for (int i = threadIdx.x; i < tab_len; i += blockDim.x) tb[i] = tab[i];
-  const Schedule sched(tb, n, nstages, p0, p1);
-
+                 const float* __restrict__ tab, const LevelPlan plan, int pre,
+                 int n, int64_t L, int tl, int gp) {
+  extern __shared__ float4 smem4[];
+  __shared__ Level lev[kMaxLevels];
+  float* tb = reinterpret_cast<float*>(smem4);
+  const int plane = (gp * plan.rs + 3) & ~3;
+  float* ar = tb + ((plan.tab_len + 3) & ~3);
+  float* ai = ar + plane;
+  float* br = ai + plane;  // second buffer, only with a dense stage
+  float* bi = br + plane;
+  stage_levels(plan, lev);
+  for (int i = threadIdx.x; i < plan.tab_len; i += blockDim.x) tb[i] = tab[i];
+  const int rs = plan.rs;
+  const int64_t npl = static_cast<int64_t>(n) * L;
+  const bool vec = tl % 4 == 0 && L % 4 == 0 && rs % 4 == 0 &&
+                   aligned16(xr) && aligned16(xi);
+  const int tsh = __ffs(tl) - 1;  // tl is a power of two
+  // a first level of butterflies reads full tiles from the input, its
+  // offsets in int
+  const bool direct_ok = plan.lev[0].kind != 0 &&
+                         gp * npl < (int64_t{1} << 31);
   const int64_t ntiles = (L + tl - 1) / tl;
-  const int64_t nblocks = ntiles * pre;
+  const int64_t nblocks = ntiles * ((pre + gp - 1) / gp);
   for (int64_t blk = blockIdx.x; blk < nblocks; blk += gridDim.x) {
-    const int64_t b = blk / ntiles;
-    const int64_t l0 = (blk - b * ntiles) * tl;
+    const int64_t g = blk / ntiles;
+    const int64_t l0 = (blk - g * ntiles) * tl;
+    const int64_t b0 = g * gp;
+    const int nr = static_cast<int>(pre - b0 < gp ? pre - b0 : gp);
     const int width = static_cast<int>(L - l0 < tl ? L - l0 : tl);
-    const int64_t base = b * n * L + l0;
-    __syncthreads();  // tables staged; previous tile's readers are done
-    for (int e = threadIdx.x; e < per; e += blockDim.x) {
-      const int i = e / tl;
-      const int c = e - i * tl;
-      float vr = 0.f, vi = 0.f;
-      if (c < width) {
-        vr = xr[base + i * L + c];
-        vi = xi[base + i * L + c];
+    const int64_t base = b0 * npl + l0;
+    const bool direct = direct_ok && width == tl;
+    __syncthreads();  // levels and tables staged; previous tile's readers
+                      // are done
+    for (int row = 0; row < nr && !direct; ++row) {
+      const float* gr = xr + base + row * npl;
+      const float* gi = xi + base + row * npl;
+      float* sr = ar + row * rs;
+      float* si = ai + row * rs;
+      if (vec && width == tl) {
+        const int t4sh = tsh - 2;
+        const int c4 = (tl >> 2) - 1;
+        for (int e = threadIdx.x; e < n * (tl >> 2); e += blockDim.x) {
+          const int i = e >> t4sh;
+          const int c = (e & c4) << 2;
+          const int64_t k = i * L + c;
+          *reinterpret_cast<float4*>(sr + (i << tsh) + c) =
+              __ldg(reinterpret_cast<const float4*>(gr + k));
+          *reinterpret_cast<float4*>(si + (i << tsh) + c) =
+              __ldg(reinterpret_cast<const float4*>(gi + k));
+        }
+      } else {
+        for (int e = threadIdx.x; e < n * tl; e += blockDim.x) {
+          const int i = e >> tsh;
+          const int c = e & (tl - 1);
+          float vr = 0.f, vi = 0.f;
+          if (c < width) {
+            vr = gr[i * L + c];
+            vi = gi[i * L + c];
+          }
+          sr[e] = vr;
+          si[e] = vi;
+        }
       }
-      ar[e] = vr;
-      ai[e] = vi;
     }
-    __syncthreads();
-    run_stages(ar, ai, br, bi, sched, tl, 1, yr + base, yi + base,
-               ColMap{L, width});
+    if (!direct) __syncthreads();
+    run_levels<kPts, Arm::kFull>(plan, lev, tb, ar, ai, br, bi, n, tl, nr, yr,
+                                 yi, ColMap{base, npl, L, width},
+                                 direct ? xr + base : nullptr,
+                                 direct ? xi + base : nullptr,
+                                 static_cast<int>(npl), static_cast<int>(L));
   }
 }
 
@@ -94,15 +161,10 @@ inner_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 
 // Both entry points act on the caller's current device; the caller sets it.
 
-// The most dynamic shared memory any valid schedule asks for: root tables of
-// at most 2*256 + 2*2048 + 2*256 floats and four planes of kTilePoints floats
-// (151552 bytes).
-constexpr int kMaxSmem = static_cast<int>(sizeof(float)) *
-                         (2 * 256 + 2 * 2048 + 2 * 256 + 4 * kTilePoints);
-
 // Allow the kernel kMaxSmem bytes of dynamic shared memory on the current
-// device and report how many blocks of `smem` bytes fit on one SM.  Returns
-// the CUDA error code, 0 on success.
+// device (always the same value: the attribute is a cap) and report how
+// many blocks of `smem` bytes fit on one SM.  Returns the CUDA error code,
+// 0 on success.
 extern "C" int inner_c2c_occupancy(int smem, int* blocks_per_sm) {
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
@@ -113,20 +175,22 @@ extern "C" int inner_c2c_occupancy(int smem, int* blocks_per_sm) {
       blocks_per_sm, inner_c2c_kernel, kThreads, static_cast<size_t>(smem)));
 }
 
-// Launch `grid` blocks on `stream`.  Returns the CUDA error code of the
-// launch, 0 on success.  The caller checks shapes: pre >= 1, L >= 1,
-// n = p0 or p0 * p1 with n <= 2048 and radices <= 256, n * tl <= 8192,
-// tab_len matching the table layout, smem = 4 * (tab_len + 4 * n * tl) bytes,
-// allowed by inner_c2c_occupancy.
+// Launch `grid` blocks on `stream` on the host's level plan `plan` for
+// tiles of tl columns (stockham.level_plan(n, radices, tl)).  Returns the
+// CUDA error code of the launch, 0 on success.  The caller checks shapes:
+// pre >= 1, L >= 1, tl a power of two, gp * n * tl <= kTilePoints, tab
+// holding the plan's tab_len floats, smem = plan_smem(plan, gp), allowed
+// by inner_c2c_occupancy.
 extern "C" int inner_c2c_launch(const float* xr, const float* xi, float* yr,
-                                float* yi, const float* tab, int tab_len,
-                                int pre, int n, long long L, int tl,
-                                int nstages, int p0, int p1, int grid,
-                                int smem, void* stream) {
-  if (n * tl > kTilePoints) return static_cast<int>(cudaErrorInvalidValue);
+                                float* yi, const float* tab, const int* plan,
+                                int pre, int n, long long L, int tl, int gp,
+                                int grid, int smem, void* stream) {
+  LevelPlan p;
+  if (!read_plan(plan, tl, &p) || gp < 1 || (tl & (tl - 1)) ||
+      gp * n * tl > kTilePoints || smem != plan_smem(p, gp))
+    return static_cast<int>(cudaErrorInvalidValue);
   inner_c2c_kernel<<<grid, kThreads, static_cast<size_t>(smem),
                      static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, yr, yi, tab, tab_len, pre, n, static_cast<int64_t>(L), tl,
-      nstages, p0, p1);
+      xr, xi, yr, yi, tab, p, pre, n, static_cast<int64_t>(L), tl, gp);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,7 +1,7 @@
-// The register butterfly stage of K1 (stockham_c2c.cu) and K3 (c2c_2d.cu):
-// the device-side counterpart of _vpu_dft in fftw3_tpu/ops/pallas_stockham.py
-// run as a Stockham stage, in place of the dense p-term sum of
-// stockham_stage.cuh.
+// The register butterfly stage of K1 (stockham_c2c.cu), K2 (inner_c2c.cu),
+// K3 (c2c_2d.cu) and K4 (r2c.cu): the device-side counterpart of _vpu_dft in
+// fftw3_tpu/ops/pallas_stockham.py run as a Stockham stage, in place of the
+// dense p-term sum of stockham_stage.cuh.
 //
 // A stage of radix p views the n points of a transform as (p, q, done) and
 // computes, for every (j2, d), the p-point DFT over j1, the twiddle
@@ -131,6 +131,15 @@ inline bool read_plan(const int* p, int tl, LevelPlan* out) {
     L.dn = fast_div(L.done);
   }
   return true;
+}
+
+// Shared-memory bytes of a launch of K1 or K2 with nr transforms a group:
+// the tables, then nbuf buffers of two planes of nr transforms at stride rs
+// (stockham.plan_smem computes the same on the host).
+inline int plan_smem(const LevelPlan& plan, int nr) {
+  const int plane = (nr * plan.rs + 3) & ~3;
+  return static_cast<int>(sizeof(float)) *
+         (((plan.tab_len + 3) & ~3) + 2 * plan.nbuf * plane);
 }
 
 // Copies the plan's levels into shared memory, where a level is read at a
@@ -340,16 +349,18 @@ __device__ __forceinline__ void store_out(const Map& map, float* dr,
 }
 
 // One butterfly level of radix R over nr transforms: reads (sr, si), rows
-// rs_in apart with pad_in, and writes (dr, di), rows rs apart with the
-// level's pad (in place when they are the same buffer) or, when kLast, the
-// output planes at map(row, o, c).  Every index is computed from the level's
+// rs_in apart, point i of column c at i * ld_in + c with pad_in (ld_in is
+// tl in shared memory; a first level reading global memory passes the
+// input's own stride), and writes (dr, di), rows rs apart with the level's
+// pad (in place when they are the same buffer) or, when kLast, the output
+// planes at map(row, o, c).  Every index is computed from the level's
 // ints at run time; the register arrays are indexed by constants only.
 template <int kPts, int R, int kArm, bool kLast, class Map>
 __device__ __forceinline__ void bfly_level(const float* sr, const float* si,
-                                           int rs_in, int pad_in, float* dr,
-                                           float* di, int rs, const Map& map,
-                                           const float* tb, const Level& L,
-                                           int tl, int nr) {
+                                           int rs_in, int pad_in, int ld_in,
+                                           float* dr, float* di, int rs,
+                                           const Map& map, const float* tb,
+                                           const Level& L, int tl, int nr) {
   constexpr int K = (kPts + R - 1) / R;
   const int done = L.done, rest = L.rest, q = L.q;
   const int qd = q * done;
@@ -374,7 +385,7 @@ __device__ __forceinline__ void bfly_level(const float* sr, const float* si,
       const float* bi = si + row * rs_in;
 #pragma unroll
       for (int j1 = 0; j1 < R; ++j1) {
-        const int e = (j1 * qd + jd) * tl + c;
+        const int e = (j1 * qd + jd) * ld_in + c;
         const int a = e + pad_in * (e >> 5);
         xr[k][j1] = br[a];
         xi[k][j1] = bi[a];
@@ -446,34 +457,34 @@ struct NoMap {
 // The butterfly level of radix L.kind.
 template <int kPts, int kArm, bool kLast, class Map>
 __device__ __forceinline__ void bfly_any(const float* sr, const float* si,
-                                         int rs_in, int pad_in, float* dr,
-                                         float* di, int rs, const Map& map,
-                                         const float* tb, const Level& L,
-                                         int tl, int nr) {
+                                         int rs_in, int pad_in, int ld_in,
+                                         float* dr, float* di, int rs,
+                                         const Map& map, const float* tb,
+                                         const Level& L, int tl, int nr) {
   switch (L.kind) {
     case 2:
-      bfly_level<kPts, 2, kArm, kLast>(sr, si, rs_in, pad_in, dr, di, rs,
-                                       map, tb, L, tl, nr);
+      bfly_level<kPts, 2, kArm, kLast>(sr, si, rs_in, pad_in, ld_in, dr, di,
+                                       rs, map, tb, L, tl, nr);
       break;
     case 3:
-      bfly_level<kPts, 3, kArm, kLast>(sr, si, rs_in, pad_in, dr, di, rs,
-                                       map, tb, L, tl, nr);
+      bfly_level<kPts, 3, kArm, kLast>(sr, si, rs_in, pad_in, ld_in, dr, di,
+                                       rs, map, tb, L, tl, nr);
       break;
     case 4:
-      bfly_level<kPts, 4, kArm, kLast>(sr, si, rs_in, pad_in, dr, di, rs,
-                                       map, tb, L, tl, nr);
+      bfly_level<kPts, 4, kArm, kLast>(sr, si, rs_in, pad_in, ld_in, dr, di,
+                                       rs, map, tb, L, tl, nr);
       break;
     case 5:
-      bfly_level<kPts, 5, kArm, kLast>(sr, si, rs_in, pad_in, dr, di, rs,
-                                       map, tb, L, tl, nr);
+      bfly_level<kPts, 5, kArm, kLast>(sr, si, rs_in, pad_in, ld_in, dr, di,
+                                       rs, map, tb, L, tl, nr);
       break;
     case 8:
-      bfly_level<kPts, 8, kArm, kLast>(sr, si, rs_in, pad_in, dr, di, rs,
-                                       map, tb, L, tl, nr);
+      bfly_level<kPts, 8, kArm, kLast>(sr, si, rs_in, pad_in, ld_in, dr, di,
+                                       rs, map, tb, L, tl, nr);
       break;
     default:
-      bfly_level<kPts, 16, kArm, kLast>(sr, si, rs_in, pad_in, dr, di, rs,
-                                        map, tb, L, tl, nr);
+      bfly_level<kPts, 16, kArm, kLast>(sr, si, rs_in, pad_in, ld_in, dr, di,
+                                        rs, map, tb, L, tl, nr);
       break;
   }
 }
@@ -496,7 +507,7 @@ __device__ __forceinline__ void dense_level(const Level& L, const float* tb,
 // the second buffer (used by dense stages only); `lev` is the plan's levels
 // in shared memory.  With x0r (the caller has checked that level 0 is a
 // butterfly level) level 0 reads the transforms from (x0r, x0i), rows x0_rs
-// apart and unpadded, in place of the buffer.  The last level stores to
+// apart, point i of column c at i * x0_ld + c, in place of the buffer.  The last level stores to
 // (yr, yi)[map(row, o, c)].  The caller has synchronised after filling the
 // buffer; nothing here synchronises after the last level.
 template <int kPts, int kArm, class Map>
@@ -504,7 +515,7 @@ __device__ __forceinline__ void run_levels(
     const LevelPlan& plan, const Level* lev, const float* tb, float* ar,
     float* ai, float* br_, float* bi_, int n, int tl, int nr, float* yr,
     float* yi, const Map& map, const float* x0r = nullptr,
-    const float* x0i = nullptr, int x0_rs = 0) {
+    const float* x0i = nullptr, int x0_rs = 0, int x0_ld = 1) {
   float* cr = ar;
   float* ci = ai;
   float* orr = br_;
@@ -531,11 +542,12 @@ __device__ __forceinline__ void run_levels(
       const float* sr = direct ? x0r : cr;
       const float* si = direct ? x0i : ci;
       const int rs_in = direct ? x0_rs : rs;
+      const int ld_in = direct ? x0_ld : tl;
       if (last)
-        bfly_any<kPts, kArm, true>(sr, si, rs_in, pad_in, yr, yi, rs, map, tb,
-                                   L, tl, nr);
+        bfly_any<kPts, kArm, true>(sr, si, rs_in, pad_in, ld_in, yr, yi, rs,
+                                   map, tb, L, tl, nr);
       else
-        bfly_any<kPts, kArm, false>(sr, si, rs_in, pad_in, cr, ci, rs,
+        bfly_any<kPts, kArm, false>(sr, si, rs_in, pad_in, ld_in, cr, ci, rs,
                                     NoMap{}, tb, L, tl, nr);
     }
     pad_in = L.pad;

@@ -28,6 +28,11 @@
 // several rows, so each barrier serves them all; the body is
 // stockham_rows.cuh, which E5 (ablate_stage.cu) instantiates too.  A stage
 // whose radix has a prime factor of 7 or more keeps the dense sum.
+//
+// The wide form (stockham_c2c_wide_*) is the same body at 512 threads, one
+// row of up to 4096 points per block: the reference's MEASURE-only
+// all-butterfly schedule [n/h, h] for 2048 < n <= 4096
+// (fftw3_tpu/planner.py:494-506), plain form only.
 
 #include "stockham_rows.cuh"
 
@@ -53,6 +58,27 @@ extern "C" int stockham_c2c_launch(const float* xr, const float* xi,
                                    const float* ptw, int ptw_p, int store_p,
                                    int grid, int smem, void* stream) {
   return fftw3_tpu_torch::rows_launch<Arm::kFull>(
+      xr, xi, yr, yi, tab, plan, rows, n, rpb, ptw, ptw_p, store_p, grid,
+      smem, static_cast<cudaStream_t>(stream));
+}
+
+// The wide form: rows of 2048 < n <= 4096 points, one per block, plain
+// form only (ptw nullptr, store_p 0).  Same contracts as above.
+extern "C" int stockham_c2c_wide_occupancy(int smem, int* blocks_per_sm) {
+  return fftw3_tpu_torch::rows_occupancy<Arm::kFull,
+                                         fftw3_tpu_torch::kWideThreads>(
+      smem, blocks_per_sm);
+}
+
+extern "C" int stockham_c2c_wide_launch(const float* xr, const float* xi,
+                                        float* yr, float* yi,
+                                        const float* tab, const int* plan,
+                                        int rows, int n, int rpb,
+                                        const float* ptw, int ptw_p,
+                                        int store_p, int grid, int smem,
+                                        void* stream) {
+  return fftw3_tpu_torch::rows_launch<Arm::kFull,
+                                      fftw3_tpu_torch::kWideThreads>(
       xr, xi, yr, yi, tab, plan, rows, n, rpb, ptw, ptw_p, store_p, grid,
       smem, static_cast<cudaStream_t>(stream));
 }

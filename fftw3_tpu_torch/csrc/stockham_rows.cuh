@@ -1,11 +1,15 @@
 // The body of K1, the batched last-axis c2c kernel (stockham_c2c.cu), as a
 // template over E5's arm (ablate_stage.cu instantiates the timing-only
-// arms) and the four-step's two options.  See stockham_c2c.cu for what it
-// replaces and how it is bounded.
+// arms), the four-step's two options and the block size.  See
+// stockham_c2c.cu for what it replaces and how it is bounded.
 //
-// A block takes groups of rpb whole rows (rpb * n <= kRowPts *
-// kRowThreads points, the host's choice), walking the groups with a grid
-// stride; the last group is ragged and masked, nothing is padded.  Per
+// Two block sizes, both at kRowPts points a thread in a level and 128
+// registers a thread: kRowThreads (groups of up to 2048 points, two blocks
+// per SM; every form) and kWideThreads (one row of up to 4096 points, one
+// block per SM; the plain form only, for the reference's all-butterfly
+// schedule above MAX_N).  A block takes groups of rpb whole rows (rpb * n
+// <= kRowPts * kThreads points, the host's choice), walking the groups with
+// a grid stride; the last group is ragged and masked, nothing is padded.  Per
 // group: one pass of 16-byte loads (when n % 4 == 0 and the planes are
 // 16-byte aligned, else 4-byte) into one shared-memory buffer, the
 // pre-twiddle applied on the way; then the levels of the plan
@@ -24,14 +28,17 @@ namespace fftw3_tpu_torch {
 namespace {
 
 constexpr int kRowThreads = 256;
+constexpr int kWideThreads = 512;
 // the points a thread holds in one level (a group of rows holds kRowPts *
-// kRowThreads points, stockham.ROW_TILE_POINTS), and the blocks per SM the
-// registers are held to: two, 128 registers a thread (at three, 80, the
-// levels spill more and run slower; PERF.md)
+// kThreads points: stockham.ROW_TILE_POINTS, stockham.ROW_MAX_N), and the
+// threads per SM the registers are held to, 512: 128 registers a thread,
+// two blocks of kRowThreads (at three, 80, the levels spill more and run
+// slower; PERF.md) or one of kWideThreads
 constexpr int kRowPts = 8;
-constexpr int kRowMinBlocks = 2;
+constexpr int kRowMinThreadsPerSm = 512;
 // a cap on any plan's shared memory (tables, two buffers of up to
-// kRowPts * kRowThreads points, pads): set once per kernel
+// kRowPts * kRowThreads points or one of kRowPts * kWideThreads, pads):
+// set once per kernel
 constexpr int kRowMaxSmem = 98304;
 
 // Last level's store, natural order: point o of row r0 + row.
@@ -70,8 +77,8 @@ __device__ __forceinline__ float4 cmul4(float4 a, float4 b, float4 c,
                      a.z * c.z - b.z * d.z, a.w * c.w - b.w * d.w);
 }
 
-template <int kArm, bool kPretwiddle, bool kTransposed>
-__global__ void __launch_bounds__(kRowThreads, kRowMinBlocks)
+template <int kArm, bool kPretwiddle, bool kTransposed, int kThreads>
+__global__ void __launch_bounds__(kThreads, kRowMinThreadsPerSm / kThreads)
 stockham_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                     float* __restrict__ yr, float* __restrict__ yi,
                     const float* __restrict__ tab, const LevelPlan plan,
@@ -160,14 +167,6 @@ stockham_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   }
 }
 
-// Shared-memory bytes of a launch: the tables, then nbuf buffers of two
-// planes of rpb rows at stride rs (the wrapper computes the same).
-inline int rows_smem(const LevelPlan& plan, int rpb) {
-  const int plane = (rpb * plan.rs + 3) & ~3;
-  return static_cast<int>(sizeof(float)) *
-         (((plan.tab_len + 3) & ~3) + 2 * plan.nbuf * plane);
-}
-
 using RowKernel = void (*)(const float*, const float*, float*, float*,
                           const float*, const LevelPlan, int, int, int,
                           const float*, int);
@@ -178,52 +177,54 @@ cudaError_t allow_smem(Fn fn) {
                               kRowMaxSmem);
 }
 
-// Allow the kernel's form for arm kArm (with kFull also the four-step
-// forms) kRowMaxSmem bytes of dynamic shared memory (always the same value,
-// so no launch is capped below its own size by a later call) and report
-// how many blocks of `smem` bytes fit on one SM.  Returns the CUDA error
-// code, 0 on success.
-template <int kArm>
+// Allow the kernel's form for arm kArm and block size kThreads (with kFull
+// at kRowThreads also the four-step forms) kRowMaxSmem bytes of dynamic
+// shared memory (always the same value, so no launch is capped below its
+// own size by a later call) and report how many blocks of `smem` bytes fit
+// on one SM.  Returns the CUDA error code, 0 on success.
+template <int kArm, int kThreads = kRowThreads>
 int rows_occupancy(int smem, int* blocks_per_sm) {
   if (smem > kRowMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = allow_smem(stockham_c2c_kernel<kArm, false, false>);
-  if constexpr (kArm == Arm::kFull) {
+  cudaError_t err =
+      allow_smem(stockham_c2c_kernel<kArm, false, false, kThreads>);
+  if constexpr (kArm == Arm::kFull && kThreads == kRowThreads) {
     if (err == cudaSuccess)
-      err = allow_smem(stockham_c2c_kernel<kArm, true, false>);
+      err = allow_smem(stockham_c2c_kernel<kArm, true, false, kThreads>);
     if (err == cudaSuccess)
-      err = allow_smem(stockham_c2c_kernel<kArm, true, true>);
+      err = allow_smem(stockham_c2c_kernel<kArm, true, true, kThreads>);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, stockham_c2c_kernel<kArm, false, false>, kRowThreads,
-      static_cast<size_t>(smem)));
+      blocks_per_sm, stockham_c2c_kernel<kArm, false, false, kThreads>,
+      kThreads, static_cast<size_t>(smem)));
 }
 
-// Launch `grid` blocks on `stream` on the host's level plan `plan_ints`
-// (stockham.level_plan).  The caller checks shapes: rows >= 1, rpb * n
-// within kRowPts * kRowThreads, smem = rows_smem(plan, rpb) allowed by
-// rows_occupancy.  ptw is nullptr (no pre-twiddle) or a (ptw_p, n) re table
-// followed by the im table; store_p is 0 or ptw_p, a divisor of rows.
-// Returns the CUDA error code, 0 on success.
-template <int kArm>
+// Launch `grid` blocks of kThreads on `stream` on the host's level plan
+// `plan_ints` (stockham.level_plan).  The caller checks shapes: rows >= 1,
+// rpb * n within kRowPts * kThreads, smem = plan_smem(plan, rpb) allowed by
+// rows_occupancy.  ptw is nullptr (no pre-twiddle) or, at kRowThreads, a
+// (ptw_p, n) re table followed by the im table; store_p is 0 or ptw_p, a
+// divisor of rows.  Returns the CUDA error code, 0 on success.
+template <int kArm, int kThreads = kRowThreads>
 int rows_launch(const float* xr, const float* xi, float* yr, float* yi,
                 const float* tab, const int* plan_ints, int rows, int n,
                 int rpb, const float* ptw, int ptw_p, int store_p, int grid,
                 int smem, cudaStream_t stream) {
   LevelPlan plan;
   if (!read_plan(plan_ints, 1, &plan) || rpb < 1 ||
-      rpb * n > kRowPts * kRowThreads || smem != rows_smem(plan, rpb))
+      rpb * n > kRowPts * kThreads || smem != plan_smem(plan, rpb))
     return static_cast<int>(cudaErrorInvalidValue);
-  if ((ptw != nullptr && kArm != Arm::kFull) || (store_p && ptw == nullptr) ||
-      (store_p && store_p != ptw_p))
+  if ((ptw != nullptr &&
+       (kArm != Arm::kFull || kThreads != kRowThreads)) ||
+      (store_p && ptw == nullptr) || (store_p && store_p != ptw_p))
     return static_cast<int>(cudaErrorInvalidValue);
-  RowKernel fn = stockham_c2c_kernel<kArm, false, false>;
-  if constexpr (kArm == Arm::kFull) {
+  RowKernel fn = stockham_c2c_kernel<kArm, false, false, kThreads>;
+  if constexpr (kArm == Arm::kFull && kThreads == kRowThreads) {
     if (ptw != nullptr)
-      fn = store_p ? stockham_c2c_kernel<kArm, true, true>
-                   : stockham_c2c_kernel<kArm, true, false>;
+      fn = store_p ? stockham_c2c_kernel<kArm, true, true, kThreads>
+                   : stockham_c2c_kernel<kArm, true, false, kThreads>;
   }
-  fn<<<grid, kRowThreads, static_cast<size_t>(smem), stream>>>(
+  fn<<<grid, kThreads, static_cast<size_t>(smem), stream>>>(
       xr, xi, yr, yi, tab, plan, rows, n, rpb, ptw, ptw_p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,6 +1,10 @@
-// The Stockham stage loop shared by the port's three c2c kernels
-// (stockham_c2c.cu, inner_c2c.cu, c2c_2d.cu): the device-side counterpart of
-// _stages in fftw3_tpu/ops/pallas_stockham.py.
+// The dense Stockham stage loop: the device-side counterpart of _stages in
+// fftw3_tpu/ops/pallas_stockham.py in its matrix form, the p-term sum.  Who
+// uses it: the one- or two-stage schedule (Schedule, run_stages) is K5's
+// (r2c_inner.cu) and K6's (c2r.cu) whole stage loop, and E5's dense arms
+// (ablate_stage.cu); stage() alone is the dense level of the butterfly
+// kernels K1, K2, K3 and K4 (stockham_bfly.cuh), which run it for a radix
+// with a prime factor of 7 or more.
 //
 // A stage runs over `rows` independent transforms held in shared memory.
 // Transform r is an (n, tl) tile at src + r*n*tl: point i of column c sits at

@@ -42,14 +42,19 @@ SIGNATURES = {
     "stockham_c2c_launch": [_P] * 5 + [_IP] + [_I] * 3 + [_P] + [_I] * 4
     + [_P],
     "stockham_c2c_occupancy": [_I, ctypes.POINTER(_I)],
-    # xr xi yr yi tab, tab_len pre n, L, tl nstages p0 p1 grid smem, stream
-    "inner_c2c_launch": [_P] * 5 + [_I] * 3 + [_L] + [_I] * 6 + [_P],
+    # K1's wide form: the same arguments
+    "stockham_c2c_wide_launch": [_P] * 5 + [_IP] + [_I] * 3 + [_P]
+    + [_I] * 4 + [_P],
+    "stockham_c2c_wide_occupancy": [_I, ctypes.POINTER(_I)],
+    # xr xi yr yi tab, plan, pre n, L, tl gp grid smem, stream
+    "inner_c2c_launch": [_P] * 5 + [_IP] + [_I] * 2 + [_L] + [_I] * 4
+    + [_P],
     "inner_c2c_occupancy": [_I, ctypes.POINTER(_I)],
     # xr xi yr yi tab, plan2 plan1, pre n1 n2 rows tc grid smem, stream
     "c2c_2d_launch": [_P] * 5 + [_IP] * 2 + [_I] * 7 + [_P],
     "c2c_2d_occupancy": [_I, ctypes.POINTER(_I)],
-    # x yr yi tab, tab_len rows n nstages p0 p1 grid smem, stream
-    "r2c_launch": [_P] * 4 + [_I] * 8 + [_P],
+    # x yr yi tab, plan, rows n rpb grid smem, stream
+    "r2c_launch": [_P] * 4 + [_IP] + [_I] * 5 + [_P],
     "r2c_occupancy": [_I, ctypes.POINTER(_I)],
     # xr xi y tab, tab_len rows n nstages p0 p1 grid smem, stream
     "c2r_launch": [_P] * 4 + [_I] * 8 + [_P],
@@ -67,6 +72,12 @@ SIGNATURES = {
     "ablate_dense_occupancy": [_I, ctypes.POINTER(_I)],
     "ablate_bfly_launch": [_P] * 5 + [_IP] + [_I] * 6 + [_P],
     "ablate_bfly_occupancy": [_I, ctypes.POINTER(_I)],
+    # E8 (copy_floor.cu), timing only: xr xi yr yi, pre n, L, tl gp grid
+    # smem, stream; xr xi yr yi, rows n rpb grid smem, stream
+    "copy_inner_launch": [_P] * 4 + [_I] * 2 + [_L] + [_I] * 4 + [_P],
+    "copy_inner_occupancy": [_I, ctypes.POINTER(_I)],
+    "copy_rows_launch": [_P] * 4 + [_I] * 5 + [_P],
+    "copy_rows_occupancy": [_I, ctypes.POINTER(_I)],
 }
 
 _lock = threading.Lock()

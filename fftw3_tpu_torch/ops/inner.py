@@ -10,9 +10,12 @@ through a reshape, and the four-step sends its p pass here.
   (``stockham._stages_torch``) with the L columns in the place of the
   reference's lane tile.
 * :func:`inner_c2c_cuda`, the wrapper of ``csrc/inner_c2c.cu``.  A block
-  holds an (n, tl) tile of tl consecutive columns in shared memory through
-  every stage; the edge tile of an L that is not a multiple of tl is
-  masked, nothing is padded.
+  holds an (n, tl) tile of tl consecutive columns (of gp planes when one
+  tile holds a whole plane) in one shared-memory buffer through every
+  stage, and runs the stages as K1 and K3 do: register butterfly levels for
+  a 2-3-5-smooth radix, the dense sum otherwise, on
+  ``stockham.level_plan(n, radices, tl)``.  The edge tile of an L that is
+  not a multiple of tl is masked, nothing is padded.
 
 The reference's TPU tuning of this form is not carried over: the narrower
 schedule of ``_inner_radices`` (``INNER_NP_MAX``), the ``INNER_AREA`` and
@@ -30,11 +33,10 @@ import torch
 
 from . import stockham as S
 
-#: points of the kernel's largest tile, n * tl (``kTilePoints`` in
-#: csrc/inner_c2c.cu): two split buffers of 64 KB
+#: points of the kernel's group, gp * n * tl (``kTilePoints`` in
+#: csrc/inner_c2c.cu): 512 threads of up to 16 points in a level, one split
+#: buffer of 64 KB and its pads (the registers bound it, not shared memory)
 TILE_POINTS = 8192
-#: widest tile, in columns
-MAX_TILE_L = 128
 
 #: launches of the CUDA kernel, counted by :func:`inner_c2c_cuda`
 launches = 0
@@ -42,11 +44,20 @@ launches = 0
 
 def tile_width(n: int, L: int) -> int:
     """Columns per block: the largest power of two with n*tl within
-    TILE_POINTS, at most MAX_TILE_L, and no wider than L needs."""
+    TILE_POINTS and no wider than L needs."""
     tl = 1
-    while tl < L and tl < MAX_TILE_L and 2 * tl * n <= TILE_POINTS:
+    while tl < L and 2 * tl * n <= TILE_POINTS:
         tl *= 2
     return tl
+
+
+def planes_per_group(n: int, L: int, pre: int) -> int:
+    """Planes a block takes at once: more than one only when one tile
+    holds a whole plane (tl >= L), then as many as TILE_POINTS holds."""
+    tl = tile_width(n, L)
+    if tl < L:
+        return 1
+    return max(1, min(pre, TILE_POINTS // (n * tl)))
 
 
 def inner_c2c_torch(xr: torch.Tensor, xi: torch.Tensor,
@@ -85,13 +96,13 @@ def inner_c2c_cuda(xr: torch.Tensor, xi: torch.Tensor,
     if pre == 0 or L == 0:
         return yr, yi
     tl = tile_width(n, L)
-    p1 = radices[1] if len(radices) == 2 else 1
-    S.launch("inner_c2c", xr.device, 4 * (table.numel() + 4 * n * tl),
-             pre * -(-L // tl),
+    gp = planes_per_group(n, L, pre)
+    plan = S.level_plan(n, tuple(radices), tl)
+    S.launch("inner_c2c", xr.device, S.plan_smem(plan, gp),
+             -(-pre // gp) * -(-L // tl),
              (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-              table.data_ptr(), table.numel(), pre, n, L, tl, len(radices),
-              radices[0], p1),
-             f"pre={pre}, n={n}, L={L}, radices={radices}")
+              table.data_ptr(), S.plan_array(plan), pre, n, L, tl, gp),
+             f"pre={pre}, n={n}, L={L}, radices={radices}, tl={tl}, gp={gp}")
     launches += 1
     return yr, yi
 
@@ -100,7 +111,8 @@ def build_pallas_c2c_split_inner(desc: Dict, sign: int, rdtype,
                                  device: Optional[torch.device] = None):
     """Split-complex apply over axis -2 of (..., n, L) tensors for a
     ``{"alg": "pallas", ...}`` descriptor: its schedule and ``vpu`` pin
-    (the twin's stage form; the kernel runs the dense form)."""
+    (the twin's stage form; on the card the radix alone picks each stage's
+    form, ``stockham.stage_form``)."""
     n = desc["n"]
     radices = list(desc.get("radices") or S.choose_radices(n))
     if not S.radices_ok(n, radices):

@@ -18,10 +18,12 @@ them without any index reversal (Mosaic has none).  The kernels here reverse
 in shared memory, so they take the rdft2 pack of the reference's
 ``r2c_pack``/``c2r_pack`` solvers instead: one complex m-point transform of
 z = x_even + i x_odd, then the untangle (r2c), or the tangle, one inverse
-m-point transform and the interleaved store (c2r).  That is half the dense
-stage sum.  The twins follow the same form on the shared stage loop
-(``stockham._stages_torch``), so the two agree to rounding and both agree
-with the reference's kernels to rounding.
+m-point transform and the interleaved store (c2r).  K4 runs that transform
+as K1 does (register butterfly levels on ``stockham.level_plan(m,
+radices)``, groups of ``stockham.rows_per_block(m)`` rows); K5 and K6 run
+the dense stage sum.  The twins follow the same form on the shared stage
+loop (``stockham._stages_torch``), so the two agree to rounding and both
+agree with the reference's kernels to rounding.
 
 Gradients work on split real planes: K4's backward is the real part of the
 sign +1 n-point c2c of the zero-padded cotangent planes, and K6's backward
@@ -159,6 +161,17 @@ def _check_schedule(name: str, n: int, radices: Sequence[int],
                          f"not match n={n}, schedule {list(radices)}")
 
 
+def r2c_smem(plan: Sequence[int], m: int, rpb: int) -> int:
+    """Shared-memory bytes of K4 on the m-point `plan` with `rpb` rows a
+    group (``r2c_smem`` in csrc/r2c.cu): the m-point tables and the w
+    table, the level buffers, then Z, two planes of rpb rows of m."""
+    nbuf, rs, tab_len = plan[1], plan[2], plan[3]
+    plane = -(-rpb * rs // 4) * 4
+    zplane = -(-rpb * m // 4) * 4
+    return 4 * (-(-(tab_len + 2 * (m + 1)) // 4) * 4 + 2 * nbuf * plane
+                + 2 * zplane)
+
+
 def r2c_cuda(x: torch.Tensor, radices: Sequence[int], table: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K4 on real (B, n) f32 rows on one card.  ``table`` is
@@ -179,11 +192,12 @@ def r2c_cuda(x: torch.Tensor, radices: Sequence[int], table: torch.Tensor
         return yr, yi
     if x.data_ptr() % 8:
         x = x.clone()               # the kernel loads sample pairs as float2
-    p1 = radices[1] if len(radices) == 2 else 1
-    S.launch("r2c", x.device, 4 * (table.numel() + 4 * m), B,
-            (x.data_ptr(), yr.data_ptr(), yi.data_ptr(), table.data_ptr(),
-             table.numel(), B, n, len(radices), radices[0], p1),
-            f"B={B}, n={n}, radices={radices}")
+    plan = S.level_plan(m, tuple(radices))
+    rpb = S.rows_per_block(m)
+    S.launch("r2c", x.device, r2c_smem(plan, m, rpb), -(-B // rpb),
+             (x.data_ptr(), yr.data_ptr(), yi.data_ptr(), table.data_ptr(),
+              S.plan_array(plan), B, n, rpb),
+             f"B={B}, n={n}, radices={radices}")
     r2c_launches += 1
     return yr, yi
 
@@ -311,8 +325,8 @@ def build_pallas_r2c(desc: Dict, rdtype, device: Optional[torch.device] = None):
     """Split apply for ``{"alg": "pallas_r2c", "n": n, "radices": [...]}``
     (the m-point schedule): real (..., n) -> (yr, yi) of (..., n/2+1), on
     any leading batch shape.  ``vpu`` selects the twin's butterfly stage
-    form; the kernel runs the dense form.  ``tile_b`` is accepted and
-    ignored.
+    form; on the card the radix alone picks each stage's form
+    (``stockham.stage_form``).  ``tile_b`` is accepted and ignored.
 
     Backward: x̄ = Re DFT_n^{+1}(zero-padded (gr, gi)), the transpose of
     the real map, through the port's planned n-point c2c."""
@@ -349,7 +363,9 @@ def build_pallas_r2c(desc: Dict, rdtype, device: Optional[torch.device] = None):
 def build_pallas_c2r(desc: Dict, rdtype, device: Optional[torch.device] = None):
     """Split apply for ``{"alg": "pallas_c2r", "n": n, "radices": [...]}``:
     (xr, xi) of (..., n/2+1) -> real (..., n), unnormalized, with Im X[0]
-    and Im X[n/2] dropped.  ``vpu`` and ``tile_b`` as for K4.
+    and Im X[n/2] dropped.  ``vpu`` selects the twin's butterfly stage
+    form; the kernel runs the dense form.  ``tile_b`` is accepted and
+    ignored.
 
     Backward: (X̄r, X̄i) = (w Re R(g), w' Im R(g)) with R the port's planned
     r2c, w = [1, 2, ..., 2, 1] and w' = [0, 2, ..., 2, 0]."""

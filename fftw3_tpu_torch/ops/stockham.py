@@ -1,5 +1,5 @@
 """Batched 1-D c2c as one Stockham kernel — the port of the K1 part of
-``fftw3_tpu/ops/pallas_stockham.py``, and what the port's three c2c kernels
+``fftw3_tpu/ops/pallas_stockham.py``, and what the port's Stockham kernels
 share.
 
 The reference runs the whole transform of a tile of rows inside one Pallas
@@ -24,7 +24,10 @@ point.  Here the same stage loop exists twice:
   :func:`level_plan` is the host's side of that choice.  The descriptor's
   ``vpu`` key selects the twin's form only, as ``tile_b`` means nothing
   here.  Its two four-step options (pre-twiddle on load, transposed store)
-  serve ``ops/fourstep.py``.
+  serve ``ops/fourstep.py``.  A wide form of the same body (512 threads,
+  one row a block) takes MAX_N < n <= ROW_MAX_N on the reference's
+  all-butterfly schedule (:func:`wide_ok`), the MEASURE-only candidate the
+  reference races there.
 
 :func:`build_pallas_c2c_split` turns a ``{"alg": "pallas", ...}`` descriptor
 into a split apply backed by a ``torch.autograd.Function`` whose backward is
@@ -60,11 +63,16 @@ MAX_SINGLE = 256
 #: shared-memory tile (the reference's window, kept for route parity).
 MIN_N = 128
 MAX_N = 2048
+#: K1's wide form: one row of up to ROW_MAX_N points per block, for the
+#: reference's all-butterfly schedule above MAX_N (:func:`wide_ok`; the
+#: reference races it under MEASURE at MAX_N < n <= 2 * MAX_N)
+ROW_MAX_N = 2 * MAX_N
 
 #: launches of the CUDA kernel, counted by :func:`stockham_c2c_cuda`:
-#: plain ones, and those with the four-step pre-twiddle
+#: plain ones, those with the four-step pre-twiddle, and the wide form's
 launches = 0
 fourstep_launches = 0
+wide_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -170,8 +178,10 @@ MAX_2D_POINTS = 300_000
 def inner_applicable(desc: Dict, trail: int) -> bool:
     """Can the axis -2 kernel serve a transform whose trailing-dims product
     is `trail`?  Any trail of at least one lane tile (the kernel masks the
-    edge tile)."""
-    return desc.get("alg") == "pallas" and trail >= INNER_TILE_L
+    edge tile), for a schedule inside MAX_N: K1's wide schedules above it
+    take the last-axis route."""
+    return (desc.get("alg") == "pallas" and trail >= INNER_TILE_L
+            and desc["n"] <= MAX_N)
 
 
 def applicable_2d(n1: int, n2: int, rdtype, device) -> bool:
@@ -237,6 +247,25 @@ def radices_ok(n: int, radices) -> bool:
             and all(isinstance(r, int) and 1 < r <= MAX_RADIX
                     for r in radices)
             and math.prod(radices) == n and n <= MAX_N)
+
+
+def wide_ok(n: int, radices) -> bool:
+    """Can K1's wide form run this schedule?  MAX_N < n <= ROW_MAX_N, one
+    or two radices whose product is n, every one a butterfly radix of at
+    most 64 (:func:`_vpu_last_ok`): the reference's all-butterfly MEASURE
+    candidate [n/h, h] above MAX_N."""
+    return (isinstance(radices, (list, tuple)) and 1 <= len(radices) <= 2
+            and all(isinstance(r, int) and r > 1 and _vpu_last_ok(r, 1)
+                    for r in radices)
+            and math.prod(radices) == n and MAX_N < n <= ROW_MAX_N)
+
+
+def schedule_ok(n: int, radices, vpu=None) -> bool:
+    """Can K1 run a ``pallas`` descriptor's schedule?  Inside MAX_N any
+    :func:`radices_ok` schedule; above it, up to ROW_MAX_N, a
+    :func:`wide_ok` schedule pinned to butterflies everywhere
+    (``vpu == "all"``), as the reference offers it."""
+    return radices_ok(n, radices) or (vpu == "all" and wide_ok(n, radices))
 
 
 def _vpu_last_ok(p: int, sign: int) -> bool:
@@ -538,11 +567,12 @@ def stockham_c2c_cuda(xr: torch.Tensor, xi: torch.Tensor,
     returns (B/P, n, P) planes, row b*P + k1's point k2 at [b, k2, k1].
     Returns new (yr, yi); raises on anything the kernel does not take, and
     when the launch fails."""
-    global launches, fourstep_launches
+    global launches, fourstep_launches, wide_launches
     check_planes("stockham_c2c_cuda", xr, xi, table, 2)
     B, n = xr.shape
     radices = [int(r) for r in radices]
-    if not radices_ok(n, radices):
+    wide = n > MAX_N
+    if not (wide_ok(n, radices) if wide else radices_ok(n, radices)):
         raise ValueError(f"kernel schedule {radices} does not fit n={n}")
     if table.numel() != _table_len(n, radices):
         raise ValueError(f"root table of {table.numel()} floats does not "
@@ -559,6 +589,8 @@ def stockham_c2c_cuda(xr: torch.Tensor, xi: torch.Tensor,
             raise ValueError(f"pretwiddle must be a contiguous float32 "
                              f"(2, P, {n}) tensor on {xr.device}, got "
                              f"{tuple(pretwiddle.shape)}")
+    if wide and P:
+        raise ValueError(f"the wide form (n={n}) has no pre-twiddle")
     if store_transposed and not P:
         raise ValueError("store_transposed needs a pretwiddle")
     if store_transposed and B % P:
@@ -570,7 +602,8 @@ def stockham_c2c_cuda(xr: torch.Tensor, xi: torch.Tensor,
         return yr, yi
     plan = level_plan(n, tuple(radices))
     rpb = rows_per_block(n)
-    launch("stockham_c2c", xr.device, plan_smem(plan, rpb), -(-B // rpb),
+    launch("stockham_c2c_wide" if wide else "stockham_c2c", xr.device,
+           plan_smem(plan, rpb), -(-B // rpb),
            (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
             table.data_ptr(), plan_array(plan), B, n, rpb,
             pretwiddle.data_ptr() if P else None, P,
@@ -579,6 +612,8 @@ def stockham_c2c_cuda(xr: torch.Tensor, xi: torch.Tensor,
            f"{store_transposed}")
     if P:
         fourstep_launches += 1
+    elif wide:
+        wide_launches += 1
     else:
         launches += 1
     return yr, yi
@@ -590,8 +625,8 @@ def launch(kernel: str, device: torch.device, smem: int, work: int, args,
     bytes of shared memory per block (the root tables and the row or tile
     buffers) on `device`'s current stream, with a grid that fills the card
     and is at most `work` blocks; raises when the launch fails, naming
-    `what`.  Every single-block kernel launches here (K1, K2, K4, K5, K6);
-    K3 launches clusters (``ops/fused2d.py``)."""
+    `what`.  Every single-block kernel launches here (K1, K2, K4, K5, K6,
+    K7, E5, E8); K3 launches clusters (``ops/fused2d.py``)."""
     from . import _build
     lib = _build.library()
     with device_guard(device):
@@ -643,7 +678,8 @@ def _table_len(n: int, radices: Sequence[int]) -> int:
 #: exactly these); a 2-3-5-smooth stage radix is a product of them
 LEVEL_RADICES = (16, 8, 5, 4, 3, 2)
 #: points per group of rows in K1 (``kRowPts * kRowThreads`` in
-#: ``csrc/stockham_rows.cuh``)
+#: ``csrc/stockham_rows.cuh``; the wide form takes one row of up to
+#: ROW_MAX_N = ``kRowPts * kWideThreads``)
 ROW_TILE_POINTS = 2048
 #: levels a plan holds (``kMaxLevels``)
 MAX_LEVELS = 8
@@ -679,8 +715,8 @@ def bfly_levels(p: int) -> Tuple[int, ...]:
 
 
 def rows_per_block(n: int) -> int:
-    """Rows of one group of K1: as many whole rows as ROW_TILE_POINTS
-    holds."""
+    """Rows of one group of K1 (and of K4's m-point rows): as many whole
+    rows as ROW_TILE_POINTS holds, one above it (K1's wide form)."""
     return max(1, ROW_TILE_POINTS // n)
 
 
@@ -744,8 +780,11 @@ def form_label(radices: Sequence[int]) -> str:
 
 
 def plan_smem(plan: Sequence[int], rows: int) -> int:
-    """Shared-memory bytes of K1 on `plan` with `rows` rows per group
-    (``rows_smem`` in ``csrc/stockham_rows.cuh``)."""
+    """Shared-memory bytes of K1 on `plan` with `rows` rows per group, and
+    of K2 with `rows` planes per group (``plan_smem`` in
+    ``csrc/stockham_bfly.cuh``): the root tables, then one buffer (two with
+    a dense stage) of two planes of `rows` transforms at the plan's row
+    stride."""
     nbuf, rs, tab_len = plan[1], plan[2], plan[3]
     plane = -(-rows * rs // 4) * 4
     return 4 * (-(-tab_len // 4) * 4 + 2 * nbuf * plane)
@@ -785,17 +824,18 @@ def build_pallas_c2c_split(desc: Dict, sign: int, rdtype,
     block takes whole rows, so nothing is padded).
 
     ``vpu`` selects the twin's butterfly stage form; on the card the radix
-    alone picks each stage's form (:func:`stage_form`).  ``tile_b`` is the
-    reference's batch-lane tile and means nothing here: it is accepted and
-    ignored."""
+    alone picks each stage's form (:func:`stage_form`).  Above MAX_N only a
+    ``vpu: "all"`` schedule runs, on K1's wide form (:func:`schedule_ok`).
+    ``tile_b`` is the reference's batch-lane tile and means nothing here: it
+    is accepted and ignored."""
     n = desc["n"]
+    vpu = desc.get("vpu")
     radices = list(desc.get("radices") or choose_radices(n))
-    if not radices_ok(n, radices):
+    if not schedule_ok(n, radices, vpu):
         raise ValueError(f"pallas schedule {radices} does not fit n={n}")
     if np.dtype(rdtype) != np.float32:
         raise ValueError(f"the Stockham kernel is float32 only, got "
                          f"{np.dtype(rdtype)}")
-    vpu = desc.get("vpu")
     key = (n, tuple(radices))
     if device is not None and torch.device(device).type == "cuda":
         for s in (sign, -sign):                # move the tables once

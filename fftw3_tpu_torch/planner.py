@@ -356,8 +356,9 @@ class Planner:
                     if rad != default_rad:
                         out.append({"alg": "pallas", "n": n, "radices": rad})
                 # butterfly-stage variants, desc-pinned and MEASURE-only;
-                # not offered on a CUDA device, where the kernel computes
-                # them in the dense form (the same computation twice)
+                # not offered on a CUDA device, where a vpu candidate and
+                # its plain twin are the same kernel (the radix alone picks
+                # each stage's form there, stockham.stage_form)
                 on_card = torch.device(device).type == "cuda"
                 for cand in [c for c in out if c["alg"] == "pallas"
                              and not on_card]:
@@ -366,8 +367,18 @@ class Planner:
                     if all(stockham._vpu_last_ok(r, 1)
                            for r in cand["radices"]):
                         out.append({**cand, "vpu": "all"})
-        # (above MAX_N the reference also races an all-butterfly pallas
-        # schedule under MEASURE; not ported, ROADMAP queue 1 item 7)
+        elif (patience >= K.PATIENCE_MEASURE
+              and stockham.backend_allows(rdtype, device)
+              and stockham.MAX_N < n <= 2 * stockham.MAX_N
+              and (n & (n - 1)) == 0):
+            # above MAX_N the reference races the all-butterfly schedule
+            # [n/h, h] under MEASURE; here K1's wide form runs it (on a
+            # CUDA device too: it is the only pallas candidate there)
+            h = 1 << ((n.bit_length() - 1) // 2)
+            rad = [n // h, h]
+            if all(stockham._vpu_last_ok(r, 1) for r in rad):
+                out.append({"alg": "pallas", "n": n, "radices": rad,
+                            "vpu": "all"})
         if stockham.fourstep_applicable(n, rdtype, device):
             fp, fq = stockham.choose_fourstep(n)
             out.append({"alg": "pallas4", "n": n, "p": fp, "q": fq})
@@ -570,7 +581,7 @@ def validate_desc(kind: str, n: int, desc) -> bool:
         return (isinstance(p, int) and 1 < p < n and n % p == 0
                 and validate_desc("c2c", n // p, desc.get("child")))
     if alg == "pallas":
-        return stockham.radices_ok(n, desc.get("radices"))
+        return stockham.schedule_ok(n, desc.get("radices"), desc.get("vpu"))
     if alg == "df32":
         rad = desc.get("radices")
         return (isinstance(rad, list)

@@ -1,5 +1,6 @@
-"""The register butterfly stage of K1 and K3 (``csrc/stockham_bfly.cuh``)
-and its host side in ``fftw3_tpu_torch.ops.stockham``.
+"""The register butterfly stage of K1, K2, K3 and K4
+(``csrc/stockham_bfly.cuh``) and its host side in
+``fftw3_tpu_torch.ops.stockham``.
 
 * The port's ``_vpu_dft`` (the twin's butterfly form, the algorithm the
   kernel's register levels run) against the reference's ``_vpu_dft`` and
@@ -12,22 +13,34 @@ and its host side in ``fftw3_tpu_torch.ops.stockham``.
   butterfly levels read are checked against numpy's roots on the way.
 * The pads of the shared-memory buffers: a warp's stores of one level land
   on 32 distinct banks on the main paths' plans.
-* Every schedule the planner can hand K1, and every plane the route gate
-  sends to K3, has a plan the kernels' one run-time form runs, within
-  their shared memory and tiles.
+* Every schedule the planner can hand K1 (its wide form's above MAX_N
+  included), every plane the route gate sends to K3, every (n, tile width)
+  K2 can be handed and every m-point schedule K4 can be handed has a plan
+  the kernels' one run-time form runs, within their shared memory, threads
+  and tiles.
+* The kernels' level execution itself, emulated in numpy index for index
+  (the plan's levels on the kernel's own f32 tables, the padded buffer,
+  K2's tiles, plane groups, masked edge tile and column store, K4's groups
+  of rows, its Z region and the untangle), against the reference's kernels
+  in interpret mode.
 
 Tests marked ``cuda`` run the kernels on a card (K1 over its case grid,
-ragged batches, both signs, the dense fallback schedules and the four-step
-options; K3 over the 2-D grid; E5's full arms) and skip here.
+ragged batches, both signs, the dense fallback schedules, the four-step
+options and the wide form; K2 and K4 on ragged batches, edge tiles, both
+signs and the gradient; K3 over the 2-D grid; E5's full arms; E8's arms)
+and skip here.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from fftw3_tpu import config as ref_config
 from fftw3_tpu.ops import pallas_stockham as PS
 
-from fftw3_tpu_torch.ops import ablate, fused2d, matrices
+from fftw3_tpu_torch.ops import ablate, copyfloor, fused2d, inner, matrices
+from fftw3_tpu_torch.ops import real_stockham as RS
 from fftw3_tpu_torch.ops import stockham as S
 
 TOL = 1e-5
@@ -242,6 +255,294 @@ def test_every_plane_fits_k3(n1):
         assert fused2d.smem_2d(p2, p1, rows) <= K3_MAX_SMEM, (n1, n2)
 
 
+#: what K2, K4 and K1's wide form take (csrc/inner_c2c.cu kMaxSmem,
+#: kTilePoints, 512 threads of up to 16 points in a level; csrc/r2c.cu
+#: kMaxSmem, kGroupPoints, 256 threads of up to 8; csrc/stockham_rows.cuh
+#: kWideThreads of kRowPts, kRowMaxSmem)
+K2_MAX_SMEM, K2_TILE, K2_THREADS, K2_PTS = 180224, 8192, 512, 16
+K4_MAX_SMEM, K4_GROUP, K4_THREADS, K4_PTS = 98304, 2048, 256, 8
+K1_WIDE, K1_WIDE_THREADS = 4096, 512
+
+
+def _threads_hold(plan, tl, nr, threads, pts):
+    """Every butterfly level's butterflies over nr transforms fit the
+    block: a thread holds at most ceil(pts / r) of them (bfly_level's K)."""
+    for lv in range(plan[0]):
+        kind, r, done, rest = plan[4 + 8 * lv:8 + 8 * lv]
+        if kind:
+            assert nr * (rest // r) * done * tl <= -(-pts // r) * threads
+
+
+def _bfly_where_smooth(plan, radices):
+    """Every level of a 2-3-5-smooth stage is a butterfly level: the plan
+    holds exactly one dense level (a stage() call) per radix with a prime
+    factor of 7 or more."""
+    kinds = [plan[4 + 8 * lv] for lv in range(plan[0])]
+    assert kinds.count(0) == sum(S.stage_form(p) == "dense"
+                                 for p in radices)
+
+
+def _schedules(n):
+    try:
+        cands = [S.choose_radices(n)] + S.alternative_radices(n)
+    except ValueError:
+        return []
+    return [r for r in cands if S.radices_ok(n, r)]
+
+
+@pytest.mark.parametrize("lo,hi", [(2, 256), (256, 768), (768, 1280),
+                                   (1280, 2049)])
+def test_every_tile_fits_k2(lo, hi):
+    """Every (n, tl) that ``inner.tile_width`` can hand K2, with as many
+    planes a group as ``inner.planes_per_group`` can give it, has a plan
+    the kernel runs, within its shared memory, threads and tile."""
+    for n in range(lo, hi):
+        for radices in _schedules(n):
+            tl = 1
+            while n * tl <= K2_TILE:
+                assert inner.tile_width(n, tl) == tl
+                gp = inner.planes_per_group(n, tl, 1 << 20)
+                plan = S.level_plan(n, tuple(radices), tl)
+                _fits(plan, tl)
+                _bfly_where_smooth(plan, radices)
+                assert gp * n * tl <= K2_TILE
+                _threads_hold(plan, tl, gp, K2_THREADS, K2_PTS)
+                assert S.plan_smem(plan, gp) <= K2_MAX_SMEM, (n, radices, tl)
+                tl *= 2
+
+
+@pytest.mark.parametrize("lo,hi", [(2, 1025), (1025, 2049)])
+def test_every_schedule_fits_k4(lo, hi):
+    """Every m-point schedule K4 can be handed (n = 2m), with its rows a
+    group, has a plan the kernel runs, within its shared memory, threads
+    and group."""
+    for m in range(lo, hi):
+        for radices in _schedules(m):
+            plan = S.level_plan(m, tuple(radices))
+            rpb = S.rows_per_block(m)
+            _fits(plan, 1)
+            _bfly_where_smooth(plan, radices)
+            assert rpb * m <= K4_GROUP
+            _threads_hold(plan, 1, rpb, K4_THREADS, K4_PTS)
+            assert RS.r2c_smem(plan, m, rpb) <= K4_MAX_SMEM, (m, radices)
+
+
+def test_every_wide_schedule_fits_k1():
+    """Every schedule K1's wide form takes (two butterfly radices of at
+    most 64 above MAX_N) has a plan it runs: one row a block, within its
+    shared memory and threads; the reference's [n/h, h] at 4096 is one."""
+    rads = [r for r in range(2, 65) if S._vpu_last_ok(r, 1)]
+    seen = set()
+    for a in rads:
+        for b in rads:
+            n = a * b
+            if not S.wide_ok(n, [a, b]):
+                assert not S.MAX_N < n <= S.ROW_MAX_N
+                continue
+            seen.add((a, b))
+            plan = S.level_plan(n, (a, b))
+            _fits(plan, 1)
+            assert S.rows_per_block(n) == 1 and n <= K1_WIDE
+            _threads_hold(plan, 1, 1, K1_WIDE_THREADS, 8)
+            assert S.plan_smem(plan, 1) <= K1_MAX_SMEM, (a, b)
+    assert (64, 64) in seen and S.wide_ok(4096, [64, 64])
+    assert not S.wide_ok(4096, [128, 32]) and not S.wide_ok(2048, [64, 32])
+    assert not S.schedule_ok(4096, [64, 64]) and \
+        S.schedule_ok(4096, [64, 64], "all")
+
+
+def _emulate_levels(plan, tab, buf, tl, nr, store, direct=None):
+    """The kernel's ``run_levels``, index for index, in numpy: `buf` holds
+    nr transforms at the plan's row stride as the load pass leaves them
+    (unpadded), or ``direct`` = (input, row stride, point stride) is what
+    a first butterfly level reads in its place; each butterfly level reads
+    its butterflies at the padded addresses the previous level wrote,
+    computes the r-point DFT and the twiddle from the kernel's own f32
+    table (``tab``, in float64) at the level's offsets and strides, and
+    writes a fresh buffer at its own pad (so a slot no level wrote reads as
+    NaN); a dense stage reads and writes unpadded buffers.  The last level
+    hands (row, o, c, value) to `store`."""
+    rs = plan[2]
+    pad_in = 0
+    src, rs_in, ld_in = (buf, rs, tl) if direct is None else direct
+    for lv in range(plan[0]):
+        kind, r, done, rest, off_a, off_b, ln, pad = \
+            plan[4 + 8 * lv:12 + 8 * lv]
+        q = rest // r
+        w = np.arange(nr * q * done * tl)
+        row, t = np.divmod(w, q * done * tl)
+        jd, c = np.divmod(t, tl)
+        j2, d = np.divmod(jd, done)
+        j = np.arange(r)[:, None]
+        if kind:
+            roots = tab[off_a:off_a + ln] + 1j * tab[off_a + ln:off_a + 2 * ln]
+            F = roots[(j * j.T % r) * (ln // r)]
+            tw = roots[(j * j2 % rest) * (ln // rest)]
+        else:
+            roots = tab[off_a:off_a + r] + 1j * tab[off_a + r:off_a + 2 * r]
+            F = roots[j * j.T % r]
+            tw = np.ones((r, len(w)))
+            if q > 1:
+                tw = (tab[off_b:off_b + rest]
+                      + 1j * tab[off_b + rest:off_b + 2 * rest])[j * j2 % rest]
+        e = (j * q * done + jd) * ld_in + c
+        y = (F @ src[row * rs_in + e + pad_in * (e >> 5)]) * tw
+        o = (j2 * r + j) * done + d
+        if lv == plan[0] - 1:
+            store(np.broadcast_to(row, o.shape), o,
+                  np.broadcast_to(c, o.shape), y)
+            return
+        e = o * tl + c
+        src, rs_in, ld_in = np.full(nr * rs, np.nan, complex), rs, tl
+        src[row * rs + e + pad * (e >> 5)] = y
+        pad_in = pad
+
+
+def _emulate_k2(x, radices, sign):
+    """K2 on complex (pre, n, L) as the kernel walks it: groups of gp
+    planes, tiles of tl columns, a full tile read by a first butterfly
+    level straight from the input (rows n * L apart, points L apart), else
+    loaded with the edge tile zero-filled past L; columns past L never
+    stored."""
+    pre, n, L = x.shape
+    tl = inner.tile_width(n, L)
+    gp = inner.planes_per_group(n, L, pre)
+    plan = S.level_plan(n, tuple(radices), tl)
+    tab = S._kernel_table(n, radices, sign).astype(np.float64)
+    y = np.full(x.shape, np.nan, complex)
+    for b0 in range(0, pre, gp):
+        nr = min(gp, pre - b0)
+        for l0 in range(0, L, tl):
+            width = min(tl, L - l0)
+            buf = np.zeros(nr * plan[2], complex)
+            for row in range(nr):
+                tile = np.zeros((n, tl), complex)
+                tile[:, :width] = x[b0 + row, :, l0:l0 + width]
+                buf[row * plan[2]:row * plan[2] + n * tl] = tile.ravel()
+
+            def store(row, o, c, v, b0=b0, l0=l0, width=width):
+                keep = c < width
+                y[b0 + row[keep], o[keep], l0 + c[keep]] = v[keep]
+            direct = None
+            if plan[4] != 0 and width == tl:
+                direct = (x.reshape(-1)[b0 * n * L + l0:], n * L, L)
+            _emulate_levels(plan, tab, buf, tl, nr, store, direct)
+    return y
+
+
+def _emulate_k4(x, radices):
+    """K4 on real (B, n) as the kernel walks it: groups of rpb rows, the
+    pack z = x[2j] + i x[2j+1] read by a first butterfly level straight
+    from the rows (else loaded into the level buffer), the levels with the
+    last storing Z at row * m + o, then the untangle with the kernel's w
+    table."""
+    B, n = x.shape
+    m = n // 2
+    plan = S.level_plan(m, tuple(radices))
+    rpb = S.rows_per_block(m)
+    tab = RS._real_table(n, radices, -1).astype(np.float64)
+    t0 = plan[3]
+    wt = tab[t0:t0 + m + 1] + 1j * tab[t0 + m + 1:t0 + 2 * m + 2]
+    out = np.full((B, m + 1), np.nan, complex)
+    k = np.arange(m + 1)
+    k0, k1 = np.where(k == m, 0, k), np.where(k == 0, 0, m - k)
+    for r0 in range(0, B, rpb):
+        nr = min(rpb, B - r0)
+        buf = np.zeros(nr * plan[2], complex)
+        for row in range(nr):
+            buf[row * plan[2]:row * plan[2] + m] = \
+                x[r0 + row, 0::2] + 1j * x[r0 + row, 1::2]
+        Z = np.full(nr * m, np.nan, complex)
+
+        def store(row, o, c, v, Z=Z):
+            Z[row * m + o] = v
+        direct = None
+        if plan[4] != 0:
+            rows = x[r0:r0 + nr].reshape(-1)
+            direct = (rows[0::2] + 1j * rows[1::2], m, 1)
+        _emulate_levels(plan, tab, buf, 1, nr, store, direct)
+        Z = Z.reshape(nr, m)
+        a, cb = Z[:, k0], np.conj(Z[:, k1])
+        out[r0:r0 + nr] = 0.5 * (a + cb) + wt * (-0.5j) * (a - cb)
+    return out
+
+
+@pytest.mark.parametrize("n,radices,sign,shape", [
+    (512, [32, 16], -1, (1, 512, 40)),       # tiles of 16, edge of 8
+    (2048, [128, 16], +1, (2, 2048, 5)),     # tiles of 4, edge of 1
+    (32, [32], -1, (5, 32, 128)),            # two planes a group, ragged
+    (1000, [50, 20], +1, (2, 1000, 3)),      # radix-5 levels, one group
+    (896, [56, 16], -1, (1, 896, 9)),        # a dense stage
+    (128, [128], +1, (3, 128, 1))])          # one column, three planes
+def test_k2_levels_match_reference(n, radices, sign, shape, monkeypatch):
+    """K2's level plan for tiles of tl > 1 columns, executed in numpy as
+    the kernel executes it, against the reference's axis -2 kernel
+    (``_kernel_inner`` on ``_stages``, interpret mode) within 2e-5 and
+    numpy within 1e-5."""
+    monkeypatch.setattr(ref_config, "pallas_mode", "interpret")
+    rng = np.random.default_rng(n + shape[-1])
+    xr, xi = (rng.standard_normal(shape).astype(np.float32)
+              for _ in range(2))
+    got = _emulate_k2(xr + 1j * xi.astype(np.float64), radices, sign)
+    ref = PS.build_pallas_c2c_split_inner(
+        {"alg": "pallas", "n": n, "radices": radices}, sign, np.float32)
+    wr, wi = jax.jit(ref)(jnp.asarray(xr), jnp.asarray(xi))
+    want = np.asarray(wr) + 1j * np.asarray(wi)
+    assert not np.isnan(got).any()
+    assert _relerr(got, want) <= 2e-5
+    assert _relerr(got, _oracle(xr + 1j * xi.astype(np.float64), sign,
+                                axis=-2)) <= TOL
+
+
+@pytest.mark.parametrize("n,radices,batch", [
+    (1024, [32, 16], 5),                     # 4 rows a group, ragged
+    (2048, [64, 16], 3),                     # 2 rows a group, ragged
+    (1000, [25, 20], 7),                     # radix-5 levels
+    (1792, [56, 16], 3),                     # a dense stage
+    (4096, [128, 16], 2)])                   # one row a group
+def test_k4_levels_and_untangle_match_reference(n, radices, batch,
+                                                monkeypatch):
+    """K4's m-point level plan executed in numpy as the kernel executes
+    it, Z read back from its region of shared memory, and the untangle,
+    against the reference's r2c kernel (``_kernel_r2c``, interpret mode)
+    within 2e-5 and numpy within 1e-5."""
+    monkeypatch.setattr(ref_config, "pallas_mode", "interpret")
+    assert S.radices_ok(n // 2, radices)
+    x = np.random.default_rng(n + batch).standard_normal(
+        (batch, n)).astype(np.float32)
+    got = _emulate_k4(x.astype(np.float64), radices)
+    want = np.asarray(jax.jit(PS.build_pallas_r2c(
+        {"alg": "pallas_r2c", "n": n, "radices": radices}, np.float32))(x))
+    assert not np.isnan(got).any()
+    assert _relerr(got, want) <= 2e-5
+    assert _relerr(got, np.fft.rfft(x.astype(np.float64))) <= TOL
+
+
+@pytest.mark.parametrize("n,radices", [(1024, [64, 16]), (4096, [64, 64]),
+                                       (896, [56, 16])])
+@pytest.mark.parametrize("sign", [-1, +1])
+def test_k1_levels_match_numpy(n, radices, sign):
+    """K1's row plan (its wide form's at 4096) executed in numpy as the
+    kernel executes it, groups of rows included, against numpy."""
+    rng = np.random.default_rng(n)
+    B = 2 * S.rows_per_block(n) + 1
+    x = rng.standard_normal((B, n)) + 1j * rng.standard_normal((B, n))
+    plan = S.level_plan(n, tuple(radices))
+    tab = S._kernel_table(n, radices, sign).astype(np.float64)
+    rpb = S.rows_per_block(n)
+    y = np.full(x.shape, np.nan, complex)
+    for r0 in range(0, B, rpb):
+        nr = min(rpb, B - r0)
+        buf = np.zeros(nr * plan[2], complex)
+        for row in range(nr):
+            buf[row * plan[2]:row * plan[2] + n] = x[r0 + row]
+
+        def store(row, o, c, v, r0=r0):
+            y[r0 + row, o] = v
+        _emulate_levels(plan, tab, buf, 1, nr, store)
+    assert _relerr(y, _oracle(x, sign)) <= 1e-6
+
+
 PTXAS = """\
 ptxas info    : Compiling entry function '_ZN15fftw3_tpu_torch48_GLOBAL__N__\
 d09eb3ab_15_stockham_c2c_cu_a56885a119stockham_c2c_kernelILi0ELb1ELb0ENS_7\
@@ -281,6 +582,14 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     table = torch.from_numpy(S._kernel_table(1024, [64, 16], -1))
     with pytest.raises(ValueError, match="CUDA"):
         ablate.ablate_cuda(x, x, [64, 16], table, "bfly", "full")
+    w = torch.ones(2, 4096)
+    with pytest.raises(ValueError, match="CUDA"):
+        S.stockham_c2c_cuda(w, w, [64, 64], torch.from_numpy(
+            S._kernel_table(4096, [64, 64], -1)))
+    with pytest.raises(ValueError, match="CUDA"):
+        copyfloor.copy_inner_cuda(x.reshape(2, 64, 16), x.reshape(2, 64, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        copyfloor.copy_rows_cuda(x, x)
     assert fused2d.smem_2d(S.level_plan(512, (32, 16), 1),
                            S.level_plan(512, (32, 16), 16), 16) == 89856
 
@@ -390,3 +699,137 @@ def test_e5_full_arms(cuda_device, radices):
             yr, _ = ablate.ablate_cuda(xr, xi, radices, table, form, arm)
             assert yr.shape == (B, n)
     torch.cuda.synchronize()
+
+
+def _cuda_planes(device, seed, shape):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(device) for _ in range(2))
+
+
+K2_CASES = [(512, [32, 16], (3, 512, 40)), (2048, [128, 16], (2, 2048, 1025)),
+            (32, [32], (5, 32, 128)), (1000, [50, 20], (2, 1000, 3)),
+            (896, [56, 16], (1, 896, 9)), (128, [128], (3, 128, 1)),
+            (8, [8], (7, 8, 4096))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,radices,shape", K2_CASES)
+@pytest.mark.parametrize("sign", [-1, +1])
+def test_k2_matches_twin_and_complex128(cuda_device, n, radices, shape,
+                                        sign):
+    """K2 on ragged plane groups, edge tiles and a dense stage, both
+    signs, against its twin and complex128."""
+    xr, xi = _cuda_planes(cuda_device, n + shape[-1], shape)
+    table = S._device_table(n, tuple(radices), sign, cuda_device)
+    before = inner.launches
+    kr, ki = inner.inner_c2c_cuda(xr, xi, radices, table)
+    torch.cuda.synchronize()
+    assert inner.launches == before + 1
+    tr, ti = inner.inner_c2c_torch(xr, xi, radices, sign)
+    got = (kr + 1j * ki).cpu().numpy()
+    assert _relerr(got, (tr + 1j * ti).cpu().numpy()) <= TOL
+    x = xr.cpu().numpy().astype(np.float64) + 1j * xi.cpu().numpy()
+    assert _relerr(got, _oracle(x, sign, axis=-2)) <= TOL
+
+
+@pytest.mark.cuda
+def test_k2_gradient_is_the_opposite_sign_launch(cuda_device):
+    n, radices, shape = 512, [32, 16], (3, 512, 40)
+    split = inner.build_pallas_c2c_split_inner(
+        {"alg": "pallas", "n": n, "radices": radices}, -1, np.float32,
+        cuda_device)
+    xr, xi = (t.requires_grad_() for t in _cuda_planes(cuda_device, 1,
+                                                       shape))
+    gr, gi = _cuda_planes(cuda_device, 2, shape)
+    yr, yi = split(xr, xi)
+    before = inner.launches
+    torch.autograd.backward([yr, yi], [gr, gi])
+    assert inner.launches == before + 1
+    wr, wi = inner.inner_c2c_cuda(gr, gi, radices, S._device_table(
+        n, tuple(radices), +1, cuda_device))
+    assert torch.equal(xr.grad, wr) and torch.equal(xi.grad, wi)
+
+
+K4_CASES = [(1024, [32, 16], 5), (2048, [64, 16], 3), (1000, [25, 20], 7),
+            (1792, [56, 16], 3), (4096, [128, 16], 2), (256, [128], 37)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,radices,batch", K4_CASES)
+def test_k4_matches_twin_and_complex128(cuda_device, n, radices, batch):
+    """K4 on ragged row groups and a dense stage against its twin and
+    complex128."""
+    x = torch.from_numpy(np.random.default_rng(n + batch).standard_normal(
+        (batch, n)).astype(np.float32)).to(cuda_device)
+    before = RS.r2c_launches
+    kr, ki = RS.r2c_cuda(x, radices, RS._device_table(
+        n, tuple(radices), -1, cuda_device))
+    torch.cuda.synchronize()
+    assert RS.r2c_launches == before + 1
+    tr, ti = RS.r2c_torch(x, radices)
+    got = (kr + 1j * ki).cpu().numpy()
+    assert _relerr(got, (tr + 1j * ti).cpu().numpy()) <= TOL
+    assert _relerr(got, np.fft.rfft(x.cpu().numpy().astype(np.float64))) \
+        <= TOL
+
+
+@pytest.mark.cuda
+def test_k4_is_the_c2r_gradient(cuda_device):
+    """The 1-D c2r's backward is one K4 launch: the weighted r2c of the
+    cotangent."""
+    n, B = 1024, 5
+    radices = S.choose_radices(n // 2)
+    c2r = RS.build_pallas_c2r({"alg": "pallas_c2r", "n": n,
+                               "radices": radices}, np.float32, cuda_device)
+    hr, hi = (t.requires_grad_() for t in _cuda_planes(
+        cuda_device, 3, (B, n // 2 + 1)))
+    g = _cuda_planes(cuda_device, 4, (B, n))[0]
+    y = c2r(hr, hi)
+    before = RS.r2c_launches
+    y.backward(g)
+    assert RS.r2c_launches == before + 1
+    rr, ri = RS.r2c_cuda(g, radices, RS._device_table(
+        n, tuple(radices), -1, cuda_device))
+    w = RS._c2r_weights(n, cuda_device)
+    assert torch.equal(hr.grad, rr * w[0]) and torch.equal(hi.grad, ri * w[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 37, 130])
+@pytest.mark.parametrize("sign", [-1, +1])
+def test_k1_wide_matches_twin_and_complex128(cuda_device, batch, sign):
+    n, radices = 4096, [64, 64]
+    xr, xi = _cuda_planes(cuda_device, batch, (batch, n))
+    table = S._device_table(n, tuple(radices), sign, cuda_device)
+    before = S.wide_launches
+    kr, ki = S.stockham_c2c_cuda(xr, xi, radices, table)
+    torch.cuda.synchronize()
+    assert S.wide_launches == before + 1
+    tr, ti = S.stockham_c2c_torch(xr, xi, radices, sign)
+    got = (kr + 1j * ki).cpu().numpy()
+    assert _relerr(got, (tr + 1j * ti).cpu().numpy()) <= TOL
+    x = xr.cpu().numpy().astype(np.float64) + 1j * xi.cpu().numpy()
+    assert _relerr(got, _oracle(x, sign)) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,tl", [((3, 512, 40), None), ((2, 2048, 1025),
+                                                             None),
+                                      ((5, 32, 128), None),
+                                      ((1, 512, 64), 4)])
+def test_e8_inner_arm_is_the_copy(cuda_device, shape, tl):
+    xr, xi = _cuda_planes(cuda_device, shape[-1], shape)
+    yr, yi = copyfloor.copy_inner_cuda(xr, xi, tl)
+    wr, wi = copyfloor.copy_twin(xr, xi)
+    assert torch.equal(yr, wr) and torch.equal(yi, wi)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(37, 512), (5, 2048), (3, 1000)])
+def test_e8_rows_arm_is_the_copy(cuda_device, shape):
+    xr, xi = _cuda_planes(cuda_device, shape[0], shape)
+    yr, yi = copyfloor.copy_rows_cuda(xr, xi)
+    wr, wi = copyfloor.copy_twin(xr, xi)
+    assert torch.equal(yr, wr) and torch.equal(yi, wi)
+

@@ -101,12 +101,26 @@ def test_split_grads_equal_jax_vjp():
 
 
 @pytest.mark.parametrize("n,L,tl", [(2048, 4096, 4), (512, 262144, 16),
-                                    (32, 128, 128), (8, 4096, 128),
+                                    (32, 128, 128), (8, 4096, 1024),
                                     (1000, 37, 8), (128, 1, 1),
                                     (128, 37, 64), (2048, 1025, 4)])
 def test_tile_width(n, L, tl):
+    """Tiles fill the kernel's 8192-point group up to the columns L needs;
+    no column cap (the butterfly levels need one buffer, and a wider tile
+    only lengthens a row segment)."""
     assert inner.tile_width(n, L) == tl
     assert n * tl <= inner.TILE_POINTS
+
+
+@pytest.mark.parametrize("n,L,pre,gp", [(32, 128, 4096, 2), (32, 128, 1, 1),
+                                        (512, 262144, 1, 1),
+                                        (128, 37, 5, 1), (8, 37, 5, 5),
+                                        (2048, 1025, 8, 1), (128, 1, 3, 3)])
+def test_planes_per_group(n, L, pre, gp):
+    """More than one plane a group only when one tile holds a whole plane
+    (the four-step's (B, 32, 128) p pass: two)."""
+    assert inner.planes_per_group(n, L, pre) == gp
+    assert gp * n * inner.tile_width(n, L) <= inner.TILE_POINTS
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

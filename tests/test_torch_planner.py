@@ -91,6 +91,14 @@ def test_main_path_descriptor_with_port_defaults():
     (1024, {"alg": "pallas", "n": 1024, "radices": [64, 8]}, False),
     (1024, {"alg": "pallas", "n": 1024, "radices": [16, 8, 8]}, False),
     (4096, {"alg": "pallas", "n": 4096, "radices": [64, 64]}, False),
+    (4096, {"alg": "pallas", "n": 4096, "radices": [64, 64], "vpu": "all"},
+     True),
+    (4096, {"alg": "pallas", "n": 4096, "radices": [128, 32], "vpu": "all"},
+     False),
+    (4096, {"alg": "pallas", "n": 4096, "radices": [64, 64], "vpu": True},
+     False),
+    (8192, {"alg": "pallas", "n": 8192, "radices": [64, 128], "vpu": "all"},
+     False),
     (4096, {"alg": "pallas4", "n": 4096, "p": 64, "q": 64}, True),
     (4096, {"alg": "pallas4", "n": 4096, "p": 64, "q": 32}, False),
     (1024, {"alg": "df32", "n": 1024, "radices": [4, 4, 64]}, True),
@@ -176,8 +184,9 @@ def test_measure_times_candidates_on_cpu():
 def test_vpu_variants_only_where_they_differ(mode, device, vpu,
                                              monkeypatch):
     """MEASURE races the butterfly (``vpu``) variants on the CPU, where the
-    twin runs, and not on a CUDA device, where the kernel would run them in
-    the dense form."""
+    twin runs, and not on a CUDA device, where a ``vpu`` candidate and its
+    plain twin are the same kernel (the radix alone picks each stage's
+    form)."""
     config.kernel_mode = mode
     # no mixed candidates: their children would be timed on the device
     monkeypatch.setattr(planner, "_mixed_factor_candidates",
@@ -187,6 +196,90 @@ def test_vpu_variants_only_where_they_differ(mode, device, vpu,
     rads = [c["radices"] for c in cands if c["alg"] == "pallas"]
     assert [64, 16] in rads and [32, 32] in rads
     assert any("vpu" in c for c in cands) is vpu
+
+
+def _first(self, kind, n, rdtype, cands, *a, **k):
+    return cands[0], 0.0
+
+
+@pytest.mark.parametrize("n", [1024, 2048, 4096])
+def test_measure_candidates_equal_reference_complex64(n, monkeypatch):
+    """MEASURE's complex64 candidate lists (children planned with the
+    timing stubbed out in both packages, kernels on in both) equal the
+    reference's; at n = 4096 both race the all-butterfly ``pallas``
+    schedule [64, 64] beside ``pallas4``."""
+    config.kernel_mode = "on"
+    ref_config.pallas_mode = "interpret"
+    monkeypatch.setattr(planner.Planner, "_measure_best", _first)
+    monkeypatch.setattr(ref_planner.Planner, "_measure_best", _first)
+    mine, ref = _port_planner(), ref_planner.Planner()
+    want = ref._candidates_c2c(n, np.float32, kinds.PATIENCE_MEASURE, 64)
+    got = mine._candidates_c2c(n, np.float32, kinds.PATIENCE_MEASURE, 64,
+                               torch.device("cpu"))
+    assert got == want
+    wide = {"alg": "pallas", "n": 4096, "radices": [64, 64], "vpu": "all"}
+    assert (wide in got) is (n == 4096)
+
+
+def test_chip_smoke_wide_wisdom_literal_is_the_reference_export(
+        monkeypatch):
+    """The reference-format wisdom that ``chip_smoke.py`` imports to pin
+    the all-butterfly [64, 64] at n = 4096 equals ``fftw3_tpu``'s own
+    MEASURE export (its timing stubbed to pick that candidate) for
+    plan_many_dft([4096], howmany=4096), up to the device signature; the
+    port imports it and serves it under ESTIMATE."""
+    import os
+    import sys
+    ref_config.pallas_mode = "interpret"
+    wide = {"alg": "pallas", "n": 4096, "radices": [64, 64], "vpu": "all"}
+
+    def pick_wide(self, kind, n, rdtype, cands, *a, **k):
+        return (wide if wide in cands else cands[0]), 0.0
+    monkeypatch.setattr(ref_planner.Planner, "_measure_best", pick_wide)
+    ref = ref_planner.Planner()
+    assert ref.plan_c2c(4096, np.float32, kinds.PATIENCE_MEASURE, 4096) \
+        == wide
+    want = json.loads(ref.export_wisdom())
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, repo)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(repo)
+    got = json.loads(chip_smoke.REFERENCE_WISDOM_WIDE)
+    assert got["format"] == want["format"] == planner.REFERENCE_WISDOM_FORMAT
+
+    def unsigned(entries):
+        return {":".join(k.split(":")[:3] + k.split(":")[4:]): v
+                for k, v in entries.items()}
+    mine = unsigned(got["entries"])
+    assert set(mine) == {"c2c:4096:float32:b6"}
+    assert mine == {k: v for k, v in unsigned(want["entries"]).items()
+                    if k in mine}
+    assert chip_smoke.WIDE_DESC == wide
+    pl = _port_planner()
+    assert pl.import_reference_wisdom(chip_smoke.REFERENCE_WISDOM_WIDE,
+                                      device="cpu")
+    assert pl.plan_c2c(4096, np.float32, 0, 4096, "cpu") == wide
+    assert pl.stats["nplan"] == 0
+
+
+@pytest.mark.parametrize("mode", ["on", "auto"])
+def test_wide_candidate_offered_on_cuda(mode, monkeypatch):
+    """On a CUDA device the all-butterfly schedule at n = 4096 is the only
+    ``pallas`` candidate (K1's wide form runs it); ESTIMATE offers none."""
+    config.kernel_mode = mode
+    monkeypatch.setattr(planner, "_mixed_factor_candidates",
+                        lambda n, patience: [])
+    pl = _port_planner()
+    cands = pl._candidates_c2c(4096, np.float32, kinds.PATIENCE_MEASURE, 64,
+                               torch.device("cuda"))
+    assert [c for c in cands if c["alg"] == "pallas"] == [
+        {"alg": "pallas", "n": 4096, "radices": [64, 64], "vpu": "all"}]
+    assert "pallas4" in {c["alg"] for c in cands}
+    est = pl._candidates_c2c(4096, np.float32, kinds.PATIENCE_ESTIMATE, 64,
+                             torch.device("cuda"))
+    assert all(c["alg"] != "pallas" for c in est)
 
 
 @pytest.mark.parametrize("device,debug,raises", [

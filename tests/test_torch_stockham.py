@@ -76,6 +76,8 @@ CASES = [  # (n, radices, sign, batch shape, vpu)
     (1024, [32, 32], +1, (5,), "all"),
     (1000, [50, 20], -1, (5,), "all"),       # radix-5 butterflies
     (512, [32, 16], +1, (3, 5), True),       # leading multi-dim batch
+    (4096, [64, 64], -1, (3,), "all"),       # the MEASURE-only schedule
+    (4096, [64, 64], +1, (2,), "all"),       # above MAX_N (K1's wide form)
 ]
 
 
