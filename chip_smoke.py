@@ -4,8 +4,11 @@
     python3 chip_smoke.py [--seed N]
 
 Builds the CUDA kernels of ``fftw3_tpu_torch`` from ``csrc/`` with nvcc
-(one process per source, in parallel) and checks each against its plain
-PyTorch twin and a float64 oracle.  Then it drives the port's paths through
+(one process per source, in parallel) and runs the toolchain canary P1
+(``toolchain_probe.run_probes``: every source built, the probe kernel of
+``csrc/probe.cu`` launched and right; a FAIL ends the run), then checks each
+kernel against its plain PyTorch twin and a float64 oracle.  Then it drives
+the port's paths through
 the entry points a user calls, each at full width, with every kernel's
 launch count set to 0 just before the path and read just after:
 
@@ -42,7 +45,21 @@ launch count set to 0 just before the path and read just after:
   one of the opposite sign in its backward); the five arms timed
   interleaved with ``torch.fft.fft`` (phase 21); then complex128
   ``plan_many_dft([512, 512], howmany=64)`` on the same pin (two K7
-  launches, one behind ``movedim``) and a float64 r2c (phase 22).
+  launches, one behind ``movedim``) and a float64 r2c (phase 22);
+* the r2r path (phases 27-34): the reference suite's DCT-II cell,
+  ``plan_r2r((65536, 512), ["redft10"], axes=(1,))``, in four arms
+  (ESTIMATE, MEASURE, pinned to ``redft10_half`` over K4 by a
+  reference-format wisdom import: one K4 launch per call, and pinned to
+  the dense ``r2r_matmul``) timed interleaved beside ``torch.fft.rfft``,
+  with the K4 arm's gradient; DCT-III pinned to K6 (one launch) and its
+  round trip; the DHT at (65536, 1024) under ESTIMATE; DCT-IV pinned to the
+  2n route on K1 (one launch); every kind and algorithm over a case grid;
+  ``plan_r2r_3d(256, 256, 256)`` DCT-II under ESTIMATE and pinned to K4 on
+  every axis; a float64 DCT-II under ESTIMATE; and a fourth child
+  (``--profile-paths r2r``).  Every r2r output is held, over all its
+  rows, against float64 (scipy.fft's DCT/DST, its FFT for the DHT and
+  halfcomplex kinds), and K4, K6 and K1 against their twins over all rows
+  at the shapes and on the inputs the pinned arms give them.
 
 Every path is checked against ``torch.fft`` in complex128 (an oracle only),
 and every kernel route's gradient against its opposite-sign launches.
@@ -70,8 +87,9 @@ Exits non-zero at the first
 failed check, and without printing a result when torch sees no CUDA
 device.
 
-The last two lines of standard output are JSON: the kernels of the paths
-(name, source, launches, error against the twin, times, bound), then
+The last three lines of standard output are JSON: the r2r path's results,
+the kernels of the paths (name, source, launches, error against the twin,
+times, bound; P1's launches are the probe's own), then
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -87,11 +105,13 @@ import numpy as np
 import torch
 
 import fftw3_tpu_torch as ft
+from fftw3_tpu_torch import kinds as K
 from fftw3_tpu_torch import plan as plan_mod
 from fftw3_tpu_torch import planner as P
+from fftw3_tpu_torch import toolchain_probe
 from fftw3_tpu_torch.ops import _build, ablate, copyfloor
 from fftw3_tpu_torch.ops import c2c as c2c_ops
-from fftw3_tpu_torch.ops import df32, fused2d, inner
+from fftw3_tpu_torch.ops import df32, fused2d, inner, matrices, r2r
 from fftw3_tpu_torch.ops import real_stockham as RS
 from fftw3_tpu_torch.ops import stockham as S
 from fftw3_tpu_torch.utils import timing
@@ -148,6 +168,26 @@ REAL_1D = (65536, 1024)     # the 1-D real path: plan_dft_r2c(REAL_1D, (1,))
 REAL_2D = (8, 2048, 2048)   # the full-width 2-D path, axes (1, 2): the
 #                             reference suite's r2c_2d_2048 cell
 
+#: the r2r path (phases 27-34): the reference suite's DCT-II cell
+#: dct2_512_b65536 (bench.py:389, :1104), DCT-III and DCT-IV at its shape,
+#: the DHT at the headline's points, the 3-D DCT-II of the Neumann Poisson
+#: solve (fftw3_tpu/models/poisson.py:89) and a float64 DCT-II
+R2R_1D = (65536, 512)
+R2R_DHT = (65536, 1024)
+R2R_CUBE = 256
+R2R_F64 = (8192, 512)
+#: phase 31's (kind, n) at B = 4096, which reach every algorithm: odd n for
+#: the splits and redft11_odd, the primes 257 and 1021 for dht_rader, and
+#: 8192, above R2R_GENERIC_MAX, where no matmul is offered
+R2R_GRID_BATCH = 4096
+R2R_GRID = [("dht", 1024), ("dht", 1021), ("dht", 257), ("r2hc", 512),
+            ("r2hc", 17), ("hc2r", 512), ("hc2r", 17), ("redft10", 512),
+            ("redft01", 512), ("redft00", 513), ("redft00", 16),
+            ("rodft00", 511), ("rodft00", 16), ("redft11", 512),
+            ("redft11", 511), ("rodft10", 512), ("rodft01", 511),
+            ("rodft11", 512), ("redft10", 4096), ("redft10", 8192),
+            ("dht", 8192), ("rodft11", 8192)]
+
 #: a ``fftw3_tpu`` wisdom export (reference format) that pins
 #: plan_many_dft([4096], howmany=4096) to the four-step pallas4-32x128: the
 #: reference package's own ESTIMATE export for that problem, as
@@ -195,6 +235,28 @@ REFERENCE_WISDOM_WIDE = """{
  }
 }"""
 WIDE_DESC = {"alg": "pallas", "n": N4, "radices": [64, 64], "vpu": "all"}
+
+#: r2r plans pinned by a reference-format wisdom import (:func:`r2r_wisdom`),
+#: as ``bench_dct2``'s ``_mkplans("pallas")`` (bench.py:415-433) pinned the
+#: DCT-II cell on the TPU: name -> (kind, n, batch, descriptor);
+#: ``tests/test_torch_r2r.py`` checks each against the reference's own
+#: export
+R2R_PINS = {
+    "dct2 K4": ("redft10", 512, 65536, {
+        "alg": "redft10_half", "n": 512,
+        "child": {"alg": "pallas_r2c", "n": 512, "radices": [256]}}),
+    "dct2 matmul": ("redft10", 512, 65536, {
+        "alg": "r2r_matmul", "kind": "redft10", "n": 512}),
+    "dct3 K6": ("redft01", 512, 65536, {
+        "alg": "redft01_half", "n": 512,
+        "child": {"alg": "pallas_c2r", "n": 512, "radices": [256]}}),
+    "dct4 K1": ("redft11", 512, 65536, {
+        "alg": "redft11_2n", "n": 512,
+        "child": {"alg": "pallas", "n": 1024, "radices": [64, 16]}}),
+    "cube K4": ("redft10", 256, 65536, {
+        "alg": "redft10_half", "n": 256,
+        "child": {"alg": "pallas_r2c", "n": 256, "radices": [128]}}),
+}
 
 #: a ``fftw3_tpu`` wisdom export (reference format) that pins complex128
 #: plan_many_dft([1024], howmany=8192) and the axes of plan_many_dft([512,
@@ -262,7 +324,8 @@ COUNTERS = {"stockham_c2c": (S, "launches"),
             "r2c": (RS, "r2c_launches"),
             "r2c_inner": (RS, "r2c_inner_launches"),
             "c2r": (RS, "c2r_launches"),
-            "df32_c2c": (df32, "launches")}
+            "df32_c2c": (df32, "launches"),
+            "probe_matmul": (toolchain_probe, "launches")}
 
 
 def fail(msg: str) -> None:
@@ -821,7 +884,8 @@ def profile_paths(rng, dev, group) -> None:
     """``torch.profiler`` breakdowns, group ``c2c``: the 3-D, 2-D batched
     and four-step paths: wall and device time per call, idle share, time
     per kernel (the 3-D path must show K2 and K3 and no other kernel, no
-    copy); group ``real``: :func:`profile_real_paths`."""
+    copy); groups ``real``, ``f64`` and ``r2r``: :func:`profile_real_paths`,
+    :func:`profile_f64_paths` and :func:`profile_r2r_paths`."""
     smi_line = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
@@ -831,6 +895,9 @@ def profile_paths(rng, dev, group) -> None:
         return
     if group == "f64":
         profile_f64_paths(rng, dev, smi_line)
+        return
+    if group == "r2r":
+        profile_r2r_paths(rng, dev, smi_line)
         return
     cube = (CUBE,) * 3
     p3 = ft.plan_dft_3d(*cube, device="cuda")
@@ -1020,13 +1087,424 @@ def copy_floor_phase(rng, dev, smi_line):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# P1, the toolchain canary (phase 2), and the r2r path (phases 27-34)
+# ---------------------------------------------------------------------------
+
+def probe_phase(dev, smi_line):
+    """P1 right after the build: ``toolchain_probe.run_probes`` must PASS
+    (every ``csrc/*.cu`` built, the probe kernel launched and computed
+    G @ x).  Then the probe kernel against its twin and float64 at the
+    probe's 128 x 128, and its time beside ``torch.matmul``'s.  Returns
+    P1's row of the kernels line (launches: the probe's own)."""
+    reset_counts()
+    res = toolchain_probe.run_probes(sys.stdout)
+    counts = read_counts()
+    check(res == {"build_launch": True}, f"toolchain probes: {res}")
+    check(counts == only(probe_matmul=2),
+          f"the probe launched {counts}, not two probe kernels")
+    n = toolchain_probe.N
+    prng = np.random.default_rng(1)
+    g, x = (torch.from_numpy(prng.standard_normal((n, n), np.float32))
+            .to(dev) for _ in range(2))
+    y = toolchain_probe.matmul_cuda(g, x)
+    tw = toolchain_probe.matmul_torch(g, x)
+    err = float((y - tw).abs().max())
+    rel = err / float(tw.abs().max())
+    e64 = relerr(y.double(), g.double() @ x.double())
+    check(rel <= TOL and e64 <= TOL,
+          f"probe kernel: kernel-twin {rel:.2e}, kernel-f64 {e64:.2e}")
+    row = {"name": "probe_matmul", "route": "cuda",
+           "source": "fftw3_tpu_torch/csrc/probe.cu",
+           "replaces": "fftw3_tpu/toolchain_probe.py:112",
+           "launches": counts["probe_matmul"], "max_abs_err": err,
+           "rel_err": rel,
+           "ms": time_ms(toolchain_probe.matmul_cuda, (g, x)),
+           "plain_ms": time_ms(toolchain_probe.matmul_torch, (g, x)),
+           "library_ms": time_ms(torch.matmul, (g, x))}
+    row["bound_ms"], row["bound_by"] = bound(3 * 4.0 * n * n, 2.0 * n ** 3)
+    print(f"[2] P1 probe kernel ({n}, {n}): {row['ms'] * 1e3:.2f} us, twin "
+          f"{row['plain_ms'] * 1e3:.2f} us, torch.matmul "
+          f"{row['library_ms'] * 1e3:.2f} us, bound "
+          f"{row['bound_ms'] * 1e3:.3f} us ({row['bound_by']}; the kernel's "
+          f"time is launch latency); kernel-twin max abs {err:.2e}, "
+          f"kernel-f64 {e64:.2e} ({smi_line})")
+    return row
+
+
+def r2r_wisdom(name: str) -> str:
+    """``R2R_PINS[name]`` as a ``fftw3_tpu`` wisdom export (reference
+    format): the entry ``bench_dct2``'s ``_mkplans`` puts in the reference
+    planner (patience 99), under the reference's CPU signature, which
+    ``import_reference_wisdom`` re-keys to the card."""
+    kind, n, batch, desc = R2R_PINS[name]
+    sig = "cpu-cpu-jax0.9.0-jl0.9.0-pvd9747e2d"
+    key = f"{kind}:{n}:float32:{sig}:b{P._batch_bucket(batch)}"
+    return json.dumps({"format": P.REFERENCE_WISDOM_FORMAT,
+                       "signature": sig,
+                       "entries": {key: {"desc": desc, "patience": 99,
+                                         "cost": 0.0}}}, indent=1)
+
+
+def r2r_oracle(kind: str, x: np.ndarray) -> np.ndarray:
+    """float64 r2r of the last axis of numpy `x`, FFTW's unnormalized
+    definitions: scipy.fft's DCT/DST (norm=None is FFTW's), its FFT for DHT
+    and the halfcomplex pair."""
+    import scipy.fft as sf
+    typed = {"redft00": (sf.dct, 1), "redft10": (sf.dct, 2),
+             "redft01": (sf.dct, 3), "redft11": (sf.dct, 4),
+             "rodft00": (sf.dst, 1), "rodft10": (sf.dst, 2),
+             "rodft01": (sf.dst, 3), "rodft11": (sf.dst, 4)}
+    x = np.asarray(x, np.float64)
+    if kind in typed:
+        fn, t = typed[kind]
+        return fn(x, type=t, axis=-1, workers=-1)
+    n = x.shape[-1]
+    h = (n + 1) // 2
+    if kind == "dht":
+        X = sf.fft(x, axis=-1, workers=-1)
+        return X.real - X.imag
+    if kind == "r2hc":
+        X = sf.rfft(x, axis=-1, workers=-1)
+        return np.concatenate([X.real, X.imag[..., 1:h][..., ::-1]], -1)
+    X = x[..., :n // 2 + 1].astype(np.complex128)
+    X.imag[..., 1:h] = x[..., n // 2 + 1:][..., ::-1]
+    return sf.irfft(X, n, axis=-1, workers=-1) * n                 # hc2r
+
+
+def oracle_err(kind: str, x: torch.Tensor, y: torch.Tensor) -> float:
+    """Max-abs error over max-abs of all of `y` against the float64 oracle
+    of `x`, after checking that `y` is finite and of `x`'s shape."""
+    check(tuple(y.shape) == tuple(x.shape), f"{kind}: shape {y.shape}")
+    check(bool(torch.isfinite(y).all()), f"{kind}: non-finite output")
+    want = r2r_oracle(kind, x.double().cpu().numpy())
+    got = y.double().cpu().numpy()
+    return float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+
+
+def launched(counts) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def r2r_plan(shape, kind, label, pin=None, flags=None):
+    """plan_r2r over the last axis of `shape` on the card, from no wisdom,
+    or pinned by ``r2r_wisdom(pin)``."""
+    ft.forget_wisdom()
+    if pin is not None:
+        check(ft.import_reference_wisdom(r2r_wisdom(pin), device="cuda"),
+              f"reference wisdom {pin} refused")
+    t0 = time.perf_counter()
+    p = ft.plan_r2r(shape, [kind], axes=(len(shape) - 1,), device="cuda",
+                    flags=ft.ESTIMATE if flags is None else flags)
+    if pin is not None:
+        check(p.descriptors == {len(shape) - 1: R2R_PINS[pin][3]},
+              f"{label}: pinned plan {p!r}")
+    return p, time.perf_counter() - t0
+
+
+def run_counted(fn, *args):
+    """(output, launches) of one call with every count set to 0 first."""
+    torch.cuda.synchronize()
+    reset_counts()
+    y = fn(*args)
+    torch.cuda.synchronize()
+    return y, read_counts()
+
+
+def r2r_phases(rng, dev, smi_line, seed):
+    """Phases 27-34, the r2r path; returns the results of its JSON line."""
+    f32 = np.float32
+    pl = ft.the_planner
+    res = {"card": smi_line}
+
+    # -- 27. the suite cell: DCT-II at (65536, 512), four arms --------------
+    B, n = R2R_1D
+    x = real_rows(rng, R2R_1D, dev)
+    arms, out27 = {}, {}
+    for label, pin, flags in (("ESTIMATE", None, None),
+                              ("MEASURE", None, ft.MEASURE),
+                              ("K4 pinned", "dct2 K4", None),
+                              ("matmul pinned", "dct2 matmul", None)):
+        nm = pl.stats["nmeasure"]
+        p, secs = r2r_plan(R2R_1D, "redft10", label, pin, flags)
+        if label == "MEASURE":
+            raced = pl._candidates("redft10", n, f32, K.PATIENCE_MEASURE, B, dev)
+            print(f"[27] MEASURE raced {[P.sprint_desc(d) for d in raced]} "
+                  f"({pl.stats['nmeasure'] - nm} candidates timed over the "
+                  f"whole search, {pl.stats['nmeasure_failed']} failed) in "
+                  f"{secs:.1f} s; picked {P.sprint_desc(p.descriptors[1])}")
+            check(pl.stats["nmeasure_failed"] == 0,
+                  f"MEASURE: {pl.stats.get('last_measure_error')}")
+        y, c = run_counted(p.apply_split, x)
+        e = oracle_err("redft10", x, y)
+        check(e <= TOL, f"DCT-II {label}: rel err {e:.2e}")
+        print(f"[27] DCT-II {R2R_1D} {label}: {p!r}; launches per call "
+              f"{launched(c)}; rel err vs float64 (all rows) {e:.2e}")
+        arms[label] = p
+        out27[label] = {"desc": P.sprint_desc(p.descriptors[1]),
+                        "launches": launched(c), "rel_err": e}
+        del y
+    check(out27["K4 pinned"]["launches"] == {"r2c": 1},
+          f"the K4 arm launched {out27['K4 pinned']['launches']}")
+    check(out27["matmul pinned"]["launches"] == {},
+          "the matmul arm launched a kernel of the port")
+    yk, c = run_counted(arms["K4 pinned"].execute, x)
+    check(launched(c) == {"r2c": 1}, f"execute launched {c}")
+    check(oracle_err("redft10", x, yk) <= TOL, "DCT-II execute")
+    del yk
+    # K4 against its twin over every row, at the (65536, 512) and on the
+    # Makhoul-permuted rows that the pinned arm hands it
+    twins = {}
+    rad = R2R_PINS["dct2 K4"][3]["child"]["radices"]
+    xp = x.index_select(-1, r2r._makhoul_index(n, False, dev))
+    k4r, k4i = RS.r2c_cuda(xp, rad, RS._device_table(n, tuple(rad), -1, dev))
+    tr, ti = RS.r2c_torch(xp, rad)
+    twins["r2c"] = twin_err(f"K4 {tuple(xp.shape)} on the DCT-II path", k4r,
+                            k4i, tr, ti)
+    print(f"[27] K4 {tuple(xp.shape)} ({S.form_label(rad)}) on the DCT-II "
+          f"path's rows: kernel-twin max abs {twins['r2c'][0]:.2e}, rel "
+          f"{twins['r2c'][1]:.2e} (all rows)")
+    del xp, tr, ti
+    times = {label: [] for label in arms}
+    for label in list(arms) + list(arms)[::-1]:
+        times[label].append(time_ms(arms[label].apply_split, (x,)))
+    t_rfft = time_ms(torch.fft.rfft, (x,))
+    b27, by27 = bound(8.0 * B * n, 0.0)
+    for label, ts in times.items():
+        out27[label]["ms"] = ts
+        print(f"[27] DCT-II {label}: {ts[0]:.3f} / {ts[1]:.3f} ms "
+              f"({smi_line})")
+    print(f"[27] torch.fft.rfft {R2R_1D} (the reduction's floor; PyTorch "
+          f"has no DCT) {t_rfft:.3f} ms; bound {b27:.3f} ms ({by27}: 4 B "
+          f"in, 4 B out per point) ({smi_line})")
+    # the gradient of the K4 arm: the transpose of the kind matrix
+    M = torch.from_numpy(matrices.r2r_matrix("redft10", n)).to(dev)
+    xg = x.clone().requires_grad_()
+    gy = real_rows(rng, R2R_1D, dev)
+    torch.cuda.synchronize()
+    reset_counts()
+    arms["K4 pinned"].apply_split(xg).backward(gy)
+    torch.cuda.synchronize()
+    cg = launched(read_counts())
+    eg = relerr(xg.grad.double(), gy.double() @ M.T)
+    print(f"[27] gradient of the K4 arm: launches forward + backward {cg}; "
+          f"rel err vs float64 g @ M^T (all rows) {eg:.2e}")
+    check(eg <= TOL and cg.get("r2c") == 1, "DCT-II K4 gradient")
+    res["dct2"] = {"shape": R2R_1D, "arms": out27, "rfft_ms": t_rfft,
+                   "bound_ms": b27, "bound_by": by27,
+                   "measure_pick": out27["MEASURE"]["desc"],
+                   "grad_rel_err": eg, "grad_launches": cg}
+    del xg, gy, M
+    torch.cuda.empty_cache()
+
+    # -- 28. DCT-III pinned to K6; the round trip --------------------------
+    p3, _ = r2r_plan(R2R_1D, "redft01", "DCT-III", "dct3 K6")
+    y2 = arms["K4 pinned"].apply_split(x)
+    z, c = run_counted(p3.apply_split, y2)
+    check(launched(c) == {"c2r": 1}, f"the DCT-III arm launched {c}")
+    # K6 against its twin over every row at the arm's (65536, 257) planes,
+    # on the half spectra K4 gave above
+    rad3 = R2R_PINS["dct3 K6"][3]["child"]["radices"]
+    k6 = RS.c2r_cuda(k4r, k4i, rad3, RS._device_table(n, tuple(rad3), +1, dev))
+    t6 = RS.c2r_torch(k4r, k4i, rad3)
+    twins["c2r"] = twin_err(f"K6 {tuple(k4r.shape)} on the DCT-III path", k6,
+                            torch.zeros_like(k6), t6, torch.zeros_like(t6))
+    print(f"[28] K6 {tuple(k4r.shape)} -> {tuple(k6.shape)} "
+          f"({S.form_label(rad3)}): kernel-twin max abs "
+          f"{twins['c2r'][0]:.2e}, rel {twins['c2r'][1]:.2e} (all rows)")
+    del k4r, k4i, k6, t6
+    N2 = K.logical_size(ft.Kind.REDFT10, n)
+    e_rt = relerr(z, N2 * x)
+    e3 = oracle_err("redft01", y2, z)
+    t3 = time_ms(p3.apply_split, (y2,))
+    print(f"[28] DCT-III {R2R_1D} {p3!r}: launches {launched(c)}; "
+          f"DCT-III(DCT-II(x)) vs {N2} x {e_rt:.2e}; vs float64 {e3:.2e}; "
+          f"{t3:.3f} ms ({smi_line})")
+    check(e_rt <= TOL and e3 <= TOL, "DCT-III")
+    res["dct3"] = {"desc": P.sprint_desc(p3.descriptors[1]), "ms": t3,
+                   "launches": launched(c), "rel_err": e3,
+                   "roundtrip_rel_err": e_rt}
+    del y2, z, p3, arms
+
+    # -- 29. DHT at (65536, 1024) under ESTIMATE ---------------------------
+    pd, _ = r2r_plan(R2R_DHT, "dht", "DHT")
+    xd = real_rows(rng, R2R_DHT, dev)
+    yd, c = run_counted(pd.apply_split, xd)
+    ed = oracle_err("dht", xd, yd)
+    desc = pd.descriptors[1]
+    on_k4 = desc["alg"] == "dht_via_r2c" and \
+        desc["child"]["alg"] == "pallas_r2c"
+    if on_k4:
+        check(launched(c) == {"r2c": 1}, f"the DHT plan launched {c}")
+    td = time_ms(pd.apply_split, (xd,))
+    trd = time_ms(torch.fft.rfft, (xd,))
+    print(f"[29] DHT {R2R_DHT} ESTIMATE {pd!r} ({'on K4' if on_k4 else 'not on K4'}); "
+          f"launches {launched(c)}; rel err {ed:.2e}; {td:.3f} ms, "
+          f"torch.fft.rfft {trd:.3f} ms ({smi_line})")
+    check(ed <= TOL, "DHT")
+    res["dht"] = {"desc": P.sprint_desc(desc), "ms": td, "rfft_ms": trd,
+                  "launches": launched(c), "rel_err": ed}
+    del xd, yd, pd
+
+    # -- 30. DCT-IV pinned to the 2n route on K1 ---------------------------
+    p4, _ = r2r_plan(R2R_1D, "redft11", "DCT-IV", "dct4 K1")
+    y4, c = run_counted(p4.apply_split, x)
+    check(launched(c) == {"stockham_c2c": 1}, f"the DCT-IV arm launched {c}")
+    # K1 against its twin over every row, on the pre-twiddled, zero-padded
+    # (65536, 1024) planes that the arm hands it
+    rad4 = R2R_PINS["dct4 K1"][3]["child"]["radices"]
+    wjr, wji, _, _ = r2r._dct4_twiddles(n, f32, dev)
+    pad = torch.nn.functional.pad
+    ar, ai = pad(x * wjr, (0, n)), pad(x * wji, (0, n))
+    kr, ki = S.stockham_c2c_cuda(ar, ai, rad4, S._device_table(
+        2 * n, tuple(rad4), -1, dev))
+    tr, ti = S.stockham_c2c_torch(ar, ai, rad4, -1)
+    twins["stockham_c2c"] = twin_err(f"K1 {tuple(ar.shape)} on the DCT-IV "
+                                     f"path", kr, ki, tr, ti)
+    print(f"[30] K1 {tuple(ar.shape)} ({S.form_label(rad4)}) on the DCT-IV "
+          f"path's planes: kernel-twin max abs "
+          f"{twins['stockham_c2c'][0]:.2e}, rel "
+          f"{twins['stockham_c2c'][1]:.2e} (all rows)")
+    del ar, ai, kr, ki, tr, ti
+    e4 = oracle_err("redft11", x, y4)
+    t4 = time_ms(p4.apply_split, (x,))
+    print(f"[30] DCT-IV {R2R_1D} {p4!r}: launches {launched(c)}; rel err "
+          f"{e4:.2e}; {t4:.3f} ms ({smi_line})")
+    check(e4 <= TOL, "DCT-IV")
+    res["dct4"] = {"desc": P.sprint_desc(p4.descriptors[1]), "ms": t4,
+                   "launches": launched(c), "rel_err": e4}
+    del x, y4, p4
+    torch.cuda.empty_cache()
+
+    # -- 31. every kind and algorithm over a case grid ---------------------
+    seen, worst, ncases = set(), 0.0, 0
+    grid_pl = P.Planner()
+    for kind, m in R2R_GRID:
+        xg = real_rows(rng, (R2R_GRID_BATCH, m), dev)
+        for d in grid_pl._candidates(kind, m, f32, 0, R2R_GRID_BATCH, dev):
+            fn = r2r.build_r2r(d, f32, dev)
+            y, c = run_counted(fn, xg)
+            e = oracle_err(kind, xg, y)
+            print(f"[31] {kind} n={m} {P.sprint_desc(d)}: launches "
+                  f"{launched(c)}; rel err {e:.2e}")
+            check(e <= TOL, f"{kind} n={m} {P.sprint_desc(d)}: {e:.2e}")
+            seen.add(d["alg"])
+            worst, ncases = max(worst, e), ncases + 1
+            del y
+        del xg
+    check(seen == r2r.ALGS, f"the grid missed {sorted(r2r.ALGS - seen)}")
+    print(f"[31] {ncases} cases at B={R2R_GRID_BATCH}, all "
+          f"{len(seen)} algorithms, worst rel err {worst:.2e}")
+    res["grid"] = {"cases": ncases, "algorithms": len(seen),
+                   "worst_rel_err": worst}
+
+    # -- 32. 3-D DCT-II, the Neumann Poisson transform ---------------------
+    cube = (R2R_CUBE,) * 3
+    xc = real_rows(rng, cube, dev)
+    Mc = torch.from_numpy(matrices.r2r_matrix("redft10", R2R_CUBE)).to(dev)
+    want = torch.einsum("ijk,ia,jb,kc->abc", xc.double(), Mc, Mc, Mc)
+    # K4 against its twin over every row at the pinned cube's last axis:
+    # (65536, 256) Makhoul-permuted rows
+    radc = R2R_PINS["cube K4"][3]["child"]["radices"]
+    xp = xc.reshape(-1, R2R_CUBE).index_select(
+        -1, r2r._makhoul_index(R2R_CUBE, False, dev))
+    kr, ki = RS.r2c_cuda(xp, radc, RS._device_table(R2R_CUBE, tuple(radc),
+                                                    -1, dev))
+    tr, ti = RS.r2c_torch(xp, radc)
+    twins["r2c cube"] = twin_err(f"K4 {tuple(xp.shape)} on the 3-D DCT-II "
+                                 f"path", kr, ki, tr, ti)
+    print(f"[32] K4 {tuple(xp.shape)} ({S.form_label(radc)}) on the 3-D "
+          f"path's last-axis rows: kernel-twin max abs "
+          f"{twins['r2c cube'][0]:.2e}, rel {twins['r2c cube'][1]:.2e} "
+          f"(all rows)")
+    del xp, kr, ki, tr, ti
+    out32 = {}
+    for label, pin in (("ESTIMATE", None), ("K4 pinned", "cube K4")):
+        ft.forget_wisdom()
+        if pin:
+            check(ft.import_reference_wisdom(r2r_wisdom(pin), device="cuda"),
+                  "cube wisdom refused")
+        p = ft.plan_r2r_3d(*cube, "redft10", "redft10", "redft10",
+                           device="cuda")
+        if pin:
+            check(all(d == R2R_PINS[pin][3] for d in p.descriptors.values()),
+                  f"pinned cube {p!r}")
+        y, c = run_counted(p.apply_split, xc)
+        e = relerr(y.double(), want)
+        if pin:
+            check(launched(c) == {"r2c": 3},
+                  f"the pinned cube launched {c}")
+        t = time_ms(p.apply_split, (xc,))
+        print(f"[32] plan_r2r_3d{cube} REDFT10 x3 {label}: {p!r}; launches "
+              f"{launched(c)} (axes 0 and 1 behind movedim; phase 34 "
+              f"profiles it); rel err vs float64 {e:.2e}; {t:.3f} ms "
+              f"({smi_line})")
+        check(e <= TOL, f"3-D DCT-II {label}: {e:.2e}")
+        out32[label] = {"desc": repr(p), "ms": t, "launches": launched(c),
+                        "rel_err": e}
+        del y
+    b32, by32 = bound(8.0 * xc.numel(), 0.0)
+    res["cube"] = {"shape": cube, "arms": out32, "bound_ms": b32,
+                   "bound_by": by32}
+    res["twins"] = {k: {"max_abs_err": e, "rel_err": r}
+                    for k, (e, r) in twins.items()}
+    del xc, want, Mc
+    torch.cuda.empty_cache()
+
+    # -- 33. float64 DCT-II under ESTIMATE (the eager df32 child) ----------
+    ft.forget_wisdom()
+    p64 = ft.plan_r2r(R2R_F64, ["redft10"], axes=(1,), dtype="float64",
+                      device="cuda")
+    x64 = torch.from_numpy(rng.standard_normal(R2R_F64)).to(dev)
+    y64, c = run_counted(p64.apply_split, x64)
+    e64 = oracle_err("redft10", x64, y64)
+    t64 = time_few(p64.apply_split, (x64,))
+    print(f"[33] float64 DCT-II {R2R_F64} ESTIMATE {p64!r}: launches "
+          f"{launched(c)}; rel err {e64:.2e}; {t64:.3f} ms ({smi_line})")
+    check(e64 <= F64_TOL, f"float64 DCT-II: {e64:.2e}")
+    res["f64"] = {"shape": R2R_F64, "desc": P.sprint_desc(p64.descriptors[1]),
+                  "ms": t64, "launches": launched(c), "rel_err": e64}
+    del x64, y64, p64
+    torch.cuda.empty_cache()
+
+    # -- 34. the r2r paths profiled in a fresh process ---------------------
+    sys.stdout.flush()
+    r = subprocess.run([sys.executable, __file__, "--profile-paths", "r2r",
+                        "--seed", str(seed)], timeout=600)
+    check(r.returncode == 0, "the profile of the r2r paths failed")
+    return res
+
+
+def profile_r2r_paths(rng, dev, smi_line) -> None:
+    """``torch.profiler`` breakdowns of the r2r paths: the pinned K4 DCT-II
+    at (65536, 512) (the gather, twiddle and concatenation passes beside
+    K4), the ESTIMATE DHT at (65536, 1024) and the pinned 3-D DCT-II (K4
+    behind ``movedim``)."""
+    x = real_rows(rng, R2R_1D, dev)
+    p, _ = r2r_plan(R2R_1D, "redft10", "DCT-II", "dct2 K4")
+    profile_calls(f"DCT-II K4 pinned {R2R_1D} apply_split", p.apply_split,
+                  (x,), smi_line, tag="[34]")
+    del x, p
+    p, _ = r2r_plan(R2R_DHT, "dht", "DHT")
+    profile_calls(f"DHT ESTIMATE {R2R_DHT} apply_split", p.apply_split,
+                  (real_rows(rng, R2R_DHT, dev),), smi_line, tag="[34]")
+    del p
+    ft.forget_wisdom()
+    check(ft.import_reference_wisdom(r2r_wisdom("cube K4"), device="cuda"),
+          "cube wisdom refused")
+    cube = (R2R_CUBE,) * 3
+    p = ft.plan_r2r_3d(*cube, "redft10", "redft10", "redft10", device="cuda")
+    profile_calls(f"plan_r2r_3d{cube} K4 pinned apply_split", p.apply_split,
+                  (real_rows(rng, cube, dev),), smi_line, tag="[34]")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--profile-paths", choices=["c2c", "real", "f64"],
+    ap.add_argument("--profile-paths", choices=["c2c", "real", "f64", "r2r"],
                     help="only profile the c2c paths (3-D, 2-D batched, "
-                    "four-step), the real paths or the f64 path (the full "
-                    "run starts each in a child process)")
+                    "four-step), the real paths, the f64 path or the r2r "
+                    "paths (the full run starts each in a child process)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: torch sees no CUDA device", file=sys.stderr)
@@ -1059,6 +1537,7 @@ def main() -> None:
     for k, (regs, spill, stack) in sorted(_build.register_report().items()):
         print(f"[2] ptxas {k}: {regs} registers, {spill} bytes of spill "
               f"stores, {stack} bytes of stack frame")
+    p1_row = probe_phase(dev, smi_line)
 
     # -- 3. kernel vs twin vs float64 --------------------------------------
     for n, rad in CASES:
@@ -2129,6 +2608,9 @@ def main() -> None:
     k7_row = f64_phases(rng, dev, smi_line, args.seed, t_start)
     e5_rows = ablation_phase(rng, dev, smi_line, kernels[0])
     e8_rows = copy_floor_phase(rng, dev, smi_line)
+    print(f"[26] phases 1-26 done at {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+    r2r_res = r2r_phases(rng, dev, smi_line, args.seed)
 
     # the JSON line keeps one row per kernel: K3 at its 3-D path shape, K4
     # and K6 at the 1-D real path's shape
@@ -2138,12 +2620,13 @@ def main() -> None:
         if r["name"] in ("r2c", "c2r") and r["shape"][0] != REAL_1D[0]:
             continue
         kernels.append({k: v for k, v in r.items() if k != "shape"})
-    kernels += [wide_row, k7_row]
+    kernels += [wide_row, k7_row, p1_row]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     kernels += e5_rows + e8_rows
 
-    print(f"[26] whole run {time.perf_counter() - t_start:.1f} s")
+    print(f"[34] whole run {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"r2r": r2r_res}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -1,21 +1,22 @@
-"""Public planned API — the c2c, r2c and c2r part of ``fftw3_tpu/api.py``.
+"""Public planned API — the planned part of ``fftw3_tpu/api.py``.
 
-FFTW-style: ``plan_dft*``, ``plan_many_dft``, ``plan_dft_r2c*`` and
-``plan_dft_c2r*`` build a :class:`Plan` for a device (``device=``, default
+FFTW-style: ``plan_dft*``, ``plan_many_dft``, ``plan_dft_r2c*``,
+``plan_dft_c2r*`` and ``plan_r2r*`` build a :class:`Plan` for a device (``device=``, default
 ``config.device``), ``execute`` runs it, and wisdom moves to and from
 strings.  Transforms are unnormalized, like FFTW's.
 """
 from __future__ import annotations
 
 import threading
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from . import plan as plan_mod
 from . import planner as planner_mod
-from .kinds import ESTIMATE, FORWARD
+from . import kinds as K
+from .kinds import ESTIMATE, FORWARD, Kind
 
 Plan = plan_mod.Plan
 Problem = plan_mod.Problem
@@ -128,6 +129,38 @@ def plan_dft_c2r_2d(n0: int, n1: int, flags: int = ESTIMATE,
 def plan_dft_c2r_3d(n0: int, n1: int, n2: int, flags: int = ESTIMATE,
                     dtype="float32", device=None) -> Plan:
     return plan_dft_c2r((n0, n1, n2), (0, 1, 2), flags, dtype, device)
+
+
+def plan_r2r(shape: Sequence[int], kinds, axes=None, flags: int = ESTIMATE,
+             dtype="float32", device=None) -> Plan:
+    """Real-to-real plan over `axes` of real tensors of `shape`, one kind
+    per axis (or one kind for all of them): a :class:`Kind`, its name or
+    its fftw3.h integer.  Unnormalized, like FFTW's r2r."""
+    shape = tuple(shape)
+    axes = _axes_tuple(shape, axes)
+    ks = tuple(K.kind_from_name(k)
+               for k in (kinds if isinstance(kinds, (list, tuple))
+                         else [kinds] * len(axes)))
+    prob = Problem(shape=shape, axes=axes, kind="r2r", r2r_kinds=ks,
+                   rdtype=_rdtype_of(dtype))
+    with _lock:
+        return plan_mod.make_plan(prob, flags, device=device)
+
+
+def plan_r2r_1d(n: int, kind: Union[Kind, str, int], flags: int = ESTIMATE,
+                dtype="float32", device=None) -> Plan:
+    return plan_r2r((n,), [kind], (0,), flags, dtype, device)
+
+
+def plan_r2r_2d(n0: int, n1: int, kind0, kind1, flags: int = ESTIMATE,
+                dtype="float32", device=None) -> Plan:
+    return plan_r2r((n0, n1), [kind0, kind1], (0, 1), flags, dtype, device)
+
+
+def plan_r2r_3d(n0: int, n1: int, n2: int, kind0, kind1, kind2,
+                flags: int = ESTIMATE, dtype="float32", device=None) -> Plan:
+    return plan_r2r((n0, n1, n2), [kind0, kind1, kind2], (0, 1, 2), flags,
+                    dtype, device)
 
 
 def execute(plan: Plan, x) -> torch.Tensor:

@@ -78,6 +78,8 @@ SIGNATURES = {
     "copy_inner_occupancy": [_I, ctypes.POINTER(_I)],
     "copy_rows_launch": [_P] * 4 + [_I] * 5 + [_P],
     "copy_rows_occupancy": [_I, ctypes.POINTER(_I)],
+    # P1 (probe.cu), the toolchain canary: g x y, n, stream
+    "probe_matmul_launch": [_P] * 3 + [_I, _P],
 }
 
 _lock = threading.Lock()

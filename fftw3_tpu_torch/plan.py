@@ -1,7 +1,7 @@
-"""Problem and Plan — the c2c, r2c and c2r part of ``fftw3_tpu/plan.py``.
+"""Problem and Plan — the port of ``fftw3_tpu/plan.py``.
 
 A :class:`Problem` is a logical transform spec (shape, axes, kind, sign,
-precision); strides and vector ranks are expressed by the tensor shape.  A
+r2r kinds, precision); strides and vector ranks are expressed by the tensor shape.  A
 :class:`Plan` is a composed function of tensors on one device plus
 introspection (op counts, printable tree), built from planner descriptors.
 
@@ -25,6 +25,10 @@ default: ``config.r2c_swapped`` (rank-2 r2c as K5 over axis -2, then the
 last-axis c2c, then a Hermitian rebuild).  The reference's other r2c option,
 the DC/Nyquist column pack, is not carried over: on the H100 it computes
 right but loses (PERF.md, ROADMAP queue 3).
+
+Real-to-real transforms (``ops/r2r.py``) run one 1-D r2r pass per axis, in
+the order of the axes, each with its own kind, the last axis as it is and
+every other one behind a ``movedim`` lift, as the reference composes them.
 """
 from __future__ import annotations
 
@@ -40,7 +44,17 @@ from . import kinds as K
 from . import planner as planner_mod
 from .ops import c2c as c2c_ops
 from .ops import fused2d, inner, real_stockham, stockham
+from .ops import r2r as r2r_ops
 from .ops import real as real_ops
+
+
+def _along_axis(fn: Callable, axis: int) -> Callable:
+    """Lift a last-axis real transform to an arbitrary axis."""
+    def apply(x):
+        if axis in (-1, x.dim() - 1):
+            return fn(x)
+        return fn(x.movedim(axis, -1)).movedim(-1, axis)
+    return apply
 
 
 def _along_axis_split(fn: Callable, axis: int) -> Callable:
@@ -147,13 +161,16 @@ class Problem:
     ``shape`` is the logical real (output) shape, as in FFTW."""
     shape: Tuple[int, ...]
     axes: Tuple[int, ...]
-    kind: str                      # 'c2c' | 'r2c' | 'c2r'
+    kind: str                      # 'c2c' | 'r2c' | 'c2r' | 'r2r'
     sign: int = K.FORWARD          # c2c only
+    r2r_kinds: Tuple[K.Kind, ...] = ()   # per axis, r2r only
     rdtype: str = "float32"        # base real precision
 
     def __post_init__(self):
         ax = tuple(a % len(self.shape) for a in self.axes)
         object.__setattr__(self, "axes", ax)
+        if self.kind == "r2r" and len(self.r2r_kinds) != len(ax):
+            raise ValueError("need one r2r kind per transform axis")
 
 
 class Plan:
@@ -174,7 +191,7 @@ class Plan:
         self.device = device
         #: the entry point on real tensors, differentiable; the form the
         #: kernels take: (xr, xi) -> (yr, yi) for c2c, x -> (yr, yi) for
-        #: r2c, (xr, xi) -> y for c2r
+        #: r2c, (xr, xi) -> y for c2r, x -> y for r2r
         self.apply_split = apply_split
 
     # -- execution (fftw_execute + new-array execute) ----------------------
@@ -184,7 +201,7 @@ class Plan:
     def execute(self, x) -> torch.Tensor:
         """Transform `x` (a tensor or array of ``in_shape``), moved to the
         plan's device and input dtype first: complex for c2c and c2r, real
-        for r2c."""
+        for r2c and r2r."""
         x = torch.as_tensor(x, device=self.device)
         if tuple(x.shape) != self.in_shape:
             raise ValueError(
@@ -226,9 +243,11 @@ class Plan:
 
 
 def _opcount_of(desc: Dict) -> Dict[str, float]:
-    """Op counts of one axis pass, by the descriptor's kind: the real
-    solvers' (the last axis of r2c/c2r, and K5 in the swapped route), else
-    c2c's."""
+    """Op counts of one axis pass, by the descriptor's kind: the r2r
+    solvers', the real solvers' (the last axis of r2c/c2r, and K5 in the
+    swapped route), else c2c's."""
+    if desc["alg"] in r2r_ops.ALGS:
+        return r2r_ops.r2r_opcount(desc)
     if desc["alg"] == "pallas_r2c_inner":
         return real_ops.r2c_opcount(dict(desc, alg="pallas_r2c"))
     if desc["alg"] in real_ops.ALGS:
@@ -263,11 +282,10 @@ def make_plan(problem: Problem, flags: int = K.ESTIMATE,
 
 def _make_plan_inner(problem: Problem, pl: planner_mod.Planner,
                      patience: int, device: torch.device) -> Plan:
-    build = {"c2c": _plan_c2c, "r2c": _plan_r2c,
-             "c2r": _plan_c2r}.get(problem.kind)
+    build = {"c2c": _plan_c2c, "r2c": _plan_r2c, "c2r": _plan_c2r,
+             "r2r": _plan_r2r}.get(problem.kind)
     if build is None:
-        raise NotImplementedError(
-            f"{problem.kind} plans are not ported yet (ROADMAP queue 1)")
+        raise ValueError(f"unknown problem kind {problem.kind!r}")
     rdtype = np.dtype(problem.rdtype)
     npoints = math.prod(problem.shape)
 
@@ -408,6 +426,30 @@ def _plan_c2r(problem, pl, patience, device, rdtype, vec) -> Plan:
     return Plan(problem, descriptors, apply_c2r, ins, shape,
                 c2c_ops.complex_dtype(rdtype), _real_dtype(rdtype), device,
                 apply_split=apply_split)
+
+
+def _plan_r2r(problem, pl, patience, device, rdtype, vec) -> Plan:
+    # one r2r pass per axis, each planned at its own vector size
+    shape = problem.shape
+    nd = len(shape)
+    descriptors: Dict[int, Dict] = {}
+    stages: List[Callable] = []
+    for a, kind in zip(problem.axes, problem.r2r_kinds):
+        desc = pl.plan_r2r(kind, shape[a], rdtype, patience, batch=vec(a),
+                           device=device)
+        descriptors[a] = desc
+        stages.append(_along_axis(r2r_ops.build_r2r(desc, rdtype, device),
+                                  a - nd))
+
+    def apply_r2r(x):
+        _check_trailing(shape, x)
+        for s in stages:
+            x = s(x)
+        return x
+
+    rt = _real_dtype(rdtype)
+    return Plan(problem, descriptors, apply_r2r, shape, shape, rt, rt,
+                device, apply_split=apply_r2r)
 
 
 def _real_dtype(rdtype) -> torch.dtype:

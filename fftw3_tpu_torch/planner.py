@@ -1,8 +1,9 @@
 """The planner: cost-driven algorithm search with persistent wisdom — the
-c2c, r2c and c2r part of ``fftw3_tpu/planner.py``, the double-float
-candidates of complex128 plans included.
+port of ``fftw3_tpu/planner.py`` (c2c, r2c, c2r and the eleven r2r kinds),
+the double-float candidates of complex128 plans included.
 
-A memoized recursive search over the registered c2c, r2c and c2r solvers,
+A memoized recursive search over the registered c2c, r2c, c2r and r2r
+solvers,
 with an ESTIMATE cost model, a MEASURE mode that times built candidates on
 the plan's device, the patience ladder, and JSON wisdom memoizing results per
 (kind, n, dtype, device, batch bucket).  The search is the reference's,
@@ -29,6 +30,7 @@ from . import config
 from . import kinds as K
 from .ops import c2c as c2c_ops
 from .ops import df32
+from .ops import r2r as r2r_ops
 from .ops import real as real_ops
 from .ops import real_stockham, stockham
 from .utils import primes
@@ -68,8 +70,8 @@ HW = HardwareModel()
 DIRECT_MAX = 128
 #: Cap for the O(n^2) last-resort dense solver (dft-generic analog).
 GENERIC_MAX = 2048
-#: Cap for the dense real solvers (``r2c_dense``/``c2r_dense``), the
-#: reference's value.
+#: Cap for the dense real solvers (``r2c_dense``/``c2r_dense``) and the dense
+#: r2r kind matrix (``r2r_matmul``), the reference's value.
 R2R_GENERIC_MAX = 4096
 
 #: f64 slowdowns of the reference's cost model, kept so that complex128
@@ -147,9 +149,12 @@ def _c2c_cost(desc: Dict, hw: HardwareModel = HW, f64: bool = False) -> float:
 def _model_cost(kind: str, desc: Dict, hw: HardwareModel = HW,
                 f64: bool = False) -> float:
     """Estimated seconds per single 1-D transform of a `kind` descriptor:
-    :func:`_c2c_cost` for c2c, and the reference's r2c/c2r formulas."""
+    :func:`_c2c_cost` for c2c, the reference's r2c/c2r formulas, and
+    :func:`_r2r_cost` for every other kind."""
     if kind == "c2c":
         return _c2c_cost(desc, hw, f64)
+    if kind not in ("r2c", "c2r"):
+        return _r2r_cost(desc, hw, f64)
     alg, n = desc["alg"], desc["n"]
     if alg in ("pallas_r2c", "pallas_c2r"):
         # one fused pass plus the contraction time of the m-point stages
@@ -170,6 +175,40 @@ def _model_cost(kind: str, desc: Dict, hw: HardwareModel = HW,
     raise ValueError(alg)
 
 
+#: the kind of each r2r reduction's child
+_R2R_CHILD = {"dht_via_r2c": "r2c", "r2hc_via_r2c": "r2c",
+              "hc2r_via_c2r": "c2r", "redft10_half": "r2c",
+              "redft01_half": "c2r", "redft00_ext": "r2c",
+              "rodft00_ext": "r2c", "redft11_2n": "c2c",
+              "rodft10_flip": "redft10", "rodft01_flip": "redft01",
+              "rodft11_flip": "redft11", "redft11_odd": "r2hc"}
+
+
+def _r2r_cost(desc: Dict, hw: HardwareModel = HW, f64: bool = False
+              ) -> float:
+    """The reference's r2r formulas: the dense kind matrix, or a child's
+    cost plus the reduction's passes (two for a real child, one for an r2r
+    child)."""
+    alg, n = desc["alg"], desc["n"]
+    if alg == "r2r_matmul":
+        mxu = hw.peak_flops / (_F64_MXU_PENALTY if f64 else 1.0)
+        return 8.0 * n / hw.hbm_bw + 2.0 * n * n / (mxu * hw.matmul_eff(n))
+    if alg in ("redft00_split", "rodft00_split"):
+        # two half-size r2r children + one recombination pass
+        return (_r2r_cost(desc["children"][0], hw, f64)
+                + _r2r_cost(desc["children"][1], hw, f64)
+                + 8.0 * n / hw.hbm_bw)
+    if alg == "dht_rader":
+        # real convolution children + permute/pointwise passes
+        return (_model_cost("r2c", desc["children"][0], hw, f64)
+                + _model_cost("c2r", desc["children"][1], hw, f64)
+                + 16.0 * n / hw.hbm_bw)
+    child = _R2R_CHILD[alg]
+    if child not in ("c2c", "r2c", "c2r"):
+        return _r2r_cost(desc["child"], hw, f64) + 8.0 * n / hw.hbm_bw
+    return _model_cost(child, desc["child"], hw, f64) + 16.0 * n / hw.hbm_bw
+
+
 def _mixed_factor_candidates(n: int, patience: int) -> List[int]:
     """Divisor choices p<=DIRECT_MAX for one Cooley-Tukey split, best first:
     p close to sqrt(n) first, then larger p (fftw_choose_radix's role)."""
@@ -186,8 +225,10 @@ def _mixed_factor_candidates(n: int, patience: int) -> List[int]:
     return divs[:width]
 
 
+#: the r2r kinds' names, as wisdom keys and descriptors spell them
+R2R_KIND_NAMES = tuple(k.value for k in K.R2R_KINDS)
 #: problem kinds with solvers in this package
-KINDS = ("c2c", "r2c", "c2r")
+KINDS = ("c2c", "r2c", "c2r") + R2R_KIND_NAMES
 
 #: wisdom format of this package.  Keys carry the batch bucket (":b<N>").
 WISDOM_FORMAT = "fftw3-tpu-torch-wisdom-1"
@@ -244,12 +285,16 @@ class Planner:
                  batch: Optional[int] = None, device=None) -> Dict:
         return self._plan("c2r", n, rdtype, patience, batch, device)
 
+    def plan_r2r(self, kind: K.Kind, n: int, rdtype, patience: int,
+                 batch: Optional[int] = None, device=None) -> Dict:
+        return self._plan(K.kind_from_name(kind).value, n, rdtype, patience,
+                          batch, device)
+
     # -- core search --------------------------------------------------------
     def _plan(self, kind: str, n: int, rdtype, patience: int,
               batch: Optional[int] = None, device=None) -> Dict:
         if kind not in KINDS:
-            raise NotImplementedError(
-                f"{kind} planning is not ported yet (ROADMAP queue 1)")
+            raise ValueError(f"unknown transform kind {kind!r}")
         device = torch.device(config.device if device is None else device)
         key = self._key(kind, n, rdtype, batch, device)
         hit = self.wisdom.get(key)
@@ -264,8 +309,11 @@ class Planner:
                                     and self._budget_subsumes(hit,
                                                               patience))):
             # wisdom-bogosity recovery rung 1: a structurally invalid entry
-            # is dropped and planning falls through to a fresh search
-            if validate_desc(kind, n, hit.get("desc")):
+            # is dropped and planning falls through to a fresh search; so
+            # is a dense r2r product while float32 products may be TF32
+            if validate_desc(kind, n, hit.get("desc")) and (
+                    r2r_ops.dense_exact(rdtype)
+                    or "r2r_matmul" not in json.dumps(hit["desc"])):
                 self.stats["nwisdom_hit"] += 1
                 return hit["desc"]
             del self.wisdom[key]
@@ -309,6 +357,9 @@ class Planner:
                     batch: Optional[int], device) -> List[Dict]:
         if kind == "c2c":
             return self._candidates_c2c(n, rdtype, patience, batch, device)
+        if kind not in ("r2c", "c2r"):
+            return self._candidates_r2r(kind, n, rdtype, patience, batch,
+                                        device)
         # r2c and c2r: the real kernel, the dense matrices, the half-size
         # pack and the complex embedding, as in the reference
         out: List[Dict] = []
@@ -324,6 +375,72 @@ class Planner:
         out.append({"alg": f"{kind}_via_c2c", "n": n,
                     "child": self.plan_c2c(n, rdtype, patience, batch,
                                            device)})
+        return out
+
+    def _candidates_r2r(self, kind: str, n: int, rdtype, patience: int,
+                        batch: Optional[int], device) -> List[Dict]:
+        """The reference's r2r candidates, in its order: each kind's
+        reductions to r2c/c2r/c2c (or to another r2r kind), children
+        planned at the same patience and batch, then the dense kind matrix
+        up to R2R_GENERIC_MAX (in float32 only under ``r2r.dense_exact``)."""
+        def sub(child_kind, m):
+            return self._plan(child_kind, m, rdtype, patience, batch, device)
+
+        out: List[Dict] = []
+        if kind == "dht":
+            out.append({"alg": "dht_via_r2c", "n": n,
+                        "child": sub("r2c", n)})
+            if n >= 5 and primes.is_prime(n):
+                # the length-(n-1) convolution stays real, racing the
+                # via-r2c route whose prime child pays a complex Rader or
+                # Bluestein
+                out.append({"alg": "dht_rader", "n": n, "children": [
+                    sub("r2c", n - 1), sub("c2r", n - 1)]})
+        elif kind == "r2hc":
+            out.append({"alg": "r2hc_via_r2c", "n": n,
+                        "child": sub("r2c", n)})
+        elif kind == "hc2r":
+            out.append({"alg": "hc2r_via_c2r", "n": n,
+                        "child": sub("c2r", n)})
+        elif kind == "redft10":
+            out.append({"alg": "redft10_half", "n": n,
+                        "child": sub("r2c", n)})
+        elif kind == "redft01":
+            out.append({"alg": "redft01_half", "n": n,
+                        "child": sub("c2r", n)})
+        elif kind == "redft00" and n > 1:
+            out.append({"alg": "redft00_ext", "n": n,
+                        "child": sub("r2c", 2 * (n - 1))})
+            if n % 2 == 1 and n >= 5:
+                # split-radix: evens -> DCT-I of (n+1)/2, odds -> DCT-II of
+                # (n-1)/2; ~2x less work
+                out.append({"alg": "redft00_split", "n": n, "children": [
+                    sub("redft00", (n + 1) // 2),
+                    sub("redft10", (n - 1) // 2)]})
+        elif kind == "rodft00":
+            out.append({"alg": "rodft00_ext", "n": n,
+                        "child": sub("r2c", 2 * (n + 1))})
+            if n % 2 == 1 and n >= 5:
+                out.append({"alg": "rodft00_split", "n": n, "children": [
+                    sub("rodft00", (n - 1) // 2),
+                    sub("rodft10", (n + 1) // 2)]})
+        elif kind == "redft11":
+            out.append({"alg": "redft11_2n", "n": n,
+                        "child": sub("c2c", 2 * n)})
+            if n % 2 == 1:
+                # odd n: one same-size R2HC through the 8n PFA signed
+                # permutations; 2x less work than the 2n route
+                out.append({"alg": "redft11_odd", "n": n,
+                            "child": sub("r2hc", n)})
+        elif kind in ("rodft10", "rodft01", "rodft11"):
+            dct = "redft" + kind[5:]
+            out.append({"alg": f"{kind}_flip", "n": n,
+                        "child": sub(dct, n)})
+        # the port's one departure from the reference's list: no dense
+        # product while float32 products may be TF32 (the reference pins
+        # HIGHEST per call; torch.matmul cannot)
+        if n <= R2R_GENERIC_MAX and r2r_ops.dense_exact(rdtype):
+            out.append({"alg": "r2r_matmul", "kind": kind, "n": n})
         return out
 
     def _candidates_c2c(self, n: int, rdtype, patience: int,
@@ -502,7 +619,7 @@ class Planner:
     def import_reference_wisdom(self, s: str, device=None) -> bool:
         """Carry a ``fftw3_tpu`` wisdom export over to this planner.
 
-        Keeps the c2c, r2c and c2r entries whose descriptor
+        Keeps the entries of every kind whose descriptor
         :func:`validate_desc` accepts (so nothing this package cannot
         build), drops the
         reference's TPU-only descriptor keys, re-costs each entry with this
@@ -546,6 +663,8 @@ def _strip_tpu_keys(desc):
     out = {k: v for k, v in desc.items() if k not in _TPU_ONLY_KEYS}
     if "child" in out:
         out["child"] = _strip_tpu_keys(out["child"])
+    if isinstance(out.get("children"), list):
+        out["children"] = [_strip_tpu_keys(c) for c in out["children"]]
     return out
 
 
@@ -562,6 +681,8 @@ def validate_desc(kind: str, n: int, desc) -> bool:
     alg = desc.get("alg")
     if desc.get("n") != n or not isinstance(alg, str):
         return False
+    if kind not in ("c2c", "r2c", "c2r"):
+        return _validate_r2r(kind, n, alg, desc)
     if kind != "c2c":
         if alg == f"pallas_{kind}":
             return n % 2 == 0 and stockham.radices_ok(n // 2,
@@ -601,12 +722,47 @@ def validate_desc(kind: str, n: int, desc) -> bool:
     return False
 
 
+def _validate_r2r(kind: str, n: int, alg: str, desc: Dict) -> bool:
+    """The reference's r2r checks (children links of the reduction table,
+    the split's odd n, the Rader prime), plus what the port adds so that
+    only a descriptor that computes `kind` passes: the algorithm's own
+    kind (the dense matrix's ``kind``) must be `kind`, and ``redft11_odd``
+    needs an odd n."""
+    own = desc.get("kind") if alg == "r2r_matmul" else \
+        r2r_ops.KIND_OF.get(alg)
+    if own != kind:
+        return False
+    if alg == "r2r_matmul":
+        return True
+    if alg in ("redft00_split", "rodft00_split"):
+        ch = desc.get("children")
+        if not (isinstance(ch, list) and len(ch) == 2 and n % 2 == 1):
+            return False
+        if alg == "redft00_split":
+            sub = (("redft00", (n + 1) // 2), ("redft10", (n - 1) // 2))
+        else:
+            sub = (("rodft00", (n - 1) // 2), ("rodft10", (n + 1) // 2))
+        return all(validate_desc(k, m, c) for (k, m), c in zip(sub, ch))
+    if alg == "dht_rader":
+        ch = desc.get("children")
+        return (primes.is_prime(n) and isinstance(ch, list)
+                and len(ch) == 2 and validate_desc("r2c", n - 1, ch[0])
+                and validate_desc("c2r", n - 1, ch[1]))
+    if alg == "redft11_odd" and n % 2 == 0:
+        return False
+    if alg == "redft00_ext" and n < 2:
+        return False
+    size = {"redft00_ext": 2 * (n - 1), "rodft00_ext": 2 * (n + 1),
+            "redft11_2n": 2 * n}.get(alg, n)
+    return validate_desc(_R2R_CHILD[alg], size, desc.get("child"))
+
+
 def _measure_fn(kind: str, desc: Dict, n: int, rdtype,
                 batch: Optional[int], device):
     """(split fn, args) for MEASURE timing at the caller's batch (capped
     by config.measure_points), or at ~measure_points total points: planes
-    of n points for c2c, real rows for r2c, half-spectrum planes for
-    c2r."""
+    of n points for c2c, real rows for r2c and r2r, half-spectrum planes
+    for c2r."""
     cap = max(1, config.measure_points // max(n, 1))
     batch = cap if batch is None else max(1, min(int(batch), cap))
     rng = np.random.default_rng(0)
@@ -617,6 +773,8 @@ def _measure_fn(kind: str, desc: Dict, n: int, rdtype,
                                 .astype(rdt)).to(device)
     if kind == "r2c":
         return real_ops.build_r2c_split(desc, rdtype, device), (rows(n),)
+    if kind not in ("c2c", "c2r"):
+        return r2r_ops.build_r2r(desc, rdtype, device), (rows(n),)
     if kind == "c2r":
         return (real_ops.build_c2r_split(desc, rdtype, device),
                 (rows(n // 2 + 1), rows(n // 2 + 1)))
@@ -671,6 +829,8 @@ def sprint_desc(desc: Dict) -> str:
         return f"(bluestein-{n}->{desc['m']} {sprint_desc(desc['child'])})"
     if alg == "rader":
         return f"(rader-{n} {sprint_desc(desc['child'])})"
+    if alg == "r2r_matmul":
+        return f"(matmul-{desc['kind']}-{n})"
     if "child" in desc:
         return f"({alg}-{n} {sprint_desc(desc['child'])})"
     return f"({alg}-{n})"

@@ -146,7 +146,7 @@ def test_import_reference_wisdom_gives_fresh_plan():
     ref = ref_planner.Planner()
     for n in (1009, 1024, 2048):
         ref.plan_c2c(n, np.float32, 0, 64)
-    ref.plan_r2r(ref_kinds.Kind.DHT, 64, np.float32, 0, 64)  # dropped
+    ref.plan_r2r(ref_kinds.Kind.DHT, 64, np.float32, 0, 64)  # carried
     data = json.loads(ref.export_wisdom())
     key = next(k for k, v in data["entries"].items()
                if k.startswith("c2c:2048:"))
@@ -156,7 +156,7 @@ def test_import_reference_wisdom_gives_fresh_plan():
     assert not mine.import_reference_wisdom(mine.export_wisdom(),
                                             device="cpu")
     assert mine.import_reference_wisdom(json.dumps(data), device="cpu")
-    assert all(k.startswith(("c2c:", "r2c:")) for k in mine.wisdom)
+    assert all(k.startswith(("c2c:", "r2c:", "dht:")) for k in mine.wisdom)
     fresh = _port_planner()
     for n in (1009, 1024, 2048):
         got = mine.plan_c2c(n, np.float32, 0, 64, "cpu")
@@ -345,13 +345,21 @@ def test_random_estimator_matches_reference(seed, monkeypatch):
     assert all(k.startswith(f":re{seed}") for k in mine.wisdom)
 
 
+@pytest.mark.parametrize("kind,problem_kind", [("nosuch", "nosuch"),
+                                               ("r2r", "dht"),
+                                               ("DHT", "R2R")])
+def test_other_kinds_not_ported(kind, problem_kind):
+    """Every FFTW kind the reference plans is planned; a kind the port
+    does not know raises ValueError, in the planner and in make_plan (the
+    planner takes each r2r kind by name, a Problem takes "r2r")."""
+    with pytest.raises(ValueError, match="unknown transform kind"):
+        _port_planner()._plan(kind, 64, np.float32, 0, device="cpu")
+    prob = plan_mod.Problem(shape=(4, 64), axes=(1,), kind=problem_kind)
+    with pytest.raises(ValueError, match="unknown problem kind"):
+        plan_mod.make_plan(prob, planner=_port_planner(), device="cpu")
+
+
 def test_device_signature_names_device_and_versions():
     sig = planner._device_signature("cpu")
     assert sig.startswith("cpu-cpu-torch") and torch.__version__ in sig
     assert ":" not in sig and " " not in sig
-
-
-@pytest.mark.parametrize("kind", ["r2hc", "dht"])
-def test_other_kinds_not_ported(kind):
-    with pytest.raises(NotImplementedError):
-        _port_planner()._plan(kind, 64, np.float32, 0, device="cpu")

@@ -130,7 +130,7 @@ def test_port_default_choices(kind):
     ("c2r", 45, {"alg": "r2c_via_c2c", "n": 45,
                  "child": {"alg": "direct", "n": 45}}, False),
     ("r2c", 64, {"alg": "r2c_dense", "n": 63}, False),
-    ("dht", 64, {"alg": "r2r_matmul", "n": 64, "kind": "dht"}, False),
+    ("dht", 64, {"alg": "r2r_matmul", "n": 63, "kind": "dht"}, False),
 ])
 def test_validate_desc(kind, n, desc, ok):
     assert planner.validate_desc(kind, n, desc) is ok
