@@ -79,18 +79,32 @@ phase 24 profiles the f64 path in a third child (``--profile-paths
 f64``); phase 25 runs E5, the stage ablation of K1 (``ops/ablate.py``), in
 both stage forms, interleaved with K1; phase 26 runs E8, the copy floors
 of K2 and K1 (``ops/copyfloor.py``), interleaved with K2 and K1 at the
-same shapes.  K1, K2, K3 and K4 run their stages as register butterflies
-(a radix with a prime factor of 7 or more keeps the dense sum), K5, K6 and
-K7 their own stage loops; each butterfly kernel's row in the kernels line
-names its stage form.
+same shapes.  Phase 35 plans each float32 dense solver (``direct``,
+``mixed``, ``r2c_dense``, ``c2r_dense``, ``r2r_matmul``) by a
+reference-format wisdom pin under ``torch.set_float32_matmul_precision(
+"high")`` and holds it and its gradient against float64 over every row
+(``ops/dense.py`` pins full precision per product, in the backward too),
+then restores "highest"; phases 36-38
+run the measurement kernels E1 (``ops/unaligned.py``: the n = 1000 row
+against n = 1024, beside K1), E2/E3 (``ops/stage4096.py``: the n = 4096
+and n = 2048 first stage op by op, rows per block swept, beside the wide
+K1) and E7 (``ops/swap.py``: the four-step's swap as a kernel against the
+two PyTorch copies and a row copy, and ``pallas4`` pinned to eight
+splits with and without K1's fused store, beside the wide K1 and
+``torch.fft.fft``), each arm held against its twin and timed twice in one
+interleaved order and back.  K1, K2, K3 and K4 run their stages as register
+butterflies (a radix with a prime factor of 7 or more keeps the dense
+sum), K5, K6 and K7 their own stage loops; each butterfly kernel's row in
+the kernels line names its stage form.
 Exits non-zero at the first
 failed check, and without printing a result when torch sees no CUDA
 device.
 
 The last three lines of standard output are JSON: the r2r path's results,
 the kernels of the paths (name, source, launches, error against the twin,
-times, bound; P1's launches are the probe's own), then
-``{"ok": true, "device": {...}}``.
+times, bound; P1's launches are the probe's own; the measurement arms'
+launches are their phase's, ``on_path`` false but for the ``pallas4``
+arms), then ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -109,11 +123,13 @@ from fftw3_tpu_torch import kinds as K
 from fftw3_tpu_torch import plan as plan_mod
 from fftw3_tpu_torch import planner as P
 from fftw3_tpu_torch import toolchain_probe
-from fftw3_tpu_torch.ops import _build, ablate, copyfloor
+from fftw3_tpu_torch.ops import _build, ablate, copyfloor, stage4096, swap
 from fftw3_tpu_torch.ops import c2c as c2c_ops
 from fftw3_tpu_torch.ops import df32, fused2d, inner, matrices, r2r
 from fftw3_tpu_torch.ops import real_stockham as RS
 from fftw3_tpu_torch.ops import stockham as S
+from fftw3_tpu_torch.ops import unaligned
+from fftw3_tpu_torch.ops.dense import exact_matmul
 from fftw3_tpu_torch.utils import timing
 
 N = 1024
@@ -301,6 +317,8 @@ FP32_FLOPS_PER_S = 67e12
 #: the same FP32 rate in instructions (an FMA is one): the rate that bounds
 #: K7, whose error-free transforms are mostly single adds and multiplies
 FP32_INSTR_PER_S = 33.5e12
+#: the dense bf16 tensor-core rate (E3's bf16 arms)
+BF16_FLOPS_PER_S = 989e12
 
 #: the f64 tier (phases 20-23): max-abs error over max-abs against
 #: complex128; K7's case grid; the reference suite's c2c_1d_1024_f64_b8192
@@ -371,10 +389,12 @@ def gflops(n: int, batch: int, seconds: float) -> float:
     return 5.0 * n * math.log2(n) * batch / seconds / 1e9
 
 
-def bound(bytes_moved: float, flops: float):
-    """(ms, "bytes" | "operations"): the least time the card could take."""
+def bound(bytes_moved: float, flops: float, rate: float = FP32_FLOPS_PER_S):
+    """(ms, "bytes" | "operations"): the least time the card could take,
+    the operations at `rate` (FP32 outside the tensor cores unless
+    given)."""
     tb = bytes_moved / HBM_BYTES_PER_S
-    tf = flops / FP32_FLOPS_PER_S
+    tf = flops / rate
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
@@ -1137,7 +1157,14 @@ def r2r_wisdom(name: str) -> str:
     format): the entry ``bench_dct2``'s ``_mkplans`` puts in the reference
     planner (patience 99), under the reference's CPU signature, which
     ``import_reference_wisdom`` re-keys to the card."""
-    kind, n, batch, desc = R2R_PINS[name]
+    return ref_wisdom(*R2R_PINS[name])
+
+
+def ref_wisdom(kind: str, n: int, batch: int, desc) -> str:
+    """A ``fftw3_tpu`` wisdom export (reference format) pinning the float32
+    problem (kind, n) at `batch` transforms per call to `desc` (patience
+    99), under the reference's CPU signature, which
+    ``import_reference_wisdom`` re-keys to the card."""
     sig = "cpu-cpu-jax0.9.0-jl0.9.0-pvd9747e2d"
     key = f"{kind}:{n}:float32:{sig}:b{P._batch_bucket(batch)}"
     return json.dumps({"format": P.REFERENCE_WISDOM_FORMAT,
@@ -1496,6 +1523,492 @@ def profile_r2r_paths(rng, dev, smi_line) -> None:
     p = ft.plan_r2r_3d(*cube, "redft10", "redft10", "redft10", device="cuda")
     profile_calls(f"plan_r2r_3d{cube} K4 pinned apply_split", p.apply_split,
                   (real_rows(rng, cube, dev),), smi_line, tag="[34]")
+
+
+# ---------------------------------------------------------------------------
+# phase 35, the dense products under "high"; phases 36-38, the measurement
+# kernels E1, E2/E3 and E7
+# ---------------------------------------------------------------------------
+
+#: phase 35: the dense solvers pinned by reference-format wisdom under
+#: torch.set_float32_matmul_precision("high"): name -> (kind, n, batch,
+#: descriptor); ESTIMATE's own choices at n = 64 and n = 256 on the card
+#: (``mixed-16``), the real pair at n = 256; the DCT-II's ``r2r_matmul`` is
+#: ``R2R_PINS["dct2 matmul"]``
+DENSE_PINS = {
+    "direct": ("c2c", 64, 65536, {"alg": "direct", "n": 64}),
+    "mixed": ("c2c", 256, 65536, {"alg": "mixed", "n": 256, "p": 16,
+                                  "child": {"alg": "direct", "n": 16}}),
+    "r2c_dense": ("r2c", 256, 65536, {"alg": "r2c_dense", "n": 256}),
+    "c2r_dense": ("c2r", 256, 65536, {"alg": "c2r_dense", "n": 256}),
+}
+
+
+def interleaved(arms):
+    """{label: [ms, ms]}: each arm of {label: (fn, args)} timed twice, in
+    one order and back (``time_ms``)."""
+    times = {k: [] for k in arms}
+    for k in list(arms) + list(arms)[::-1]:
+        times[k].append(time_ms(*arms[k]))
+    return times
+
+
+def dense_grad_err(kind, n, fn, xs, rng):
+    """Max-abs error over max-abs of the gradient of sum(y * w), for a
+    random cotangent w, through `fn` (float32, under the setting in force)
+    against the same gradient in float64: through ``torch.fft`` on the card
+    (``fft``, ``rfft``, ``irfft`` times n), or for the DCT-II, whose
+    adjoint is FFTW's REDFT01 plus the first input column, from
+    ``r2r_oracle``."""
+    xs = [x.detach().requires_grad_() for x in xs]
+    ys = fn(*xs)
+    ys = ys if isinstance(ys, tuple) else (ys,)
+    ws = [real_rows(rng, tuple(y.shape), y.device) for y in ys]
+    got = torch.autograd.grad(sum((y * w).sum() for y, w in zip(ys, ws)),
+                              xs)
+    del ys
+    if kind == "redft10":
+        w = ws[0].double().cpu().numpy()
+        want = [torch.from_numpy(r2r_oracle("redft01", w) + w[:, :1])]
+    else:
+        x64 = [x.detach().double().requires_grad_() for x in xs]
+        if kind == "c2c":
+            y = torch.fft.fft(torch.complex(*x64), dim=-1)
+            y64 = (y.real, y.imag)
+        elif kind == "r2c":
+            y = torch.fft.rfft(x64[0], dim=-1)
+            y64 = (y.real, y.imag)
+        else:
+            y64 = (torch.fft.irfft(torch.complex(*x64), n, dim=-1) * n,)
+        want = torch.autograd.grad(
+            sum((y * w.double()).sum() for y, w in zip(y64, ws)), x64)
+    for g, v in zip(got, want):
+        check(tuple(g.shape) == tuple(v.shape)
+              and bool(torch.isfinite(g).all()), f"{kind}: bad gradient")
+    return max(relerr(g.double().cpu(), v.cpu()) for g, v in zip(got, want))
+
+
+def dense_phase(rng, dev, smi_line):
+    """Phase 35: under ``torch.set_float32_matmul_precision("high")``
+    (TF32 for float32 products), each dense solver pinned by
+    reference-format wisdom and run through its plan, held against float64
+    over every output row at TOL, and its gradient too (``dense_grad_err``;
+    autograd runs the backward's products after the forward's pin has
+    exited); then the setting reads back "high" and is restored to
+    "highest".  Returns {solver: rel err, "<solver> grad": rel err}."""
+    torch.set_float32_matmul_precision("high")
+    a = real_rows(rng, (4096, 256), dev)
+    m = real_rows(rng, (256, 256), dev)
+    want = a.double() @ m.double()
+    raw = relerr(torch.matmul(a, m).double(), want)
+    pinned = relerr(exact_matmul(a, m).double(), want)
+    print(f"[35] under 'high' (cuda.matmul.fp32_precision "
+          f"{getattr(torch.backends.cuda.matmul, 'fp32_precision', '-')}): "
+          f"(4096, 256) @ (256, 256) by torch.matmul {raw:.2e}, by "
+          f"exact_matmul {pinned:.2e} against float64")
+    check(pinned <= TOL, "exact_matmul over tolerance under 'high'")
+    errs = {"torch.matmul unpinned": raw}
+    for name, (kind, n, batch, desc) in DENSE_PINS.items():
+        ft.forget_wisdom()
+        check(ft.import_reference_wisdom(ref_wisdom(kind, n, batch, desc),
+                                         device="cuda"),
+              f"reference wisdom for {name} refused")
+        if kind == "c2c":
+            plan = ft.plan_many_dft([n], howmany=batch, device="cuda")
+            xs = planes(rng, (batch, n), dev)
+            yr, yi = plan.apply_split(*xs)
+            got = torch.complex(yr, yi).to(torch.complex128)
+            ref = oracle(torch.complex(*xs), (-1,), -1)
+        elif kind == "r2c":
+            plan = ft.plan_dft_r2c((batch, n), axes=(1,), device="cuda")
+            xs = (real_rows(rng, (batch, n), dev),)
+            yr, yi = plan.apply_split(*xs)
+            got = torch.complex(yr, yi).to(torch.complex128)
+            ref = torch.fft.rfft(xs[0].double(), dim=-1)
+        else:
+            plan = ft.plan_dft_c2r((batch, n), axes=(1,), device="cuda")
+            xs = planes(rng, (batch, n // 2 + 1), dev)
+            got = plan.apply_split(*xs).double()
+            ref = torch.fft.irfft(torch.complex(*(x.double() for x in xs)),
+                                  n, dim=-1) * n
+        check(plan.descriptors == {1: desc}, f"{name}: pinned plan {plan!r}")
+        check(tuple(got.shape) == tuple(ref.shape)
+              and bool(torch.isfinite(got).all()), f"{name}: bad output")
+        errs[name] = relerr(got, ref)
+        del got, ref
+        errs[f"{name} grad"] = dense_grad_err(kind, n, plan.apply_split, xs,
+                                              rng)
+        print(f"[35] {name} ({batch}, {n}) pinned {P.sprint_desc(desc)} "
+              f"under 'high': rel err vs float64 over all rows "
+              f"{errs[name]:.2e}, gradient {errs[f'{name} grad']:.2e} "
+              f"({smi_line})")
+        check(errs[name] <= TOL, f"{name} under 'high' over tolerance")
+        check(errs[f"{name} grad"] <= TOL,
+              f"{name} gradient under 'high' over tolerance")
+    p, _ = r2r_plan(R2R_1D, "redft10", "dct2 matmul", pin="dct2 matmul")
+    x = real_rows(rng, R2R_1D, dev)
+    errs["r2r_matmul"] = oracle_err("redft10", x, p.apply(x))
+    errs["r2r_matmul grad"] = dense_grad_err("redft10", R2R_1D[-1], p.apply,
+                                             (x,), rng)
+    print(f"[35] r2r_matmul DCT-II {R2R_1D} pinned under 'high': rel err "
+          f"vs float64 over all rows {errs['r2r_matmul']:.2e}, gradient "
+          f"{errs['r2r_matmul grad']:.2e} ({smi_line})")
+    check(errs["r2r_matmul"] <= TOL, "r2r_matmul under 'high' over tolerance")
+    check(errs["r2r_matmul grad"] <= TOL,
+          "r2r_matmul gradient under 'high' over tolerance")
+    check(torch.get_float32_matmul_precision() == "high",
+          "the dense products did not restore the 'high' setting")
+    torch.set_float32_matmul_precision("highest")
+    check(torch.get_float32_matmul_precision() == "highest",
+          "the 'highest' setting did not come back")
+    ft.forget_wisdom()
+    torch.cuda.empty_cache()
+    return errs
+
+
+#: E1: K1 at these rows and schedules beside the copy arms
+E1_K1_ROWS = 32768
+E1_K1 = {1000: [50, 20], 1024: [64, 16]}
+
+
+def unaligned_phase(rng, dev, smi_line):
+    """Phase 36, E1 (``ops/unaligned.py``): y = 1.0001 * x at n = 1000 and
+    n = 1024 on the reference's 16.6e6 points, in K1's row geometry
+    (``copy``) and through a padded shared-memory tile read by columns
+    (``trans``), each held bit for bit against its twin; K1 at (32768,
+    1000) [50, 20] and (32768, 1024) [64, 16] held against its twin; all
+    timed twice in one interleaved order and back with ``1.0001 * x``.
+    Returns the arms' rows of the kernels line (launches: this phase's)."""
+    unaligned.launches.clear()
+    arms, errs, xs = {}, {}, {}
+    for n in (1000, 1024):
+        x = xs[n] = real_rows(rng, (unaligned.batch(n), n), dev)
+        want = unaligned.unaligned_torch(x)
+        for arm in unaligned.ARMS:
+            y = unaligned.unaligned_cuda(x, arm)
+            errs[arm, n] = float((y - want).abs().max())
+            check(errs[arm, n] == 0.0, f"E1 {arm} n={n}: not 1.0001 * x")
+            arms[f"E1 {arm} n={n}"] = (
+                lambda a, arm=arm: unaligned.unaligned_cuda(a, arm), (x,))
+        arms[f"1.0001*x n={n}"] = (unaligned.unaligned_torch, (x,))
+        rad = E1_K1[n]
+        tab = S._device_table(n, tuple(rad), -1, dev)
+        kx = planes(rng, (E1_K1_ROWS, n), dev)
+        twin_err(f"K1 ({E1_K1_ROWS}, {n}) {rad}",
+                 *S.stockham_c2c_cuda(*kx, rad, tab),
+                 *S.stockham_c2c_torch(*kx, rad, -1))
+        arms[f"K1 n={n}"] = (
+            lambda a, b, rad=rad, tab=tab: S.stockham_c2c_cuda(a, b, rad,
+                                                               tab), kx)
+        del want, y
+    torch.cuda.synchronize()
+    times = interleaved(arms)
+    for k, ts in times.items():
+        print(f"[36] {k}: {ts[0]:.4f} / {ts[1]:.4f} ms ({smi_line})")
+    best = {k: min(ts) for k, ts in times.items()}
+    for what, pts in (("E1 copy", None), ("E1 trans", None), ("K1", 1)):
+        per = {n: best[f"{what} n={n}"] * 1e9
+               / ((E1_K1_ROWS if pts else unaligned.batch(n)) * n)
+               for n in (1000, 1024)}
+        print(f"[36] {what}: {per[1000]:.2f} ps/pt at n = 1000, "
+              f"{per[1024]:.2f} at n = 1024: n = 1000 costs "
+              f"{per[1000] / per[1024]:.3f}x a point ({smi_line})")
+    rows = []
+    for n in (1000, 1024):
+        x = xs[n]
+        bms, by = bound(8.0 * x.numel(), 0.0)
+        lib = time_ms(lambda a: torch.mul(a, 1.0001), (x,))
+        for arm in unaligned.ARMS:
+            ts = times[f"E1 {arm} n={n}"]
+            rows.append({
+                "name": f"unaligned {arm} n={n}", "route": "cuda",
+                "source": "fftw3_tpu_torch/csrc/unaligned.cu",
+                "replaces": "experiments/copy1000.py:55",
+                "launches": unaligned.launches[arm, n], "on_path": False,
+                "max_abs_err": errs[arm, n], "ms": sum(ts) / 2,
+                "plain_ms": sum(times[f"1.0001*x n={n}"]) / 2,
+                "bound_ms": bms, "bound_by": by, "library_ms": lib,
+                "shape": [x.shape[0], n],
+                "k1_ms": sum(times[f"K1 n={n}"]) / 2})
+    del arms, xs, x
+    torch.cuda.empty_cache()
+    return rows
+
+
+#: E2/E3: the reference's own shapes (held against the twins) and the
+#: full-width shapes they are timed at, the n = 4096 cell's 16.8e6 points
+E2_REF_SHAPES = [(64, 4096), (64, 2048), (256, 2048), (256, 4096)]
+E2_TIMED = [(4096, 4096), (8192, 2048)]
+E2_ARMS = ("identity", "roundtrip", "stage1_f32", "stage1_tw_perm")
+
+
+def stage_oracle(xr, xi, arm):
+    """float64 of what `arm` computes, on the card, as a complex128
+    (rows, n) tensor."""
+    R, n = xr.shape
+    x = torch.complex(xr.double(), xi.double())
+    if arm in ("identity", "roundtrip"):
+        return x
+    p = stage4096.CASES[n]
+    q = n // p
+    F = torch.from_numpy(matrices.dft_matrix(p, -1)).to(xr.device)
+    y = torch.matmul(F, x.reshape(R, p, q))
+    if arm == "stage1_tw_perm":
+        w = torch.from_numpy(matrices.twiddle_2d(p, q, -1)).to(xr.device)
+        y = (y * w).transpose(1, 2)
+    return y.reshape(R, n)
+
+
+def stage_library(arm, xr, xi):
+    """The one PyTorch call computing `arm`'s product, with its inputs:
+    ``torch.matmul(G, X)`` on the (rows, 2p, q) stacked planes at full
+    precision for the FP32 arms, in bf16 for the bf16 arms; None for the
+    arms that move data only."""
+    if arm in ("identity", "roundtrip"):
+        return None
+    p = stage4096.CASES[xr.shape[1]]
+    G = torch.from_numpy(stage4096.g_matrix(p)).to(xr.device)
+    X = torch.cat([xr.reshape(xr.shape[0], p, -1),
+                   xi.reshape(xi.shape[0], p, -1)], 1)
+    if arm in ("stage1_ps", "stage1_bf16"):
+        return torch.matmul, (G.to(torch.bfloat16), X.to(torch.bfloat16))
+    return exact_matmul, (G, X)
+
+
+def stage_phase(rng, dev, smi_line, wide_tab):
+    """Phase 37, E2 and E3 (``ops/stage4096.py``): every arm at every rows
+    per block that fits, held against its twin at the reference's four
+    shapes and at full width, (4096, 4096) and (8192, 2048), and against
+    float64 there (within TOL, but the one-pass bf16 arm, which is a
+    measurement arm); then timed twice in one interleaved order and back,
+    beside the wide K1 [64, 64] at (4096, 4096).  Returns the arms' rows of
+    the kernels line, each at its fastest rows per block."""
+    stage4096.launches.clear()
+    for shape in E2_REF_SHAPES:
+        xr, xi = planes(rng, shape, dev)
+        for arm in stage4096.ARMS:
+            tr, ti = stage4096.stage_torch(xr, xi, arm)
+            for rpb in stage4096.rows_per_block_fit(arm, shape[1]):
+                twin_err(f"E2/E3 {arm} {shape} rpb={rpb}",
+                         *stage4096.stage_cuda(xr, xi, arm, rpb), tr, ti)
+    print(f"[37] every arm at every rows per block within {TOL:g} of its "
+          f"twin at {E2_REF_SHAPES}")
+    rows = []
+    for R, n in E2_TIMED:
+        p = stage4096.CASES[n]
+        xr, xi = planes(rng, (R, n), dev)
+        arms, info = {}, {}
+        for arm in stage4096.ARMS:
+            o = stage_oracle(xr, xi, arm)
+            tr, ti = stage4096.stage_torch(xr, xi, arm)
+            e_twin = relerr(torch.complex(tr, ti).to(torch.complex128), o)
+            worst, e64 = 0.0, 0.0
+            for rpb in stage4096.rows_per_block_fit(arm, n):
+                kr, ki = stage4096.stage_cuda(xr, xi, arm, rpb)
+                err, _ = twin_err(f"E2/E3 {arm} ({R}, {n}) rpb={rpb}", kr,
+                                  ki, tr, ti)
+                worst = max(worst, err)
+                e64 = max(e64, relerr(torch.complex(kr, ki)
+                                      .to(torch.complex128), o))
+                arms[arm, rpb] = (
+                    lambda a, b, arm=arm, rpb=rpb: stage4096.stage_cuda(
+                        a, b, arm, rpb), (xr, xi))
+                del kr, ki
+            del tr, ti, o
+            print(f"[37] {arm} ({R}, {n}) p={p}: kernel vs float64 "
+                  f"{e64:.2e}, twin vs float64 {e_twin:.2e}, kernel-twin "
+                  f"max abs {worst:.2e}")
+            check(arm == "stage1_bf16" or e64 <= TOL,
+                  f"E2/E3 {arm} at n={n} over tolerance against float64")
+            lib = stage_library(arm, xr, xi)
+            info[arm] = {
+                "err": worst, "e64": e64,
+                "plain_ms": time_ms(lambda a, b, arm=arm:
+                                    stage4096.stage_torch(a, b, arm),
+                                    (xr, xi)),
+                "library_ms": None if lib is None else time_ms(*lib)}
+            del lib
+        if n == 4096:
+            arms["K1 wide", 0] = (
+                lambda a, b: S.stockham_c2c_cuda(a, b, [64, 64], wide_tab),
+                (xr, xi))
+        torch.cuda.synchronize()
+        times = interleaved(arms)
+        for (arm, rpb), ts in times.items():
+            print(f"[37] {arm} ({R}, {n}) rpb={rpb}: {ts[0]:.4f} / "
+                  f"{ts[1]:.4f} ms ({smi_line})")
+        for arm in stage4096.ARMS:
+            sweep = {rpb: sum(times[arm, rpb]) / 2
+                     for rpb in stage4096.rows_per_block_fit(arm, n)}
+            rpb = min(sweep, key=sweep.get)
+            pts = R * n
+            flops = {"identity": 0.0, "roundtrip": 0.0,
+                     "stage1_f32": 8.0 * p * pts,
+                     "stage1_tw_perm": (8.0 * p + 6.0) * pts,
+                     "stage1_ps": 24.0 * p * pts,
+                     "stage1_bf16": 8.0 * p * pts}[arm]
+            rate = (BF16_FLOPS_PER_S if arm in ("stage1_ps", "stage1_bf16")
+                    else FP32_FLOPS_PER_S)
+            bms, by = bound(16.0 * pts, flops, rate)
+            row = {
+                "name": f"stage4096 {arm} n={n}", "route": "cuda",
+                "source": "fftw3_tpu_torch/csrc/stage4096.cu",
+                "replaces": ("experiments/bisect4096.py:29" if arm in E2_ARMS
+                             else "experiments/bisect4096b.py:28"),
+                "launches": sum(v for (a, nn, _), v in
+                                stage4096.launches.items()
+                                if a == arm and nn == n),
+                "on_path": False, "max_abs_err": info[arm]["err"],
+                "rel_err_f64": info[arm]["e64"], "ms": sweep[rpb],
+                "plain_ms": info[arm]["plain_ms"], "bound_ms": bms,
+                "bound_by": by, "library_ms": info[arm]["library_ms"],
+                "shape": [R, n], "rows_per_block": rpb,
+                "ms_by_rows_per_block": sweep}
+            if n == 4096:
+                row["k1_wide_ms"] = sum(times["K1 wide", 0]) / 2
+            print(f"[37] {row['name']}: {row['ms']:.4f} ms at rpb={rpb}, "
+                  f"twin {row['plain_ms']:.4f}, library "
+                  f"{row['library_ms']}, bound {bms:.4f} ms ({by}) "
+                  f"({smi_line})")
+            rows.append(row)
+        del arms, xr, xi
+        torch.cuda.empty_cache()
+    return rows
+
+
+def fourstep_twin(desc, xr, xi):
+    """The ``pallas4`` plan of `desc` on split (B, n) planes with the
+    kernels' twins (the four-step's CPU route, here on the card)."""
+    n, p, q = desc["n"], desc["p"], desc["q"]
+    fstore = p == (desc.get("tile_b") or 128)
+    B = xr.shape[0]
+    ar, ai = inner.inner_c2c_torch(xr.reshape(B, p, q), xi.reshape(B, p, q),
+                                   S.choose_radices(p), -1)
+    zr, zi = S.stockham_c2c_torch(
+        ar.reshape(B * p, q), ai.reshape(B * p, q),
+        desc.get("radices") or S.choose_radices(q), -1, pretwiddle_p=p,
+        store_transposed=fstore)
+    if not fstore:
+        zr = zr.reshape(B, p, q).transpose(-1, -2)
+        zi = zi.reshape(B, p, q).transpose(-1, -2)
+    return zr.reshape(B, n), zi.reshape(B, n)
+
+
+def swap_phase(rng, dev, smi_line):
+    """Phase 38, E7 (``ops/swap.py``).  Block 2: the four-step's swap at
+    (2048, 32, 128) as a kernel (palT, bit for bit against its twin), as
+    ``ops/fourstep.py`` pays it (xlaT, two ``transpose(-1, -2)
+    .contiguous()``), and as E8's row copy of the same bytes (the copy
+    floor); noT, the bare reshape, is a view and costs nothing on the card.
+    Block 1: ``plan_many_dft([4096], howmany=2048)`` pinned by
+    reference-format wisdom to each four-step arm, with and without K1's
+    fused transposed store, each one K2 and one K1 launch, held against
+    float64 and its twins, timed with K1's wide [64, 64] and
+    ``torch.fft.fft``.  Returns the rows of the kernels line."""
+    B, p, q = swap.BATCH, swap.P, swap.Q
+    swap.launches.clear()
+    xr, xi = planes(rng, (B, p, q), dev)
+    kr, ki = swap.swap_cuda(xr, xi)
+    tr, ti = swap.swap_torch(xr, xi)
+    check(torch.equal(kr, tr) and torch.equal(ki, ti), "E7 palT is not the "
+          "swap")
+    pal_err = max(float((kr - tr).abs().max()), float((ki - ti).abs().max()))
+    flat = (xr.reshape(B, p * q), xi.reshape(B, p * q))
+    check(flat[0].data_ptr() == xr.data_ptr(), "noT is not a view")
+    del kr, ki, tr, ti
+    t2 = interleaved({"palT": (swap.swap_cuda, (xr, xi)),
+                      "xlaT": (swap.swap_torch, (xr, xi)),
+                      "E8 row copy": (copyfloor.copy_rows_cuda, flat)})
+    for k, ts in t2.items():
+        print(f"[38] block 2 {k} ({B}, {p}, {q}): {ts[0]:.4f} / "
+              f"{ts[1]:.4f} ms ({smi_line})")
+    print("[38] block 2 noT: a view (the reshape shares xr's storage)")
+    bms, by = bound(16.0 * B * p * q, 0.0)
+    rows = [{
+        "name": "swap palT", "route": "cuda",
+        "source": "fftw3_tpu_torch/csrc/swap.cu",
+        "replaces": "experiments/race4096.py:59",
+        "launches": swap.launches[B, p, q], "on_path": False,
+        "max_abs_err": pal_err, "ms": sum(t2["palT"]) / 2,
+        "plain_ms": sum(t2["xlaT"]) / 2, "bound_ms": bms, "bound_by": by,
+        "library_ms": sum(t2["xlaT"]) / 2,
+        "copy_floor_ms": sum(t2["E8 row copy"]) / 2, "shape": [B, p, q]}]
+    del xr, xi, flat
+    n = p * q
+    xr, xi = planes(rng, (B, n), dev)
+    ref = oracle(torch.complex(xr, xi), (-1,), -1)
+    descs = {**swap.FOURSTEP_ARMS,
+             **{f"{k} fused": swap.fused(d)
+                for k, d in swap.FOURSTEP_ARMS.items()}}
+    arms, info = {}, {}
+    for label, desc in descs.items():
+        ft.forget_wisdom()
+        check(ft.import_reference_wisdom(ref_wisdom("c2c", n, B, desc),
+                                         device="cuda"),
+              f"reference wisdom for pallas4 {label} refused")
+        plan = ft.plan_many_dft([n], howmany=B, device="cuda")
+        check(plan.descriptors == {1: desc}, f"pinned plan {plan!r}")
+        (yr, yi), c = run_counted(plan.apply_split, xr, xi)
+        check(c == only(stockham_c2c_fourstep=1, inner_c2c=1),
+              f"pallas4 {label}: launches {launched(c)}")
+        e = relerr(torch.complex(yr, yi).to(torch.complex128), ref)
+        err, _ = twin_err(f"pallas4 {label}", yr, yi,
+                          *fourstep_twin(desc, xr, xi))
+        check(e <= TOL, f"pallas4 {label} over tolerance: {e:.2e}")
+        info[label] = {"launches": sum(c.values()), "err": err, "e64": e,
+                       "plain_ms": time_ms(lambda a, b, d=desc:
+                                           fourstep_twin(d, a, b), (xr, xi))}
+        arms[label] = (plan.apply_split, (xr, xi))
+        print(f"[38] block 1 pallas4 {label} {P.sprint_desc(desc)}: "
+              f"launches {launched(c)}, rel err vs float64 {e:.2e}")
+        del yr, yi
+    ft.forget_wisdom()
+    check(ft.import_reference_wisdom(ref_wisdom("c2c", n, B, WIDE_DESC),
+                                     device="cuda"), "wide wisdom refused")
+    pw = ft.plan_many_dft([n], howmany=B, device="cuda")
+    check(pw.descriptors == {1: WIDE_DESC}, f"pinned plan {pw!r}")
+    ft.forget_wisdom()
+    arms["K1 wide [64, 64]"] = (pw.apply_split, (xr, xi))
+    xc = torch.complex(xr, xi)
+    arms["torch.fft.fft"] = (torch.fft.fft, (xc,))
+    del ref
+    torch.cuda.synchronize()
+    t1 = interleaved(arms)
+    for k, ts in t1.items():
+        print(f"[38] block 1 {k} ({B}, {n}): {ts[0]:.4f} / {ts[1]:.4f} ms "
+              f"({smi_line})")
+    bms, by = bound(16.0 * B * n, fft_flops(B * n, n))
+    lib = sum(t1["torch.fft.fft"]) / 2
+    for label, desc in descs.items():
+        rows.append({
+            "name": f"pallas4 {label}", "route": "cuda",
+            "source": "fftw3_tpu_torch/ops/fourstep.py",
+            "replaces": "experiments/race4096.py:80",
+            "launches": info[label]["launches"], "on_path": True,
+            "max_abs_err": info[label]["err"],
+            "rel_err_f64": info[label]["e64"], "ms": sum(t1[label]) / 2,
+            "plain_ms": info[label]["plain_ms"], "bound_ms": bms,
+            "bound_by": by, "library_ms": lib, "p": desc["p"],
+            "q": desc["q"], "fused_store": "tile_b" in desc,
+            "k1_wide_ms": sum(t1["K1 wide [64, 64]"]) / 2})
+    del arms, xr, xi, xc, pw
+    torch.cuda.empty_cache()
+    return rows
+
+
+def measure_phases(rng, dev, smi_line, t_start):
+    """Phases 35-38; returns the rows they add to the kernels line."""
+    dense_errs = dense_phase(rng, dev, smi_line)
+    print(f"[35] done at {time.perf_counter() - t_start:.1f} s: "
+          f"{json.dumps(dense_errs)}", flush=True)
+    rows = unaligned_phase(rng, dev, smi_line)
+    print(f"[36] done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    rows += stage_phase(rng, dev, smi_line,
+                        S._device_table(N4, (64, 64), -1, dev))
+    print(f"[37] done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    rows += swap_phase(rng, dev, smi_line)
+    print(f"[38] done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    return rows
 
 
 def main() -> None:
@@ -2611,6 +3124,7 @@ def main() -> None:
     print(f"[26] phases 1-26 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
     r2r_res = r2r_phases(rng, dev, smi_line, args.seed)
+    measure_rows = measure_phases(rng, dev, smi_line, t_start)
 
     # the JSON line keeps one row per kernel: K3 at its 3-D path shape, K4
     # and K6 at the 1-D real path's shape
@@ -2623,9 +3137,9 @@ def main() -> None:
     kernels += [wide_row, k7_row, p1_row]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
-    kernels += e5_rows + e8_rows
+    kernels += e5_rows + e8_rows + measure_rows
 
-    print(f"[34] whole run {time.perf_counter() - t_start:.1f} s")
+    print(f"[38] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"r2r": r2r_res}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -80,6 +80,19 @@ SIGNATURES = {
     "copy_rows_occupancy": [_I, ctypes.POINTER(_I)],
     # P1 (probe.cu), the toolchain canary: g x y, n, stream
     "probe_matmul_launch": [_P] * 3 + [_I, _P],
+    # E1 (unaligned.cu), timing only: x y, rows n rpb grid smem, stream;
+    # x y, rows n grid smem, stream
+    "unaligned_copy_launch": [_P] * 2 + [_I] * 5 + [_P],
+    "unaligned_copy_occupancy": [_I, ctypes.POINTER(_I)],
+    "unaligned_trans_launch": [_P] * 2 + [_I] * 4 + [_P],
+    "unaligned_trans_occupancy": [_I, ctypes.POINTER(_I)],
+    # E2/E3 (stage4096.cu), timing only: xr xi yr yi consts twr twi, rows p
+    # arm rpb grid smem, stream; arm p rpb smem
+    "stage4096_launch": [_P] * 7 + [_I] * 6 + [_P],
+    "stage4096_occupancy": [_I] * 4 + [ctypes.POINTER(_I)],
+    # E7 (swap.cu), timing only: xr xi yr yi, batch p q grid smem, stream
+    "swap_launch": [_P] * 4 + [_I] * 5 + [_P],
+    "swap_occupancy": [_I, ctypes.POINTER(_I)],
 }
 
 _lock = threading.Lock()

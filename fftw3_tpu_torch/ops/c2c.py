@@ -29,6 +29,7 @@ import torch
 
 from ..utils import primes
 from . import matrices
+from .dense import exact_matmul
 
 Apply = Callable[[torch.Tensor], torch.Tensor]
 SplitApply = Callable[[torch.Tensor, torch.Tensor],
@@ -48,14 +49,15 @@ def _const(a: np.ndarray, rdtype, device) -> torch.Tensor:
 
 
 def cmatmul(xr, xi, Fr, Fi):
-    """Karatsuba complex matmul: 3 real matmuls instead of 4.
+    """Karatsuba complex matmul: 3 real matmuls instead of 4, at full
+    precision (``dense.exact_matmul``).
 
     (xr + i xi)(Fr + i Fi): t1 = xr@Fr, t2 = xi@Fi,
     t3 = (xr+xi)@(Fr+Fi); yr = t1-t2, yi = t3-t1-t2.
     """
-    t1 = torch.matmul(xr, Fr)
-    t2 = torch.matmul(xi, Fi)
-    t3 = torch.matmul(xr + xi, Fr + Fi)
+    t1 = exact_matmul(xr, Fr)
+    t2 = exact_matmul(xi, Fi)
+    t3 = exact_matmul(xr + xi, Fr + Fi)
     return t1 - t2, t3 - t1 - t2
 
 
@@ -142,13 +144,14 @@ def build_c2c_split(desc: Dict, sign: int, rdtype, device) -> SplitApply:
             return apply_mixed_bfly
 
         F = matrices.dft_matrix(p, sign)
-        Fr = _const(F.real, rdtype, device)
-        Fi = _const(F.imag, rdtype, device)
+        # transposed, so that M @ a contracts the p axis of (..., p, q)
+        Fr = _const(F.real.T, rdtype, device)
+        Fi = _const(F.imag.T, rdtype, device)
         FrFi = Fr + Fi
 
         def dotp(a, M):
             # contract the p axis in place
-            return torch.einsum("...pq,pk->...kq", a, M)
+            return exact_matmul(M, a)
 
         def apply_mixed(xr, xi):
             shp = xr.shape[:-1]

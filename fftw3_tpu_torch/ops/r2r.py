@@ -31,12 +31,11 @@ gathers and concatenations, each one read and one write of the planes.
 * ``r2r_matmul`` — the dense (n, n) kind matrix through ``torch.matmul``,
   any kind and size up to the planner's ``R2R_GENERIC_MAX``; the role of
   FFTW's generic O(n^2) solvers.  The reference asks for HIGHEST precision
-  per call; ``torch.matmul`` takes none, so in float32 the solver is
-  offered, built and applied only while the process keeps float32
-  products at full precision (:func:`dense_exact`): no TF32, no bf16.  On
-  the H100 a float32 product of (B, n) by (n, n) runs on the FP32 units at
-  2n flops a point, against the reductions' few HBM passes; the planner's
-  costs and MEASURE decide.
+  per call; here the product runs under ``dense.exact_matmul``, which pins
+  float32 products to full precision for the call whatever the process
+  has set (TF32 or bf16 included).  On the H100 a float32 product of
+  (B, n) by (n, n) runs on the FP32 units at 2n flops a point, against the
+  reductions' few HBM passes; the planner's costs and MEASURE decide.
 
 The spectra stay on split real planes: the children are the port's split
 builders (``build_r2c_split`` gives ``(yr, yi)``, ``build_c2r_split`` takes
@@ -60,6 +59,7 @@ from ..utils import primes
 from . import c2c as c2c_ops
 from . import matrices
 from . import real as real_ops
+from .dense import exact_matmul
 
 Apply = Callable[[torch.Tensor], torch.Tensor]
 
@@ -151,21 +151,6 @@ def _redft11_odd_maps(n: int):
 # constants on the device, made once per (size, dtype, device)
 # ---------------------------------------------------------------------------
 
-def dense_exact(rdtype) -> bool:
-    """Does ``torch.matmul`` in `rdtype` sum at full precision?  Always in
-    float64; in float32 only while no TF32 or bf16 reduction is allowed,
-    which ``torch.set_float32_matmul_precision("high")`` (or
-    ``torch.backends.cuda.matmul.fp32_precision = "tf32"``) turns on for the
-    whole process."""
-    if np.dtype(rdtype) != np.float32:
-        return True
-    if hasattr(torch.backends, "fp32_precision"):            # PyTorch >= 2.9
-        # reflects the legacy setters too; "none" defers to a global that
-        # is itself full precision unless set
-        return torch.backends.cuda.matmul.fp32_precision in ("none", "ieee")
-    return torch.get_float32_matmul_precision() == "highest"
-
-
 def _index(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a, np.int64)).to(device)
 
@@ -250,21 +235,8 @@ def build_r2r(desc: Dict, rdtype, device) -> Apply:
     device = torch.device(device)
 
     if alg == "r2r_matmul":
-        if not dense_exact(rdtype):
-            raise ValueError(
-                "r2r_matmul in float32 needs full-precision float32 "
-                "products: this process allows TF32 or bf16 (torch."
-                "set_float32_matmul_precision); plan under 'highest'")
         M = _kind_matrix(desc["kind"], n, rdtype, device)
-
-        def apply_matmul(x):
-            if not dense_exact(rdtype):
-                raise RuntimeError(
-                    "r2r_matmul: float32 products became TF32 or bf16 "
-                    "after the plan was built; restore torch."
-                    "set_float32_matmul_precision('highest')")
-            return torch.matmul(x, M)
-        return apply_matmul
+        return lambda x: exact_matmul(x, M)
 
     if alg == "dht_via_r2c":
         child = real_ops.build_r2c_split(desc["child"], rdtype, device)

@@ -15,7 +15,7 @@ complex tensors.  Solvers:
 * ``pallas_r2c`` / ``pallas_c2r`` — the real Stockham kernels K4 and K6
   (``ops/real_stockham.py``);
 * ``r2c_dense`` / ``c2r_dense`` — dense cos/sin matrices through
-  ``torch.matmul``;
+  ``torch.matmul`` at full precision (``dense.exact_matmul``);
 * ``r2c_pack`` / ``c2r_pack`` — even n via a half-size complex DFT over the
   packed even/odd samples plus an untangling twiddle pass;
 * ``r2c_via_c2c`` / ``c2r_via_c2c`` — any n by complex embedding /
@@ -31,6 +31,7 @@ import torch
 
 from . import c2c as c2c_ops
 from . import matrices
+from .dense import exact_matmul
 
 SplitR2C = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 SplitC2R = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -108,7 +109,7 @@ def build_r2c_split(desc: Dict, rdtype, device) -> SplitR2C:
         e = 2.0 * np.pi * np.mod(j * k, n) / n
         Cr = c2c_ops._const(np.cos(e), rdtype, device)
         Ci = c2c_ops._const(-np.sin(e), rdtype, device)
-        return lambda x: (torch.matmul(x, Cr), torch.matmul(x, Ci))
+        return lambda x: (exact_matmul(x, Cr), exact_matmul(x, Ci))
 
     if alg == "r2c_via_c2c":
         child = c2c_ops.build_c2c_split(desc["child"], -1, rdtype, device)
@@ -150,7 +151,7 @@ def build_c2r_split(desc: Dict, rdtype, device) -> SplitC2R:
             w[-1] = 1.0
         Br = c2c_ops._const(w * np.cos(e), rdtype, device)
         Bi = c2c_ops._const(-w * np.sin(e), rdtype, device)
-        return lambda xr, xi: torch.matmul(xr, Br) + torch.matmul(xi, Bi)
+        return lambda xr, xi: exact_matmul(xr, Br) + exact_matmul(xi, Bi)
 
     if alg == "c2r_via_c2c":
         child = c2c_ops.build_c2c_split(desc["child"], +1, rdtype, device)

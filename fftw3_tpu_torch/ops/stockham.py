@@ -53,6 +53,7 @@ import torch
 from .. import config
 from ..utils import primes
 from . import matrices
+from .dense import exact_matmul
 
 #: largest stage radix (one p-point DFT contraction per stage)
 MAX_RADIX = 256
@@ -471,7 +472,7 @@ def _stages_torch(st: torch.Tensor, n: int, L: int, radices: Sequence[int],
             y = torch.stack([yr, yi], 1)
         else:
             # the complex contraction over j1 as one real matmul by G
-            y = torch.matmul(c[0], st.reshape(B, 2 * p, M))
+            y = exact_matmul(c[0], st.reshape(B, 2 * p, M))
         if q > 1:
             wr = c[1][:, :, None]
             wi = c[2][:, :, None]
@@ -626,7 +627,8 @@ def launch(kernel: str, device: torch.device, smem: int, work: int, args,
     buffers) on `device`'s current stream, with a grid that fills the card
     and is at most `work` blocks; raises when the launch fails, naming
     `what`.  Every single-block kernel launches here (K1, K2, K4, K5, K6,
-    K7, E5, E8); K3 launches clusters (``ops/fused2d.py``)."""
+    K7, E1, E5, E7, E8); K3 launches clusters (``ops/fused2d.py``), E2/E3
+    pick their instantiation by arm (``ops/stage4096.py``)."""
     from . import _build
     lib = _build.library()
     with device_guard(device):

@@ -309,11 +309,8 @@ class Planner:
                                     and self._budget_subsumes(hit,
                                                               patience))):
             # wisdom-bogosity recovery rung 1: a structurally invalid entry
-            # is dropped and planning falls through to a fresh search; so
-            # is a dense r2r product while float32 products may be TF32
-            if validate_desc(kind, n, hit.get("desc")) and (
-                    r2r_ops.dense_exact(rdtype)
-                    or "r2r_matmul" not in json.dumps(hit["desc"])):
+            # is dropped and planning falls through to a fresh search
+            if validate_desc(kind, n, hit.get("desc")):
                 self.stats["nwisdom_hit"] += 1
                 return hit["desc"]
             del self.wisdom[key]
@@ -382,7 +379,7 @@ class Planner:
         """The reference's r2r candidates, in its order: each kind's
         reductions to r2c/c2r/c2c (or to another r2r kind), children
         planned at the same patience and batch, then the dense kind matrix
-        up to R2R_GENERIC_MAX (in float32 only under ``r2r.dense_exact``)."""
+        up to R2R_GENERIC_MAX."""
         def sub(child_kind, m):
             return self._plan(child_kind, m, rdtype, patience, batch, device)
 
@@ -436,10 +433,7 @@ class Planner:
             dct = "redft" + kind[5:]
             out.append({"alg": f"{kind}_flip", "n": n,
                         "child": sub(dct, n)})
-        # the port's one departure from the reference's list: no dense
-        # product while float32 products may be TF32 (the reference pins
-        # HIGHEST per call; torch.matmul cannot)
-        if n <= R2R_GENERIC_MAX and r2r_ops.dense_exact(rdtype):
+        if n <= R2R_GENERIC_MAX:
             out.append({"alg": "r2r_matmul", "kind": kind, "n": n})
         return out
 
