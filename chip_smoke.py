@@ -92,7 +92,17 @@ K1) and E7 (``ops/swap.py``: the four-step's swap as a kernel against the
 two PyTorch copies and a row copy, and ``pallas4`` pinned to eight
 splits with and without K1's fused store, beside the wide K1 and
 ``torch.fft.fft``), each arm held against its twin and timed twice in one
-interleaved order and back.  K1, K2, K3 and K4 run their stages as register
+interleaved order and back; the copy arms of E8 and E2 beside ``clone``.
+Phase 39 runs E4, E6 and E9-E12 (``ops/k1_mma.py``: the n = 1024 K1 with
+its stages on the tensor cores, ``mma.sync`` bf16 hi/lo, 24 arms over the
+reference's product forms, G splits, pass groupings, buffers, packing,
+repeats and diagnostics), every arm held against its twin over every row
+at (256, 1024) and every forward arm against complex128 over every row at
+(8192, 1024), then timed at B = 8192 and 24576 beside the butterfly K1 at
+three schedules and ``torch.fft.fft``; phase 40 runs E10's host arms on
+the butterfly K1 [32, 32] at B = 16384 (``donate``, K1 in place, held bit
+for bit against K1 first; ``stream2``; the stages run 1, 3 and 5 times in
+one kernel), raced chained.  K1, K2, K3 and K4 run their stages as register
 butterflies (a radix with a prime factor of 7 or more keeps the dense
 sum), K5, K6 and K7 their own stage loops; each butterfly kernel's row in
 the kernels line names its stage form.
@@ -104,7 +114,8 @@ The last three lines of standard output are JSON: the r2r path's results,
 the kernels of the paths (name, source, launches, error against the twin,
 times, bound; P1's launches are the probe's own; the measurement arms'
 launches are their phase's, ``on_path`` false but for the ``pallas4``
-arms), then ``{"ok": true, "device": {...}}``.
+arms; phase 39's rows carry both batches' times and the marginal slope,
+the last row phase 40's race), then ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -123,7 +134,8 @@ from fftw3_tpu_torch import kinds as K
 from fftw3_tpu_torch import plan as plan_mod
 from fftw3_tpu_torch import planner as P
 from fftw3_tpu_torch import toolchain_probe
-from fftw3_tpu_torch.ops import _build, ablate, copyfloor, stage4096, swap
+from fftw3_tpu_torch.ops import _build, ablate, copyfloor, k1_mma
+from fftw3_tpu_torch.ops import stage4096, swap
 from fftw3_tpu_torch.ops import c2c as c2c_ops
 from fftw3_tpu_torch.ops import df32, fused2d, inner, matrices, r2r
 from fftw3_tpu_torch.ops import real_stockham as RS
@@ -1091,6 +1103,9 @@ def copy_floor_phase(rng, dev, smi_line):
               f"+{kern - best[label]:.3f} ms ({smi_line})")
         pts = math.prod(shape)
         bms, by = bound(16.0 * pts, 0.0)
+        both = torch.stack(args)
+        lib = time_ms(torch.clone, (both,))
+        del both
         rows.append({
             "name": f"copy_floor {kind} {shape} tl={tl}", "route": "cuda",
             "source": "fftw3_tpu_torch/csrc/copy_floor.cu",
@@ -1100,7 +1115,7 @@ def copy_floor_phase(rng, dev, smi_line):
             "on_path": False, "max_abs_err": errs[label],
             "ms": sum(times[label]) / 2,
             "plain_ms": time_ms(copyfloor.copy_twin, args),
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib,
             "floor_of": of, "kernel_ms": kern})
     del arms, args
     torch.cuda.empty_cache()
@@ -1760,12 +1775,12 @@ def stage_oracle(xr, xi, arm):
 
 
 def stage_library(arm, xr, xi):
-    """The one PyTorch call computing `arm`'s product, with its inputs:
+    """The one PyTorch call computing `arm`'s function, with its inputs:
     ``torch.matmul(G, X)`` on the (rows, 2p, q) stacked planes at full
-    precision for the FP32 arms, in bf16 for the bf16 arms; None for the
-    arms that move data only."""
+    precision for the FP32 arms, in bf16 for the bf16 arms; ``clone`` of
+    the two planes stacked for the arms that move data only."""
     if arm in ("identity", "roundtrip"):
-        return None
+        return torch.clone, (torch.stack([xr, xi]),)
     p = stage4096.CASES[xr.shape[1]]
     G = torch.from_numpy(stage4096.g_matrix(p)).to(xr.device)
     X = torch.cat([xr.reshape(xr.shape[0], p, -1),
@@ -2009,6 +2024,306 @@ def measure_phases(rng, dev, smi_line, t_start):
     rows += swap_phase(rng, dev, smi_line)
     print(f"[38] done at {time.perf_counter() - t_start:.1f} s", flush=True)
     return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 39-40: E4, E6 and E9-E12, K1's matmul stage form on the tensor
+# cores (ops/k1_mma.py), and E10's host arms on the butterfly K1
+# ---------------------------------------------------------------------------
+
+#: phase 39: the reference's verify shape (every arm against its twin, as
+#: at the timed batches), the float64 check's rows, and the marginal-slope
+#: batches (kernel_variants.py:200); phase 40: E10's batch and chain
+#: lengths (headline_gap.py:44)
+E39_VERIFY = (256, N)
+E39_ORACLE = (8192, N)
+E39_BATCHES = (8192, 24576)
+E40_BATCH = 16384
+E40_K = (4, 16)
+E40_REPS = 7
+#: the relaxed rungs: noxl drops Xl (precision_variants.py:190); r = 3 and
+#: 5 compound the rounding over r passes of growing values
+NOXL_TOL = 3e-3
+REPEAT_TOL = 1e-4
+#: noxl's kernel against its twin, over max |twin|: below what a kernel
+#: that split X (prod, about 2.5e-3 from noxl's twin) would read; and the
+#: least float64 error a kernel that leaves X unsplit shows (prod: 5e-6)
+NOXL_TWIN_TOL = 1.5e-3
+NOXL_F64_FLOOR = 1e-4
+#: E4's Karatsuba arms against float64: TOL, or where the arm's own
+#: arithmetic (its twin) reads above TOL on the draw, 10% over the twin's
+#: reading (t3 - t1 - t2 carries the rounding of the larger (Fr + Fi)(Xr +
+#: Xi): the kernel 8.23e-6 to 1.058e-5, the twin up to 1.070e-5 over 16
+#: draws at 8192 and 24576 rows, fftw3_tpu_torch.tools.k1_mma_errors)
+KARATSUBA_F64_SLACK = 1.1
+K1_SCHEDULES = ([64, 16], [32, 32], [128, 8])
+
+
+def mma_twin_tol(name):
+    """An arm's tolerance against its twin on the card: TOL, but noxl's (a
+    one-ulp difference in a stage-2 input flips its one bf16 rounding) and
+    r = 3, 5's."""
+    a = k1_mma.ARMS[name]
+    if a.groups[0] == "noxl":
+        return NOXL_TWIN_TOL
+    return REPEAT_TOL if a.reps > 1 else TOL
+
+
+def mma_twin_check(info, xr, xi):
+    """Every arm at every rows per block against its twin over every row
+    of (xr, xi); records the largest max abs (``err``) and, per row count,
+    the largest distance over max |twin| (``twin_rel``)."""
+    rows = xr.shape[0]
+    for name in k1_mma.ARMS:
+        t = torch.complex(*k1_mma.k1_mma_torch(xr, xi, name))
+        tmax = t.abs().max()
+        i = info[name]
+        for rpb in k1_mma.rows_per_block_fit(name):
+            d = (torch.complex(*k1_mma.k1_mma_cuda(xr, xi, name, rpb))
+                 - t).abs().max()
+            rel = float(d / tmax)
+            check(rel <= mma_twin_tol(name),
+                  f"E4-E12 {name} ({rows}, {N}) rpb={rpb}: kernel-twin "
+                  f"{rel:.2e}")
+            i["err"] = max(i["err"], float(d))
+            i["twin_rel"][rows] = max(i["twin_rel"].get(rows, 0.0), rel)
+        del t
+
+
+def k1_mma_phase(rng, dev, smi_line):
+    """Phase 39 (``ops/k1_mma.py``): every arm at every rows per block held
+    against its twin over every row at (256, 1024) and at both timed
+    batches, on the inputs then timed; every arm that is a forward DFT (not
+    the diagnostics, not r = 3, 5) against complex128 over every row at
+    (8192, 1024), within TOL (noxl 3e-3, and above NOXL_F64_FLOOR; E4's
+    Karatsuba arms within TOL or 10% over their twin's distance), the
+    twin's distance read beside it; then every arm at its rows per block,
+    the butterfly K1 at the three schedules and ``torch.fft.fft`` timed at
+    B = 8192 and 24576, twice in one interleaved order and back.  Returns
+    ({arm: info}, yardsticks, the launches of the phase)."""
+    k1_mma.launches.clear()
+    info = {name: {"err": 0.0, "twin_rel": {}} for name in k1_mma.ARMS}
+    inputs = {B: planes(rng, (B, N), dev) for B in E39_BATCHES}
+    mma_twin_check(info, *planes(rng, E39_VERIFY, dev))
+    for B in E39_BATCHES:
+        mma_twin_check(info, *inputs[B])
+    for name in k1_mma.ARMS:
+        print(f"[39] {name}: kernel-twin over max |twin| at every rows per "
+              f"block {json.dumps(info[name]['twin_rel'])} (tolerance "
+              f"{mma_twin_tol(name):g})")
+    xr, xi = planes(rng, E39_ORACLE, dev)
+    ref = oracle(torch.complex(xr, xi), (-1,), -1)
+    for name, a in k1_mma.ARMS.items():
+        if a.diag is not None or a.reps > 1:
+            continue
+        e = relerr(torch.complex(*k1_mma.k1_mma_cuda(xr, xi, name))
+                   .to(torch.complex128), ref)
+        et = relerr(torch.complex(*k1_mma.k1_mma_torch(xr, xi, name))
+                    .to(torch.complex128), ref)
+        noxl = a.groups[0] == "noxl"
+        tol = NOXL_TOL if noxl else TOL
+        if a.form == "karatsuba":
+            tol = max(TOL, KARATSUBA_F64_SLACK * et)
+        check(e <= tol, f"E4-E12 {name}: {e:.2e} from float64 over {tol:g}")
+        check(not noxl or e > NOXL_F64_FLOOR,
+              f"E4-E12 {name}: {e:.2e} from float64, not above "
+              f"{NOXL_F64_FLOOR:g}: X is not left unsplit")
+        info[name]["e64"], info[name]["twin_e64"] = e, et
+        print(f"[39] {name}: {e:.3e} from float64 over every row of "
+              f"{E39_ORACLE} (twin {et:.3e})")
+    del ref, xr, xi
+    arms, libs = {}, {}
+    for B in E39_BATCHES:
+        xr, xi = inputs[B]
+        for name in k1_mma.ARMS:
+            for rpb in k1_mma.rows_per_block_fit(name):
+                arms[name, B, rpb] = (
+                    lambda a, b, name=name, rpb=rpb: k1_mma.k1_mma_cuda(
+                        a, b, name, rpb), (xr, xi))
+        for rad in K1_SCHEDULES:
+            tab = S._device_table(N, tuple(rad), -1, dev)
+            arms[f"K1 {rad}", B, 0] = (
+                lambda a, b, rad=rad, tab=tab: S.stockham_c2c_cuda(
+                    a, b, rad, tab), (xr, xi))
+        xc = torch.complex(xr, xi)
+        arms["torch.fft.fft", B, 0] = (torch.fft.fft, (xc,))
+        libs[B] = xc
+    torch.cuda.synchronize()
+    times = interleaved(arms)
+    for (k, B, rpb), ts in times.items():
+        print(f"[39] {k} B={B} rpb={rpb}: {ts[0]:.4f} / {ts[1]:.4f} ms "
+              f"({smi_line})")
+    mean = {k: sum(ts) / 2 for k, ts in times.items()}
+    for name in k1_mma.ARMS:
+        per_b = {}
+        for B in E39_BATCHES:
+            sweep = {rpb: mean[name, B, rpb]
+                     for rpb in k1_mma.rows_per_block_fit(name)}
+            rpb = min(sweep, key=sweep.get)
+            per_b[B] = (sweep[rpb], rpb, sweep)
+        b1, b2 = E39_BATCHES
+        info[name].update({
+            "ms": per_b[b2][0], "ms_b8192": per_b[b1][0],
+            "rows_per_block": per_b[b2][1],
+            "ms_by_rows_per_block": per_b[b2][2],
+            "slope_ps_per_pt": (per_b[b2][0] - per_b[b1][0]) * 1e9
+            / ((b2 - b1) * N)})
+    yard = {}
+    for k in [f"K1 {rad}" for rad in K1_SCHEDULES] + ["torch.fft.fft"]:
+        b1, b2 = E39_BATCHES
+        yard[k] = {"ms_b8192": mean[k, b1, 0], "ms": mean[k, b2, 0],
+                   "slope_ps_per_pt": (mean[k, b2, 0] - mean[k, b1, 0])
+                   * 1e9 / ((b2 - b1) * N)}
+        print(f"[39] yardstick {k}: {yard[k]['ms_b8192']:.4f} ms at B = "
+              f"{b1}, {yard[k]['ms']:.4f} at {b2}, marginal slope "
+              f"{yard[k]['slope_ps_per_pt']:.2f} ps/pt ({smi_line})")
+    B = E39_BATCHES[1]
+    xc = libs[B]
+    x8 = (xc.real.contiguous(), xc.imag.contiguous())
+    fft_ms = yard["torch.fft.fft"]["ms"]
+    clone_ms = time_ms(torch.clone, (xc,))
+    for name, a in k1_mma.ARMS.items():
+        i = info[name]
+        i["plain_ms"] = time_ms(lambda p, q, name=name: k1_mma.k1_mma_torch(
+            p, q, name), x8)
+        i["library_ms"] = (clone_ms if a.diag == "copy" else None
+                           if a.diag else fft_ms)
+        print(f"[39] {name}: {i['ms_b8192']:.4f} ms at B = {E39_BATCHES[0]}, "
+              f"{i['ms']:.4f} at {B} (rpb {i['rows_per_block']}), slope "
+              f"{i['slope_ps_per_pt']:.2f} ps/pt; twin {i['plain_ms']:.3f} "
+              f"ms; kernel-twin max abs {i['err']:.2e} ({smi_line})")
+    del arms, libs, inputs, xc, x8, xr, xi
+    torch.cuda.empty_cache()
+    return info, yard, dict(k1_mma.launches)
+
+
+def e10_host_phase(rng, dev, smi_line):
+    """Phase 40, E10's host arms (``headline_gap.py``) on the butterfly K1
+    [32, 32] at B = 16384: ``prod`` (K1's chained calls), ``donate`` (K1
+    with y = x, ``k1_mma.k1_inplace_cuda``, held bit for bit against the
+    out-of-place K1 first), ``stream2`` (two chains launched alternately
+    on one stream, half the time of a pair), the kernel's stages run r =
+    1, 3, 5 times (``e10_rep*``) and ``prod`` at B = 8192 and 24576 for
+    K1's marginal slope, all in one chained race (k = 4 and 16 calls, the
+    median over 7 reps of the paired differences, CUDA events); then the
+    K1 twin and ``torch.fft.fft`` at B = 16384.  Returns the phase's
+    numbers."""
+    B, rad = E40_BATCH, [32, 32]
+    tab = S._device_table(N, tuple(rad), -1, dev)
+    xr, xi = planes(rng, (B, N), dev)
+    wr, wi = S.stockham_c2c_cuda(xr, xi, rad, tab)
+    dr, di = xr.clone(), xi.clone()
+    k1_mma.inplace_launches = 0
+    k1_mma.k1_inplace_cuda(dr, di, rad, tab)
+    donate_err = max(float((dr - wr).abs().max()),
+                     float((di - wi).abs().max()))
+    check(donate_err == 0.0,
+          f"E10 donate: K1 in place differs from K1 by {donate_err:.2e}")
+    prod = (lambda a, b: S.stockham_c2c_cuda(a, b, rad, tab))
+    pair = (lambda a, b, c, d: prod(a, b) + prod(c, d))
+    chains = [
+        ("prod", timing.chain(prod, (wr, wi))),
+        ("donate", timing.chain(
+            lambda a, b: k1_mma.k1_inplace_cuda(a, b, rad, tab), (dr, di))),
+        ("stream2", timing.chain(pair, (wr, wi, dr.clone(), di.clone()),
+                                 calls_per_step=2))]
+    for r in (1, 3, 5):
+        name = f"e10_rep{r}"
+        chains.append((f"rep{r}", timing.chain(
+            lambda a, b, name=name: k1_mma.k1_mma_cuda(a, b, name),
+            (xr, xi))))
+    rows = dict.fromkeys((tag for tag, _ in chains), B)
+    for b in E39_BATCHES:
+        rows[f"prod_b{b}"] = b
+        chains.append((f"prod_b{b}", timing.chain(
+            prod, planes(rng, (b, N), dev))))
+    for _, run in chains:
+        run(1)                                     # warm
+    torch.cuda.synchronize()
+    k1, k2 = E40_K
+    res = timing.interleaved_chain_race(chains, k1, k2, E40_REPS)
+    pp = {tag: sec / (rows[tag] * N) * 1e12 for tag, sec in res.items()}
+    slope_r = (pp["rep5"] - pp["rep1"]) / 4.0
+    b1, b2 = E39_BATCHES
+    out = {"ps_per_pt": pp, "ms": {t: s * 1e3 for t, s in res.items()},
+           "rep_slope_ps_per_pt": slope_r,
+           "fixed_ps_per_pt": pp["rep1"] - slope_r,
+           "donate_saves_ps_per_pt": pp["prod"] - pp["donate"],
+           "stream2_saves_ps_per_pt": pp["prod"] - pp["stream2"],
+           "prod_marginal_ps_per_pt": (res[f"prod_b{b2}"]
+                                       - res[f"prod_b{b1}"])
+           / ((b2 - b1) * N) * 1e12,
+           "donate_launches": k1_mma.inplace_launches,
+           "donate_max_abs_err": donate_err}
+    for tag, v in pp.items():
+        print(f"[40] chained at B={rows[tag]}: {tag} {v:.2f} ps/pt "
+              f"({res[tag] * 1e3:.4f} ms a call) ({smi_line})")
+    print(f"[40] in-kernel cost of one pass (rep slope) {slope_r:.2f} "
+          f"ps/pt; fixed cost a call (rep1 - slope) "
+          f"{out['fixed_ps_per_pt']:.2f} ps/pt; donate saves "
+          f"{out['donate_saves_ps_per_pt']:.2f}, stream2 saves "
+          f"{out['stream2_saves_ps_per_pt']:.2f} ps/pt; K1 {rad} marginal "
+          f"slope (B = {b1} vs {b2}) {out['prod_marginal_ps_per_pt']:.2f} "
+          f"ps/pt ({smi_line})")
+    del chains, dr, di, wr, wi
+    out["twin_ms"] = time_ms(
+        lambda a, b: S.stockham_c2c_torch(a, b, rad, -1), (xr, xi))
+    out["fft_ms"] = time_ms(torch.fft.fft, (torch.complex(xr, xi),))
+    print(f"[40] at B={B}: K1's twin {out['twin_ms']:.4f} ms, torch.fft.fft "
+          f"{out['fft_ms']:.4f} ms ({smi_line})")
+    del xr, xi
+    torch.cuda.empty_cache()
+    return out
+
+
+def k1_mma_rows(info, yard, counts, e10):
+    """The kernels line's rows of phases 39-40: one per arm (launches:
+    phase 39's `counts`; E10's also carry phase 40's chained time a
+    call), and K1 in place."""
+    rows = []
+    B = E39_BATCHES[1]
+    for name, a in k1_mma.ARMS.items():
+        i = info[name]
+        bms, by = bound(16.0 * B * N, k1_mma.stage_flops(a) * B * N,
+                        BF16_FLOPS_PER_S)
+        row = {
+            "name": f"k1_mma {name}", "route": "cuda",
+            "source": f"fftw3_tpu_torch/csrc/{a.source}.cu",
+            "replaces": a.replaces, "launches": counts[name],
+            "on_path": False, "max_abs_err": i["err"], "ms": i["ms"],
+            "plain_ms": i["plain_ms"], "bound_ms": bms, "bound_by": by,
+            "library_ms": i["library_ms"], "shape": [B, N],
+            "ms_b8192": i["ms_b8192"],
+            "slope_ps_per_pt": i["slope_ps_per_pt"],
+            "rows_per_block": i["rows_per_block"],
+            "ms_by_rows_per_block": i["ms_by_rows_per_block"],
+            "twin_rel": i["twin_rel"], "radices": list(a.radices)}
+        if "e64" in i:
+            row["rel_err_f64"] = i["e64"]
+            row["twin_rel_err_f64"] = i["twin_e64"]
+        if a.reps > 1 or name == "e10_rep1":
+            row["chained_ms_b16384"] = e10["ms"][f"rep{a.reps}"]
+        rows.append(row)
+    rows.append({"name": "k1 in place (E10 donate)", "route": "cuda",
+                 "source": "fftw3_tpu_torch/csrc/stockham_c2c.cu",
+                 "replaces": "experiments/headline_gap.py:82",
+                 "launches": e10["donate_launches"], "on_path": False,
+                 "max_abs_err": e10["donate_max_abs_err"],
+                 "ms": e10["ms"]["donate"], "plain_ms": e10["twin_ms"],
+                 "out_of_place_ms": e10["ms"]["prod"],
+                 "bound_ms": bound(16.0 * E40_BATCH * N, 0.0)[0],
+                 "bound_by": "bytes", "library_ms": e10["fft_ms"],
+                 "shape": [E40_BATCH, N], "e10": e10, "yardsticks": yard})
+    return rows
+
+
+def tensor_core_phases(rng, dev, smi_line, t_start):
+    """Phases 39-40; returns the rows they add to the kernels line."""
+    info, yard, counts = k1_mma_phase(rng, dev, smi_line)
+    print(f"[39] done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    e10 = e10_host_phase(rng, dev, smi_line)
+    print(f"[40] done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    return k1_mma_rows(info, yard, counts, e10)
 
 
 def main() -> None:
@@ -3125,6 +3440,7 @@ def main() -> None:
           flush=True)
     r2r_res = r2r_phases(rng, dev, smi_line, args.seed)
     measure_rows = measure_phases(rng, dev, smi_line, t_start)
+    measure_rows += tensor_core_phases(rng, dev, smi_line, t_start)
 
     # the JSON line keeps one row per kernel: K3 at its 3-D path shape, K4
     # and K6 at the 1-D real path's shape
@@ -3139,7 +3455,7 @@ def main() -> None:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     kernels += e5_rows + e8_rows + measure_rows
 
-    print(f"[38] whole run {time.perf_counter() - t_start:.1f} s")
+    print(f"[40] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"r2r": r2r_res}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,13 @@
 // row of up to 4096 points per block: the reference's MEASURE-only
 // all-butterfly schedule [n/h, h] for 2048 < n <= 4096
 // (fftw3_tpu/planner.py:494-506), plain form only.
+//
+// The in-place form (stockham_c2c_inplace_*) is the plain form with the
+// output on the input, E10's `donate` arm (experiments/headline_gap.py),
+// timing only: its planes are not __restrict__ and are not read through the
+// read-only path.  It is no race: a block reads every row of its group (the
+// load pass or the first level) before the barrier ahead of its last
+// level's stores, and no two blocks share a row.
 
 #include "stockham_rows.cuh"
 
@@ -81,4 +88,46 @@ extern "C" int stockham_c2c_wide_launch(const float* xr, const float* xi,
                                       fftw3_tpu_torch::kWideThreads>(
       xr, xi, yr, yi, tab, plan, rows, n, rpb, ptw, ptw_p, store_p, grid,
       smem, static_cast<cudaStream_t>(stream));
+}
+
+namespace fftw3_tpu_torch {
+namespace {
+
+__global__ void __launch_bounds__(kRowThreads,
+                                  kRowMinThreadsPerSm / kRowThreads)
+stockham_c2c_inplace_kernel(float* xr, float* xi,
+                            const float* __restrict__ tab,
+                            const LevelPlan plan, int rows, int n, int rpb) {
+  rows_body<Arm::kFull, false, false, true>(xr, xi, xr, xi, tab, plan, rows,
+                                            n, rpb, nullptr, 0);
+}
+
+}  // namespace
+}  // namespace fftw3_tpu_torch
+
+// The in-place form: the plain form's contracts, with (xr, xi) both the
+// input and the output.
+extern "C" int stockham_c2c_inplace_occupancy(int smem, int* blocks_per_sm) {
+  using namespace fftw3_tpu_torch;
+  if (smem > kRowMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = allow_smem(stockham_c2c_inplace_kernel);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, stockham_c2c_inplace_kernel, kRowThreads,
+      static_cast<size_t>(smem)));
+}
+
+extern "C" int stockham_c2c_inplace_launch(float* xr, float* xi,
+                                           const float* tab, const int* plan,
+                                           int rows, int n, int rpb, int grid,
+                                           int smem, void* stream) {
+  using namespace fftw3_tpu_torch;
+  LevelPlan lp;
+  if (!read_plan(plan, 1, &lp) || rpb < 1 || rpb * n > kRowPts * kRowThreads ||
+      smem != plan_smem(lp, rpb))
+    return static_cast<int>(cudaErrorInvalidValue);
+  stockham_c2c_inplace_kernel<<<grid, kRowThreads, static_cast<size_t>(smem),
+                                static_cast<cudaStream_t>(stream)>>>(
+      xr, xi, tab, lp, rows, n, rpb);
+  return static_cast<int>(cudaGetLastError());
 }

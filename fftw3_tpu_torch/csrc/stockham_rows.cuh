@@ -1,6 +1,7 @@
 // The body of K1, the batched last-axis c2c kernel (stockham_c2c.cu), as a
 // template over E5's arm (ablate_stage.cu instantiates the timing-only
-// arms), the four-step's two options and the block size.  See
+// arms), the four-step's two options, the block size and whether the planes
+// alias the output (the in-place form of stockham_c2c.cu).  See
 // stockham_c2c.cu for what it replaces and how it is bounded.
 //
 // Two block sizes, both at kRowPts points a thread in a level and 128
@@ -77,13 +78,27 @@ __device__ __forceinline__ float4 cmul4(float4 a, float4 b, float4 c,
                      a.z * c.z - b.z * d.z, a.w * c.w - b.w * d.w);
 }
 
-template <int kArm, bool kPretwiddle, bool kTransposed, int kThreads>
-__global__ void __launch_bounds__(kThreads, kRowMinThreadsPerSm / kThreads)
-stockham_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                    float* __restrict__ yr, float* __restrict__ yi,
-                    const float* __restrict__ tab, const LevelPlan plan,
-                    int rows, int n, int rpb, const float* __restrict__ ptw,
-                    int ptw_p) {
+// A 16-byte load of the planes: through the read-only path, unless the
+// planes alias the output (kAliased, the in-place form).
+template <bool kAliased>
+__device__ __forceinline__ float4 load_planes4(const float* p) {
+  if constexpr (kAliased) {
+    return *reinterpret_cast<const float4*>(p);
+  } else {
+    return __ldg(reinterpret_cast<const float4*>(p));
+  }
+}
+
+// The body of every form.  The kernels that call it say whether the planes
+// are __restrict__; kAliased (yr == xr, yi == xi) keeps read-only loads off
+// the planes.
+template <int kArm, bool kPretwiddle, bool kTransposed, bool kAliased>
+__device__ __forceinline__ void rows_body(const float* xr, const float* xi,
+                                          float* yr, float* yi,
+                                          const float* tab,
+                                          const LevelPlan& plan, int rows,
+                                          int n, int rpb, const float* ptw,
+                                          int ptw_p) {
   extern __shared__ float4 smem4[];
   __shared__ Level lev[kMaxLevels];
   float* tb = reinterpret_cast<float*>(smem4);
@@ -114,8 +129,8 @@ stockham_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
           const int row = i / n4;
           const int k = 4 * (i - row * n4);
           const int64_t off = (r0 + row) * n + k;
-          float4 a = __ldg(reinterpret_cast<const float4*>(xr + off));
-          float4 b = __ldg(reinterpret_cast<const float4*>(xi + off));
+          float4 a = load_planes4<kAliased>(xr + off);
+          float4 b = load_planes4<kAliased>(xi + off);
           if (kPretwiddle) {
             const float* w =
                 ptw + static_cast<int64_t>((r0 + row) % ptw_p) * n;
@@ -165,6 +180,17 @@ stockham_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                                 direct ? xi + r0 * n : nullptr, n);
     }
   }
+}
+
+template <int kArm, bool kPretwiddle, bool kTransposed, int kThreads>
+__global__ void __launch_bounds__(kThreads, kRowMinThreadsPerSm / kThreads)
+stockham_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
+                    float* __restrict__ yr, float* __restrict__ yi,
+                    const float* __restrict__ tab, const LevelPlan plan,
+                    int rows, int n, int rpb, const float* __restrict__ ptw,
+                    int ptw_p) {
+  rows_body<kArm, kPretwiddle, kTransposed, false>(xr, xi, yr, yi, tab, plan,
+                                                   rows, n, rpb, ptw, ptw_p);
 }
 
 using RowKernel = void (*)(const float*, const float*, float*, float*,

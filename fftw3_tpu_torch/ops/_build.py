@@ -46,6 +46,10 @@ SIGNATURES = {
     "stockham_c2c_wide_launch": [_P] * 5 + [_IP] + [_I] * 3 + [_P]
     + [_I] * 4 + [_P],
     "stockham_c2c_wide_occupancy": [_I, ctypes.POINTER(_I)],
+    # K1 in place (E10's donate, timing only): xr xi tab, plan, rows n rpb
+    # grid smem, stream
+    "stockham_c2c_inplace_launch": [_P] * 3 + [_IP] + [_I] * 5 + [_P],
+    "stockham_c2c_inplace_occupancy": [_I, ctypes.POINTER(_I)],
     # xr xi yr yi tab, plan, pre n, L, tl gp grid smem, stream
     "inner_c2c_launch": [_P] * 5 + [_IP] + [_I] * 2 + [_L] + [_I] * 4
     + [_P],
@@ -93,6 +97,12 @@ SIGNATURES = {
     # E7 (swap.cu), timing only: xr xi yr yi, batch p q grid smem, stream
     "swap_launch": [_P] * 4 + [_I] * 5 + [_P],
     "swap_occupancy": [_I, ctypes.POINTER(_I)],
+    # E4, E6, E9-E12 (k1_mma_*.cu), timing only: variant, xr xi yr yi c1
+    # c2 tw, rows rpb reps host_split grid smem, stream; variant smem
+    **{f"k1_mma_{src}_launch": [_I] + [_P] * 7 + [_I] * 6 + [_P]
+       for src in ("karatsuba", "stacked64", "stacked")},
+    **{f"k1_mma_{src}_occupancy": [_I, _I, ctypes.POINTER(_I)]
+       for src in ("karatsuba", "stacked64", "stacked")},
 }
 
 _lock = threading.Lock()

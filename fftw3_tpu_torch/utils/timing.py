@@ -49,23 +49,18 @@ def time_chained(fn: Callable, args: Sequence[torch.Tensor],
 def time_chained_multi(configs: Sequence[Tuple[Callable, Sequence]],
                        iters: int = 10, reps: int = 5) -> List[float]:
     """Chained seconds per call for SEVERAL (fn, args) configs,
-    interleaved: every rep times every config before the next rep starts,
-    so slow drift in the card's state (clocks, temperature) lands on all of
-    them alike.  Returns a list aligned with ``configs``."""
+    interleaved: every rep times every config's :func:`chain` of ``iters``
+    calls before the next rep starts, so slow drift in the card's state
+    (clocks, temperature) lands on all of them alike.  Each chain starts
+    from the warm-up call's output.  Returns a list aligned with
+    ``configs``."""
     runs = []
     for fn, args in configs:
-        state = [tuple(fn(*args))]                 # warm-up (builds)
-
-        def run(fn=fn, state=state):
-            cur = state[0]
-            for _ in range(iters):
-                cur = tuple(fn(*cur))
-            state[0] = cur
-        runs.append((run, _device_of(args)))
+        runs.append(chain(fn, tuple(fn(*args))))   # warm-up (builds)
     samples: List[List[float]] = [[] for _ in runs]
     for _ in range(reps):
-        for i, (run, dev) in enumerate(runs):
-            samples[i].append(_elapsed(run, dev) / iters)
+        for i, run in enumerate(runs):
+            samples[i].append(run(iters) / iters)
     return [statistics.median(s) for s in samples]
 
 
@@ -81,3 +76,40 @@ def time_dispatched(fn: Callable, args: Sequence[torch.Tensor],
     dev = _device_of(args)
     return statistics.median(_elapsed(run, dev) / iters
                              for _ in range(reps))
+
+
+def chain(fn: Callable, args: Sequence[torch.Tensor],
+          calls_per_step: int = 1) -> Callable[[int], float]:
+    """A chain of `fn` from `args`: ``run(k)`` makes k dependent steps (each
+    call's output tuple feeds the next) and returns the seconds they take,
+    CUDA events on a CUDA tensor; each step holds `calls_per_step` calls,
+    and the seconds are divided by it."""
+    dev = _device_of(args)
+
+    def run(k: int) -> float:
+        state = [tuple(args)]
+
+        def steps():
+            cur = state[0]
+            for _ in range(k):
+                cur = tuple(fn(*cur))
+            state[0] = cur
+        return _elapsed(steps, dev) / calls_per_step
+    return run
+
+
+def interleaved_chain_race(named_chains, k1: int = 4, k2: int = 16,
+                           reps: int = 7) -> dict:
+    """Seconds per call of each chain of ``[(tag, run)]`` (``run(k)`` makes
+    k chained calls and returns their seconds, as :func:`chain` builds):
+    every rep runs every chain at k1 and k2 calls before the next rep, and
+    a chain's time per call is the median over reps of (t(k2) - t(k1)) /
+    (k2 - k1), so a fixed cost per chain cancels and drift lands on every
+    chain alike (the port of ``experiments/_race.py``)."""
+    samples = {tag: [] for tag, _ in named_chains}
+    for _ in range(reps):
+        for tag, run in named_chains:
+            t1 = run(k1)
+            t2 = run(k2)
+            samples[tag].append((t2 - t1) / (k2 - k1))
+    return {tag: statistics.median(s) for tag, s in samples.items()}
