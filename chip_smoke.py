@@ -73,8 +73,9 @@ around K1 on every axis.  Phase 16 holds K4, K5 and K6 against their twins
 and float64 over a case grid; phase 19 profiles the real paths in a second
 child (``--profile-paths real``) and times the three real kernels against
 their twins and ``torch.fft.rfft``/``irfft``.  Phase 20 holds K7 against
-its twin and complex128 (1e-12) over a case grid; phase 23 runs the dd64
-tier on the card against the same plan on the CPU, in mpmath (1e-28);
+its twin bit for bit and complex128 (1e-12) over a case grid; phase 23
+runs the dd64 tier on the card against the same plan on the CPU, in
+mpmath (1e-28);
 phase 24 profiles the f64 path in a third child (``--profile-paths
 f64``); phase 25 runs E5, the stage ablation of K1 (``ops/ablate.py``), in
 both stage forms, interleaved with K1; phase 26 runs E8, the copy floors
@@ -102,10 +103,16 @@ at (256, 1024) and every forward arm against complex128 over every row at
 three schedules and ``torch.fft.fft``; phase 40 runs E10's host arms on
 the butterfly K1 [32, 32] at B = 16384 (``donate``, K1 in place, held bit
 for bit against K1 first; ``stream2``; the stages run 1, 3 and 5 times in
-one kernel), raced chained.  K1, K2, K3 and K4 run their stages as register
-butterflies (a radix with a prime factor of 7 or more keeps the dense
-sum), K5, K6 and K7 their own stage loops; each butterfly kernel's row in
-the kernels line names its stage form.
+one kernel), raced chained.  Phase 41 runs K7's ablation
+(``tools/k7_ablation.py``: the ``full``, ``no_twiddle``, ``skeleton`` and
+``copy`` arms at the f64 path's (8192, 1024) [64, 16], timed interleaved
+with K7 and cuFFT Z2Z, the full arm held bit for bit against K7) and
+prints the SASS of K7's arms by instruction class.  K1, K2, K3, K4 and K5
+run their stages as register butterflies (a radix with a prime factor of
+7 or more keeps the dense sum), K6 the dense stage loop, K7 its own df
+passes (two recursion levels a pass in registers, the permute folded into
+the next stage's reads); each butterfly kernel's row in the kernels line
+names its stage form.
 Exits non-zero at the first
 failed check, and without printing a result when torch sees no CUDA
 device.
@@ -115,7 +122,8 @@ the kernels of the paths (name, source, launches, error against the twin,
 times, bound; P1's launches are the probe's own; the measurement arms'
 launches are their phase's, ``on_path`` false but for the ``pallas4``
 arms; phase 39's rows carry both batches' times and the marginal slope,
-the last row phase 40's race), then ``{"ok": true, "device": {...}}``.
+then phase 40's race, then phase 41's K7 arms), then ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -667,19 +675,22 @@ def f64_phases(rng, dev, smi_line, seed, t_start):
                 tr, ti = df32.df32_c2c_torch(xr, xi, rad, sign)
                 torch.cuda.synchronize()
                 k = torch.complex(kr, ki)
+                same = torch.equal(kr, tr) and torch.equal(ki, ti)
                 e_kt = relerr(k, torch.complex(tr, ti))
                 e_ko = relerr(k, oracle(torch.complex(xr, xi), (-1,), sign))
-                check(e_kt <= F64_TOL and e_ko <= F64_TOL,
+                check(same and e_ko <= F64_TOL,
                       f"K7 n={n} r={rad} sign={sign} B={b}: kernel-twin "
-                      f"{e_kt:.2e}, kernel-complex128 {e_ko:.2e}")
+                      f"{e_kt:.2e} (bit for bit: {same}), kernel-complex128 "
+                      f"{e_ko:.2e}")
                 worst_kt, worst_ko = max(worst_kt, e_kt), max(worst_ko, e_ko)
                 ncases += 1
                 del xr, xi, kr, ki, tr, ti, k
         print(f"[20] K7 n={n} r={rad}: worst so far kernel-twin "
               f"{worst_kt:.2e}, kernel-complex128 {worst_ko:.2e}", flush=True)
-    print(f"[20] K7: {ncases} cases, worst kernel-twin {worst_kt:.2e}, "
-          f"kernel vs torch.fft complex128 {worst_ko:.2e} (max-abs over "
-          f"max-abs; tolerance {F64_TOL})")
+    print(f"[20] K7: {ncases} cases, each equal to its twin bit for bit "
+          f"(worst kernel-twin {worst_kt:.2e}); kernel vs torch.fft "
+          f"complex128 {worst_ko:.2e} (max-abs over max-abs; tolerance "
+          f"{F64_TOL})")
 
     # -- 21. the f64 path: plan_many_dft([1024], howmany=8192, complex128) --
     B, n = F64_PATH
@@ -764,7 +775,8 @@ def f64_phases(rng, dev, smi_line, seed, t_start):
     t = torch.complex(tr, ti)
     max_abs = float((torch.complex(kr, ki) - t).abs().max())
     rel_k7 = max_abs / float(t.abs().max())
-    check(rel_k7 <= F64_TOL, f"K7 vs twin at {F64_PATH}: {rel_k7:.2e}")
+    check(torch.equal(kr, tr) and torch.equal(ki, ti),
+          f"K7 vs twin at {F64_PATH}: {rel_k7:.2e}, not bit for bit")
     del kr, ki, tr, ti, t
     # K7's own FP32 instructions (its df multiply is fmaf's two_prod, not
     # the reference count's Dekker split)
@@ -2326,6 +2338,44 @@ def tensor_core_phases(rng, dev, smi_line, t_start):
     return k1_mma_rows(info, yard, counts, e10)
 
 
+def k7_ablation_phase(dev, smi_line, k7_row, seed):
+    """Phase 41: K7's ablation (``tools/k7_ablation.py``) at the f64 path's
+    shape and schedule: the ``full``, ``no_twiddle``, ``skeleton`` and
+    ``copy`` arms timed in one interleaved order and back beside K7's
+    wrapper and cuFFT Z2Z, the full arm held bit for bit against K7; then
+    the SASS of K7's arms by instruction class (``cuobjdump``, each
+    instruction once).  Returns the arms' rows of the kernels line
+    (launches: this phase's, the arms are on no user path)."""
+    from fftw3_tpu_torch.tools import k7_ablation
+    B, n = F64_PATH
+    res = k7_ablation.race(B, n, seed)
+    times = res["times_ms"]
+    for k, ts in times.items():
+        print(f"[41] {k} {F64_PATH} {res['radices']}: {ts[0]:.4f} / "
+              f"{ts[1]:.4f} ms ({smi_line})")
+    sass = k7_ablation.static_mix(k7_ablation.cuobjdump_sass(
+        _build._library_path()))
+    for name, mix in sorted(sass.items()):
+        print(f"[41] SASS {_build._kernel_name(name)}: {sum(mix.values())} "
+              f"instructions, {mix}")
+    check(len(sass) == len(df32.K7_FAMILIES) + len(df32.ABLATE_ARMS) - 1,
+          f"K7's SASS: {sorted(sass)}")
+    cufft = sum(times["cuFFT Z2Z torch.fft.fft"]) / 2
+    rows = []
+    for a in df32.ABLATE_ARMS:
+        rows.append({
+            "name": f"df32_c2c arm {a}", "route": "cuda",
+            "source": "fftw3_tpu_torch/csrc/df32_c2c.cu",
+            "replaces": "fftw3_tpu/ops/df32.py:444",
+            "launches": res["launches"][a], "on_path": False,
+            "max_abs_err": res["max_abs_err"][a],
+            "ms": sum(times[f"arm {a}"]) / 2,
+            "plain_ms": k7_row["plain_ms"], "bound_ms": k7_row["bound_ms"],
+            "bound_by": k7_row["bound_by"], "library_ms": cufft})
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3113,7 +3163,7 @@ def main() -> None:
             for L in R2C_INNER_LS:
                 x = real_rows(rng, (pre, n, L), dev)
                 kr, ki = RS.r2c_inner_cuda(x, rad, t_fwd)
-                tr, ti = RS.r2c_inner_torch(x, rad)
+                tr, ti = RS.r2c_inner_torch(x, rad, "all")
                 torch.cuda.synchronize()
                 k = torch.complex(kr, ki)
                 e_kt = relerr(k, torch.complex(tr, ti))
@@ -3408,8 +3458,14 @@ def main() -> None:
     tf = RS._device_table(n, tuple(rad), -1, dev)
     x = real_rows(rng, REAL_2D, dev)
     kr, ki = RS.r2c_inner_cuda(x, rad, tf)
-    tr, ti = RS.r2c_inner_torch(x, rad)
+    tr, ti = RS.r2c_inner_torch(x, rad, "all")
     err, rel = twin_err(f"r2c_inner {REAL_2D}", kr, ki, tr, ti)
+    e64 = relerr(torch.complex(kr, ki).to(c128),
+                 torch.fft.rfft(x.double(), dim=-2))
+    print(f"[19] K5 {REAL_2D} (tiles of "
+          f"{RS.r2c_inner_tile(n // 2, REAL_2D[2], rad)} columns): vs "
+          f"float64 over every bin {e64:.2e}")
+    check(e64 <= TOL, f"K5 at {REAL_2D} vs float64: {e64:.2e}")
     rows19.append({
         "name": "r2c_inner", "route": "cuda",
         "source": "fftw3_tpu_torch/csrc/r2c_inner.cu",
@@ -3417,7 +3473,8 @@ def main() -> None:
         "launches": counts18["r2c swapped"]["r2c_inner"],
         "max_abs_err": err, "rel_err": rel,
         "ms": time_ms(lambda a: RS.r2c_inner_cuda(a, rad, tf), (x,)),
-        "plain_ms": time_ms(lambda a: RS.r2c_inner_torch(a, rad), (x,)),
+        "plain_ms": time_ms(lambda a: RS.r2c_inner_torch(a, rad, "all"),
+                            (x,)),
         "library_ms": time_ms(lambda a: torch.fft.rfft(a, dim=-2), (x,)),
         "shape": REAL_2D, "bytes": 4.0 * x.numel() + 8.0 * kr.numel(),
         "flops": fft_flops(x.numel(), n) / 2})
@@ -3441,6 +3498,8 @@ def main() -> None:
     r2r_res = r2r_phases(rng, dev, smi_line, args.seed)
     measure_rows = measure_phases(rng, dev, smi_line, t_start)
     measure_rows += tensor_core_phases(rng, dev, smi_line, t_start)
+    measure_rows += k7_ablation_phase(dev, smi_line, k7_row, args.seed)
+    print(f"[41] done at {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # the JSON line keeps one row per kernel: K3 at its 3-D path shape, K4
     # and K6 at the 1-D real path's shape
@@ -3455,7 +3514,7 @@ def main() -> None:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     kernels += e5_rows + e8_rows + measure_rows
 
-    print(f"[40] whole run {time.perf_counter() - t_start:.1f} s")
+    print(f"[41] whole run {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"r2r": r2r_res}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -20,53 +20,97 @@
 // split inexact (about 1e-7 instead of 1e-15).  Every sum is written with
 // __fadd_rn / __fsub_rn and every product with __fmul_rn, which nvcc never
 // contracts; the one FMA is the exact product error e = fmaf(a, b, -p) of
-// two_prod, exact where Dekker's form is and cheaper.
+// two_prod, exact where Dekker's form is and cheaper.  The kernel runs the
+// twin's df operations on the same operands in the same order, so it equals
+// ops/df32.py's df32_c2c_torch bit for bit.
 //
-// What bounds it on an H100: the arithmetic.  A df add here is 11 FP32
-// instructions and a df multiply 9 (3 FMUL, 1 FFMA, 5 FADD), so a complex
-// df add is 22 and a complex df multiply 58; the [64, 16] schedule issues
-// 408.5 per point (ops/df32.py, kernel_instructions) against 32 bytes of
-// HBM traffic (16 in, 16 out): about 0.10 ms of FP32 instructions against
-// 0.08 ms of memory at (8192, 1024).  The design keeps every intermediate
-// on chip: a block holds its rows' four float planes in shared memory
-// through every stage (one HBM read and one write per point).  The simple
-// form comes first: each level of each butterfly recursion is one pass in
-// which a thread computes one radix-r df butterfly in registers, in place,
-// then the block synchronises; no tensor cores, no TMA.
+// What bounds it on an H100: instruction issue.  A df add is 11 FP32
+// instructions and a df multiply 9 (3 FMUL, 1 FFMA, 5 FADD), so a complex df
+// add is 22 and a complex df multiply 58; the [64, 16] schedule issues 408.5
+// FP32 instructions a point (ops/df32.py, kernel_instructions) against 32
+// bytes of HBM traffic (16 in, 16 out): about 0.10 ms of FP32 issue against
+// 0.08 ms of memory at (8192, 1024).  An SM partition issues one warp
+// instruction a clock, whatever its kind, so every integer, shared-memory,
+// load and conversion instruction takes a slot an FP32 one could have used.
+// The first design spent about 920 such instructions a point at
+// [64, 16] (tools/k7_ablation.py on its SASS): run-time divisions in every
+// level, a digit_pos loop per point in the permute and the store, four
+// scalar shared-memory words per point per level, six passes and barriers a
+// row.  This design keeps the arithmetic and moves everything else out of
+// the per-point path:
 //
-// Layout and schedule:
-//  * A block takes a tile of rpb whole rows (the caller's choice,
-//    ops/df32.py rows_per_block) and walks the tiles with a grid stride, so
-//    any batch works with no padding; row offsets are 64-bit.  256 threads:
-//    one radix-4 butterfly each at n = 1024.
-//  * Shared memory: two buffers (A, B) of four planes (rh, rl, ih, il) of
-//    rpb * n floats, 32 bytes per point in all.
-//  * A stage (p, q, done) sees a row as (p, q, done), column c = j2*done + d,
-//    stride S = q*done.  Its p-point DFT runs in place on every column as a
-//    decimation-in-frequency recursion: level l combines r points at
-//    distance m_l/r inside each sub-block of m_l, applies the level
-//    twiddle, and writes the r results back where it read them, so the
-//    column ends in digit-reversed order (digit_pos).  The twiddle-and-
-//    permute pass then reads X[k1] of column (j2, d) from its digit-
-//    reversed place, multiplies by w[k1, j2] and writes point
-//    (j2*p + k1)*done + d of the other buffer.  The last stage (q = 1) has
-//    neither: the store reads its digit-reversed places directly.
+//  * The host plans the passes (ops/df32.py, k7_plan): each stage's
+//    recursion levels in passes of one level or two (r1 * r2 <= 16 df
+//    points, 64 floats, in registers).  A task of a pass holds the points
+//    sb*m + j + inner*a + (m/r1)*b (a < r2, b < r1) of one column c of a
+//    row: the first level's butterflies run over b, the second's over a, in
+//    registers, with their level twiddles.  At [64, 16]: (4, 4), (4), (4, 4)
+//    -- three passes, two barriers a tile besides the one between tiles.
+//  * The permute costs no pass: a stage's last pass multiplies by the stage
+//    twiddle and writes in place, in digit-reversed order; the next stage's
+//    first pass reads its column from there (the position tables dp of the
+//    plan: one int load a task), and the last stage's last pass stores the
+//    float64 output in natural order from registers (the table rev: one int
+//    load a task).  Every other per-point address is a task base plus a
+//    constant multiple of a pass stride; a task's row, column and place come
+//    from FastDiv multiplies, once a task.  No run-time division is left.
+//  * One buffer in place, 16 bytes a point: a point is one float4 (rh, rl,
+//    ih, il), one LDS.128 or STS.128.  A pass that reads one layout and
+//    writes another (a later stage's first pass when it writes shared
+//    memory) reads all its tasks into registers, synchronises, then writes.
+//    The buffer's slots are swizzled (slot = e ^ ((e >> s1 ^ e >> s2) & 7),
+//    the host's choice, k7_swizzle) so that the warps' 16-byte accesses hit
+//    eight distinct bank groups: at [64, 16] every access of a tile is free
+//    of conflicts.
+//  * A block of 256 threads takes a tile of rows_per_block whole rows (4 at
+//    n = 1024: 64 KB, above the 48 KB a block gets without opting in, so the
+//    occupancy query allows kMaxSmem first); two blocks an SM, 128
+//    registers a thread.  Tiles are walked with a grid stride, any batch
+//    works with no padding, row offsets are 64-bit.
+//  * One run-time form serves every schedule, instantiated per family of
+//    pass kinds (fam_has): a body that inlines all eleven kinds spills 11
+//    KB at 128 registers and runs no faster than the first design, one that
+//    inlines the two kinds of power-of-4 stages runs [64, 16] in under half
+//    its time.  The host picks the first family that holds every kind of
+//    its plan (ops/df32.py, k7_family).
 //  * Constants (stage twiddles, radix-3/5 coefficients, level twiddles) are
-//    one float table built on the host in float64 and split exactly into
-//    (hi, lo) pairs, read through the read-only cache.  Layout, stage by
-//    stage: the (p, q) stage twiddle as four p*q planes (rh, rl, ih, il)
-//    when q > 1; then the butterfly stream of the p-point DFT, per
-//    recursion level: for radix 3 (5) the 2 (4) coefficients w^1.. as four
-//    floats each, then, when m/r > 1, the level twiddles for k1 = 1..r-1 as
-//    four planes of m/r floats each.
+//    one table of float4 entries (rh, rl, ih, il), built on the host in
+//    float64 and split exactly, read through the read-only cache: per stage,
+//    the (p, q) stage twiddle at k1*q + j2 when q > 1; then per recursion
+//    level, the radix-3 (5) coefficients w^1.. (2, 4 entries) and, when the
+//    level's sub-blocks hold more than one butterfly, its twiddles for
+//    k1 = 1..r-1 at (k1 - 1)*(m/r) + j2.
+//
+// Timing-only arms (tools/k7_ablation.py, chip_smoke.py phase 41) share the
+// body of family 0: kNoTwiddle skips the level and stage twiddle
+// multiplies, kSkeleton replaces each butterfly by a reversal of its
+// registers (every load, pass, barrier, permute and store kept, no df
+// arithmetic), kCopy only splits on load and recombines on store.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "stockham_bfly.cuh"
+
 namespace {
 
+using fftw3_tpu_torch::FastDiv;
+using fftw3_tpu_torch::fast_div;
+
 constexpr int kThreads = 256;
-constexpr int kMaxStages = 4;
+constexpr int kMinBlocks = 2;
+constexpr int kMaxPasses = 12;
+// ints of the host's plan: a header (passes, s1, s2, int-table length),
+// then kPassInts a pass in ops/df32.py's PASS_FIELDS order
+constexpr int kHeadInts = 4;
+constexpr int kPassInts = 21;
+// a cap on any launch's shared memory (tiles of up to 10240 points), set
+// once: the attribute is a cap
+constexpr int kMaxSmem = 163840;
+
+struct Arm {
+  static constexpr int kFull = 0, kNoTwiddle = 1, kSkeleton = 2, kCopy = 3;
+};
 
 // A double-float complex value.
 struct DC {
@@ -135,253 +179,454 @@ __device__ __forceinline__ DC imul(const DC& a, int sign) {
   return DC{-a.ih, -a.il, a.rh, a.rl};
 }
 
-// A df complex constant from four consecutive floats (rh, rl, ih, il).
-__device__ __forceinline__ DC coeff(const float* __restrict__ t) {
-  return DC{__ldg(t), __ldg(t + 1), __ldg(t + 2), __ldg(t + 3)};
+// Entry i of the constant table.
+__device__ __forceinline__ DC entry(const float4* __restrict__ tab, int i) {
+  const float4 v = __ldg(tab + i);
+  return DC{v.x, v.y, v.z, v.w};
 }
 
-// Entry j of a constant stored as four planes of `len` floats.
-__device__ __forceinline__ DC planes_at(const float* __restrict__ t, int len,
-                                        int j) {
-  return DC{__ldg(t + j), __ldg(t + len + j), __ldg(t + 2 * len + j),
-            __ldg(t + 3 * len + j)};
-}
-
-__device__ __forceinline__ int radix_of(int m) {
-  if (m % 4 == 0) return 4;
-  if (m % 2 == 0) return 2;
-  if (m % 5 == 0) return 5;
-  return 3;
-}
-
-// Where the in-place recursion leaves X[k] of an m-point column: digit k1 of
-// the first level (k = k1 + r*k2) selects the sub-block k1*(m/r), the child
-// places k2 inside it.
-__device__ __forceinline__ int digit_pos(int k, int m) {
-  int pos = 0;
-  while (m > 1) {
-    const int r = radix_of(m);
-    const int q = m / r;
-    pos += (k % r) * q;
-    k /= r;
-    m = q;
-  }
-  return pos;
-}
-
-// The four float planes of one buffer.
-struct Planes {
-  float *rh, *rl, *ih, *il;
-  __device__ __forceinline__ DC get(int i) const {
-    return DC{rh[i], rl[i], ih[i], il[i]};
-  }
-  __device__ __forceinline__ void put(int i, const DC& v) const {
-    rh[i] = v.rh;
-    rl[i] = v.rl;
-    ih[i] = v.ih;
-    il[i] = v.il;
-  }
-};
-
-// One radix-R df butterfly on x[0..R): the reference's _df_vpu_dft body
-// for one point of every (j2, column), then the level twiddle of outputs
-// k1 > 0 (lt = the level's twiddle planes of qq floats, nullptr when
-// qq == 1).  `cf` holds the radix-3/5 coefficients.
+// The R-point df butterfly on x[0..R), in place: the reference's
+// _df_vpu_dft body for one point of every column.  `cf` holds the radix-3/5
+// coefficients w^1.. (R - 1 entries).
 template <int R>
-__device__ __forceinline__ void butterfly(DC* x, int sign,
-                                          const float* __restrict__ cf,
-                                          const float* __restrict__ lt,
-                                          int qq, int j2) {
-  DC b[R];
-  if (R == 2) {
-    b[0] = cadd(x[0], x[1]);
-    b[1] = csub(x[0], x[1]);
-  } else if (R == 4) {
+__device__ __forceinline__ void dft(DC (&x)[R], int sign,
+                                    const float4* __restrict__ cf) {
+  if constexpr (R == 2) {
+    const DC b0 = cadd(x[0], x[1]);
+    const DC b1 = csub(x[0], x[1]);
+    x[0] = b0;
+    x[1] = b1;
+  } else if constexpr (R == 4) {
     const DC t0 = cadd(x[0], x[2]);
     const DC t1 = csub(x[0], x[2]);
     const DC t2 = cadd(x[1], x[3]);
     const DC u3 = imul(csub(x[1], x[3]), sign);
-    b[0] = cadd(t0, t2);
-    b[1] = cadd(t1, u3);
-    b[2] = csub(t0, t2);
-    b[3] = csub(t1, u3);
-  } else if (R == 3) {
-    const DC w1 = coeff(cf), w2 = coeff(cf + 4);
-    b[0] = cadd(x[0], cadd(x[1], x[2]));
-    b[1] = cadd(x[0], cadd(cmul(x[1], w1), cmul(x[2], w2)));
-    b[2] = cadd(x[0], cadd(cmul(x[1], w2), cmul(x[2], w1)));
-  } else {  // R == 5: the direct coefficient form, w^1..w^4
+    x[0] = cadd(t0, t2);
+    x[1] = cadd(t1, u3);
+    x[2] = csub(t0, t2);
+    x[3] = csub(t1, u3);
+  } else if constexpr (R == 3) {
+    const DC w1 = entry(cf, 0), w2 = entry(cf, 1);
+    const DC b0 = cadd(x[0], cadd(x[1], x[2]));
+    const DC b1 = cadd(x[0], cadd(cmul(x[1], w1), cmul(x[2], w2)));
+    const DC b2 = cadd(x[0], cadd(cmul(x[1], w2), cmul(x[2], w1)));
+    x[0] = b0;
+    x[1] = b1;
+    x[2] = b2;
+  } else {
+    static_assert(R == 5, "butterflies of 2, 3, 4 and 5 points");
+    DC w[4];
 #pragma unroll
-    for (int k1 = 0; k1 < 5; ++k1) {
+    for (int k = 0; k < 4; ++k) w[k] = entry(cf, k);
+    DC b[5];
+#pragma unroll
+    for (int k1 = 0; k1 < 5; ++k1) {  // the direct coefficient form
       DC acc = x[0];
 #pragma unroll
-      for (int j1 = 1; j1 < 5; ++j1) {
-        if (k1 == 0)
-          acc = cadd(acc, x[j1]);
-        else
-          acc = cadd(acc, cmul(x[j1], coeff(cf + 4 * ((j1 * k1) % 5 - 1))));
-      }
+      for (int j1 = 1; j1 < 5; ++j1)
+        acc = cadd(acc, k1 == 0 ? x[j1] : cmul(x[j1], w[(j1 * k1) % 5 - 1]));
       b[k1] = acc;
     }
-  }
-  x[0] = b[0];
 #pragma unroll
-  for (int k1 = 1; k1 < R; ++k1)
-    x[k1] = lt ? cmul(b[k1], planes_at(lt + 4 * (k1 - 1) * qq, qq, j2))
-               : b[k1];
-}
-
-// One level of the in-place recursion over every column of the tile:
-// butterflies of radix R inside sub-blocks of m points (m = R*qq) of the
-// p-point columns at stride S.
-template <int R>
-__device__ __forceinline__ void level(const Planes& buf, int rows, int n,
-                                      int S, int m, int qq, int sign,
-                                      const float* __restrict__ cf,
-                                      const float* __restrict__ lt) {
-  const int per_row = n / R;
-  const int total = rows * per_row;
-  for (int w = threadIdx.x; w < total; w += blockDim.x) {
-    const int row = w / per_row;
-    const int b = w - row * per_row;
-    const int t = b / S;
-    const int c = b - t * S;
-    const int sb = t / qq;
-    const int j2 = t - sb * qq;
-    const int base = row * n + (sb * m + j2) * S + c;
-    const int stride = qq * S;
-    DC x[R];
-#pragma unroll
-    for (int j = 0; j < R; ++j) x[j] = buf.get(base + j * stride);
-    butterfly<R>(x, sign, cf, lt, qq, j2);
-#pragma unroll
-    for (int j = 0; j < R; ++j) buf.put(base + j * stride, x[j]);
+    for (int k = 0; k < 5; ++k) x[k] = b[k];
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The butterfly of an arm: the skeleton reverses its registers instead (a
+// renaming, no instruction), so the stores still move other values.
+template <int R, int kArm>
+__device__ __forceinline__ void butterfly(DC (&x)[R], int sign,
+                                          const float4* __restrict__ cf) {
+  if constexpr (kArm == Arm::kSkeleton) {
+    DC t[R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) t[k] = x[(R - k) % R];
+#pragma unroll
+    for (int k = 0; k < R; ++k) x[k] = t[k];
+  } else {
+    dft<R>(x, sign, cf);
+  }
+}
+
+// A pass of the host's plan (PASS_FIELDS in ops/df32.py), then what
+// read_plan derives from it.
+struct Pass {
+  int r1, r2, src, dst, m, inner, S, done, q, p, cf1, lt1, cf2, lt2, stw,
+      rev, dp, sp, donep, ustride, mid;
+  int mr1;  // m / r1
+  int tpr;  // tasks of one row, n / (r1 r2)
+  int pm;   // p / m, the output-index step of the first level's digit
+  FastDiv f_tpr, f_S, f_inner, f_done, f_donep;
+};
+
+struct Plan {
+  int npass, s1, s2;
+  Pass ps[kMaxPasses];
+};
+
+// Tasks a thread runs at once in a pass of r1 * r2 points (ops/df32.py,
+// _pass_tasks).
+__host__ __device__ constexpr int unroll(int pts) {
+  return pts >= 16 ? 1 : 16 / pts;
+}
+
+// The buffer slot of tile point e.
+__device__ __forceinline__ int slot(int e, int s1, int s2) {
+  return e ^ (((e >> s1) ^ (e >> s2)) & 7);
+}
+
+// What every pass of a tile shares.
+struct Tile {
+  const double* xr;
+  const double* xi;
+  double* yr;
+  double* yi;
+  const float4* tab;
+  const int* itab;
+  float4* buf;
+  int64_t goff;  // the tile's first point in the planes
+  int nrows, n, sign, s1, s2;
+};
+
+// Row, column, sub-block and inner index of task w.
+struct Task {
+  int row, c, sb, j;
+  __device__ __forceinline__ Task(const Pass& P, int w) {
+    row = P.f_tpr.div(w);
+    const int u = w - row * P.tpr;
+    const int v = P.f_S.div(u);
+    c = u - v * P.S;
+    sb = P.f_inner.div(v);
+    j = v - sb * P.inner;
+  }
+  // the tile point of the task's register (a, b) in its stage's layout
+  __device__ __forceinline__ int point(const Pass& P, int n) const {
+    return row * n + (sb * P.m + j) * P.S + c;
+  }
+};
+
+// One pass of levels (R1, R2) over every task of the tile: tasks w = tid +
+// kThreads * (round * U + u), U of them at once.  Reads every point of the
+// round's tasks into registers (from the float64 input, the buffer in
+// place, or the previous stage's digit-reversed layout), synchronises when
+// the pass writes another layout than it read, then runs the levels and
+// writes (the buffer in place, or the float64 output in natural order).
+template <int R1, int R2, int kArm>
+__device__ __forceinline__ void run_pass(const Pass P, const Tile& T) {
+  constexpr int U = unroll(R1 * R2);
+  const int total = T.nrows * P.tpr;
+  const int rounds = P.mid ? 1 : (total + kThreads * U - 1) / (kThreads * U);
+  const int sa = P.inner * P.S, sbs = P.mr1 * P.S;  // in-place strides
+  for (int rd = 0; rd < rounds; ++rd) {
+    DC x[U][R2][R1];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int w = (rd * U + u) * kThreads + threadIdx.x;
+      if (w >= total) continue;
+      const Task t(P, w);
+      if (P.src == 0) {
+        const int64_t e0 = T.goff + t.point(P, T.n);
+#pragma unroll
+        for (int a = 0; a < R2; ++a)
+#pragma unroll
+          for (int b = 0; b < R1; ++b) {
+            const int64_t e = e0 + a * sa + b * sbs;
+            const double vr = T.xr[e], vi = T.xi[e];
+            const float rh = __double2float_rn(vr);
+            const float ih = __double2float_rn(vi);
+            x[u][a][b] = DC{
+                rh, __double2float_rn(__dsub_rn(vr, static_cast<double>(rh))),
+                ih, __double2float_rn(__dsub_rn(vi, static_cast<double>(ih)))};
+          }
+      } else {
+        int e0, ea, eb;
+        if (P.src == 1) {
+          e0 = t.point(P, T.n);
+          ea = sa;
+          eb = sbs;
+        } else {  // the previous stage's output k1 of column (j2, d)
+          const int j2s = P.f_done.div(t.c);
+          const int ds = t.c - j2s * P.done;
+          const int k1 = P.f_donep.div(ds);
+          const int d = ds - k1 * P.donep;
+          e0 = t.row * T.n + __ldg(T.itab + P.dp + k1) * P.sp +
+               j2s * P.donep + d + (t.sb * P.m + t.j) * P.ustride;
+          ea = P.inner * P.ustride;
+          eb = P.mr1 * P.ustride;
+        }
+#pragma unroll
+        for (int a = 0; a < R2; ++a)
+#pragma unroll
+          for (int b = 0; b < R1; ++b) {
+            const float4 v = T.buf[slot(e0 + a * ea + b * eb, T.s1, T.s2)];
+            x[u][a][b] = DC{v.x, v.y, v.z, v.w};
+          }
+      }
+    }
+    if (P.mid) __syncthreads();  // every read of the pass is done
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int w = (rd * U + u) * kThreads + threadIdx.x;
+      if (w >= total) continue;
+      const Task t(P, w);
+      // the first level, over b, then its twiddles
+#pragma unroll
+      for (int a = 0; a < R2; ++a) {
+        butterfly<R1, kArm>(x[u][a], T.sign, T.tab + P.cf1);
+        if (kArm == Arm::kFull && P.lt1 >= 0) {
+          const int i0 = P.lt1 + t.j + P.inner * a;
+#pragma unroll
+          for (int b = 1; b < R1; ++b)
+            x[u][a][b] = cmul(x[u][a][b], entry(T.tab, i0 + (b - 1) * P.mr1));
+        }
+      }
+      // the second level, over a, then its twiddles
+      if constexpr (R2 > 1) {
+#pragma unroll
+        for (int b = 0; b < R1; ++b) {
+          DC z[R2];
+#pragma unroll
+          for (int a = 0; a < R2; ++a) z[a] = x[u][a][b];
+          butterfly<R2, kArm>(z, T.sign, T.tab + P.cf2);
+          if (kArm == Arm::kFull && P.lt2 >= 0) {
+#pragma unroll
+            for (int a = 1; a < R2; ++a)
+              z[a] = cmul(z[a], entry(T.tab, P.lt2 + t.j + (a - 1) * P.inner));
+          }
+#pragma unroll
+          for (int a = 0; a < R2; ++a) x[u][a][b] = z[a];
+        }
+      }
+      // the output index of register (a, b) in the stage's last pass:
+      // k0 + b * pm + a * R1 * pm
+      int k0 = 0;
+      if (P.stw >= 0 || P.dst == 1) k0 = __ldg(T.itab + P.rev + t.sb * P.m);
+      if (kArm == Arm::kFull && P.stw >= 0) {
+        const int i0 = P.stw + k0 * P.q + P.f_done.div(t.c);
+#pragma unroll
+        for (int a = 0; a < R2; ++a)
+#pragma unroll
+          for (int b = 0; b < R1; ++b)
+            x[u][a][b] = cmul(x[u][a][b],
+                              entry(T.tab, i0 + (b + a * R1) * P.pm * P.q));
+      }
+      if (P.dst == 1) {
+        const int64_t e0 =
+            T.goff + t.row * T.n + k0 * P.done + t.c;
+#pragma unroll
+        for (int a = 0; a < R2; ++a)
+#pragma unroll
+          for (int b = 0; b < R1; ++b) {
+            const int64_t e = e0 + (b + a * R1) * P.pm * P.done;
+            const DC& v = x[u][a][b];
+            T.yr[e] = __dadd_rn(static_cast<double>(v.rh),
+                                static_cast<double>(v.rl));
+            T.yi[e] = __dadd_rn(static_cast<double>(v.ih),
+                                static_cast<double>(v.il));
+          }
+      } else {
+        const int e0 = t.point(P, T.n);
+#pragma unroll
+        for (int a = 0; a < R2; ++a)
+#pragma unroll
+          for (int b = 0; b < R1; ++b) {
+            const DC& v = x[u][a][b];
+            T.buf[slot(e0 + a * sa + b * sbs, T.s1, T.s2)] =
+                make_float4(v.rh, v.rl, v.ih, v.il);
+          }
+      }
+    }
+  }
+}
+
+// The pass kinds (r1, r2) the kernel runs.
+__host__ __device__ constexpr bool kind_ok(int r1, int r2) {
+  return (r1 == 4 && (r2 == 4 || r2 == 2 || r2 == 3 || r2 == 1)) ||
+         (r1 == 2 && (r2 == 5 || r2 == 3 || r2 == 1)) ||
+         (r1 == 5 && (r2 == 3 || r2 == 1)) || (r1 == 3 && (r2 == 3 || r2 == 1));
+}
+
+// The kinds family kFam inlines (ops/df32.py, K7_FAMILIES): (4, 4) with
+// (4, 1), (2, 1) or (4, 2) -- the df32p schedules of n = 1024, 512, 256 and
+// 128 -- then every kind.  One body that inlines every kind takes 128
+// registers and spills 11 KB, and runs [64, 16] no faster than the first
+// design (0.61-0.64 ms); the same body with family 0's two kinds runs it
+// in 0.28-0.29 ms (PERF.md).
+template <int kFam>
+__host__ __device__ constexpr bool fam_has(int r1, int r2) {
+  return kFam == 3 ? kind_ok(r1, r2)
+                   : (r1 == 4 && r2 == 4) ||
+                         (kFam == 0 && r1 == 4 && r2 == 1) ||
+                         (kFam == 1 && r1 == 2 && r2 == 1) ||
+                         (kFam == 2 && r1 == 4 && r2 == 2);
+}
+
+// Pass kind (R1, R2) when family kFam holds it.
+template <int R1, int R2, int kArm, int kFam>
+__device__ __forceinline__ void pass_if(const Pass& P, const Tile& T) {
+  if constexpr (fam_has<kFam>(R1, R2)) run_pass<R1, R2, kArm>(P, T);
+}
+
+template <int kArm, int kFam>
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 df32_c2c_kernel(const double* __restrict__ xr, const double* __restrict__ xi,
                 double* __restrict__ yr, double* __restrict__ yi,
-                const float* __restrict__ tab, int rows, int n, int nstages,
-                int4 radices, int rpb, int sign) {
-  extern __shared__ float smem[];
-  const int tile = rpb * n;
-  const Planes A{smem, smem + tile, smem + 2 * tile, smem + 3 * tile};
-  const Planes B{smem + 4 * tile, smem + 5 * tile, smem + 6 * tile,
-                 smem + 7 * tile};
-  const int prad[kMaxStages] = {radices.x, radices.y, radices.z, radices.w};
+                const float4* __restrict__ tab, const int* __restrict__ itab,
+                const Plan plan, int rows, int n, int rpb, int sign) {
+  extern __shared__ float4 buf[];
+  __shared__ Pass pl[kMaxPasses];
+  // the passes in shared memory, where a pass is read at a run-time index
+  // (a kernel parameter read so is copied to local memory)
+#pragma unroll
+  for (int l = 0; l < kMaxPasses; ++l)
+    if (static_cast<int>(threadIdx.x) == l && l < plan.npass)
+      pl[l] = plan.ps[l];
+  __syncthreads();
   const int ntiles = (rows + rpb - 1) / rpb;
   for (int tix = blockIdx.x; tix < ntiles; tix += gridDim.x) {
     const int row0 = tix * rpb;
     const int nrows = min(rpb, rows - row0);
     const int64_t goff = static_cast<int64_t>(row0) * n;
-    __syncthreads();  // the previous tile's store has read its buffer
-    for (int i = threadIdx.x; i < nrows * n; i += blockDim.x) {
-      const double a = xr[goff + i];
-      const double b = xi[goff + i];
-      const float ah = __double2float_rn(a);
-      const float bh = __double2float_rn(b);
-      A.rh[i] = ah;
-      A.rl[i] = __double2float_rn(__dsub_rn(a, static_cast<double>(ah)));
-      A.ih[i] = bh;
-      A.il[i] = __double2float_rn(__dsub_rn(b, static_cast<double>(bh)));
-    }
-    __syncthreads();
-    Planes cur = A, oth = B;
-    int off = 0, rest = n, done = 1;
-    for (int s = 0; s < nstages; ++s) {
-      const int p = prad[s];
-      const int q = rest / p;
-      const int S = q * done;
-      const int tw = off;
-      if (q > 1) off += 4 * p * q;
-      for (int m = p; m > 1;) {
-        const int r = radix_of(m);
-        const int qq = m / r;
-        const float* cf = tab + off;
-        off += r == 3 ? 8 : r == 5 ? 16 : 0;
-        const float* lt = qq > 1 ? tab + off : nullptr;
-        if (qq > 1) off += 4 * (r - 1) * qq;
-        if (r == 4)
-          level<4>(cur, nrows, n, S, m, qq, sign, cf, lt);
-        else if (r == 2)
-          level<2>(cur, nrows, n, S, m, qq, sign, cf, lt);
-        else if (r == 5)
-          level<5>(cur, nrows, n, S, m, qq, sign, cf, lt);
-        else
-          level<3>(cur, nrows, n, S, m, qq, sign, cf, lt);
-        __syncthreads();
-        m = qq;
+    if constexpr (kArm == Arm::kCopy) {
+      for (int i = threadIdx.x; i < nrows * n; i += kThreads) {
+        const double a = xr[goff + i], b = xi[goff + i];
+        const float ah = __double2float_rn(a), bh = __double2float_rn(b);
+        const float al = __double2float_rn(__dsub_rn(a, double(ah)));
+        const float bl = __double2float_rn(__dsub_rn(b, double(bh)));
+        yr[goff + i] = __dadd_rn(double(ah), double(al));
+        yi[goff + i] = __dadd_rn(double(bh), double(bl));
       }
-      if (q > 1) {
-        // stage twiddle and autosort permute: cur -> oth
-        for (int w = threadIdx.x; w < nrows * n; w += blockDim.x) {
-          const int row = w / n;
-          const int o = w - row * n;  // (j2*p + k1)*done + d
-          const int t = o / done;
-          const int d = o - t * done;
-          const int j2 = t / p;
-          const int k1 = t - j2 * p;
-          const DC v = cur.get(row * n + digit_pos(k1, p) * S + j2 * done + d);
-          oth.put(w, cmul(v, planes_at(tab + tw, p * q, k1 * q + j2)));
+    } else {
+      const Tile T{xr, xi, yr, yi, tab, itab, buf, goff, nrows, n, sign,
+                   plan.s1, plan.s2};
+      __syncthreads();  // the previous tile's last pass has read the buffer
+      for (int pi = 0; pi < plan.npass; ++pi) {
+        const Pass P = pl[pi];
+        switch (P.r1 * 8 + P.r2) {
+          case 4 * 8 + 4: pass_if<4, 4, kArm, kFam>(P, T); break;
+          case 4 * 8 + 2: pass_if<4, 2, kArm, kFam>(P, T); break;
+          case 4 * 8 + 3: pass_if<4, 3, kArm, kFam>(P, T); break;
+          case 2 * 8 + 5: pass_if<2, 5, kArm, kFam>(P, T); break;
+          case 2 * 8 + 3: pass_if<2, 3, kArm, kFam>(P, T); break;
+          case 5 * 8 + 3: pass_if<5, 3, kArm, kFam>(P, T); break;
+          case 3 * 8 + 3: pass_if<3, 3, kArm, kFam>(P, T); break;
+          case 4 * 8 + 1: pass_if<4, 1, kArm, kFam>(P, T); break;
+          case 2 * 8 + 1: pass_if<2, 1, kArm, kFam>(P, T); break;
+          case 5 * 8 + 1: pass_if<5, 1, kArm, kFam>(P, T); break;
+          default: pass_if<3, 1, kArm, kFam>(P, T); break;
         }
-        __syncthreads();
-        const Planes tmp = cur;
-        cur = oth;
-        oth = tmp;
+        if (P.dst == 0) __syncthreads();  // the next pass reads other tasks'
       }
-      done *= p;
-      rest = q;
-    }
-    // the last stage's points, from their digit-reversed places
-    const int pl = prad[nstages - 1];
-    const int dl = n / pl;
-    for (int w = threadIdx.x; w < nrows * n; w += blockDim.x) {
-      const int row = w / n;
-      const int o = w - row * n;  // k1*dl + d
-      const int k1 = o / dl;
-      const int src = row * n + digit_pos(k1, pl) * dl + (o - k1 * dl);
-      yr[goff + w] = __dadd_rn(static_cast<double>(cur.rh[src]),
-                               static_cast<double>(cur.rl[src]));
-      yi[goff + w] = __dadd_rn(static_cast<double>(cur.ih[src]),
-                               static_cast<double>(cur.il[src]));
     }
   }
 }
 
-}  // namespace
-
-// Both entry points act on the caller's current device; the caller sets it.
-
-// The most dynamic shared memory a launch gets without opting in; the
-// caller's tile (ops/df32.py, TILE_POINTS) keeps under it.
-constexpr int kMaxSmem = 48 * 1024;
-
-// Report how many blocks of `smem` bytes fit on one SM.  Returns the CUDA
-// error code, 0 on success.
-extern "C" int df32_c2c_occupancy(int smem, int* blocks_per_sm) {
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, df32_c2c_kernel, kThreads, static_cast<size_t>(smem)));
+// Reads the host's plan (ops/df32.py, k7_plan_array) for rows of n points
+// and tiles of rpb rows; false when it does not fit the kernel of family
+// kFam.
+template <int kFam>
+bool read_plan(const int* p, int n, int rpb, Plan* out) {
+  if (p == nullptr || p[0] < 1 || p[0] > kMaxPasses || n < 2 || rpb < 1 ||
+      p[1] < 3 || p[2] < 3 || p[1] > 31 || p[2] > 31)
+    return false;
+  *out = Plan{};
+  out->npass = p[0];
+  out->s1 = p[1];
+  out->s2 = p[2];
+  const int nint = p[3];  // the int tables' length
+  for (int l = 0; l < out->npass; ++l) {
+    const int* v = p + kHeadInts + kPassInts * l;
+    Pass& P = out->ps[l];
+    P = Pass{v[0],  v[1],  v[2],  v[3],  v[4],  v[5],  v[6],
+             v[7],  v[8],  v[9],  v[10], v[11], v[12], v[13],
+             v[14], v[15], v[16], v[17], v[18], v[19], v[20]};
+    const int pts = P.r1 * P.r2;
+    if (!fam_has<kFam>(P.r1, P.r2) || P.m < pts || P.m % pts || n % pts ||
+        P.inner != P.m / pts || P.S < 1 || P.done < 1 || P.donep < 1 ||
+        P.q < 1 || P.p % P.m || P.src < 0 || P.src > 2 || P.dst < 0 ||
+        P.dst > 1 || P.rev < 0 || P.rev + P.p > nint || P.dp < 0 ||
+        (P.src == 2 && P.dp >= nint) ||
+        (P.mid && rpb * (n / pts) > kThreads * unroll(pts)))
+      return false;
+    P.mr1 = P.m / P.r1;
+    P.tpr = n / pts;
+    P.pm = P.p / P.m;
+    P.f_tpr = fast_div(P.tpr);
+    P.f_S = fast_div(P.S);
+    P.f_inner = fast_div(P.inner);
+    P.f_done = fast_div(P.done);
+    P.f_donep = fast_div(P.donep);
+  }
+  return true;
 }
 
-// Launch `grid` blocks on `stream` (a cudaStream_t passed as a pointer).
-// Returns the CUDA error code of the launch, 0 on success.  The caller
-// checks shapes: rows >= 1; 1 <= nstages <= 4 radices p0..p3 (unused ones
-// 1), each 2-3-5-smooth, whose product is n; rpb rows per block tile;
-// smem = 32 * rpb * n bytes, at most kMaxSmem; `tab` the constant table of
-// this schedule and `sign` (layout at the top of this file).
-extern "C" int df32_c2c_launch(const double* xr, const double* xi, double* yr,
-                               double* yi, const float* tab, int rows, int n,
-                               int nstages, int p0, int p1, int p2, int p3,
-                               int rpb, int sign, int grid, int smem,
-                               void* stream) {
-  if (nstages < 1 || nstages > kMaxStages || smem != 32 * rpb * n ||
+// Shared-memory bytes of a launch (ops/df32.py, k7_smem): one buffer of 16
+// bytes a point for rpb rows, a whole number of eight-slot groups.
+inline int smem_bytes(int n, int rpb) {
+  return 16 * ((rpb * n + 7) / 8 * 8);
+}
+
+template <int kArm, int kFam>
+int occupancy(int smem, int* blocks_per_sm) {
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      df32_c2c_kernel<kArm, kFam>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm, df32_c2c_kernel<kArm, kFam>, kThreads,
+      static_cast<size_t>(smem)));
+}
+
+template <int kArm, int kFam>
+int launch(const double* xr, const double* xi, double* yr, double* yi,
+           const float* tab, const int* itab, const int* plan, int rows,
+           int n, int rpb, int sign, int grid, int smem, void* stream) {
+  Plan p;
+  if (rows < 1 || (sign != 1 && sign != -1) ||
+      !read_plan<kFam>(plan, n, rpb, &p) || smem != smem_bytes(n, rpb) ||
       smem > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
-  df32_c2c_kernel<<<grid, kThreads, static_cast<size_t>(smem),
-                    static_cast<cudaStream_t>(stream)>>>(
-      xr, xi, yr, yi, tab, rows, n, nstages, make_int4(p0, p1, p2, p3), rpb,
-      sign);
+  df32_c2c_kernel<kArm, kFam><<<grid, kThreads, static_cast<size_t>(smem),
+                                static_cast<cudaStream_t>(stream)>>>(
+      xr, xi, yr, yi, reinterpret_cast<const float4*>(tab), itab, p, rows, n,
+      rpb, sign);
   return static_cast<int>(cudaGetLastError());
 }
+
+}  // namespace
+
+// Every entry point acts on the caller's current device; the caller sets
+// it.  <name>_occupancy(smem, blocks_per_sm) allows the kernel kMaxSmem
+// bytes of dynamic shared memory on the current device and reports how many
+// blocks of `smem` bytes fit on one SM; <name>_launch(xr, xi, yr, yi, tab,
+// itab, plan, rows, n, rpb, sign, grid, smem, stream) launches `grid` blocks
+// on `stream` (a cudaStream_t passed as a pointer).  Each returns the CUDA
+// error code, 0 on success.  The caller checks shapes: rows >= 1 rows of n
+// points; `plan` the host's plan of the schedule (ops/df32.py,
+// k7_plan_array), every pass kind in the entry point's family; `tab` its
+// constant table of sign `sign` (16-byte aligned) and `itab` its int tables
+// on the card; rpb rows a tile, smem = 16 * rpb * n bytes rounded up to 128,
+// allowed by the occupancy call.
+//
+// K7: df32_c2c_f<family>.  The timing-only arms: df32_ablate<arm>, family 0
+// (arm 0 is K7's own kernel).
+#define DF32_ENTRY(NAME, ARM, FAM)                                            \
+  extern "C" int NAME##_occupancy(int smem, int* blocks_per_sm) {             \
+    return occupancy<ARM, FAM>(smem, blocks_per_sm);                          \
+  }                                                                           \
+  extern "C" int NAME##_launch(                                               \
+      const double* xr, const double* xi, double* yr, double* yi,             \
+      const float* tab, const int* itab, const int* plan, int rows, int n,    \
+      int rpb, int sign, int grid, int smem, void* stream) {                  \
+    return launch<ARM, FAM>(xr, xi, yr, yi, tab, itab, plan, rows, n, rpb,    \
+                            sign, grid, smem, stream);                        \
+  }
+DF32_ENTRY(df32_c2c_f0, Arm::kFull, 0)
+DF32_ENTRY(df32_c2c_f1, Arm::kFull, 1)
+DF32_ENTRY(df32_c2c_f2, Arm::kFull, 2)
+DF32_ENTRY(df32_c2c_f3, Arm::kFull, 3)
+DF32_ENTRY(df32_ablate0, Arm::kFull, 0)
+DF32_ENTRY(df32_ablate1, Arm::kNoTwiddle, 0)
+DF32_ENTRY(df32_ablate2, Arm::kSkeleton, 0)
+DF32_ENTRY(df32_ablate3, Arm::kCopy, 0)

@@ -9,55 +9,112 @@
 //
 // The transform is the one of r2c.cu, column by column: with m = n/2, row j
 // of the pack is z[j, c] = x[2j, c] + i x[2j+1, c]; one complex m-point
-// transform along the rows (the shared stage loop, stockham_stage.cuh, with a
-// column stride), then the untangle X[k] = A[k] + w[k] B[k], k = 0..m,
+// transform along the rows, then the untangle X[k] = A[k] + w[k] B[k],
+// k = 0..m, per column,
 //   A[k] = (Z[k] + conj Z[m-k]) / 2,  B[k] = -i (Z[k] - conj Z[m-k]) / 2,
-// per column, w[k] = exp(-2*pi*i*k/n) from the host in f64, cast to f32.
+// w[k] = exp(-2*pi*i*k/n) from the host in f64, cast to f32.
 //
-// What bounds it on an H100: 4 bytes read per real point and 8 bytes written
-// per output bin, once, against the dense p-term sum.  The tiling is the
-// axis -2 c2c kernel's (inner_c2c.cu): a block holds an (m, tl) tile of
-// packed points, tl consecutive columns of one pre index, in shared memory
-// from the load through the stages and the untangle; the edge tile of an L
-// that is not a multiple of tl is masked (its missing columns are zero in
-// shared memory and never stored); nothing is padded.  The wrapper picks tl
-// (a power of two) with m*tl <= 8192.  Blocks walk the (pre x tiles) grid
-// with a grid stride; offsets into the arrays are 64-bit.
+// What bounds it on an H100: the data moves once, 4 bytes read per real
+// point and 8 bytes written per output bin (about 8 bytes per real point in
+// all) against 3.35 TB/s of HBM: 0.080 ms at (8, 2048, 2048).  The first
+// design ran the dense p-term sum of stockham_stage.cuh, 4p shared-memory
+// words per point per stage, in four planes (1.202 ms there).
+// This design is K2's tile (inner_c2c.cu) with K4's untangle (r2c.cu) along
+// axis -2: the packed m-point transform of each column runs as the host's
+// level plan for tiles of tl columns (stockham.level_plan(m, radices, tl)),
+// each 2-3-5-smooth stage as the register butterfly levels of
+// stockham_bfly.cuh (4 words per point per level; a radix with a prime
+// factor of 7 or more keeps the dense sum), in place in one shared-memory
+// buffer, one column's butterfly per thread, consecutive threads on
+// consecutive columns.
+//
+// Per tile (tl consecutive columns of one pre index): a full tile whose plan
+// starts with a butterfly level is read by that level straight from the two
+// input rows of each packed row (re at row 2j, im at row 2j+1: points 2L
+// apart, the even/odd split costs nothing); an edge tile, or a plan that
+// starts with a dense stage, is loaded into the buffer first with the
+// columns past L zero.  The last level stores Z into an unpadded Z region
+// of its own (point o of column c at o*tl + c: the last level's stores run
+// across a warp, and the untangle reads k and m - k, consecutive both
+// ways); then the untangle writes bins 0..m straight to the output rows,
+// tl consecutive floats of a row across a warp, the edge tile masked.
+// Nothing is padded in HBM.
+//
+// Tile: 512 threads of up to 16 points in a level, m*tl <= 8192 points, tl
+// a power of two (ops/real_stockham.py, r2c_inner_tile: tl = 8 at
+// m = 1024), halved while the tables, the buffer and Z would pass kMaxSmem
+// (a schedule with a dense stage, two buffers).  One block per SM, 128
+// registers a thread, as K2.  Blocks walk the (pre x tiles) grid with a
+// grid stride; offsets into the arrays are 64-bit.
 
-#include "stockham_stage.cuh"
+#include "stockham_bfly.cuh"
 
 namespace {
 
-using fftw3_tpu_torch::run_stages;
-using fftw3_tpu_torch::Schedule;
-using fftw3_tpu_torch::SmemMap;
+using fftw3_tpu_torch::Arm;
+using fftw3_tpu_torch::Level;
+using fftw3_tpu_torch::LevelPlan;
+using fftw3_tpu_torch::kMaxLevels;
+using fftw3_tpu_torch::read_plan;
+using fftw3_tpu_torch::run_levels;
+using fftw3_tpu_torch::stage_levels;
 
 constexpr int kThreads = 512;
-// largest tile, in packed points (m * tl)
-constexpr int kTilePoints = 8192;
+constexpr int kMinBlocks = 1;
+// points a thread holds in one level: tiles of 8192 points
+constexpr int kPts = 16;
+constexpr int kTilePoints = kPts * kThreads;
+// a cap on any launch's shared memory (tables, buffers, Z), set once: under
+// the 232448 bytes a block can opt into, room left for the static levels
+constexpr int kMaxSmem = 230400;
 
-// tab: the m-point stage tables followed by re(w[0..m]) and im(w[0..m]).
-__global__ void __launch_bounds__(kThreads)
+// The last level's store: point o of column c to the Z region.
+struct ZMap {
+  int tl;
+  __device__ __forceinline__ bool stored(int) const { return true; }
+  __device__ __forceinline__ int operator()(int, int o, int c) const {
+    return o * tl + c;
+  }
+};
+
+// Shared-memory bytes of a launch (ops/real_stockham.py, r2c_inner_smem):
+// the m-point tables and the w table, nbuf level buffers of two planes at
+// stride rs, and Z, two planes of m * tl.
+inline int r2c_inner_smem(const LevelPlan& plan, int m, int tl) {
+  const int plane = (plan.rs + 3) & ~3;
+  const int zplane = (m * tl + 3) & ~3;
+  return static_cast<int>(sizeof(float)) *
+         (((plan.tab_len + 2 * (m + 1) + 3) & ~3) + 2 * plan.nbuf * plane +
+          2 * zplane);
+}
+
+// tab: the m-point tables (stockham._kernel_table layout, plan.tab_len
+// floats) followed by re(w[0..m]) and im(w[0..m]).
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 r2c_inner_kernel(const float* __restrict__ x, float* __restrict__ yr,
                  float* __restrict__ yi, const float* __restrict__ tab,
-                 int tab_len, int pre, int n, int64_t L, int tl, int nstages,
-                 int p0, int p1) {
-  extern __shared__ float smem[];
+                 const LevelPlan plan, int pre, int n, int64_t L, int tl) {
+  extern __shared__ float4 smem4[];
+  __shared__ Level lev[kMaxLevels];
   const int m = n / 2;
-  const int per = m * tl;
-  float* tb = smem;
-  float* ar = smem + tab_len;
-  float* ai = ar + per;
-  float* br = ai + per;
-  float* bi = br + per;
-
-  for (int i = threadIdx.x; i < tab_len; i += blockDim.x) tb[i] = tab[i];
-  const Schedule sched(tb, m, nstages, p0, p1);
-  const float* wr = tb + tab_len - 2 * (m + 1);
+  const int tab_len = plan.tab_len + 2 * (m + 1);
+  float* tb = reinterpret_cast<float*>(smem4);
+  const int plane = (plan.rs + 3) & ~3;
+  float* ar = tb + ((tab_len + 3) & ~3);
+  float* ai = ar + plane;
+  float* br = ai + plane;  // second buffer, only with a dense stage
+  float* bi = br + plane;
+  float* zr = ar + 2 * plan.nbuf * plane;
+  float* zi = zr + ((m * tl + 3) & ~3);
+  const float* wr = tb + plan.tab_len;
   const float* wi = wr + (m + 1);
-  float* zr = nstages == 1 ? br : ar;
-  float* zi = nstages == 1 ? bi : ai;
-
+  stage_levels(plan, lev);
+  for (int i = threadIdx.x; i < tab_len; i += blockDim.x) tb[i] = tab[i];
+  const int tsh = __ffs(tl) - 1;  // tl is a power of two
+  // a first level of butterflies reads full tiles from the input rows, its
+  // offsets in int
+  const bool direct_ok = plan.lev[0].kind != 0 &&
+                         static_cast<int64_t>(n) * L < (int64_t{1} << 31);
   const int64_t ntiles = (L + tl - 1) / tl;
   const int64_t nblocks = ntiles * pre;
   for (int64_t blk = blockIdx.x; blk < nblocks; blk += gridDim.x) {
@@ -66,24 +123,32 @@ r2c_inner_kernel(const float* __restrict__ x, float* __restrict__ yr,
     const int width = static_cast<int>(L - l0 < tl ? L - l0 : tl);
     const float* xb = x + b * n * L + l0;
     const int64_t obase = b * (m + 1) * L + l0;
-    __syncthreads();  // tables staged; previous tile's readers are done
-    for (int e = threadIdx.x; e < per; e += blockDim.x) {
-      const int j = e / tl;
-      const int c = e - j * tl;
-      float vr = 0.f, vi = 0.f;
-      if (c < width) {
-        vr = xb[(2 * j) * L + c];      // x[2j, c]
-        vi = xb[(2 * j + 1) * L + c];  // x[2j+1, c]
+    const bool direct = direct_ok && width == tl;
+    __syncthreads();  // levels and tables staged; the previous tile's
+                      // untangle is done
+    if (!direct) {
+      for (int e = threadIdx.x; e < m * tl; e += blockDim.x) {
+        const int j = e >> tsh;
+        const int c = e & (tl - 1);
+        float vr = 0.f, vi = 0.f;
+        if (c < width) {
+          vr = xb[(2 * j) * L + c];      // x[2j, c]
+          vi = xb[(2 * j + 1) * L + c];  // x[2j+1, c]
+        }
+        ar[e] = vr;
+        ai[e] = vi;
       }
-      ar[e] = vr;
-      ai[e] = vi;
+      __syncthreads();
     }
-    __syncthreads();
-    run_stages(ar, ai, br, bi, sched, tl, 1, zr, zi, SmemMap{per, tl});
+    // packed point j of column c at x[2j, c] (re) and x[2j+1, c] (im)
+    run_levels<kPts, Arm::kFull>(plan, lev, tb, ar, ai, br, bi, m, tl, 1, zr,
+                                 zi, ZMap{tl}, direct ? xb : nullptr,
+                                 direct ? xb + L : nullptr, 0,
+                                 static_cast<int>(2 * L));
     __syncthreads();
     for (int e = threadIdx.x; e < (m + 1) * tl; e += blockDim.x) {
-      const int k = e / tl;
-      const int c = e - k * tl;
+      const int k = e >> tsh;
+      const int c = e & (tl - 1);
       if (c >= width) continue;
       const int k0 = k == m ? 0 : k;      // k mod m
       const int k1 = k == 0 ? 0 : m - k;  // (m - k) mod m
@@ -103,16 +168,10 @@ r2c_inner_kernel(const float* __restrict__ x, float* __restrict__ yr,
 
 // Both entry points act on the caller's current device; the caller sets it.
 
-// The most dynamic shared memory any valid schedule asks for: stage tables of
-// at most 2*256 + 2*2048 + 2*256 floats, the w table of 2*2049 floats and
-// four planes of kTilePoints floats (167944 bytes).
-constexpr int kMaxSmem =
-    static_cast<int>(sizeof(float)) *
-    (2 * 256 + 2 * 2048 + 2 * 256 + 2 * 2049 + 4 * kTilePoints);
-
 // Allow the kernel kMaxSmem bytes of dynamic shared memory on the current
-// device and report how many blocks of `smem` bytes fit on one SM.  Returns
-// the CUDA error code, 0 on success.
+// device (always the same value: the attribute is a cap) and report how
+// many blocks of `smem` bytes fit on one SM.  Returns the CUDA error code,
+// 0 on success.
 extern "C" int r2c_inner_occupancy(int smem, int* blocks_per_sm) {
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
@@ -123,20 +182,24 @@ extern "C" int r2c_inner_occupancy(int smem, int* blocks_per_sm) {
       blocks_per_sm, r2c_inner_kernel, kThreads, static_cast<size_t>(smem)));
 }
 
-// Launch `grid` blocks on `stream`.  Returns the CUDA error code of the
-// launch, 0 on success.  The caller checks shapes: pre >= 1, L >= 1, n even
-// with m = n/2 = p0 or p0 * p1, m <= 2048, radices <= 256, m * tl <= 8192,
-// tab_len = stage tables + 2 * (m + 1), and
-// smem = 4 * (tab_len + 4 * m * tl) bytes, allowed by r2c_inner_occupancy.
+// Launch `grid` blocks on `stream` on the host's level plan `plan` of the
+// m-point transform for tiles of tl columns (stockham.level_plan(n/2,
+// radices, tl)).  Returns the CUDA error code of the launch, 0 on success.
+// The caller checks shapes: pre >= 1, L >= 1, n even, tl a power of two
+// with n/2 * tl <= kTilePoints, tab holding the plan's tab_len floats and
+// the w table, smem = r2c_inner_smem(plan, n/2, tl), allowed by
+// r2c_inner_occupancy.
 extern "C" int r2c_inner_launch(const float* x, float* yr, float* yi,
-                                const float* tab, int tab_len, int pre, int n,
-                                long long L, int tl, int nstages, int p0,
-                                int p1, int grid, int smem, void* stream) {
-  if ((n / 2) * tl > kTilePoints)
+                                const float* tab, const int* plan, int pre,
+                                int n, long long L, int tl, int grid,
+                                int smem, void* stream) {
+  LevelPlan p;
+  if (!read_plan(plan, tl, &p) || n % 2 || tl < 1 || (tl & (tl - 1)) ||
+      (n / 2) * tl > kTilePoints || smem != r2c_inner_smem(p, n / 2, tl) ||
+      smem > kMaxSmem)
     return static_cast<int>(cudaErrorInvalidValue);
   r2c_inner_kernel<<<grid, kThreads, static_cast<size_t>(smem),
                      static_cast<cudaStream_t>(stream)>>>(
-      x, yr, yi, tab, tab_len, pre, n, static_cast<int64_t>(L), tl, nstages,
-      p0, p1);
+      x, yr, yi, tab, p, pre, n, static_cast<int64_t>(L), tl);
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,6 +35,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
+#: K7's entry points (csrc/df32_c2c.cu)
+_K7 = (*(f"df32_c2c_f{f}" for f in range(4)),
+       *(f"df32_ablate{a}" for a in range(4)))
 #: C signature (argument types) of every bound entry point; each returns
 #: the CUDA error code as an int
 SIGNATURES = {
@@ -63,12 +66,15 @@ SIGNATURES = {
     # xr xi y tab, tab_len rows n nstages p0 p1 grid smem, stream
     "c2r_launch": [_P] * 4 + [_I] * 8 + [_P],
     "c2r_occupancy": [_I, ctypes.POINTER(_I)],
-    # x yr yi tab, tab_len pre n, L, tl nstages p0 p1 grid smem, stream
-    "r2c_inner_launch": [_P] * 4 + [_I] * 3 + [_L] + [_I] * 6 + [_P],
+    # x yr yi tab, plan, pre n, L, tl grid smem, stream
+    "r2c_inner_launch": [_P] * 4 + [_IP] + [_I] * 2 + [_L] + [_I] * 3
+    + [_P],
     "r2c_inner_occupancy": [_I, ctypes.POINTER(_I)],
-    # xr xi yr yi tab, rows n nstages p0 p1 p2 p3 rpb sign grid smem, stream
-    "df32_c2c_launch": [_P] * 5 + [_I] * 11 + [_P],
-    "df32_c2c_occupancy": [_I, ctypes.POINTER(_I)],
+    # K7 per pass-kind family, df32_c2c_f<family>, and its timing-only
+    # arms, df32_ablate<arm>: xr xi yr yi tab itab, plan, rows n rpb sign
+    # grid smem, stream
+    **{f"{k}_launch": [_P] * 6 + [_IP] + [_I] * 6 + [_P] for k in _K7},
+    **{f"{k}_occupancy": [_I, ctypes.POINTER(_I)] for k in _K7},
     # E5 (ablate_stage.cu), timing only: xr xi yr yi tab, tab_len rows n
     # nstages p0 p1 arm grid smem, stream; xr xi yr yi tab, plan, rows n rpb
     # arm grid smem, stream

@@ -32,6 +32,7 @@ error-free chains would lose the lo planes).
 """
 from __future__ import annotations
 
+import ctypes
 import math
 from functools import lru_cache
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -257,10 +258,39 @@ DF32P_MIN_N = 128
 DF32P_MAX_N = 1024
 #: most stages a df32p schedule may have (the kernel's arguments)
 DF32P_MAX_STAGES = 4
-#: points per block tile of the kernel: max(1, TILE_POINTS // n) rows, 32
-#: bytes of shared memory per point (the kernel checks only that a launch
-#: stays under the 48 KB it gets without opting in)
-TILE_POINTS = 1024
+#: points per block tile of K7 (at most): ``rows_per_block`` whole rows,
+#: 16 bytes of shared memory a point, so 64 KB at 4096 points and two
+#: blocks of 256 threads an SM
+TILE_POINTS = 4096
+#: threads of a K7 block (``kThreads`` in csrc/df32_c2c.cu)
+K7_THREADS = 256
+#: the two-level passes K7 instantiates, (r1, r2) of consecutive recursion
+#: levels: a task holds r1 * r2 <= 16 df points (64 floats) in registers
+PASS_PAIRS = ((4, 4), (4, 2), (4, 3), (2, 5), (2, 3), (5, 3), (3, 3))
+#: the pass kinds each of K7's instantiations inlines (``fam_has`` in
+#: csrc/df32_c2c.cu): those of the df32p schedules of n = 1024, 512 and
+#: 256, and 128, then every kind (None).  A schedule runs on the first
+#: family holding all its kinds: one body that inlines every kind spills
+#: (PERF.md)
+K7_FAMILIES = (((4, 4), (4, 1)), ((4, 4), (2, 1)), ((4, 4), (4, 2)), None)
+#: passes a plan holds (``kMaxPasses``)
+MAX_PASSES = 12
+#: the pass fields, in the order the plan holds them (``Pass`` in
+#: csrc/df32_c2c.cu): radices of its two levels (r2 = 1 for one level);
+#: source (0 the float64 input, 1 shared memory in place, 2 shared memory
+#: in the previous stage's digit-reversed layout) and sink (0 shared
+#: memory in place, 1 the float64 output); the sub-block m at its first
+#: level and the inner span m / (r1 r2); the stage's column stride S = q *
+#: done, done, q and p; float4-entry offsets into the constant table of
+#: the first level's radix-3/5 coefficients and level twiddles, the second
+#: level's, and the stage twiddle (-1: none); int-table offsets of the
+#: stage's position -> output table (rev) and the previous stage's output
+#: -> position table (dp); the previous stage's S and done; the source
+#: stride of a permuted read (q * done of the previous stage); and whether
+#: the pass needs a barrier between its reads and its writes
+PASS_FIELDS = ("r1", "r2", "src", "dst", "m", "inner", "S", "done", "q", "p",
+               "cf1", "lt1", "cf2", "lt2", "stw", "rev", "dp", "sp", "donep",
+               "ustride", "mid")
 
 #: FP32 instructions of one df add and one df multiply in K7's body
 #: (csrc/df32_c2c.cu): two_sum 6, two adds, fast_two_sum 3; the product
@@ -422,10 +452,15 @@ def _df_stage_consts(n: int, radices: Sequence[int], sign: int):
 
 
 def _kernel_table(n: int, radices: Sequence[int], sign: int) -> np.ndarray:
-    """The kernel's f32 constant table: :func:`_df_stage_consts` flattened
-    stage by stage, each array row-major (layout in csrc/df32_c2c.cu)."""
-    flat = [c.ravel() for stage in _df_stage_consts(n, radices, sign)
-            for c in stage]
+    """K7's f32 constant table: :func:`_df_stage_consts` stage by stage,
+    each group of four arrays (rh, rl, ih, il) interleaved into float4
+    entries, so a constant is one 16-byte load (layout in
+    csrc/df32_c2c.cu)."""
+    flat = []
+    for stage in _df_stage_consts(n, radices, sign):
+        for i in range(0, len(stage), 4):
+            flat.append(np.stack([c.ravel() for c in stage[i:i + 4]],
+                                 -1).ravel())
     return np.ascontiguousarray(np.concatenate(flat) if flat else [],
                                 np.float32)
 
@@ -502,9 +537,217 @@ def radices_ok(n: int, radices) -> bool:
             and math.prod(radices) == n and n <= DF32P_MAX_N)
 
 
-def rows_per_block(n: int) -> int:
-    """Rows of one block tile of K7."""
-    return max(1, TILE_POINTS // n)
+def _df_levels(p: int) -> List[int]:
+    """The recursion radices of a p-point df butterfly, outermost first
+    (:func:`_df_radix` at each size: 64 -> [4, 4, 4], 50 -> [2, 5, 5])."""
+    out = []
+    while p > 1:
+        out.append(_df_radix(p))
+        p //= out[-1]
+    return out
+
+
+def _digit_pos(k: int, m: int) -> int:
+    """Where the in-place recursion leaves output k of an m-point column:
+    digit k1 of the first level (k = k1 + r k2) selects the sub-block
+    k1 (m/r), the child places k2 inside it."""
+    pos = 0
+    while m > 1:
+        r = _df_radix(m)
+        pos += (k % r) * (m // r)
+        k //= r
+        m //= r
+    return pos
+
+
+def _pass_tasks(r1: int, r2: int) -> int:
+    """Tasks a thread runs at once in a pass of levels (r1, r2): as many as
+    keep it at 16 df points or fewer (``kUnroll`` in the kernel)."""
+    return max(1, 16 // (r1 * r2))
+
+
+@lru_cache(maxsize=None)
+def k7_plan(n: int, radices: Tuple[int, ...]):
+    """K7's host-side plan for schedule `radices`: (passes, itab), the
+    passes as :data:`PASS_FIELDS` tuples and the int tables (per stage, its
+    output -> position table dp and position -> output table rev).
+
+    Each stage's recursion levels are grouped into passes of one level or
+    two (a pair of :data:`PASS_PAIRS`).  A task of a pass holds the points
+    sb*m + j + inner*a + (m/r1)*b (a < r2, b < r1) of one column c of a
+    row, the first level's butterflies over b, the second's over a.  The
+    first pass of stage 0 reads the float64 input; the first pass of a later
+    stage reads the previous stage's digit-reversed layout (its twiddle
+    applied), so the permute costs no pass of its own; the last pass of the
+    last stage writes the float64 output in natural order; every other
+    access is in place in one shared-memory buffer."""
+    radices = tuple(radices)
+    passes, itab = [], []
+    off, done, rest = 0, 1, n
+    prev = None
+    for s, p in enumerate(radices):
+        q = rest // p
+        S_ = q * done
+        stw = off if q > 1 else -1
+        if q > 1:
+            off += p * q
+        levels, m = [], p
+        for r in _df_levels(p):
+            cf = off if r in (3, 5) else -1
+            off += 2 if r == 3 else 4 if r == 5 else 0
+            lt = off if m // r > 1 else -1
+            if m // r > 1:
+                off += (r - 1) * (m // r)
+            levels.append((r, m, cf, lt))
+            m //= r
+        dp_off = len(itab)
+        dp = [_digit_pos(k, p) for k in range(p)]
+        itab += dp
+        rev_off = len(itab)
+        rev = [0] * p
+        for k, pos in enumerate(dp):
+            rev[pos] = k
+        itab += rev
+        groups, i = [], 0
+        while i < len(levels):
+            if i + 1 < len(levels) and \
+                    (levels[i][0], levels[i + 1][0]) in PASS_PAIRS:
+                groups.append(levels[i:i + 2])
+                i += 2
+            else:
+                groups.append(levels[i:i + 1])
+                i += 1
+        for g, lv in enumerate(groups):
+            first, last = g == 0, g == len(groups) - 1
+            r1, m1, cf1, lt1 = lv[0]
+            r2, _, cf2, lt2 = lv[1] if len(lv) == 2 else (1, 0, -1, -1)
+            src = 0 if first and s == 0 else 2 if first else 1
+            dst = 1 if last and s == len(radices) - 1 else 0
+            passes.append((
+                r1, r2, src, dst, m1, m1 // (r1 * r2), S_, done, q, p,
+                cf1, lt1, cf2, lt2, stw if last else -1, rev_off,
+                prev[0] if src == 2 else 0, prev[1] if src == 2 else 0,
+                prev[2] if src == 2 else 1, q * prev[2] if src == 2 else 0,
+                int(src == 2 and dst == 0)))
+        prev = (dp_off, S_, done)
+        done *= p
+        rest = q
+    if len(passes) > MAX_PASSES:
+        raise ValueError(f"K7 schedule {list(radices)} needs {len(passes)} "
+                         f"passes, over {MAX_PASSES}")
+    return tuple(passes), tuple(itab)
+
+
+def rows_per_block(n: int, radices: Sequence[int]) -> int:
+    """Rows of one block tile of K7: as many whole rows as TILE_POINTS
+    holds, and no more than a pass with a barrier between its reads and
+    writes can hold in one round of its tasks (every task of such a pass
+    keeps its points in registers across the barrier)."""
+    cap = TILE_POINTS
+    for ps in k7_plan(n, tuple(radices))[0]:
+        P = dict(zip(PASS_FIELDS, ps))
+        if P["mid"]:
+            cap = min(cap, K7_THREADS * _pass_tasks(P["r1"], P["r2"])
+                      * P["r1"] * P["r2"])
+    return max(1, cap // n)
+
+
+def _swizzle(e: np.ndarray, s1: int, s2: int) -> np.ndarray:
+    """The slot of tile point e in K7's buffer: e with its low three bits
+    XORed with bits s1 and s2 on (``slot`` in the kernel)."""
+    return e ^ (((e >> s1) ^ (e >> s2)) & 7)
+
+
+def _accesses(n: int, radices: Tuple[int, ...], rpb: int):
+    """Every shared-memory access of one full tile, as K7's warps make
+    them: a list of (32,) arrays of tile points, one per warp and
+    instruction (each lane's task, the register point the instruction
+    moves)."""
+    passes, itab = k7_plan(n, radices)
+    out = []
+    for ps in passes:
+        P = dict(zip(PASS_FIELDS, ps))
+        r1, r2 = P["r1"], P["r2"]
+        tpr = n // (r1 * r2)
+        w = np.arange(rpb * tpr)
+        row, u = w // tpr, w % tpr
+        c, v = u % P["S"], u // P["S"]
+        j, sb = v % P["inner"], v // P["inner"]
+        a = np.arange(r2)[:, None, None]
+        b = np.arange(r1)[None, :, None]
+        i = sb * P["m"] + j + P["inner"] * a + (P["m"] // r1) * b
+        nat = row * n + i * P["S"] + c
+        if P["src"] == 1:
+            reads = nat
+        elif P["src"] == 2:
+            j2s, ds = c // P["done"], c % P["done"]
+            k1, d = ds // P["donep"], ds % P["donep"]
+            base = (np.asarray(itab)[P["dp"] + k1] * P["sp"]
+                    + j2s * P["donep"] + d)
+            reads = row * n + base + i * P["ustride"]
+        else:
+            reads = None
+        for acc in (reads, nat if P["dst"] == 0 else None):
+            if acc is None:
+                continue
+            acc = acc.reshape(r1 * r2, -1)
+            pad = -acc.shape[1] % 32
+            acc = np.concatenate([acc, np.full((r1 * r2, pad), -1)], 1)
+            out += list(acc.reshape(r1 * r2, -1, 32).reshape(-1, 32))
+    return out
+
+
+@lru_cache(maxsize=None)
+def k7_swizzle(n: int, radices: Tuple[int, ...]) -> Tuple[int, int]:
+    """The (s1, s2) of :func:`_swizzle` that gives K7's shared-memory
+    accesses the fewest bank cycles: a 16-byte access is served in four
+    phases of eight lanes, one cycle for each phase and one more for each
+    further distinct slot a bank group (slot mod 8) holds.  31 means no
+    bit; ties go to the first of (none, one bit, two bits)."""
+    rpb = rows_per_block(n, radices)
+    accs = np.array(_accesses(n, radices, rpb))
+    cands = [(31, 31)] + [(a, 31) for a in range(3, 14)] + \
+        [(a, b) for a in range(3, 14) for b in range(a + 1, 14)]
+    best, best_cost = None, None
+    for s1, s2 in cands:
+        sl = np.where(accs >= 0, _swizzle(np.maximum(accs, 0), s1, s2), -1)
+        ph = np.sort(sl.reshape(-1, 4, 8), -1)
+        uniq = np.concatenate([np.ones(ph.shape[:-1] + (1,), bool),
+                               ph[..., 1:] != ph[..., :-1]], -1) & (ph >= 0)
+        bank = ph % 8
+        cnt = np.zeros(ph.shape[:-1] + (8,), int)
+        for g in range(8):
+            cnt[..., g] = (uniq & (bank == g)).sum(-1)
+        cost = int(np.maximum(cnt.max(-1), 1).sum())
+        if best_cost is None or cost < best_cost:
+            best, best_cost = (s1, s2), cost
+    return best
+
+
+def k7_family(n: int, radices: Sequence[int]) -> int:
+    """The first of :data:`K7_FAMILIES` that holds every pass kind of the
+    schedule's plan: the kernel instantiation that runs it."""
+    kinds = {ps[:2] for ps in k7_plan(n, tuple(radices))[0]}
+    for f, fam in enumerate(K7_FAMILIES):
+        if fam is None or kinds <= set(fam):
+            return f
+    raise AssertionError("the last family holds every kind")
+
+
+def k7_plan_array(n: int, radices: Sequence[int]):
+    """The plan as a C int array for a launch: a header (passes, s1, s2,
+    int-table length) and the :data:`PASS_FIELDS` of each pass."""
+    passes, itab = k7_plan(n, tuple(radices))
+    s1, s2 = k7_swizzle(n, tuple(radices))
+    flat = [len(passes), s1, s2, len(itab)] + [v for ps in passes
+                                                for v in ps]
+    return (ctypes.c_int * len(flat))(*flat)
+
+
+def k7_smem(n: int, rpb: int) -> int:
+    """Shared-memory bytes of a K7 launch: one buffer of 16 bytes a point
+    for rpb rows, rounded up to a whole group of eight slots."""
+    return 16 * (-(-rpb * n // 8) * 8)
 
 
 def kernel_instructions(n: int, radices: Sequence[int]) -> int:
@@ -535,45 +778,107 @@ def kernel_instructions(n: int, radices: Sequence[int]) -> int:
     return total
 
 
-def df32_c2c_cuda(xr: torch.Tensor, xi: torch.Tensor,
-                  radices: Sequence[int], sign: int
-                  ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch K7 on (B, n) float64 planes on one card, with the constant
-    table of (n, radices, sign) on that card (made once).  Returns new
-    (yr, yi) float64 planes; raises on anything the kernel does not take,
-    and when the launch fails."""
-    global launches
+@lru_cache(maxsize=None)
+def _device_itab(n: int, radices: Tuple[int, ...],
+                 device: torch.device) -> torch.Tensor:
+    """K7's int tables (:func:`k7_plan`) as one int32 tensor on `device`,
+    made once."""
+    return torch.tensor(k7_plan(n, radices)[1], dtype=torch.int32,
+                        device=device)
+
+
+@lru_cache(maxsize=None)
+def _k7_launch(n: int, radices: Tuple[int, ...]):
+    """K7's family, rows a tile, shared-memory bytes and plan as a C int
+    array for a schedule, made once (a launch's host work stays that of a
+    table lookup)."""
+    rpb = rows_per_block(n, radices)
+    return (k7_family(n, radices), rpb, k7_smem(n, rpb),
+            k7_plan_array(n, radices))
+
+
+def _launch_k7(kernel: str, xr: torch.Tensor, xi: torch.Tensor,
+               radices: Sequence[int], sign: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Check what K7 takes and launch `kernel` (``df32_c2c``: K7 on its
+    schedule's family; else one of the arms) on (B, n) float64 planes;
+    returns new (yr, yi)."""
+    name = "df32_c2c_cuda" if kernel == "df32_c2c" else "df32_ablate_cuda"
     if xr.device.type != "cuda" or xi.device != xr.device:
-        raise ValueError(f"df32_c2c_cuda needs both planes on one CUDA "
-                         f"device, got {xr.device} and {xi.device}")
+        raise ValueError(f"{name} needs both planes on one CUDA device, got "
+                         f"{xr.device} and {xi.device}")
     if xr.dtype != torch.float64 or xi.dtype != torch.float64:
-        raise ValueError(f"df32_c2c_cuda takes float64 planes, got "
-                         f"{xr.dtype} and {xi.dtype}")
+        raise ValueError(f"{name} takes float64 planes, got {xr.dtype} and "
+                         f"{xi.dtype}")
     if xr.dim() != 2 or xi.shape != xr.shape:
-        raise ValueError(f"df32_c2c_cuda takes two 2-D planes of one shape,"
-                         f" got {tuple(xr.shape)} and {tuple(xi.shape)}")
+        raise ValueError(f"{name} takes two 2-D planes of one shape, got "
+                         f"{tuple(xr.shape)} and {tuple(xi.shape)}")
     if not (xr.is_contiguous() and xi.is_contiguous()):
-        raise ValueError("df32_c2c_cuda takes contiguous planes")
+        raise ValueError(f"{name} takes contiguous planes")
     if sign not in (-1, 1):
         raise ValueError(f"sign must be -1 or +1, got {sign}")
     B, n = xr.shape
-    radices = [int(r) for r in radices]
-    if not radices_ok(n, radices):
-        raise ValueError(f"K7 schedule {radices} does not fit n={n}")
-    table = _device_table(n, tuple(radices), sign, xr.device)
+    radices = tuple(int(r) for r in radices)
+    if not radices_ok(n, list(radices)):
+        raise ValueError(f"K7 schedule {list(radices)} does not fit n={n}")
     if B >= 2 ** 31:
         raise ValueError(f"batch {B} exceeds the kernel's int row count")
+    fam, rpb, smem, plan = _k7_launch(n, radices)
+    if kernel == "df32_c2c":
+        kernel = f"df32_c2c_f{fam}"
+    elif fam:
+        raise ValueError(f"K7's arms run power-of-4 stages only, not "
+                         f"{list(radices)}")
     yr = torch.empty_like(xr)
     yi = torch.empty_like(xi)
     if B == 0:
         return yr, yi
-    rpb = rows_per_block(n)
-    p = radices + [1] * (DF32P_MAX_STAGES - len(radices))
-    S.launch("df32_c2c", xr.device, 32 * rpb * n, -(-B // rpb),
+    table = _device_table(n, radices, sign, xr.device)
+    itab = _device_itab(n, radices, xr.device)
+    S.launch(kernel, xr.device, smem, -(-B // rpb),
              (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-              table.data_ptr(), B, n, len(radices), *p, rpb, sign),
-             f"n={n}, radices={radices}, B={B}")
-    launches += 1
+              table.data_ptr(), itab.data_ptr(), plan, B, n, rpb, sign),
+             f"n={n}, radices={list(radices)}, B={B}")
+    return yr, yi
+
+
+def df32_c2c_cuda(xr: torch.Tensor, xi: torch.Tensor,
+                  radices: Sequence[int], sign: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch K7 on (B, n) float64 planes on one card, with the constant
+    table of (n, radices, sign) and the plan's int tables on that card
+    (made once).  Returns new (yr, yi) float64 planes; raises on anything
+    the kernel does not take, and when the launch fails."""
+    global launches
+    yr, yi = _launch_k7("df32_c2c", xr, xi, radices, sign)
+    if xr.shape[0]:
+        launches += 1
+    return yr, yi
+
+
+#: K7's timing-only arms (``csrc/df32_c2c.cu``; on no user path): ``full``
+#: (K7 itself), ``no_twiddle`` (the level and stage twiddle multiplies
+#: skipped), ``skeleton`` (each butterfly a reversal of its registers:
+#: every load, pass, barrier, permute and store kept, no df arithmetic) and
+#: ``copy`` (the float64 split on load and the recombination on store,
+#: nothing between), built for schedules of power-of-4 stages (family 0).
+#: Every arm but ``full`` computes wrong numbers on purpose.
+ABLATE_ARMS = ("full", "no_twiddle", "skeleton", "copy")
+#: launches per arm, counted by :func:`df32_ablate_cuda`
+ablate_launches: Dict[str, int] = {}
+
+
+def df32_ablate_cuda(xr: torch.Tensor, xi: torch.Tensor,
+                     radices: Sequence[int], sign: int, arm: str
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of K7's ablation `arm` (:data:`ABLATE_ARMS`) on (B, n)
+    float64 planes on one card; what :func:`df32_c2c_cuda` takes.  Returns
+    new (yr, yi)."""
+    if arm not in ABLATE_ARMS:
+        raise ValueError(f"no K7 arm {arm!r}; the arms are {ABLATE_ARMS}")
+    yr, yi = _launch_k7(f"df32_ablate{ABLATE_ARMS.index(arm)}", xr, xi,
+                        radices, sign)
+    ablate_launches[arm] = ablate_launches.get(arm, 0) + 1
     return yr, yi
 
 

@@ -9,7 +9,7 @@ With m = n/2 (even n, m inside the c2c kernel window):
   ``r2c_cuda`` (``csrc/r2c.cu``);
 * K5 r2c along axis -2, real (pre, n, L) -> split (pre, m+1, L):
   ``r2c_inner_torch`` and ``r2c_inner_cuda`` (``csrc/r2c_inner.cu``, K2's
-  tiling); forward only, as in the reference;
+  tile with K4's untangle); forward only, as in the reference;
 * K6 c2r, split (B, m+1) -> real (B, n): ``c2r_torch`` and ``c2r_cuda``
   (``csrc/c2r.cu``).
 
@@ -20,10 +20,13 @@ in shared memory, so they take the rdft2 pack of the reference's
 z = x_even + i x_odd, then the untangle (r2c), or the tangle, one inverse
 m-point transform and the interleaved store (c2r).  K4 runs that transform
 as K1 does (register butterfly levels on ``stockham.level_plan(m,
-radices)``, groups of ``stockham.rows_per_block(m)`` rows); K5 and K6 run
-the dense stage sum.  The twins follow the same form on the shared stage
-loop (``stockham._stages_torch``), so the two agree to rounding and both
-agree with the reference's kernels to rounding.
+radices)``, groups of ``stockham.rows_per_block(m)`` rows); K5 runs it as
+K2 does, on ``stockham.level_plan(m, radices, tl)`` for tiles of tl
+columns (:func:`r2c_inner_tile`), its first level reading the packed rows
+from the input; K6 runs the dense stage sum.  The twins follow the same
+form on the shared stage loop (``stockham._stages_torch``, the
+descriptor's ``vpu`` picking the butterfly form), so the two agree to
+rounding and both agree with the reference's kernels to rounding.
 
 Gradients work on split real planes: K4's backward is the real part of the
 sign +1 n-point c2c of the zero-padded cotangent planes, and K6's backward
@@ -228,6 +231,37 @@ def c2r_cuda(xr: torch.Tensor, xi: torch.Tensor, radices: Sequence[int],
     return y
 
 
+#: K5's tile (csrc/r2c_inner.cu): 512 threads of up to 16 points in a
+#: level, at most R2C_INNER_TILE packed points m * tl, and its cap on shared
+#: memory (under the 232448 bytes a block can opt into, room left for the
+#: kernel's static levels)
+R2C_INNER_TILE = 8192
+R2C_INNER_MAX_SMEM = 230400
+
+
+def r2c_inner_smem(plan: Sequence[int], m: int, tl: int) -> int:
+    """Shared-memory bytes of K5 on the m-point `plan` for tiles of tl
+    columns (``r2c_inner_smem`` in csrc/r2c_inner.cu): the m-point tables
+    and the w table, the level buffers, then Z, two planes of m * tl."""
+    nbuf, rs, tab_len = plan[1], plan[2], plan[3]
+    plane = -(-rs // 4) * 4
+    zplane = -(-m * tl // 4) * 4
+    return 4 * (-(-(tab_len + 2 * (m + 1)) // 4) * 4 + 2 * nbuf * plane
+                + 2 * zplane)
+
+
+def r2c_inner_tile(m: int, L: int, radices: Sequence[int]) -> int:
+    """K5's columns per tile: K2's choice for an m-point transform
+    (``inner.tile_width``: a power of two, m * tl <= R2C_INNER_TILE), halved
+    while the plan's shared memory would pass R2C_INNER_MAX_SMEM (a
+    schedule with a dense stage holds two buffers)."""
+    tl = inner.tile_width(m, L)
+    while tl > 1 and r2c_inner_smem(S.level_plan(m, tuple(radices), tl), m,
+                                    tl) > R2C_INNER_MAX_SMEM:
+        tl //= 2
+    return tl
+
+
 def r2c_inner_cuda(x: torch.Tensor, radices: Sequence[int],
                    table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K5 on real (pre, n, L) f32 on one card.  ``table`` is
@@ -246,13 +280,13 @@ def r2c_inner_cuda(x: torch.Tensor, radices: Sequence[int],
     yi = x.new_empty((pre, m + 1, L))
     if pre == 0 or L == 0:
         return yr, yi
-    tl = inner.tile_width(m, L)
-    p1 = radices[1] if len(radices) == 2 else 1
-    S.launch("r2c_inner", x.device, 4 * (table.numel() + 4 * m * tl),
-            pre * -(-L // tl),
-            (x.data_ptr(), yr.data_ptr(), yi.data_ptr(), table.data_ptr(),
-             table.numel(), pre, n, L, tl, len(radices), radices[0], p1),
-            f"pre={pre}, n={n}, L={L}, radices={radices}")
+    tl = r2c_inner_tile(m, L, radices)
+    plan = S.level_plan(m, tuple(radices), tl)
+    S.launch("r2c_inner", x.device, r2c_inner_smem(plan, m, tl),
+             pre * -(-L // tl),
+             (x.data_ptr(), yr.data_ptr(), yi.data_ptr(), table.data_ptr(),
+              S.plan_array(plan), pre, n, L, tl),
+             f"pre={pre}, n={n}, L={L}, radices={radices}, tl={tl}")
     r2c_inner_launches += 1
     return yr, yi
 

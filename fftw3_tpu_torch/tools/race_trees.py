@@ -11,10 +11,11 @@ one JSON line.  The parent prints, per kernel, every tree's times and the
 ratio of each tree's best to the first tree's, with the card's name and
 power limit.  Exits non-zero when a child fails or torch sees no card.
 
-The kernels, through wrappers every tree since the real slice has:
-K1 at (65536, 1024) [64, 16]; K2 at (1, 512, 262144) and on the
-(8, 2048, 1025) half-spectrum planes; K4 at (65536, 1024) and
-(16384, 2048).
+The kernels, through wrappers every tree since the double-precision
+slice has: K1 at (65536, 1024) [64, 16]; K2 at (1, 512, 262144) and on
+the (8, 2048, 1025) half-spectrum planes; K4 at (65536, 1024) and
+(16384, 2048); K5 at (8, 2048, 2048); K7 at (8192, 1024) [64, 16] and
+(1024, 512) [32, 16], float64 planes.
 """
 from __future__ import annotations
 
@@ -26,7 +27,7 @@ import sys
 
 CHILD = r"""
 import json, numpy as np, torch
-from fftw3_tpu_torch.ops import inner, stockham as S, real_stockham as RS
+from fftw3_tpu_torch.ops import df32, inner, stockham as S, real_stockham as RS
 from fftw3_tpu_torch.utils import timing
 dev = torch.device("cuda")
 rng = np.random.default_rng(0)
@@ -54,6 +55,18 @@ for shape in ((65536, 1024), (16384, 2048)):
     t = RS._device_table(shape[1], tuple(rad), -1, dev)
     out[f"K4 {shape}"] = ms(lambda a: RS.r2c_cuda(a, rad, t), (x,))
     del x
+x = planes((8, 2048, 2048))[0]
+rad = S.choose_radices(1024)
+t = RS._device_table(2048, tuple(rad), -1, dev)
+out["K5 (8, 2048, 2048)"] = ms(lambda a: RS.r2c_inner_cuda(a, rad, t), (x,))
+del x
+for shape in ((8192, 1024), (1024, 512)):
+    xr, xi = (torch.from_numpy(rng.standard_normal(shape)).to(dev)
+              for _ in range(2))
+    rad = df32.df32p_radices(shape[1])
+    out[f"K7 {shape} {rad}"] = ms(
+        lambda a, b: df32.df32_c2c_cuda(a, b, rad, -1), (xr, xi))
+    del xr, xi
 print(json.dumps(out))
 """
 

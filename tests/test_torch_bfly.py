@@ -21,14 +21,15 @@
 * The kernels' level execution itself, emulated in numpy index for index
   (the plan's levels on the kernel's own f32 tables, the padded buffer,
   K2's tiles, plane groups, masked edge tile and column store, K4's groups
-  of rows, its Z region and the untangle), against the reference's kernels
-  in interpret mode.
+  of rows, its Z region and the untangle, K5's tiles with the packed first
+  level read from the input rows, its Z region and the untangle along axis
+  -2), against the reference's kernels in interpret mode.
 
 Tests marked ``cuda`` run the kernels on a card (K1 over its case grid,
 ragged batches, both signs, the dense fallback schedules, the four-step
 options and the wide form; K2 and K4 on ragged batches, edge tiles, both
-signs and the gradient; K3 over the 2-D grid; E5's full arms; E8's arms)
-and skip here.
+signs and the gradient; K5 on edge tiles, a dense stage and its path's
+shape; K3 over the 2-D grid; E5's full arms; E8's arms) and skip here.
 """
 import jax
 import jax.numpy as jnp
@@ -327,6 +328,24 @@ def test_every_schedule_fits_k4(lo, hi):
             assert RS.r2c_smem(plan, m, rpb) <= K4_MAX_SMEM, (m, radices)
 
 
+@pytest.mark.parametrize("lo,hi", [(2, 1025), (1025, 2049)])
+def test_every_tile_fits_k5(lo, hi):
+    """Every m-point schedule K5 can be handed (n = 2m), at every tile
+    width ``RS.r2c_inner_tile`` can pick for it, has a plan the kernel runs,
+    within its shared memory (tables, buffers and Z), threads and tile."""
+    for m in range(lo, hi, 7 if hi > 1025 else 3):
+        for radices in _schedules(m):
+            for L in (1, 5, 1 << 20):
+                tl = RS.r2c_inner_tile(m, L, radices)
+                assert tl & (tl - 1) == 0 and m * tl <= RS.R2C_INNER_TILE
+                plan = S.level_plan(m, tuple(radices), tl)
+                _fits(plan, tl)
+                _bfly_where_smooth(plan, radices)
+                _threads_hold(plan, tl, 1, K2_THREADS, K2_PTS)
+                assert RS.r2c_inner_smem(plan, m, tl) <= \
+                    RS.R2C_INNER_MAX_SMEM, (m, radices, tl)
+
+
 def test_every_wide_schedule_fits_k1():
     """Every schedule K1's wide form takes (two butterfly radices of at
     most 64 above MAX_N) has a plan it runs: one row a block, within its
@@ -516,6 +535,82 @@ def test_k4_levels_and_untangle_match_reference(n, radices, batch,
     assert not np.isnan(got).any()
     assert _relerr(got, want) <= 2e-5
     assert _relerr(got, np.fft.rfft(x.astype(np.float64))) <= TOL
+
+
+def _emulate_k5(x, radices):
+    """K5 on real (pre, n, L) as the kernel walks it: tiles of tl columns
+    (``RS.r2c_inner_tile``) of one pre index; a full tile read by a first
+    butterfly level straight from the input, packed point j of column c
+    at x[2j, c] + i x[2j+1, c] (points 2L apart, the imaginary part L
+    after the real), else loaded with the edge tile zero-filled past L;
+    the levels on ``stockham.level_plan(m, radices, tl)``, the last one
+    storing Z at o * tl + c; then the untangle with the kernel's w table,
+    columns past L never stored."""
+    pre, n, L = x.shape
+    m = n // 2
+    tl = RS.r2c_inner_tile(m, L, radices)
+    plan = S.level_plan(m, tuple(radices), tl)
+    tab = RS._real_table(n, radices, -1).astype(np.float64)
+    t0 = plan[3]
+    wt = tab[t0:t0 + m + 1] + 1j * tab[t0 + m + 1:t0 + 2 * m + 2]
+    out = np.full((pre, m + 1, L), np.nan, complex)
+    k = np.arange(m + 1)
+    k0, k1 = np.where(k == m, 0, k), np.where(k == 0, 0, m - k)
+    for b in range(pre):
+        for l0 in range(0, L, tl):
+            width = min(tl, L - l0)
+            tile = np.zeros((m, tl), complex)
+            tile[:, :width] = x[b, 0::2, l0:l0 + width] \
+                + 1j * x[b, 1::2, l0:l0 + width]
+            buf = np.zeros(plan[2], complex)
+            buf[:m * tl] = tile.ravel()
+            Z = np.full(m * tl, np.nan, complex)
+
+            def store(row, o, c, v, Z=Z):
+                Z[o * tl + c] = v
+            direct = None
+            if plan[4] != 0 and width == tl:
+                flat = x[b].reshape(-1)[l0:]
+                direct = (flat[:-L] + 1j * flat[L:], 0, 2 * L)
+            _emulate_levels(plan, tab, buf, tl, 1, store, direct)
+            Z = Z.reshape(m, tl)
+            a, cb = Z[k0], np.conj(Z[k1])
+            y = 0.5 * (a + cb) + wt[:, None] * (-0.5j) * (a - cb)
+            out[b, :, l0:l0 + width] = y[:, :width]
+    return out
+
+
+@pytest.mark.parametrize("n,radices,shape", [
+    (512, [16, 16], (2, 512, 200)),          # tiles of 32, edge of 8
+    (2048, [64, 16], (1, 2048, 20)),         # tiles of 8, edge of 4
+    (1000, [25, 20], (2, 1000, 7)),          # radix-5 levels, one edge tile
+    (1792, [56, 16], (1, 1792, 5)),          # a dense stage
+    (256, [128], (3, 256, 1))])              # one column, three planes
+def test_k5_levels_and_untangle_match_reference(n, radices, shape,
+                                                monkeypatch):
+    """K5's m-point level plan for tiles of tl columns, its packed first
+    level read from the two input rows and the untangle along axis -2,
+    executed in numpy as the kernel executes them on its own tables and
+    pads, against the reference's axis -2 r2c kernel
+    (``_kernel_r2c_inner``, interpret mode; its input padded with zero
+    columns to whole lane tiles, which leaves the other columns as they
+    are) within 2e-5 and numpy within 1e-5, with an L that is not a
+    multiple of tl."""
+    monkeypatch.setattr(ref_config, "pallas_mode", "interpret")
+    assert S.radices_ok(n // 2, radices)
+    x = np.random.default_rng(n + shape[-1]).standard_normal(
+        shape).astype(np.float32)
+    got = _emulate_k5(x.astype(np.float64), radices)
+    L = shape[-1]
+    xp = np.zeros(shape[:-1] + (-(-L // 128) * 128,), np.float32)
+    xp[..., :L] = x
+    wr, wi = jax.jit(PS.build_pallas_r2c_inner(
+        {"alg": "pallas_r2c", "n": n, "radices": radices}, np.float32))(
+        jnp.asarray(xp))
+    want = (np.asarray(wr) + 1j * np.asarray(wi))[..., :L]
+    assert not np.isnan(got).any()
+    assert _relerr(got, want) <= 2e-5
+    assert _relerr(got, np.fft.rfft(x.astype(np.float64), axis=-2)) <= TOL
 
 
 @pytest.mark.parametrize("n,radices", [(1024, [64, 16]), (4096, [64, 64]),
@@ -749,6 +844,33 @@ def test_k2_gradient_is_the_opposite_sign_launch(cuda_device):
     wr, wi = inner.inner_c2c_cuda(gr, gi, radices, S._device_table(
         n, tuple(radices), +1, cuda_device))
     assert torch.equal(xr.grad, wr) and torch.equal(xi.grad, wi)
+
+
+K5_CASES = [(512, [16, 16], (2, 512, 200)), (2048, [64, 16], (1, 2048, 20)),
+            (1000, [25, 20], (2, 1000, 7)), (1792, [56, 16], (1, 1792, 5)),
+            (256, [128], (3, 256, 1)), (2048, [64, 16], (8, 2048, 2048))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,radices,shape", K5_CASES)
+def test_k5_matches_twin_and_float64(cuda_device, n, radices, shape):
+    """K5 on edge tiles, radix-5 levels, a dense stage, one column and the
+    swapped 2-D path's full-width shape, against its twin in the butterfly
+    stage form and float64."""
+    x = torch.from_numpy(np.random.default_rng(n + shape[-1])
+                         .standard_normal(shape).astype(np.float32)) \
+        .to(cuda_device)
+    before = RS.r2c_inner_launches
+    kr, ki = RS.r2c_inner_cuda(x, radices, RS._device_table(
+        n, tuple(radices), -1, cuda_device))
+    torch.cuda.synchronize()
+    assert RS.r2c_inner_launches == before + 1
+    tr, ti = RS.r2c_inner_torch(x, radices, "all")
+    got = (kr.double() + 1j * ki.double()).cpu().numpy()
+    assert _relerr(got, (tr.double() + 1j * ti.double()).cpu().numpy()) \
+        <= TOL
+    assert _relerr(got, np.fft.rfft(x.double().cpu().numpy(), axis=-2)) \
+        <= TOL
 
 
 K4_CASES = [(1024, [32, 16], 5), (2048, [64, 16], 3), (1000, [25, 20], 7),

@@ -224,7 +224,8 @@ def test_df32p_gate_follows_kernel_mode():
 
 def test_stage_constants_equal_reference():
     """The twin's and the kernel's constants are the reference kernel's
-    operands, bit for bit; the kernel's table is them flattened."""
+    operands, bit for bit; the kernel's table is them with each group of
+    four arrays (rh, rl, ih, il) interleaved into float4 entries."""
     for n, rad in KERNEL_CASES + [(240, [16, 15]), (12, [3, 4])]:
         for sign in (-1, 1):
             want = ref_df32._df_stage_consts(n, rad, sign)
@@ -235,7 +236,10 @@ def test_stage_constants_equal_reference():
                     assert g.dtype == w.dtype and np.array_equal(g, w)
             assert np.array_equal(df32._kernel_table(n, rad, sign),
                                   np.concatenate(
-                                      [c.ravel() for s in want for c in s]))
+                                      [np.stack([c.ravel() for c in
+                                                 s[i:i + 4]], -1).ravel()
+                                       for s in want
+                                       for i in range(0, len(s), 4)]))
 
 
 def _ref_kernel_body(n, radices, sign, x):
@@ -324,6 +328,276 @@ def test_kernel_instructions_count_the_twins_df_ops(n, radices, monkeypatch):
         assert df32.kernel_instructions(n, radices) == 408.5 * n
         assert sum(c2c.c2c_opcount({"alg": "df32p", "n": n,
                                     "radices": radices}).values()) == 542 * n
+
+
+# ---------------------------------------------------------------------------
+# K7's host-side plan, executed on the CPU index for index
+# ---------------------------------------------------------------------------
+
+def _imul(a, sign):
+    """a * (i*sign), as the kernel's imul."""
+    if sign < 0:
+        return (a[2], a[3], -a[0], -a[1])
+    return (-a[2], -a[3], a[0], a[1])
+
+
+def _bfly(x, r, sign, coeff):
+    """The kernel's r-point df butterfly on df complexes x[0..r) (the
+    reference's ``_df_vpu_dft`` body); ``coeff(k)`` is w^(k+1) for radix
+    3 and 5."""
+    if r == 2:
+        return [df32.df_cadd(x[0], x[1]), df32.df_csub(x[0], x[1])]
+    if r == 4:
+        t0, t1 = df32.df_cadd(x[0], x[2]), df32.df_csub(x[0], x[2])
+        t2 = df32.df_cadd(x[1], x[3])
+        u3 = _imul(df32.df_csub(x[1], x[3]), sign)
+        return [df32.df_cadd(t0, t2), df32.df_cadd(t1, u3),
+                df32.df_csub(t0, t2), df32.df_csub(t1, u3)]
+    if r == 3:
+        w1, w2 = coeff(0), coeff(1)
+        return [df32.df_cadd(x[0], df32.df_cadd(x[1], x[2])),
+                df32.df_cadd(x[0], df32.df_cadd(df32.df_cmul(x[1], w1),
+                                                df32.df_cmul(x[2], w2))),
+                df32.df_cadd(x[0], df32.df_cadd(df32.df_cmul(x[1], w2),
+                                                df32.df_cmul(x[2], w1)))]
+    out = []
+    for k1 in range(5):
+        acc = x[0]
+        for j1 in range(1, 5):
+            acc = df32.df_cadd(acc, x[j1] if k1 == 0 else df32.df_cmul(
+                x[j1], coeff((j1 * k1) % 5 - 1)))
+        out.append(acc)
+    return out
+
+
+def _emulate_k7(xr, xi, radices, sign):
+    """K7 on (B, n) float64 planes as the CUDA kernel runs it, executed in
+    torch float32 df ops: the plan's passes (``df32.k7_plan``) over tiles
+    of ``rows_per_block`` rows (the last one ragged), each task's points
+    gathered from and scattered to a one-buffer tile through the plan's
+    swizzle, its sources and stores, the digit-reversal tables, the float4
+    constant table and the thread that runs it.  Asserts what the kernel
+    relies on: every pass covers each point of the tile once, an in-place
+    pass reads exactly what it writes, and a pass with a barrier between
+    its reads and writes runs all its tasks in one round."""
+    B, n = xr.shape
+    rad = tuple(radices)
+    passes, itab = df32.k7_plan(n, rad)
+    itab = np.asarray(itab)
+    s1, s2 = df32.k7_swizzle(n, rad)
+    rpb = df32.rows_per_block(n, rad)
+    nslot = df32.k7_smem(n, rpb) // 16
+    tab = torch.from_numpy(df32._kernel_table(n, rad, sign)).reshape(-1, 4)
+
+    def const(e):
+        e = torch.as_tensor(e)
+        return tuple(tab[e, k] for k in range(4))
+
+    def slot(e):
+        return torch.from_numpy(df32._swizzle(np.asarray(e), s1, s2))
+
+    yr = torch.empty_like(xr)
+    yi = torch.empty_like(xi)
+    for t0 in range(0, B, rpb):
+        nrows = min(rpb, B - t0)
+        buf = torch.full((nslot, 4), float("nan"), dtype=torch.float32)
+        for ps in passes:
+            P = dict(zip(df32.PASS_FIELDS, ps))
+            r1, r2, m, inner = P["r1"], P["r2"], P["m"], P["inner"]
+            U = df32._pass_tasks(r1, r2)
+            tpr = n // (r1 * r2)
+            w = np.arange(nrows * tpr)
+            thread = w % df32.K7_THREADS
+            rounds = w // (df32.K7_THREADS * U)
+            if P["mid"]:
+                assert rounds.max() == 0
+            assert np.bincount(thread).max() <= (rounds.max() + 1) * U
+            row, u = w // tpr, w % tpr
+            c, v = u % P["S"], u // P["S"]
+            j, sb = v % inner, v // inner
+            ab = [(a, b) for b in range(r1) for a in range(r2)]
+            nat = {(a, b): row * n + (sb * m + j + inner * a
+                                      + (m // r1) * b) * P["S"] + c
+                   for a, b in ab}
+            if P["dst"] == 0 or P["src"] == 1:
+                allpts = np.sort(np.concatenate(list(nat.values())))
+                assert np.array_equal(allpts, np.arange(nrows * n))
+            x = {}
+            if P["src"] == 0:
+                for a, b in ab:
+                    e = t0 * n + nat[a, b]
+                    x[a, b] = (*df32._split(xr.reshape(-1)[e]),
+                               *df32._split(xi.reshape(-1)[e]))
+            else:
+                if P["src"] == 1:
+                    src = nat
+                else:
+                    j2s, ds = c // P["done"], c % P["done"]
+                    k1, d = ds // P["donep"], ds % P["donep"]
+                    base = itab[P["dp"] + k1] * P["sp"] + j2s * P["donep"] + d
+                    src = {(a, b): row * n + base + (sb * m + j + inner * a
+                                                     + (m // r1) * b)
+                           * P["ustride"] for a, b in ab}
+                    assert np.array_equal(
+                        np.sort(np.concatenate(list(src.values()))),
+                        np.arange(nrows * n))
+                for a, b in ab:
+                    v4 = buf[slot(src[a, b])]
+                    x[a, b] = tuple(v4[:, k] for k in range(4))
+
+            def coeffs(off):
+                return lambda k: const(np.full(len(w), off + k))
+            for a in range(r2):                        # first level
+                y = _bfly([x[a, b] for b in range(r1)], r1, sign,
+                          coeffs(P["cf1"]))
+                for b in range(r1):
+                    if b and P["lt1"] >= 0:
+                        y[b] = df32.df_cmul(y[b], const(
+                            P["lt1"] + (b - 1) * (m // r1) + j + inner * a))
+                    x[a, b] = y[b]
+            if r2 > 1:                                 # second level
+                for b in range(r1):
+                    y = _bfly([x[a, b] for a in range(r2)], r2, sign,
+                              coeffs(P["cf2"]))
+                    for a in range(r2):
+                        if a and P["lt2"] >= 0:
+                            y[a] = df32.df_cmul(y[a], const(
+                                P["lt2"] + (a - 1) * inner + j))
+                        x[a, b] = y[a]
+            if P["stw"] >= 0 or P["dst"] == 1:
+                assert inner == 1
+                k0 = itab[P["rev"] + sb * m]
+                k = {(a, b): k0 + b * (P["p"] // m)
+                     + a * r1 * (P["p"] // m) for a, b in ab}
+            if P["stw"] >= 0:
+                j2s = c // P["done"]
+                for a, b in ab:
+                    x[a, b] = df32.df_cmul(
+                        x[a, b], const(P["stw"] + k[a, b] * P["q"] + j2s))
+            for a, b in ab:
+                if P["dst"] == 1:
+                    e = t0 * n + row * n + k[a, b] * P["done"] + c
+                    yr.reshape(-1)[e] = df32._rebuild(x[a, b][0], x[a, b][1],
+                                                      xr.dtype)
+                    yi.reshape(-1)[e] = df32._rebuild(x[a, b][2], x[a, b][3],
+                                                      xr.dtype)
+                else:
+                    buf[slot(nat[a, b])] = torch.stack(x[a, b], -1)
+    return yr, yi
+
+
+K7_PLAN_CASES = [(n, df32.df32p_radices(n)) for n in
+                 (128, 240, 360, 512, 1000, 1024)] + \
+    [(1024, [4, 4, 64]), (360, [8, 45]), (60, [60]), (240, [16, 15])]
+
+
+@pytest.mark.parametrize("n,radices", K7_PLAN_CASES)
+@pytest.mark.parametrize("sign", [-1, +1])
+def test_k7_plan_executed_equals_twin_bit_for_bit(n, radices, sign):
+    """K7's plan, executed on the CPU (:func:`_emulate_k7`) over two full
+    tiles and a ragged one, gives the twin's bits: the same df operations
+    on the same operands in the same order, only where values live and how
+    indices are found differ.  The df32p schedules of n = 128-1024, both
+    signs, and three- and one-stage schedules."""
+    rpb = df32.rows_per_block(n, radices)
+    B = 2 * rpb + 1
+    x = _c128(n + sign, (B, n))
+    xr, xi = (torch.from_numpy(np.ascontiguousarray(v))
+              for v in (x.real, x.imag))
+    er, ei = _emulate_k7(xr, xi, radices, sign)
+    tr, ti = df32.df32_c2c_torch(xr, xi, radices, sign)
+    assert torch.equal(er, tr) and torch.equal(ei, ti)
+
+
+def test_k7_plan_geometry():
+    """At [64, 16]: three passes (two levels, one level, two levels), the
+    stage twiddle folded into stage 0's last pass, stage 1 reading stage
+    0's digit-reversed layout and storing the output, four rows a tile in
+    64 KB, two barriers a tile besides the one between tiles (so under one
+    a row, against six a row before), and a swizzle under which every
+    shared-memory access of a full tile takes four bank cycles (no
+    conflict), where no swizzle would cost more."""
+    passes, itab = df32.k7_plan(1024, (64, 16))
+    P = [dict(zip(df32.PASS_FIELDS, ps)) for ps in passes]
+    assert [(p["r1"], p["r2"], p["src"], p["dst"]) for p in P] == \
+        [(4, 4, 0, 0), (4, 1, 1, 0), (4, 4, 2, 1)]
+    assert [p["stw"] >= 0 for p in P] == [False, True, False]
+    assert not any(p["mid"] for p in P)
+    assert df32.rows_per_block(1024, (64, 16)) == 4
+    assert df32.k7_smem(1024, 4) == 65536
+    assert itab[:64] == tuple(df32._digit_pos(k, 64) for k in range(64))
+    accs = np.array(df32._accesses(1024, (64, 16), 4))
+    for s1, s2, ok in ((*df32.k7_swizzle(1024, (64, 16)), True),
+                       (31, 31, False)):
+        sl = df32._swizzle(accs, s1, s2).reshape(-1, 4, 8) % 8
+        free = all(len(set(ph)) == 8 for ph in sl.reshape(-1, 8).tolist())
+        assert free == ok, (s1, s2)
+
+
+#: K7's shared-memory cap (``kMaxSmem`` in csrc/df32_c2c.cu)
+K7_MAX_SMEM = 163840
+
+
+@pytest.mark.parametrize("lo,hi", [(128, 512), (512, 1025)])
+def test_every_df32p_schedule_fits_k7(lo, hi):
+    """Every schedule df32p can hand K7 in its window has a plan the
+    kernel takes: at most MAX_PASSES passes of kinds it instantiates, a
+    family holding them, whole rows a tile within its shared memory, a
+    pass with a barrier between its reads and writes holding all its tasks
+    in one round, and a swizzle the kernel accepts."""
+    for n in range(lo, hi):
+        rad = df32.df32p_radices(n)
+        if rad is None:
+            continue
+        passes, itab = df32.k7_plan(n, tuple(rad))
+        assert 1 <= len(passes) <= df32.MAX_PASSES
+        fam = df32.K7_FAMILIES[df32.k7_family(n, rad)]
+        kinds = {ps[:2] for ps in passes}
+        assert fam is None or kinds <= set(fam)
+        rpb = df32.rows_per_block(n, rad)
+        assert rpb * n <= df32.TILE_POINTS
+        assert df32.k7_smem(n, rpb) <= K7_MAX_SMEM
+        for ps in passes:
+            P = dict(zip(df32.PASS_FIELDS, ps))
+            U = df32._pass_tasks(P["r1"], P["r2"])
+            assert P["r1"] * P["r2"] * U <= 16
+            if P["mid"]:
+                assert rpb * n // (P["r1"] * P["r2"]) <= df32.K7_THREADS * U
+            assert 0 <= P["rev"] and P["rev"] + P["p"] <= len(itab)
+        assert all(3 <= s <= 31 for s in df32.k7_swizzle(n, tuple(rad)))
+
+
+def test_k7_ablation_tool_reads_sass():
+    """The SASS reader of ``tools/k7_ablation.py``: instructions by class,
+    loops from backward branches (the innermost owns its body), and a trip
+    model's count per point."""
+    from fftw3_tpu_torch.tools import k7_ablation
+    sass = """
+        code for sm_90a
+                Function : _Zk_df32_kernelILi0ELi0EE
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   S2R R0, SR_TID.X ;
+        /*0020*/                   FADD R2, R3, R4 ;
+        /*0030*/                   IMAD R2, R3, R4, R5 ;
+        /*0040*/              @!P0 BRA 0x20 ;
+        /*0050*/                   LDS.128 R4, [R2] ;
+        /*0060*/                   BAR.SYNC.DEFER_BLOCKING 0x0 ;
+        /*0070*/               @P1 BRA `(.L_x_3) 0x10 ;
+        /*0080*/                   EXIT ;
+    """
+    (name, mix), = k7_ablation.sass_mix(sass, "df32",
+                                        [(0x10, 0x70, 2), (0x20, 0x40, 4)],
+                                        per_tile=0.5).items()
+    assert mix["instructions"] == 9
+    assert [lp["span"] for lp in mix["loops"]] == [["0x10", "0x70"],
+                                                    ["0x20", "0x40"]]
+    assert mix["loops"][1]["body"] == {"fp32": 1, "integer": 1,
+                                       "control": 1}
+    assert mix["outside"] == {"constant": 1, "control": 1}
+    assert mix["per_point"] == {"barrier": 1.0, "control": 3.0,
+                                "fp32": 2.0, "integer": 2.0,
+                                "lds_sts": 1.0, "move": 1.0}
+    assert k7_ablation.static_mix(sass)[name]["fp32"] == 1
 
 
 def test_twin_leading_dims_and_float32_planes():
@@ -612,7 +886,8 @@ def test_wisdom_pinned_df32p_plan_on_cpu():
 @pytest.mark.parametrize("sign", [-1, +1])
 @pytest.mark.parametrize("batch", [1, 37, 130])
 def test_kernel_matches_twin_on_card(cuda_device, n, radices, sign, batch):
-    """K7 against its twin on the same card, and against complex128."""
+    """K7 against its twin on the same card, bit for bit, and against
+    complex128."""
     x = _c128(n * batch, (batch, n))
     xr, xi = (torch.from_numpy(np.ascontiguousarray(v)).to(cuda_device)
               for v in (x.real, x.imag))
@@ -622,8 +897,34 @@ def test_kernel_matches_twin_on_card(cuda_device, n, radices, sign, batch):
     assert df32.launches == before + 1
     tr, ti = df32.df32_c2c_torch(xr, xi, radices, sign)
     k = torch.complex(kr, ki).cpu().numpy()
-    assert _relerr(k, torch.complex(tr, ti).cpu().numpy()) <= TOL_F64
+    assert torch.equal(kr, tr) and torch.equal(ki, ti)
     assert _relerr(k, _oracle(x, sign)) <= TOL_F64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,radices", [(1024, [64, 16]), (256, [16, 16])])
+def test_ablation_arms_on_card(cuda_device, n, radices):
+    """K7's timing-only arms launch on a ragged batch: the full arm is K7
+    bit for bit, the others compute other numbers, each counted; a
+    schedule outside their family is refused."""
+    x = _c128(n, (2 * df32.rows_per_block(n, radices) + 3, n))
+    xr, xi = (torch.from_numpy(np.ascontiguousarray(v)).to(cuda_device)
+              for v in (x.real, x.imag))
+    kr, ki = df32.df32_c2c_cuda(xr, xi, radices, -1)
+    df32.ablate_launches.clear()
+    for arm in df32.ABLATE_ARMS:
+        yr, yi = df32.df32_ablate_cuda(xr, xi, radices, -1, arm)
+        torch.cuda.synchronize()
+        same = torch.equal(yr, kr) and torch.equal(yi, ki)
+        assert same == (arm == "full"), arm
+        assert bool(torch.isfinite(yr).all() and torch.isfinite(yi).all())
+    assert df32.ablate_launches == dict.fromkeys(df32.ABLATE_ARMS, 1)
+    with pytest.raises(ValueError, match="no K7 arm"):
+        df32.df32_ablate_cuda(xr, xi, radices, -1, "fast")
+    with pytest.raises(ValueError, match="power-of-4"):
+        df32.df32_ablate_cuda(xr[:, :n // 2].contiguous(),
+                              xi[:, :n // 2].contiguous(),
+                              df32.df32p_radices(n // 2), -1, "full")
 
 
 @pytest.mark.cuda
