@@ -56,7 +56,8 @@ launch count set to 0 just before the path and read just after:
   2n route on K1 (one launch); every kind and algorithm over a case grid;
   ``plan_r2r_3d(256, 256, 256)`` DCT-II under ESTIMATE and pinned to K4 on
   every axis; a float64 DCT-II under ESTIMATE; and a fourth child
-  (``--profile-paths r2r``).  Every r2r output is held, over all its
+  (``--profile-paths r2r``: the pinned DCT-II and DCT-III, the DHT, the
+  pinned 3-D DCT-II).  Every r2r output is held, over all its
   rows, against float64 (scipy.fft's DCT/DST, its FFT for the DHT and
   halfcomplex kinds), and K4, K6 and K1 against their twins over all rows
   at the shapes and on the inputs the pinned arms give them.
@@ -70,9 +71,11 @@ holds each against its twin there.  Phase 15 times the 3-D and 2-D batched
 plans against the other routes the port could take for them: K2 on every
 non-last axis with K1 on the last (no fusion), and a ``movedim`` lift
 around K1 on every axis.  Phase 16 holds K4, K5 and K6 against their twins
-and float64 over a case grid; phase 19 profiles the real paths in a second
-child (``--profile-paths real``) and times the three real kernels against
-their twins and ``torch.fft.rfft``/``irfft``.  Phase 20 holds K7 against
+and float64 over a case grid (K6 against the dense and the butterfly twin,
+also at a radix-5, two dense-stage and the DCT-III child's schedule);
+phase 19 profiles the real paths in a second child (``--profile-paths
+real``) and times the three real kernels against their twins and
+``torch.fft.rfft``/``irfft``.  Phase 20 holds K7 against
 its twin bit for bit and complex128 (1e-12) over a case grid; phase 23
 runs the dd64 tier on the card against the same plan on the CPU, in
 mpmath (1e-28);
@@ -107,12 +110,11 @@ one kernel), raced chained.  Phase 41 runs K7's ablation
 (``tools/k7_ablation.py``: the ``full``, ``no_twiddle``, ``skeleton`` and
 ``copy`` arms at the f64 path's (8192, 1024) [64, 16], timed interleaved
 with K7 and cuFFT Z2Z, the full arm held bit for bit against K7) and
-prints the SASS of K7's arms by instruction class.  K1, K2, K3, K4 and K5
-run their stages as register butterflies (a radix with a prime factor of
-7 or more keeps the dense sum), K6 the dense stage loop, K7 its own df
-passes (two recursion levels a pass in registers, the permute folded into
-the next stage's reads); each butterfly kernel's row in the kernels line
-names its stage form.
+prints the SASS of K7's arms by instruction class.  K1-K6 run their
+stages as register butterflies (a radix with a prime factor of 7 or more
+keeps the dense sum), K7 its own df passes (two recursion levels a pass
+in registers, the permute folded into the next stage's reads); each
+butterfly kernel's row in the kernels line names its stage form.
 Exits non-zero at the first
 failed check, and without printing a result when torch sees no CUDA
 device.
@@ -200,6 +202,10 @@ REAL_NS = [256, 512, 1024, 2048, 4096]
 REAL_BATCHES = [1, 37, 4096]
 R2C_INNER_PRES = [1, 3, 8]
 R2C_INNER_LS = [1, 37, 128, 1025, 2048]
+#: K6's schedules beside REAL_NS's defaults (phase 16): radix-5 levels,
+#: a dense stage first and last, and the DCT-III child's [256]
+K6_SCHEDULES = [(1000, [25, 20]), (1792, [56, 16]), (1792, [16, 56]),
+                (512, [256])]
 REAL_1D = (65536, 1024)     # the 1-D real path: plan_dft_r2c(REAL_1D, (1,))
 REAL_2D = (8, 2048, 2048)   # the full-width 2-D path, axes (1, 2): the
 #                             reference suite's r2c_2d_2048 cell
@@ -1363,9 +1369,14 @@ def r2r_phases(rng, dev, smi_line, seed):
     t6 = RS.c2r_torch(k4r, k4i, rad3)
     twins["c2r"] = twin_err(f"K6 {tuple(k4r.shape)} on the DCT-III path", k6,
                             torch.zeros_like(k6), t6, torch.zeros_like(t6))
+    t6 = RS.c2r_torch(k4r, k4i, rad3, "all")
+    eb = twin_err(f"K6 {tuple(k4r.shape)} on the DCT-III path vs the "
+                  "butterfly twin", k6, torch.zeros_like(k6), t6,
+                  torch.zeros_like(t6))[1]
     print(f"[28] K6 {tuple(k4r.shape)} -> {tuple(k6.shape)} "
           f"({S.form_label(rad3)}): kernel-twin max abs "
-          f"{twins['c2r'][0]:.2e}, rel {twins['c2r'][1]:.2e} (all rows)")
+          f"{twins['c2r'][0]:.2e}, rel {twins['c2r'][1]:.2e}; kernel-"
+          f"butterfly twin rel {eb:.2e} (all rows)")
     del k4r, k4i, k6, t6
     N2 = K.logical_size(ft.Kind.REDFT10, n)
     e_rt = relerr(z, N2 * x)
@@ -1532,11 +1543,14 @@ def r2r_phases(rng, dev, smi_line, seed):
 def profile_r2r_paths(rng, dev, smi_line) -> None:
     """``torch.profiler`` breakdowns of the r2r paths: the pinned K4 DCT-II
     at (65536, 512) (the gather, twiddle and concatenation passes beside
-    K4), the ESTIMATE DHT at (65536, 1024) and the pinned 3-D DCT-II (K4
-    behind ``movedim``)."""
+    K4), the pinned K6 DCT-III at the same shape, the ESTIMATE DHT at
+    (65536, 1024) and the pinned 3-D DCT-II (K4 behind ``movedim``)."""
     x = real_rows(rng, R2R_1D, dev)
     p, _ = r2r_plan(R2R_1D, "redft10", "DCT-II", "dct2 K4")
     profile_calls(f"DCT-II K4 pinned {R2R_1D} apply_split", p.apply_split,
+                  (x,), smi_line, tag="[34]")
+    p, _ = r2r_plan(R2R_1D, "redft01", "DCT-III", "dct3 K6")
+    profile_calls(f"DCT-III K6 pinned {R2R_1D} apply_split", p.apply_split,
                   (x,), smi_line, tag="[34]")
     del x, p
     p, _ = r2r_plan(R2R_DHT, "dht", "DHT")
@@ -3132,6 +3146,21 @@ def main() -> None:
     # -- 16. the real kernels vs twins vs float64 ---------------------------
     worst = dict.fromkeys(("r2c", "c2r", "r2c_inner"), 0.0)
     ncases = dict.fromkeys(worst, 0)
+
+    def k6_case(n, rad, b, table):
+        """K6 on random half spectra (Im X[0] and Im X[n/2] must drop
+        out) against the dense twin, the butterfly twin and float64;
+        returns the larger kernel-twin error."""
+        xr, xi = planes(rng, (b, n // 2 + 1), dev)
+        y = RS.c2r_cuda(xr, xi, rad, table)
+        e_kt = relerr(y, RS.c2r_torch(xr, xi, rad))
+        e_kb = relerr(y, RS.c2r_torch(xr, xi, rad, "all"))
+        e_ko = relerr(y.double(), torch.fft.irfft(
+            torch.complex(xr, xi).to(c128), n) * n)
+        check(max(e_kt, e_kb, e_ko) <= TOL, f"c2r n={n} {rad} B={b}: "
+              f"kernel-twin {e_kt:.2e}, kernel-butterfly twin {e_kb:.2e}, "
+              f"kernel-f64 {e_ko:.2e}")
+        return max(e_kt, e_kb)
     for n in REAL_NS:
         rad = S.choose_radices(n // 2)
         t_fwd = RS._device_table(n, tuple(rad), -1, dev)
@@ -3147,18 +3176,10 @@ def main() -> None:
             check(e_kt <= TOL and e_ko <= TOL, f"r2c n={n} B={b}: "
                   f"kernel-twin {e_kt:.2e}, kernel-f64 {e_ko:.2e}")
             worst["r2c"] = max(worst["r2c"], e_kt)
-            # random half spectra: Im X[0] and Im X[n/2] must drop out
-            xr, xi = planes(rng, (b, n // 2 + 1), dev)
-            y = RS.c2r_cuda(xr, xi, rad, t_inv)
-            e_kt = relerr(y, RS.c2r_torch(xr, xi, rad))
-            e_ko = relerr(y.double(), torch.fft.irfft(
-                torch.complex(xr, xi).to(c128), n) * n)
-            check(e_kt <= TOL and e_ko <= TOL, f"c2r n={n} B={b}: "
-                  f"kernel-twin {e_kt:.2e}, kernel-f64 {e_ko:.2e}")
-            worst["c2r"] = max(worst["c2r"], e_kt)
+            worst["c2r"] = max(worst["c2r"], k6_case(n, rad, b, t_inv))
             ncases["r2c"] += 1
             ncases["c2r"] += 1
-            del x, kr, ki, tr, ti, k, xr, xi, y
+            del x, kr, ki, tr, ti, k
         for pre in R2C_INNER_PRES:
             for L in R2C_INNER_LS:
                 x = real_rows(rng, (pre, n, L), dev)
@@ -3178,6 +3199,15 @@ def main() -> None:
         print(f"[16] n={n} r={rad}: worst kernel-twin so far "
               + ", ".join(f"{k} {e:.2e}" for k, e in worst.items()),
               flush=True)
+    # K6 on a radix-5, a dense-first, a dense-last and the DCT-III's [256]
+    # schedule
+    for n, rad in K6_SCHEDULES:
+        t_inv = RS._device_table(n, tuple(rad), +1, dev)
+        for b in REAL_BATCHES:
+            worst["c2r"] = max(worst["c2r"], k6_case(n, rad, b, t_inv))
+            ncases["c2r"] += 1
+        print(f"[16] K6 n={n} r={rad} ({S.form_label(rad)}): worst "
+              f"kernel-twin so far {worst['c2r']:.2e}", flush=True)
     for k, e in worst.items():
         print(f"[16] {k}: {ncases[k]} cases, worst kernel-twin {e:.2e} "
               f"(max-abs over max-abs; tolerance {TOL}), each also within "
@@ -3435,8 +3465,17 @@ def main() -> None:
         y = RS.c2r_cuda(kr, ki, rad, ti_)
         ty = RS.c2r_torch(kr, ki, rad)
         err, rel = twin_err(f"c2r {shape}", y, zeros(y), ty, zeros(ty))
+        ty = RS.c2r_torch(kr, ki, rad, "all")
+        eb = twin_err(f"c2r {shape} vs the butterfly twin", y, zeros(y), ty,
+                      zeros(ty))[1]
+        eo = relerr(y.double(), torch.fft.irfft(
+            torch.complex(kr, ki).to(c128), n) * n)
+        check(eo <= TOL, f"K6 {shape} vs complex128 {eo:.2e}")
         del y, ty
         kc = torch.complex(kr, ki)
+        # the one PyTorch call of K6's function: irfft unscaled; the
+        # earlier yardstick, irfft then a scaling pass, printed beside it
+        t_scaled = time_ms(lambda z: torch.fft.irfft(z, n) * n, (kc,))
         rows19.append({
             "name": "c2r", "route": "cuda",
             "source": "fftw3_tpu_torch/csrc/c2r.cu",
@@ -3446,10 +3485,16 @@ def main() -> None:
                           (kr, ki)),
             "plain_ms": time_ms(lambda a, b: RS.c2r_torch(a, b, rad),
                                 (kr, ki)),
-            "library_ms": time_ms(lambda z: torch.fft.irfft(z, n) * n,
-                                  (kc,)),
+            "library_ms": time_ms(
+                lambda z: torch.fft.irfft(z, n, norm="forward"), (kc,)),
+            "stage_form": S.form_label(rad),
             "shape": (B, n // 2 + 1), "bytes": 8.0 * kr.numel() + 4.0 * B * n,
             "flops": fft_flops(B * n, n) / 2})
+        print(f"[19] K6 {shape} ({S.form_label(rad)}, "
+              f"{S.rows_per_block(n // 2)} rows a group): kernel-butterfly "
+              f"twin {eb:.2e}, kernel-f64 {eo:.2e}; irfft(norm=\"forward\") "
+              f"{rows19[-1]['library_ms']:.3f} ms, irfft * n "
+              f"{t_scaled:.3f} ms ({smi_line})")
         del x, kr, ki, kc
         torch.cuda.empty_cache()
     # K5 at the swapped path's shape

@@ -1,7 +1,8 @@
 // The register butterfly stage of K1 (stockham_c2c.cu), K2 (inner_c2c.cu),
-// K3 (c2c_2d.cu) and K4 (r2c.cu): the device-side counterpart of _vpu_dft in
-// fftw3_tpu/ops/pallas_stockham.py run as a Stockham stage, in place of the
-// dense p-term sum of stockham_stage.cuh.
+// K3 (c2c_2d.cu), K4 (r2c.cu), K5 (r2c_inner.cu) and K6 (c2r.cu): the
+// device-side counterpart of _vpu_dft in fftw3_tpu/ops/pallas_stockham.py
+// run as a Stockham stage, in place of the dense p-term sum of
+// stockham_stage.cuh.
 //
 // A stage of radix p views the n points of a transform as (p, q, done) and
 // computes, for every (j2, d), the p-point DFT over j1, the twiddle
@@ -336,16 +337,13 @@ __device__ __forceinline__ void dft(float (&xr)[N], float (&xi)[N], int b,
 }
 
 // The last level's store of output point o of column c of transform `row`:
-// to (dr, di)[map(row, o, c)] where the map stores column c.
+// to element map(row, o, c) of (dr, di) (store_point, stockham_stage.cuh)
+// where the map stores column c.
 template <class Map>
 __device__ __forceinline__ void store_out(const Map& map, float* dr,
                                           float* di, int row, int o, int c,
                                           float vr, float vi) {
-  if (map.stored(c)) {
-    const auto a = map(row, o, c);
-    dr[a] = vr;
-    di[a] = vi;
-  }
+  if (map.stored(c)) store_point<Map>(dr, di, map(row, o, c), vr, vi);
 }
 
 // One butterfly level of radix R over nr transforms: reads (sr, si), rows

@@ -1,10 +1,9 @@
 // The dense Stockham stage loop: the device-side counterpart of _stages in
 // fftw3_tpu/ops/pallas_stockham.py in its matrix form, the p-term sum.  Who
-// uses it: the one- or two-stage schedule (Schedule, run_stages) is K5's
-// (r2c_inner.cu) and K6's (c2r.cu) whole stage loop, and E5's dense arms
-// (ablate_stage.cu); stage() alone is the dense level of the butterfly
-// kernels K1, K2, K3 and K4 (stockham_bfly.cuh), which run it for a radix
-// with a prime factor of 7 or more.
+// uses it: stage() is the dense level of the butterfly kernels K1-K6
+// (stockham_bfly.cuh), which run it for a radix with a prime factor of 7 or
+// more, and with the one- or two-stage schedule (Schedule) E5's dense arms
+// (ablate_stage.cu).
 //
 // A stage runs over `rows` independent transforms held in shared memory.
 // Transform r is an (n, tl) tile at src + r*n*tl: point i of column c sits at
@@ -32,6 +31,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace fftw3_tpu_torch {
 
 // Where a stage's output goes: a map (row, o, c) -> element index into the
@@ -48,6 +49,28 @@ struct SmemMap {
     return row * per + o * tl + c;
   }
 };
+
+// A map with `static constexpr bool kInterleaved = true` (K6's) stores a
+// point as one float2 (re, im) at element map(row, o, c) of the first plane
+// read as float2, in place of one float in each plane.  The choice is made
+// at compile time: a map without the member gets the two planes' store.
+template <class Map, class = void>
+struct Interleaved : std::false_type {};
+template <class Map>
+struct Interleaved<Map, std::void_t<decltype(Map::kInterleaved)>>
+    : std::bool_constant<Map::kInterleaved> {};
+
+// The store of one output point (vr, vi) at element a of Map's layout.
+template <class Map, class Index>
+__device__ __forceinline__ void store_point(float* dr, float* di, Index a,
+                                            float vr, float vi) {
+  if constexpr (Interleaved<Map>::value) {
+    reinterpret_cast<float2*>(dr)[a] = make_float2(vr, vi);
+  } else {
+    dr[a] = vr;
+    di[a] = vi;
+  }
+}
 
 // One Stockham stage: src (rows x n x tl, split) -> (dr, di)[map(row, o, c)].
 template <class Map>
@@ -99,11 +122,8 @@ __device__ __forceinline__ void stage(const float* __restrict__ sr,
       ai = ar * wi + ai * wr;
       ar = tr;
     }
-    if (map.stored(c)) {
-      const auto k = map(row, (j2 * p + k1) * done + d, c);
-      dr[k] = ar;
-      di[k] = ai;
-    }
+    if (map.stored(c))
+      store_point<Map>(dr, di, map(row, (j2 * p + k1) * done + d, c), ar, ai);
   }
 }
 
@@ -123,27 +143,5 @@ struct Schedule {
     r1i = r1r + p1;
   }
 };
-
-// The schedule over the transforms in (ar, ai); (br, bi) is the scratch of
-// the first stage, the last stage stores to (yr, yi)[map(row, o, c)].  The
-// caller has synchronised after filling (ar, ai); nothing here synchronises
-// after the last stage.
-template <class Map>
-__device__ __forceinline__ void run_stages(const float* ar, const float* ai,
-                                           float* br, float* bi,
-                                           const Schedule& s, int tl,
-                                           int rows, float* yr, float* yi,
-                                           const Map& map) {
-  if (s.nstages == 1) {
-    stage(ar, ai, yr, yi, map, s.r0r, s.r0i, nullptr, nullptr, s.n, tl, rows,
-          s.p0, 1, 1, s.n);
-    return;
-  }
-  stage(ar, ai, br, bi, SmemMap{s.n * tl, tl}, s.r0r, s.r0i, s.t0r, s.t0i,
-        s.n, tl, rows, s.p0, s.q0, 1, s.n);
-  __syncthreads();
-  stage(br, bi, yr, yi, map, s.r1r, s.r1i, nullptr, nullptr, s.n, tl, rows,
-        s.p1, 1, s.p0, s.q0);
-}
 
 }  // namespace fftw3_tpu_torch

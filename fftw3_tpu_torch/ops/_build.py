@@ -63,8 +63,8 @@ SIGNATURES = {
     # x yr yi tab, plan, rows n rpb grid smem, stream
     "r2c_launch": [_P] * 4 + [_IP] + [_I] * 5 + [_P],
     "r2c_occupancy": [_I, ctypes.POINTER(_I)],
-    # xr xi y tab, tab_len rows n nstages p0 p1 grid smem, stream
-    "c2r_launch": [_P] * 4 + [_I] * 8 + [_P],
+    # xr xi y tab, plan, rows n rpb grid smem, stream
+    "c2r_launch": [_P] * 4 + [_IP] + [_I] * 5 + [_P],
     "c2r_occupancy": [_I, ctypes.POINTER(_I)],
     # x yr yi tab, plan, pre n, L, tl grid smem, stream
     "r2c_inner_launch": [_P] * 4 + [_IP] + [_I] * 2 + [_L] + [_I] * 3

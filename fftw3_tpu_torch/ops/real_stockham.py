@@ -23,7 +23,8 @@ as K1 does (register butterfly levels on ``stockham.level_plan(m,
 radices)``, groups of ``stockham.rows_per_block(m)`` rows); K5 runs it as
 K2 does, on ``stockham.level_plan(m, radices, tl)`` for tiles of tl
 columns (:func:`r2c_inner_tile`), its first level reading the packed rows
-from the input; K6 runs the dense stage sum.  The twins follow the same
+from the input; K6 runs it as K4 does, the tangle writing the level buffer
+and the last level storing the real rows.  The twins follow the same
 form on the shared stage loop (``stockham._stages_torch``, the
 descriptor's ``vpu`` picking the butterfly form), so the two agree to
 rounding and both agree with the reference's kernels to rounding.
@@ -175,6 +176,15 @@ def r2c_smem(plan: Sequence[int], m: int, rpb: int) -> int:
                 + 2 * zplane)
 
 
+def c2r_smem(plan: Sequence[int], m: int, rpb: int) -> int:
+    """Shared-memory bytes of K6 on the m-point `plan` with `rpb` rows a
+    group (``c2r_smem`` in csrc/c2r.cu): the m-point tables and the v
+    table, then the level buffers; the last level stores to the output."""
+    nbuf, rs, tab_len = plan[1], plan[2], plan[3]
+    plane = -(-rpb * rs // 4) * 4
+    return 4 * (-(-(tab_len + 2 * (m + 1)) // 4) * 4 + 2 * nbuf * plane)
+
+
 def r2c_cuda(x: torch.Tensor, radices: Sequence[int], table: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K4 on real (B, n) f32 rows on one card.  ``table`` is
@@ -222,11 +232,13 @@ def c2r_cuda(xr: torch.Tensor, xi: torch.Tensor, radices: Sequence[int],
     y = xr.new_empty((B, n))
     if B == 0:
         return y
-    p1 = radices[1] if len(radices) == 2 else 1
-    S.launch("c2r", xr.device, 4 * (table.numel() + 4 * h), B,
-            (xr.data_ptr(), xi.data_ptr(), y.data_ptr(), table.data_ptr(),
-             table.numel(), B, n, len(radices), radices[0], p1),
-            f"B={B}, n={n}, radices={radices}")
+    m = n // 2
+    plan = S.level_plan(m, tuple(radices))
+    rpb = S.rows_per_block(m)
+    S.launch("c2r", xr.device, c2r_smem(plan, m, rpb), -(-B // rpb),
+             (xr.data_ptr(), xi.data_ptr(), y.data_ptr(), table.data_ptr(),
+              S.plan_array(plan), B, n, rpb),
+             f"B={B}, n={n}, radices={radices}")
     c2r_launches += 1
     return y
 
@@ -398,8 +410,8 @@ def build_pallas_c2r(desc: Dict, rdtype, device: Optional[torch.device] = None):
     """Split apply for ``{"alg": "pallas_c2r", "n": n, "radices": [...]}``:
     (xr, xi) of (..., n/2+1) -> real (..., n), unnormalized, with Im X[0]
     and Im X[n/2] dropped.  ``vpu`` selects the twin's butterfly stage
-    form; the kernel runs the dense form.  ``tile_b`` is accepted and
-    ignored.
+    form; on the card the radix alone picks each stage's form
+    (``stockham.stage_form``).  ``tile_b`` is accepted and ignored.
 
     Backward: (X̄r, X̄i) = (w Re R(g), w' Im R(g)) with R the port's planned
     r2c, w = [1, 2, ..., 2, 1] and w' = [0, 2, ..., 2, 0]."""

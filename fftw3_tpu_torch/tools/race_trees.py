@@ -14,8 +14,11 @@ power limit.  Exits non-zero when a child fails or torch sees no card.
 The kernels, through wrappers every tree since the double-precision
 slice has: K1 at (65536, 1024) [64, 16]; K2 at (1, 512, 262144) and on
 the (8, 2048, 1025) half-spectrum planes; K4 at (65536, 1024) and
-(16384, 2048); K5 at (8, 2048, 2048); K7 at (8192, 1024) [64, 16] and
-(1024, 512) [32, 16], float64 planes.
+(16384, 2048); K5 at (8, 2048, 2048); K6 at (65536, 1024) and (16384,
+2048) on their default schedules and at (65536, 512) on [256], the
+DCT-III's child (``c2r_cuda`` has had the same signature since the real
+slice); K7 at (8192, 1024) [64, 16] and (1024, 512) [32, 16], float64
+planes.
 """
 from __future__ import annotations
 
@@ -55,6 +58,15 @@ for shape in ((65536, 1024), (16384, 2048)):
     t = RS._device_table(shape[1], tuple(rad), -1, dev)
     out[f"K4 {shape}"] = ms(lambda a: RS.r2c_cuda(a, rad, t), (x,))
     del x
+for shape, rad in (((65536, 1024), None), ((16384, 2048), None),
+                   ((65536, 512), [256])):
+    n = shape[1]
+    rad = rad or S.choose_radices(n // 2)
+    xr, xi = planes((shape[0], n // 2 + 1))
+    t = RS._device_table(n, tuple(rad), +1, dev)
+    out[f"K6 {shape} {rad}"] = ms(
+        lambda a, b: RS.c2r_cuda(a, b, rad, t), (xr, xi))
+    del xr, xi
 x = planes((8, 2048, 2048))[0]
 rad = S.choose_radices(1024)
 t = RS._device_table(2048, tuple(rad), -1, dev)

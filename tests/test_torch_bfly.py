@@ -1,5 +1,5 @@
-"""The register butterfly stage of K1, K2, K3 and K4
-(``csrc/stockham_bfly.cuh``) and its host side in
+"""The register butterfly stage of K1-K6 (``csrc/stockham_bfly.cuh``) and
+its host side in
 ``fftw3_tpu_torch.ops.stockham``.
 
 * The port's ``_vpu_dft`` (the twin's butterfly form, the algorithm the
@@ -15,15 +15,16 @@
   on 32 distinct banks on the main paths' plans.
 * Every schedule the planner can hand K1 (its wide form's above MAX_N
   included), every plane the route gate sends to K3, every (n, tile width)
-  K2 can be handed and every m-point schedule K4 can be handed has a plan
-  the kernels' one run-time form runs, within their shared memory, threads
-  and tiles.
+  K2 can be handed and every m-point schedule K4 and K6 can be handed has
+  a plan the kernels' one run-time form runs, within their shared memory,
+  threads and tiles.
 * The kernels' level execution itself, emulated in numpy index for index
   (the plan's levels on the kernel's own f32 tables, the padded buffer,
   K2's tiles, plane groups, masked edge tile and column store, K4's groups
   of rows, its Z region and the untangle, K5's tiles with the packed first
   level read from the input rows, its Z region and the untangle along axis
-  -2), against the reference's kernels in interpret mode.
+  -2, K6's tangle into the level buffer and its float2 store of the real
+  rows), against the reference's kernels in interpret mode.
 
 Tests marked ``cuda`` run the kernels on a card (K1 over its case grid,
 ragged batches, both signs, the dense fallback schedules, the four-step
@@ -262,6 +263,7 @@ def test_every_plane_fits_k3(n1):
 #: kWideThreads of kRowPts, kRowMaxSmem)
 K2_MAX_SMEM, K2_TILE, K2_THREADS, K2_PTS = 180224, 8192, 512, 16
 K4_MAX_SMEM, K4_GROUP, K4_THREADS, K4_PTS = 98304, 2048, 256, 8
+K6_MAX_SMEM, K6_GROUP, K6_THREADS, K6_PTS = 98304, 2048, 256, 8
 K1_WIDE, K1_WIDE_THREADS = 4096, 512
 
 
@@ -326,6 +328,22 @@ def test_every_schedule_fits_k4(lo, hi):
             assert rpb * m <= K4_GROUP
             _threads_hold(plan, 1, rpb, K4_THREADS, K4_PTS)
             assert RS.r2c_smem(plan, m, rpb) <= K4_MAX_SMEM, (m, radices)
+
+
+@pytest.mark.parametrize("lo,hi", [(2, 1025), (1025, 2049)])
+def test_every_schedule_fits_k6(lo, hi):
+    """Every m-point schedule K6 can be handed (n = 2m), with its rows a
+    group, has a plan the kernel runs, within its shared memory (tables,
+    the v table and the level buffers), threads and group."""
+    for m in range(lo, hi):
+        for radices in _schedules(m):
+            plan = S.level_plan(m, tuple(radices))
+            rpb = S.rows_per_block(m)
+            _fits(plan, 1)
+            _bfly_where_smooth(plan, radices)
+            assert rpb * m <= K6_GROUP
+            _threads_hold(plan, 1, rpb, K6_THREADS, K6_PTS)
+            assert RS.c2r_smem(plan, m, rpb) <= K6_MAX_SMEM, (m, radices)
 
 
 @pytest.mark.parametrize("lo,hi", [(2, 1025), (1025, 2049)])
@@ -535,6 +553,98 @@ def test_k4_levels_and_untangle_match_reference(n, radices, batch,
     assert not np.isnan(got).any()
     assert _relerr(got, want) <= 2e-5
     assert _relerr(got, np.fft.rfft(x.astype(np.float64))) <= TOL
+
+
+def _emulate_k6(X, radices):
+    """K6 on half spectra (B, m+1) as the kernel walks it: groups of rpb
+    rows; the tangle, one pair (k, m - k) of a row at a time, reading X[k]
+    and X[m - k] (Im X[0] and Im X[m] dropped) and writing 2Z[k] and
+    2Z[m - k] with the kernel's v table straight into the level buffer
+    (every other slot NaN); the levels, the last storing point o of a row
+    as (y[2o], y[2o + 1])."""
+    B, h = X.shape
+    m = h - 1
+    n = 2 * m
+    plan = S.level_plan(m, tuple(radices))
+    rpb = S.rows_per_block(m)
+    tab = RS._real_table(n, radices, +1).astype(np.float64)
+    t0 = plan[3]
+    v = tab[t0:t0 + h] + 1j * tab[t0 + h:t0 + 2 * h]
+    out = np.full((B, n), np.nan)
+    k = np.arange(m // 2 + 1)
+    j = m - k
+    for r0 in range(0, B, rpb):
+        nr = min(rpb, B - r0)
+        buf = np.full(nr * plan[2], np.nan, complex)
+        for row in range(nr):
+            x = X[r0 + row]
+            a, c = x.real[k], x.real[j]
+            b = np.where(k == 0, 0.0, x.imag[k])
+            d = np.where(k == 0, 0.0, x.imag[j])
+            base = row * plan[2]
+            buf[base + k] = (a + c) + 1j * (b - d) \
+                + 1j * ((a - c) + 1j * (b + d)) * v[k]
+            two = (k != 0) & (k != j)
+            zj = (c + a) + 1j * (d - b) + 1j * ((c - a) + 1j * (d + b)) * v[j]
+            buf[base + j[two]] = zj[two]
+
+        def store(row, o, c, val, r0=r0):
+            out[r0 + row, 2 * o] = val.real
+            out[r0 + row, 2 * o + 1] = val.imag
+        _emulate_levels(plan, tab, buf, 1, nr, store)
+    return out
+
+
+@pytest.mark.parametrize("n,radices,batch", [
+    (1024, [32, 16], 5),                     # 4 rows a group, ragged
+    (2048, [64, 16], 3),                     # 2 rows a group, ragged
+    (1000, [25, 20], 7),                     # radix-5 levels
+    (1792, [56, 16], 3),                     # a dense stage
+    (1792, [16, 56], 2),                     # a dense last stage
+    (4096, [128, 16], 2),                    # one row a group
+    (512, [256], 9)])                        # the DCT-III's child
+def test_k6_levels_and_tangle_match_reference(n, radices, batch,
+                                              monkeypatch):
+    """K6's tangle into the level buffer, its m-point level plan and its
+    interleaved store, executed in numpy as the kernel executes them, on
+    random half spectra (Im X[0] and Im X[m] nonzero, so a leak shows),
+    against the reference's c2r kernel (``_kernel_c2r``, interpret mode)
+    within 2e-5 and numpy within 1e-5."""
+    monkeypatch.setattr(ref_config, "pallas_mode", "interpret")
+    assert S.radices_ok(n // 2, radices)
+    rng = np.random.default_rng(n + batch)
+    X = (rng.standard_normal((batch, n // 2 + 1))
+         + 1j * rng.standard_normal((batch, n // 2 + 1))).astype(np.complex64)
+    got = _emulate_k6(X.astype(np.complex128), radices)
+    want = np.asarray(jax.jit(PS.build_pallas_c2r(
+        {"alg": "pallas_c2r", "n": n, "radices": radices}, np.float32))(X))
+    assert not np.isnan(got).any()
+    assert _relerr(got, want) <= 2e-5
+    assert _relerr(got, np.fft.irfft(X.astype(np.complex128), n) * n) <= TOL
+
+
+@pytest.mark.parametrize("n,radices", [
+    (1024, [32, 16]),                        # the 1-D c2r path
+    (2048, [64, 16]),                        # the 2-D c2r path's rows
+    (512, [256])])                           # the DCT-III's child
+def test_k6_store_is_whole_sectors(n, radices):
+    """K6's last level stores each point as one float2 at row * m + o,
+    o = k1 * done + d: on the paths' plans every warp's store of one k1
+    fills whole 32-byte sectors, the fewest there are (8 a warp), in
+    runs of consecutive d, so the store needs no Z region."""
+    m = n // 2
+    plan = S.level_plan(m, tuple(radices))
+    rpb = S.rows_per_block(m)
+    last = 4 + 8 * (plan[0] - 1)
+    kind, r, done, rest = plan[last:last + 4]
+    assert kind == r and rest == r                  # a butterfly, q = 1
+    w = np.arange(rpb * done)                       # the level's butterflies
+    row, d = np.divmod(w, done)
+    for k1 in range(r):
+        byte = 8 * (row * m + k1 * done + d)        # group base: 8m-aligned
+        for warp in range(0, len(w), 32):
+            sectors = np.unique(byte[warp:warp + 32] // 32)
+            assert len(sectors) == 8, (k1, warp)
 
 
 def _emulate_k5(x, radices):

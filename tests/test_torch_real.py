@@ -387,6 +387,35 @@ def test_kernels_match_twins_on_card(cuda_device, n, b):
     assert _relerr(y.cpu().numpy(), n * x.cpu().numpy()) <= TOL_F64
 
 
+K6_CASES = [(1024, [32, 16]), (2048, [64, 16]), (1000, [25, 20]),
+            (1792, [56, 16]), (1792, [16, 56]), (4096, [128, 16]),
+            (512, [256])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,radices", K6_CASES)
+@pytest.mark.parametrize("b", [1, 37, 130])
+def test_k6_matches_both_twins_and_float64(cuda_device, n, radices, b):
+    """K6 on its register butterfly levels (a dense stage first or last,
+    radix-5 levels, one row a group, the DCT-III's [256]) over ragged row
+    groups, on random half spectra (Im X[0] and Im X[m] nonzero), against
+    the dense twin, the butterfly twin and float64."""
+    X = _half(n + b, (b, n // 2 + 1))
+    xr, xi = (_t(a.astype(np.float32)).to(cuda_device)
+              for a in (X.real, X.imag))
+    before = RS.c2r_launches
+    y = RS.c2r_cuda(xr, xi, radices, RS._device_table(
+        n, tuple(radices), +1, cuda_device))
+    torch.cuda.synchronize()
+    assert RS.c2r_launches == before + 1
+    got = y.cpu().numpy()
+    for vpu in (None, "all"):
+        twin = RS.c2r_torch(xr, xi, radices, vpu).cpu().numpy()
+        assert _relerr(got, twin) <= TOL_F64, vpu
+    oracle = np.fft.irfft(X.astype(np.complex128), n, axis=-1) * n
+    assert _relerr(got, oracle) <= TOL_F64
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n", [256, 1024, 4096])
 @pytest.mark.parametrize("pre,L", [(1, 1), (3, 37), (2, 1025)])
