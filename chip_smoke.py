@@ -110,7 +110,23 @@ one kernel), raced chained.  Phase 41 runs K7's ablation
 (``tools/k7_ablation.py``: the ``full``, ``no_twiddle``, ``skeleton`` and
 ``copy`` arms at the f64 path's (8192, 1024) [64, 16], timed interleaved
 with K7 and cuFFT Z2Z, the full arm held bit for bit against K7) and
-prints the SASS of K7's arms by instruction class.  K1-K6 run their
+prints the SASS of K7's arms by instruction class.  Phases 42-44 drive
+the user surface at full width: phase 42 the numpy-style functions on CUDA
+tensors (``fft``/``ifft`` at (65536, 1024): one K1 launch each;
+``rfft``/``irfft``: one K4, one K6; ``fft2`` on (64, 512, 512): one K3;
+``fftn`` on 512^3: K2 + K3; ``rfftn``/``irfftn`` on (8, 2048, 2048): K4 +
+K2, K2 + K6; ``dct`` at (65536, 512) and ``scipy_fft.dctn`` on 256^3
+wherever the functional ESTIMATE sends them), each against float64 over
+every output, each second call planning nothing, ``fft(x)`` timed beside
+its plan's ``apply_split`` and ``torch.fft.fft``; phase 43 the guru
+layouts: ``execute_split_dft`` (one K1 launch; a fifth child,
+``--profile-paths surface``, shows K1 and no other kernel beside it), a
+strided guru plan over flat buffers with an offset and ``out=``, and a
+``plan_many_dft`` with ``inembed``/``onembed``; phase 44 the bench
+harness in child processes (``python -m fftw3_tpu_torch.harness`` -s and
+-y on the reference suite's cells, ``--double``, ``--paranoid``,
+``harness.accuracy``, ``harness.fuzz`` 30/30, ``tools.wisdom`` read back
+here).  K1-K6 run their
 stages as register butterflies (a radix with a prime factor of 7 or more
 keeps the dense sum), K7 its own df passes (two recursion levels a pass
 in registers, the permute folded into the next stage's reads); each
@@ -132,6 +148,7 @@ from __future__ import annotations
 import argparse
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -948,6 +965,9 @@ def profile_paths(rng, dev, group) -> None:
         return
     if group == "r2r":
         profile_r2r_paths(rng, dev, smi_line)
+        return
+    if group == "surface":
+        profile_surface_paths(rng, dev, smi_line)
         return
     cube = (CUBE,) * 3
     p3 = ft.plan_dft_3d(*cube, device="cuda")
@@ -2390,10 +2410,323 @@ def k7_ablation_phase(dev, smi_line, k7_row, seed):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phases 42-44: the user surface on the card — the functional API, the guru
+# and advanced layouts, the bench harness
+# ---------------------------------------------------------------------------
+
+#: phase 44's problem strings: the reference suite's cells (bench.py:1099-
+#: 1104) and the headline; "-y" runs each at the size given here
+HARNESS_SPEED = ["c1024v65536", "c4096v4096", "r2048x2048v8",
+                 "c256x256x256", "c1000v32768", "k512e10v65536",
+                 "c512x512x512", "/c1024v65536"]
+HARNESS_VERIFY = ["c1024v65536", "r2048x2048v8", "c4096v4096",
+                  "c256x256x256", "c1000v32768", "k512e10v65536",
+                  "c512x512x512"]
+HARNESS_DOUBLE = "c1024v8192"
+#: the strided guru path (phase 43): n points at input stride 2 and output
+#: stride 2, GURU_BATCH transforms 2n apart on both sides, from an offset
+GURU_N, GURU_BATCH, GURU_OFFSET = 1024, 32768, 7
+#: the advanced-layout path: rows of MANY_N points inside rows of MANY_EMBED
+MANY_N, MANY_BATCH, MANY_EMBED = 1024, 32768, 1040
+
+
+def surface_call(label, fn, args, want, ref):
+    """One functional call at full width: its launches (checked against
+    `want` when given), its error against the float64 `ref` over every
+    output (checked at TOL), a second call that must plan nothing (the
+    plan cache), and its time.  Returns the output of the first call."""
+    y, counts = run_counted(fn, *args)
+    fired = launched(counts)
+    check(bool(torch.isfinite(y).all()), f"{label}: non-finite output")
+    e = relerr(y.to(ref.dtype), ref)
+    nplan = ft.the_planner.stats["nplan"]
+    fn(*args)
+    torch.cuda.synchronize()
+    again = ft.the_planner.stats["nplan"] - nplan
+    print(f"[42] {label}: launches {fired}; rel err vs float64 over every "
+          f"output {e:.2e}; second call planned {again} subproblems; "
+          f"{time_ms(fn, args):.3f} ms")
+    check(want is None or fired == want,
+          f"{label} launched {fired}, expected {want}")
+    check(e <= TOL, f"{label}: {e:.2e} over {TOL}")
+    check(again == 0, f"{label}: the second call planned again")
+    return y
+
+
+def functional_phase(rng, dev, smi_line):
+    """Phase 42: the numpy-style functions on CUDA tensors at full width,
+    planned under the functional ESTIMATE from no wisdom."""
+    from fftw3_tpu_torch.interfaces import scipy_fft
+    c128 = torch.complex128
+    ft.forget_wisdom()                     # also empties the plan cache
+    xr, xi = planes(rng, (BATCH, N), dev)
+    x = torch.complex(xr, xi)
+    x64 = x.to(c128)
+    surface_call(f"fft(x) {tuple(x.shape)}", ft.fft, (x,),
+                 {"stockham_c2c": 1}, torch.fft.fft(x64))
+    surface_call("ifft(x, norm='ortho')", lambda a: ft.ifft(a, norm="ortho"),
+                 (x,), {"stockham_c2c": 1},
+                 torch.fft.ifft(x64, norm="ortho"))
+    del x64
+    plan = api_plan("c2c", x, (1,), K.FORWARD)
+    print(f"[42] fft's cached plan: {plan!r}")
+    times = interleaved({
+        "fft(x)": (ft.fft, (x,)),
+        "plan.apply_split": (plan.apply_split, (xr, xi)),
+        "torch.fft.fft": (torch.fft.fft, (x,)),
+        "ifft(x, norm='ortho')": (lambda a: ft.ifft(a, norm="ortho"), (x,)),
+    })
+    for k, v in times.items():
+        print(f"[42] time {k} ({BATCH}, {N}): {v[0]:.3f} / {v[1]:.3f} ms "
+              f"(in order / back; {smi_line})")
+    del x, xr, xi
+    torch.cuda.empty_cache()
+
+    xr = real_rows(rng, REAL_1D, dev)
+    X = surface_call(f"rfft {REAL_1D}", ft.rfft, (xr,), {"r2c": 1},
+                     torch.fft.rfft(xr.double()))
+    surface_call(f"irfft {tuple(X.shape)}", ft.irfft, (X,), {"c2r": 1},
+                 torch.fft.irfft(X.to(c128)))
+    times = interleaved({"rfft": (ft.rfft, (xr,)),
+                         "torch.fft.rfft": (torch.fft.rfft, (xr,)),
+                         "irfft": (ft.irfft, (X,)),
+                         "torch.fft.irfft": (torch.fft.irfft, (X,))})
+    for k, v in times.items():
+        print(f"[42] time {k} {REAL_1D}: {v[0]:.3f} / {v[1]:.3f} ms "
+              f"({smi_line})")
+    del xr, X
+    torch.cuda.empty_cache()
+
+    x = torch.complex(*planes(rng, MANY_2D, dev))
+    surface_call(f"fft2 {MANY_2D}", ft.fft2, (x,), {"c2c_2d": 1},
+                 torch.fft.fft2(x.to(c128)))
+    del x
+    x = torch.complex(*planes(rng, (CUBE,) * 3, dev))
+    surface_call(f"fftn {(CUBE,) * 3}", ft.fftn, (x,),
+                 {"inner_c2c": 1, "c2c_2d": 1}, torch.fft.fftn(x.to(c128)))
+    del x
+    torch.cuda.empty_cache()
+    xr = real_rows(rng, REAL_2D, dev)
+    X = surface_call(f"rfftn {REAL_2D} axes (1, 2)",
+                     lambda a: ft.rfftn(a, axes=(1, 2)), (xr,),
+                     {"r2c": 1, "inner_c2c": 1},
+                     torch.fft.rfftn(xr.double(), dim=(1, 2)))
+    surface_call(f"irfftn {tuple(X.shape)} axes (1, 2)",
+                 lambda a: ft.irfftn(a, axes=(1, 2)), (X,),
+                 {"inner_c2c": 1, "c2r": 1},
+                 torch.fft.irfftn(X.to(c128), dim=(1, 2)))
+    del xr, X
+    torch.cuda.empty_cache()
+
+    x = real_rows(rng, R2R_1D, dev)
+    y, counts = run_counted(lambda a: ft.dct(a, 2), x)
+    dplan = api_plan("r2r", x, (1,), K.FORWARD, ("redft10",))
+    e = oracle_err("redft10", x, y)
+    print(f"[42] dct(x, 2) {R2R_1D} under the functional ESTIMATE: route "
+          f"{dplan!r}; launches {launched(counts)}; rel err vs float64 over "
+          f"every row {e:.2e}")
+    check(e <= TOL, f"dct(x, 2): {e:.2e}")
+    nplan = ft.the_planner.stats["nplan"]
+    ft.dct(x, 2)
+    check(ft.the_planner.stats["nplan"] == nplan, "dct planned again")
+    print(f"[42] time dct(x, 2) {R2R_1D}: "
+          f"{time_ms(lambda a: ft.dct(a, 2), (x,)):.3f} ms ({smi_line})")
+    del x, y
+    import scipy.fft as sfft
+    x = real_rows(rng, (R2R_CUBE,) * 3, dev)
+    y, counts = run_counted(lambda a: scipy_fft.dctn(a, norm="ortho"), x)
+    want = sfft.dctn(x.double().cpu().numpy(), norm="ortho", workers=-1)
+    e = float(np.max(np.abs(y.double().cpu().numpy() - want))
+              / np.max(np.abs(want)))
+    print(f"[42] scipy_fft.dctn {(R2R_CUBE,) * 3} norm='ortho': launches "
+          f"{launched(counts)}; rel err vs scipy float64 {e:.2e}; "
+          f"{time_ms(lambda a: scipy_fft.dctn(a, norm='ortho'), (x,)):.3f} "
+          f"ms ({smi_line})")
+    check(e <= TOL, f"dctn: {e:.2e}")
+    nplan = ft.the_planner.stats["nplan"]
+    scipy_fft.dctn(x, norm="ortho")
+    check(ft.the_planner.stats["nplan"] == nplan, "dctn planned again")
+    del x, y
+    torch.cuda.empty_cache()
+
+
+def api_plan(kind, x, axes, sign, r2r_kinds=()):
+    """The functional API's cached plan for `x` (a cache hit)."""
+    from fftw3_tpu_torch import api
+    return api._plan_for(kind, x, axes, sign, api._dtype_name(x), r2r_kinds)
+
+
+def guru_phase(rng, dev, smi_line, seed, t_start):
+    """Phase 43: the split, strided and advanced layouts on the card; the
+    split path's profile in a child process."""
+    from fftw3_tpu_torch import guru
+    c128 = torch.complex128
+    xr, xi = planes(rng, (BATCH, N), dev)
+    sp = ft.plan_guru_split_dft([N], [BATCH], device=dev)
+    print(f"[43] {sp!r}")
+    (yr, yi), counts = run_counted(ft.execute_split_dft, sp, xr, xi)
+    e = relerr(torch.complex(yr, yi).to(c128),
+               torch.fft.fft(torch.complex(xr, xi).to(c128)))
+    print(f"[43] execute_split_dft ({BATCH}, {N}): launches "
+          f"{launched(counts)}; rel err vs float64 {e:.2e}")
+    check(launched(counts) == {"stockham_c2c": 1},
+          f"execute_split_dft launched {launched(counts)}")
+    check(e <= TOL, f"execute_split_dft: {e:.2e}")
+    del yr, yi
+    plan = ft.plan_many_dft([N], howmany=BATCH, device=dev)
+    times = interleaved({
+        "execute_split_dft": (lambda a, b: ft.execute_split_dft(sp, a, b),
+                              (xr, xi)),
+        "plan.apply_split": (plan.apply_split, (xr, xi))})
+    for k, v in times.items():
+        print(f"[43] time {k} ({BATCH}, {N}): {v[0]:.3f} / {v[1]:.3f} ms "
+              f"({smi_line})")
+    del xr, xi
+    torch.cuda.empty_cache()
+    res = subprocess.run([sys.executable, __file__, "--profile-paths",
+                          "surface", "--seed", str(seed)], timeout=600)
+    check(res.returncode == 0, "the profile of the surface paths failed")
+
+    # a strided guru plan over flat buffers: element stride 2 on both sides
+    # (every other element of each 2n-element row), an offset, out=
+    n, b, off = GURU_N, GURU_BATCH, GURU_OFFSET
+    dims = [guru.iodim(n, 2, 2)]
+    hm = [guru.iodim(b, 2 * n, 2 * n)]
+    p = ft.plan_guru_dft(dims, hm, device=dev)
+    flat = torch.complex(*planes(rng, (off + 2 * n * b,), dev))
+    out = torch.full((off + 2 * n * b,), 3.0 + 0j, dtype=torch.complex64,
+                     device=dev)
+    got, counts = run_counted(lambda: p.execute(flat, off, out))
+    check(got is out, "the strided plan did not write into out=")
+    view = out[off:].view(b, n, 2)
+    want = torch.fft.fft(flat[off:].view(b, n, 2)[..., 0].to(c128))
+    e = relerr(view[..., 0].to(c128), want)
+    kept = bool((view[..., 1] == 3.0).all() and (out[:off] == 3.0).all())
+    print(f"[43] {p!r} ({b} x {n}, is = os = 2, offset {off}, out=): "
+          f"launches {launched(counts)}; rel err vs float64 {e:.2e}; the "
+          f"rest of out untouched: {kept}; "
+          f"{time_ms(lambda a: p.execute(a, off, out), (flat,)):.3f} ms "
+          f"({smi_line})")
+    check(launched(counts) == {"stockham_c2c": 1} and e <= TOL and kept,
+          "the strided guru plan")
+    del flat, out, view, want
+    torch.cuda.empty_cache()
+
+    # the advanced layout: rows of 1024 inside rows of 1040, both sides
+    mp = guru.plan_many_dft([MANY_N], MANY_BATCH, inembed=[MANY_EMBED],
+                            onembed=[MANY_EMBED], device=dev)
+    x = torch.complex(*planes(rng, (MANY_BATCH, MANY_EMBED), dev))
+    y, counts = run_counted(mp.execute, x)
+    e = relerr(y[:, :MANY_N].to(c128),
+               torch.fft.fft(x[:, :MANY_N].to(c128)))
+    zero = not bool(y[:, MANY_N:].abs().sum())
+    print(f"[43] {mp!r}: launches {launched(counts)}; rel err vs float64 "
+          f"{e:.2e}; zero outside the block: {zero}; "
+          f"{time_ms(mp.execute, (x,)):.3f} ms ({smi_line})")
+    check(launched(counts) == {"stockham_c2c": 1} and e <= TOL and zero,
+          "the advanced-layout plan")
+    del x, y
+    torch.cuda.empty_cache()
+    print(f"[43] done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def profile_surface_paths(rng, dev, smi_line) -> None:
+    """``torch.profiler`` breakdowns of the user surface at (65536, 1024):
+    ``fft(x)``, ``ifft(x, norm="ortho")``, the plan's ``apply_split``,
+    ``execute_split_dft`` (which must show K1 and no other kernel) and
+    ``rfft``."""
+    xr, xi = planes(rng, (BATCH, N), dev)
+    x = torch.complex(xr, xi)
+    plan = ft.plan_many_dft([N], howmany=BATCH, device=dev)
+    sp = ft.plan_guru_split_dft([N], [BATCH], device=dev)
+    prof = profile_calls(f"execute_split_dft ({BATCH}, {N})",
+                         lambda a, b: ft.execute_split_dft(sp, a, b),
+                         (xr, xi), smi_line, tag="[43]")
+    check(len(prof) == 1 and list(prof.values())[0][1] == 1,
+          f"execute_split_dft ran more than one kernel: {sorted(prof)}")
+    profile_calls(f"apply_split ({BATCH}, {N})", plan.apply_split, (xr, xi),
+                  smi_line, tag="[43]")
+    profile_calls(f"fft(x) ({BATCH}, {N})", ft.fft, (x,), smi_line,
+                  tag="[43]")
+    profile_calls(f"ifft(x, norm='ortho') ({BATCH}, {N})",
+                  lambda a: ft.ifft(a, norm="ortho"), (x,), smi_line,
+                  tag="[43]")
+    del x, xi
+    profile_calls(f"rfft {REAL_1D}", ft.rfft, (xr,), smi_line, tag="[43]")
+
+
+def harness_run(*args, timeout=600):
+    """``python -m`` one of the port's command-line tools in a child
+    process from the checkout's root; its output, echoed; a non-zero exit
+    fails the run."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", *args], capture_output=True,
+                         text=True, timeout=timeout,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    for line in res.stdout.splitlines():
+        print(f"[44]   {line[:300]}")
+    print(f"[44] python -m {' '.join(args)}: exit {res.returncode} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check(res.returncode == 0, f"python -m {' '.join(args)} failed: "
+          f"{res.stderr[-3000:]}")
+    return res.stdout
+
+
+def harness_phase(dev, smi_line, t_start):
+    """Phase 44: the FFTW bench harness on the card, each tool in a child
+    process: -s and -y on the reference suite's cells, --double, paranoid,
+    accuracy, fuzz, and the wisdom tool's export read back here."""
+    import tempfile
+    print(f"[44] harness on {smi_line}; -y at full size on "
+          f"{', '.join(HARNESS_VERIFY)} (no cell reduced)")
+    ys = [a for p in HARNESS_VERIFY for a in ("-y", p)]
+    ss = [a for p in HARNESS_SPEED for a in ("-s", p)]
+    out = harness_run("fftw3_tpu_torch.harness", *ys, *ss, "-v", "1")
+    speed = [ln for ln in out.splitlines() if ln.startswith("Problem: ")]
+    check(len(speed) == len(HARNESS_SPEED), "missing speed lines")
+    out = harness_run("fftw3_tpu_torch.harness", "--double", "-y",
+                      HARNESS_DOUBLE, "-s", HARNESS_DOUBLE, "-v", "1")
+    harness_run("fftw3_tpu_torch.harness", "--paranoid", "-y", "c1024v64",
+                "-v", "1")
+    harness_run("fftw3_tpu_torch.harness.accuracy", "c1024v65536",
+                "r1024v65536")
+    out = harness_run("fftw3_tpu_torch.harness.fuzz", "--count", "30",
+                      "--seed", "0")
+    check("fuzz: 30/30 passed" in out, "the fuzzer did not read 30/30")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "wisdom.json")
+        harness_run("fftw3_tpu_torch.tools.wisdom", "-e", "-o", path,
+                    "c1024", "r1024")
+        ft.forget_wisdom()
+        check(ft.import_wisdom_from_filename(path), "wisdom import refused")
+        keys = sorted({":".join(k.split(":")[:2])
+                       for k in ft.the_planner.wisdom})
+        print(f"[44] the wisdom tool's export read back: "
+              f"{len(keys)} entries, {keys}")
+        check({"c2c:1024", "r2c:1024"} <= set(keys), "wisdom entries")
+        hits = ft.the_planner.stats["nwisdom_hit"]
+        ft.plan_dft_r2c_1d(1024, device=dev)
+        check(ft.the_planner.stats["nwisdom_hit"] > hits,
+              "the imported wisdom was not used")
+    print(f"[44] done at {time.perf_counter() - t_start:.1f} s", flush=True)
+
+
+def surface_phases(rng, dev, smi_line, seed, t_start):
+    """Phases 42-44; prints the time they added."""
+    t0 = time.perf_counter()
+    functional_phase(rng, dev, smi_line)
+    print(f"[42] done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    guru_phase(rng, dev, smi_line, seed, t_start)
+    harness_phase(dev, smi_line, t_start)
+    print(f"[44] phases 42-44 added {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--profile-paths", choices=["c2c", "real", "f64", "r2r"],
+    ap.add_argument("--profile-paths",
+                    choices=["c2c", "real", "f64", "r2r", "surface"],
                     help="only profile the c2c paths (3-D, 2-D batched, "
                     "four-step), the real paths, the f64 path or the r2r "
                     "paths (the full run starts each in a child process)")
@@ -3545,6 +3878,7 @@ def main() -> None:
     measure_rows += tensor_core_phases(rng, dev, smi_line, t_start)
     measure_rows += k7_ablation_phase(dev, smi_line, k7_row, args.seed)
     print(f"[41] done at {time.perf_counter() - t_start:.1f} s", flush=True)
+    surface_phases(rng, dev, smi_line, args.seed, t_start)
 
     # the JSON line keeps one row per kernel: K3 at its 3-D path shape, K4
     # and K6 at the 1-D real path's shape

@@ -21,7 +21,7 @@ import json
 import math
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -261,6 +261,10 @@ class Planner:
         self._measure_truncated = False
         self.stats = {"nplan": 0, "nmeasure": 0, "nwisdom_hit": 0,
                       "nmeasure_failed": 0}
+        #: hook called with (key, desc, cost) on every planned subproblem:
+        #: the instrumentation point of paranoid verification
+        #: (``harness/paranoid.py``; FFTW's planner->hook)
+        self.hook: Optional[Callable[[str, Dict, float], None]] = None
 
     # -- wisdom keys ------------------------------------------------------
     def _key(self, kind: str, n: int, rdtype, batch: Optional[int],
@@ -331,6 +335,7 @@ class Planner:
             self._measure_t0 = time.perf_counter()
             best, cost = self._measure_best(kind, n, rdtype, cands, batch,
                                             device)
+        # planner counters (nplan/pcost/epcost, FFTW's planner fields)
         self.stats["pcost"] = self.stats.get("pcost", 0.0) + cost
         entry = {"desc": best, "patience": patience, "cost": cost}
         if self._measure_truncated:
@@ -339,6 +344,8 @@ class Planner:
             entry["budget"] = self.timelimit
         self._measure_truncated = False
         self.wisdom[key] = entry
+        if self.hook is not None:
+            self.hook(key, best, cost)
         return best
 
     def _budget_subsumes(self, hit: Dict, patience: int) -> bool:
@@ -749,6 +756,24 @@ def _validate_r2r(kind: str, n: int, alg: str, desc: Dict) -> bool:
     size = {"redft00_ext": 2 * (n - 1), "rodft00_ext": 2 * (n + 1),
             "redft11_2n": 2 * n}.get(alg, n)
     return validate_desc(_R2R_CHILD[alg], size, desc.get("child"))
+
+
+def build_apply(kind: str, desc: Dict, rdtype, device=None) -> Callable:
+    """One transform of a `kind` descriptor on `device` (default
+    ``config.device``), in the reference's form: complex in and out for c2c
+    (forward; the caller builds the backward with its sign), real in and
+    the complex half spectrum out for r2c, its inverse for c2r, real in
+    and out for the r2r kinds.  The solvers themselves run on split
+    planes; this wraps them."""
+    device = torch.device(config.device if device is None else device)
+    if kind == "c2c":
+        split = c2c_ops.build_c2c_split(desc, K.FORWARD, rdtype, device)
+        return lambda x: torch.complex(*split(x.real, x.imag))
+    if kind == "r2c":
+        return real_ops.build_r2c(desc, rdtype, device)
+    if kind == "c2r":
+        return real_ops.build_c2r(desc, rdtype, device)
+    return r2r_ops.build_r2r(desc, rdtype, device)
 
 
 def _measure_fn(kind: str, desc: Dict, n: int, rdtype,

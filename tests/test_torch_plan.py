@@ -136,7 +136,14 @@ def test_leading_batch_dims_through_apply():
 
 
 def test_import_leaves_jax_out():
-    code = ("import sys, fftw3_tpu_torch, fftw3_tpu_torch.ops._build; "
+    code = ("import sys, fftw3_tpu_torch, fftw3_tpu_torch.ops._build, "
+            "fftw3_tpu_torch.guru, fftw3_tpu_torch.harness.cli, "
+            "fftw3_tpu_torch.harness.fuzz, fftw3_tpu_torch.harness.accuracy, "
+            "fftw3_tpu_torch.harness.paranoid, "
+            "fftw3_tpu_torch.interfaces.numpy_fft, "
+            "fftw3_tpu_torch.interfaces.scipy_fft, "
+            "fftw3_tpu_torch.tools.wisdom, "
+            "fftw3_tpu_torch.tools.wisdom_to_conf; "
             "bad = [m for m in sys.modules "
             "if m == 'jax' or m.startswith(('jax.', 'fftw3_tpu.'))"
             " or m == 'fftw3_tpu']; "
