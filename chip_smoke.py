@@ -495,7 +495,9 @@ def profile_calls(label, fn, args, smi_line, tag="[7]"):
         torch.cuda.synchronize()
     kernels = {}
     for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:
+        # a span's copy on the device's timeline is no device activity
+        if (ev.device_type != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
             continue
         us = getattr(ev, "self_device_time_total", None)
         if us is None:
@@ -568,7 +570,8 @@ def routes(plan, dev):
     return {
         "plan": plan.apply_split,
         "K2 + K1": compose([plan_mod._c2c_stage(d[a], sign, np.float32, a,
-                                                shape, dev) for a in axes]),
+                                                shape, dev)[1]
+                            for a in axes]),
         "movedim + K1": compose([plan_mod._along_axis_split(
             c2c_ops.build_c2c_split(d[a], sign, np.float32, dev),
             a - len(shape)) for a in axes]),

@@ -25,6 +25,7 @@
 #include "stockham_rows.cuh"
 #include "stockham_stage.cuh"
 
+namespace fftw3_tpu_torch {
 namespace {
 
 using fftw3_tpu_torch::Arm;
@@ -142,6 +143,9 @@ constexpr int kDenseMaxSmem =
     static_cast<int>(sizeof(float)) * (2 * 256 + 2 * 2048 + 2 * 256 + 4 * 2048);
 
 }  // namespace
+}  // namespace fftw3_tpu_torch
+
+using namespace fftw3_tpu_torch;
 
 // The dense form.  Same contract as the dense K1's stockham_c2c_occupancy /
 // stockham_c2c_launch (plain form only), plus the arm (0-3).

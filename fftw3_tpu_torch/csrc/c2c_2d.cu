@@ -40,6 +40,7 @@
 
 namespace cg = cooperative_groups;
 
+namespace fftw3_tpu_torch {
 namespace {
 
 using fftw3_tpu_torch::Arm;
@@ -227,6 +228,9 @@ cudaLaunchConfig_t make_config(int grid, int smem, cudaStream_t stream,
 }
 
 }  // namespace
+}  // namespace fftw3_tpu_torch
+
+using namespace fftw3_tpu_torch;
 
 // Both entry points act on the caller's current device; the caller sets it.
 

@@ -23,6 +23,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace fftw3_tpu_torch {
 namespace {
 
 constexpr int kInnerThreads = 512;
@@ -148,6 +149,9 @@ int occupancy(Fn fn, int threads, int smem, int* blocks_per_sm) {
 }
 
 }  // namespace
+}  // namespace fftw3_tpu_torch
+
+using namespace fftw3_tpu_torch;
 
 // The entry points act on the caller's current device; the caller sets it.
 // Each returns the CUDA error code, 0 on success.

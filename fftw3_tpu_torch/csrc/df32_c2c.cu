@@ -92,6 +92,7 @@
 
 #include "stockham_bfly.cuh"
 
+namespace fftw3_tpu_torch {
 namespace {
 
 using fftw3_tpu_torch::FastDiv;
@@ -108,7 +109,7 @@ constexpr int kPassInts = 21;
 // once: the attribute is a cap
 constexpr int kMaxSmem = 163840;
 
-struct Arm {
+struct DfArm {
   static constexpr int kFull = 0, kNoTwiddle = 1, kSkeleton = 2, kCopy = 3;
 };
 
@@ -237,7 +238,7 @@ __device__ __forceinline__ void dft(DC (&x)[R], int sign,
 template <int R, int kArm>
 __device__ __forceinline__ void butterfly(DC (&x)[R], int sign,
                                           const float4* __restrict__ cf) {
-  if constexpr (kArm == Arm::kSkeleton) {
+  if constexpr (kArm == DfArm::kSkeleton) {
     DC t[R];
 #pragma unroll
     for (int k = 0; k < R; ++k) t[k] = x[(R - k) % R];
@@ -373,7 +374,7 @@ __device__ __forceinline__ void run_pass(const Pass P, const Tile& T) {
 #pragma unroll
       for (int a = 0; a < R2; ++a) {
         butterfly<R1, kArm>(x[u][a], T.sign, T.tab + P.cf1);
-        if (kArm == Arm::kFull && P.lt1 >= 0) {
+        if (kArm == DfArm::kFull && P.lt1 >= 0) {
           const int i0 = P.lt1 + t.j + P.inner * a;
 #pragma unroll
           for (int b = 1; b < R1; ++b)
@@ -388,7 +389,7 @@ __device__ __forceinline__ void run_pass(const Pass P, const Tile& T) {
 #pragma unroll
           for (int a = 0; a < R2; ++a) z[a] = x[u][a][b];
           butterfly<R2, kArm>(z, T.sign, T.tab + P.cf2);
-          if (kArm == Arm::kFull && P.lt2 >= 0) {
+          if (kArm == DfArm::kFull && P.lt2 >= 0) {
 #pragma unroll
             for (int a = 1; a < R2; ++a)
               z[a] = cmul(z[a], entry(T.tab, P.lt2 + t.j + (a - 1) * P.inner));
@@ -401,7 +402,7 @@ __device__ __forceinline__ void run_pass(const Pass P, const Tile& T) {
       // k0 + b * pm + a * R1 * pm
       int k0 = 0;
       if (P.stw >= 0 || P.dst == 1) k0 = __ldg(T.itab + P.rev + t.sb * P.m);
-      if (kArm == Arm::kFull && P.stw >= 0) {
+      if (kArm == DfArm::kFull && P.stw >= 0) {
         const int i0 = P.stw + k0 * P.q + P.f_done.div(t.c);
 #pragma unroll
         for (int a = 0; a < R2; ++a)
@@ -487,7 +488,7 @@ df32_c2c_kernel(const double* __restrict__ xr, const double* __restrict__ xi,
     const int row0 = tix * rpb;
     const int nrows = min(rpb, rows - row0);
     const int64_t goff = static_cast<int64_t>(row0) * n;
-    if constexpr (kArm == Arm::kCopy) {
+    if constexpr (kArm == DfArm::kCopy) {
       for (int i = threadIdx.x; i < nrows * n; i += kThreads) {
         const double a = xr[goff + i], b = xi[goff + i];
         const float ah = __double2float_rn(a), bh = __double2float_rn(b);
@@ -595,6 +596,9 @@ int launch(const double* xr, const double* xi, double* yr, double* yi,
 }
 
 }  // namespace
+}  // namespace fftw3_tpu_torch
+
+using namespace fftw3_tpu_torch;
 
 // Every entry point acts on the caller's current device; the caller sets
 // it.  <name>_occupancy(smem, blocks_per_sm) allows the kernel kMaxSmem
@@ -622,11 +626,11 @@ int launch(const double* xr, const double* xi, double* yr, double* yi,
     return launch<ARM, FAM>(xr, xi, yr, yi, tab, itab, plan, rows, n, rpb,    \
                             sign, grid, smem, stream);                        \
   }
-DF32_ENTRY(df32_c2c_f0, Arm::kFull, 0)
-DF32_ENTRY(df32_c2c_f1, Arm::kFull, 1)
-DF32_ENTRY(df32_c2c_f2, Arm::kFull, 2)
-DF32_ENTRY(df32_c2c_f3, Arm::kFull, 3)
-DF32_ENTRY(df32_ablate0, Arm::kFull, 0)
-DF32_ENTRY(df32_ablate1, Arm::kNoTwiddle, 0)
-DF32_ENTRY(df32_ablate2, Arm::kSkeleton, 0)
-DF32_ENTRY(df32_ablate3, Arm::kCopy, 0)
+DF32_ENTRY(df32_c2c_f0, DfArm::kFull, 0)
+DF32_ENTRY(df32_c2c_f1, DfArm::kFull, 1)
+DF32_ENTRY(df32_c2c_f2, DfArm::kFull, 2)
+DF32_ENTRY(df32_c2c_f3, DfArm::kFull, 3)
+DF32_ENTRY(df32_ablate0, DfArm::kFull, 0)
+DF32_ENTRY(df32_ablate1, DfArm::kNoTwiddle, 0)
+DF32_ENTRY(df32_ablate2, DfArm::kSkeleton, 0)
+DF32_ENTRY(df32_ablate3, DfArm::kCopy, 0)

@@ -44,6 +44,7 @@
 
 #include "stockham_bfly.cuh"
 
+namespace fftw3_tpu_torch {
 namespace {
 
 using fftw3_tpu_torch::Arm;
@@ -158,6 +159,9 @@ inner_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 }
 
 }  // namespace
+}  // namespace fftw3_tpu_torch
+
+using namespace fftw3_tpu_torch;
 
 // Both entry points act on the caller's current device; the caller sets it.
 

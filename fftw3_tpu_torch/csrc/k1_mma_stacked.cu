@@ -25,6 +25,7 @@
 
 #include "k1_mma.cuh"
 
+namespace fftw3_tpu_torch {
 namespace {
 
 using namespace fftw3_tpu_torch::k1mma;
@@ -46,5 +47,8 @@ int dispatch(int variant, bool launch, const Args& a, int grid, int smem,
 }
 
 }  // namespace
+}  // namespace fftw3_tpu_torch
+
+using namespace fftw3_tpu_torch;
 
 K1_MMA_ENTRY_POINTS(k1_mma_stacked, dispatch)

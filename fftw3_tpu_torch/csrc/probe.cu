@@ -19,6 +19,7 @@
 
 #include <cuda_runtime.h>
 
+namespace fftw3_tpu_torch {
 namespace {
 
 constexpr int kTile = 16;
@@ -45,6 +46,9 @@ probe_matmul_kernel(const float* __restrict__ g, const float* __restrict__ x,
 }
 
 }  // namespace
+}  // namespace fftw3_tpu_torch
+
+using namespace fftw3_tpu_torch;
 
 // y = G @ x for row-major (n, n) float32 G, x and y on the caller's current
 // device, on `stream`.  Returns the CUDA error code of the launch, 0 on

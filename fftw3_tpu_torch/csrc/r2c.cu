@@ -42,6 +42,7 @@
 
 #include "stockham_bfly.cuh"
 
+namespace fftw3_tpu_torch {
 namespace {
 
 using fftw3_tpu_torch::Arm;
@@ -146,6 +147,9 @@ r2c_kernel(const float* __restrict__ x, float* __restrict__ yr,
 }
 
 }  // namespace
+}  // namespace fftw3_tpu_torch
+
+using namespace fftw3_tpu_torch;
 
 // Both entry points act on the caller's current device; the caller sets it.
 

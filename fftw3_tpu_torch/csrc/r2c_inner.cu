@@ -49,6 +49,7 @@
 
 #include "stockham_bfly.cuh"
 
+namespace fftw3_tpu_torch {
 namespace {
 
 using fftw3_tpu_torch::Arm;
@@ -165,6 +166,9 @@ r2c_inner_kernel(const float* __restrict__ x, float* __restrict__ yr,
 }
 
 }  // namespace
+}  // namespace fftw3_tpu_torch
+
+using namespace fftw3_tpu_torch;
 
 // Both entry points act on the caller's current device; the caller sets it.
 

@@ -49,6 +49,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace fftw3_tpu_torch {
 namespace {
 
 constexpr int kThreads = 256;
@@ -399,6 +400,9 @@ int dispatch(int arm, int p, bool launch, const float* xr, const float* xi,
 }
 
 }  // namespace
+}  // namespace fftw3_tpu_torch
+
+using namespace fftw3_tpu_torch;
 
 // The entry points act on the caller's current device; the caller sets it.
 // Each returns the CUDA error code, 0 on success.  p = 64 runs n = 4096

@@ -22,6 +22,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace fftw3_tpu_torch {
 namespace {
 
 constexpr int kThreads = 256;
@@ -71,6 +72,9 @@ swap_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 }
 
 }  // namespace
+}  // namespace fftw3_tpu_torch
+
+using namespace fftw3_tpu_torch;
 
 // The entry points act on the caller's current device; the caller sets it.
 // Each returns the CUDA error code, 0 on success.

@@ -28,6 +28,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace fftw3_tpu_torch {
 namespace {
 
 constexpr int kThreads = 256;
@@ -126,6 +127,9 @@ int trans_smem(int n) {
 }
 
 }  // namespace
+}  // namespace fftw3_tpu_torch
+
+using namespace fftw3_tpu_torch;
 
 // The entry points act on the caller's current device; the caller sets it.
 // Each returns the CUDA error code, 0 on success.

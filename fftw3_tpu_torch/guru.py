@@ -27,6 +27,7 @@ import torch
 
 from . import api
 from . import kinds as K
+from . import trace
 
 
 @dataclass(frozen=True)
@@ -237,11 +238,12 @@ class SplitPlan:
     apply_split = apply
 
     def execute(self, ri, ii):
-        ri, ii = _planes(self._plan, ri, ii)
-        if tuple(ri.shape) != self.in_shape:
-            raise ValueError(f"plan expects shape {self.in_shape}, "
-                             f"got {tuple(ri.shape)}")
-        return self._plan.apply_split(ri, ii)
+        with trace.call("fftw.execute_split", self.device):
+            ri, ii = _planes(self._plan, ri, ii)
+            if tuple(ri.shape) != self.in_shape:
+                raise ValueError(f"plan expects shape {self.in_shape}, "
+                                 f"got {tuple(ri.shape)}")
+            return self._plan.apply_split(ri, ii)
 
     def __call__(self, ri, ii):
         return self.execute(ri, ii)
@@ -398,9 +400,11 @@ def execute_dft(plan, x):
 
 def execute_split_dft(plan, ri, ii):
     """fftw_execute_split_dft analog: ``plan.apply_split`` on the two
-    planes, nothing else (the user path with no conversion pass)."""
+    planes, nothing else (the user path with no conversion pass), in the
+    root span ``fftw.execute_split``."""
     _check_kind(plan, "c2c", "execute_split_dft")
-    return plan.apply_split(*_planes(plan, ri, ii))
+    with trace.call("fftw.execute_split", plan.device):
+        return plan.apply_split(*_planes(plan, ri, ii))
 
 
 def execute_dft_r2c(plan, x):
@@ -447,7 +451,8 @@ class SplitR2CPlan:
         self.device = plan.device
 
     def execute(self, x):
-        return self._plan.apply_split(*_planes(self._plan, x))
+        with trace.call("fftw.execute_split", self.device):
+            return self._plan.apply_split(*_planes(self._plan, x))
 
     __call__ = execute
 
@@ -463,7 +468,8 @@ class SplitC2RPlan:
         self.device = plan.device
 
     def execute(self, ri, ii):
-        return self._plan.apply_split(*_planes(self._plan, ri, ii))
+        with trace.call("fftw.execute_split", self.device):
+            return self._plan.apply_split(*_planes(self._plan, ri, ii))
 
     __call__ = execute
 

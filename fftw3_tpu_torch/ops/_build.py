@@ -27,6 +27,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional, Tuple
 
+from .. import trace
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -235,18 +237,23 @@ def _kernel_name(mangled: str) -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built first if ``csrc/`` changed."""
+    """The loaded kernel library, built first if ``csrc/`` changed.  The
+    first call's time, a build's excluded, adds to the set-up counter
+    ``setup.library_s`` (``trace.py``)."""
     global _lib
     with _lock:
         if _lib is not None:
             return _lib
+        t0, built = time.perf_counter(), 0.0
         out = _library_path()
         if not out.exists():
             _build(out)
+            built = build_seconds
         lib = ctypes.CDLL(str(out))
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _lib = lib
+        trace.add("setup.library_s", time.perf_counter() - t0 - built)
         return lib

@@ -30,6 +30,7 @@ from typing import Dict, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from . import inner
 from . import stockham as S
 
@@ -134,7 +135,7 @@ def c2c_2d_cuda(xr: torch.Tensor, xi: torch.Tensor, rad1: Sequence[int],
     smem = smem_2d(plan2, plan1, rows)
     from . import _build
     lib = _build.library()
-    with S.device_guard(xr.device):
+    with trace.span("fftw.launch.c2c_2d"), S.device_guard(xr.device):
         grid = CLUSTER * min(pre, _resident_clusters(lib, xr.device, smem))
         stream = torch.cuda.current_stream(xr.device).cuda_stream
         rc = lib.c2c_2d_launch(

@@ -50,7 +50,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import config
+from .. import config, trace
 from ..utils import primes
 from . import matrices
 from .dense import exact_matmul
@@ -626,12 +626,13 @@ def launch(kernel: str, device: torch.device, smem: int, work: int, args,
     bytes of shared memory per block (the root tables and the row or tile
     buffers) on `device`'s current stream, with a grid that fills the card
     and is at most `work` blocks; raises when the launch fails, naming
-    `what`.  Every single-block kernel launches here (K1, K2, K4, K5, K6,
-    K7, E1, E5, E7, E8); K3 launches clusters (``ops/fused2d.py``), E2/E3
-    pick their instantiation by arm (``ops/stage4096.py``)."""
+    `what`, in the span ``fftw.launch.<kernel>``.  Every single-block
+    kernel launches here (K1, K2, K4, K5, K6, K7, E1, E5, E7, E8); K3
+    launches clusters (``ops/fused2d.py``), E2/E3 pick their instantiation
+    by arm (``ops/stage4096.py``)."""
     from . import _build
     lib = _build.library()
-    with device_guard(device):
+    with trace.span(f"fftw.launch.{kernel}"), device_guard(device):
         grid = min(work, resident_blocks(lib, kernel, device, smem))
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = getattr(lib, f"{kernel}_launch")(*args, grid, smem, stream)

@@ -33,6 +33,7 @@ every other one behind a ``movedim`` lift, as the reference composes them.
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional, Tuple
 
@@ -42,10 +43,44 @@ import torch
 from . import config
 from . import kinds as K
 from . import planner as planner_mod
+from . import trace
 from .ops import c2c as c2c_ops
 from .ops import fused2d, inner, real_stockham, stockham
 from .ops import r2r as r2r_ops
 from .ops import real as real_ops
+
+
+#: the port kernel that a kernel-served descriptor's pass runs
+_KERNEL_OF = {"pallas": "k1", "pallas_r2c": "k4", "pallas_r2c_inner": "k5",
+              "pallas_c2r": "k6", "df32p": "k7"}
+
+
+def _stage_span(desc: Dict) -> str:
+    """The span of an axis pass: ``fftw.stage.`` and the kernel it runs,
+    else the descriptor's alg (a pass on no single port kernel)."""
+    return "fftw.stage." + _KERNEL_OF.get(desc["alg"], desc["alg"])
+
+
+def _combine(yr: torch.Tensor, yi: torch.Tensor) -> torch.Tensor:
+    """The complex exit's conversion out: one interleaved tensor."""
+    with trace.span("fftw.convert.combine", yr.device):
+        return torch.complex(yr, yi)
+
+
+def _run_split(stages: List[Tuple[str, Callable]], xr, xi,
+               split_on: Optional[torch.device] = None):
+    """Split-plane passes in order, each in its span.  A complex entry
+    gives the views ``x.real``, ``x.imag`` and, as `split_on`, their
+    device: its conversion in, ``fftw.convert.split``, makes them two
+    contiguous planes here, where no caller holds them, so that they are
+    freed once the first pass has run."""
+    if split_on is not None:
+        with trace.span("fftw.convert.split", split_on):
+            xr, xi = xr.contiguous(), xi.contiguous()
+    for name, stage in stages:
+        with trace.span(name):
+            xr, xi = stage(xr, xi)
+    return xr, xi
 
 
 def _along_axis(fn: Callable, axis: int) -> Callable:
@@ -68,12 +103,13 @@ def _along_axis_split(fn: Callable, axis: int) -> Callable:
 
 
 def _c2c_stage(desc: Dict, sign: int, rdtype, axis: int,
-               shape: Tuple[int, ...], device) -> Callable:
-    """One c2c axis pass.  A non-last axis whose trailing-dims product is at
-    least one lane tile takes the axis -2 kernel behind a reshape (the
-    trailing dims become its columns: no ``movedim`` copies); everything
-    else lifts the last-axis transform with ``movedim``.  Axes are applied
-    right-relative, so extra *leading* batch dims at call time work."""
+               shape: Tuple[int, ...], device) -> Tuple[str, Callable]:
+    """One c2c axis pass and its span.  A non-last axis whose trailing-dims
+    product is at least one lane tile takes the axis -2 kernel behind a
+    reshape (the trailing dims become its columns: no ``movedim`` copies);
+    everything else lifts the last-axis transform with ``movedim``.  Axes
+    are applied right-relative, so extra *leading* batch dims at call time
+    work."""
     neg = axis - len(shape)                  # right-relative axis (< 0)
     trail = math.prod(shape[axis + 1:])
     if neg != -1 and stockham.inner_applicable(desc, trail):
@@ -85,9 +121,9 @@ def _c2c_stage(desc: Dict, sign: int, rdtype, axis: int,
             yr, yi = fn(xr.reshape(*s[:cut], trail),
                         xi.reshape(*s[:cut], trail))
             return yr.reshape(s), yi.reshape(s)
-        return apply_inner
+        return "fftw.stage.k2", apply_inner
     fn = c2c_ops.build_c2c_split(desc, sign, rdtype, device)
-    return _along_axis_split(fn, neg)
+    return _stage_span(desc), _along_axis_split(fn, neg)
 
 
 def _r2c_along_axis(fn: Callable, axis: int) -> Callable:
@@ -138,8 +174,8 @@ def _r2c_swapped(problem: "Problem", pl: planner_mod.Planner, patience: int,
     cdesc = pl.plan_c2c(n_l, rdtype, patience, batch=vec(nd - 1),
                         device=device)
     m_a, m_l = n_a // 2, n_l // 2
-    c2c = _c2c_stage(cdesc, K.FORWARD, rdtype, nd - 1,
-                     shape[:-2] + (m_a + 1, n_l), device)
+    c2c_span, c2c = _c2c_stage(cdesc, K.FORWARD, rdtype, nd - 1,
+                               shape[:-2] + (m_a + 1, n_l), device)
     # rows m_a-1 .. 1 and columns (n_l - v) % n_l, v = 0..m_l, of the
     # computed half give the rows m_a+1 .. n_a-1 of the output (conjugated)
     rows = torch.arange(m_a - 1, 0, -1, device=device)
@@ -147,7 +183,10 @@ def _r2c_swapped(problem: "Problem", pl: planner_mod.Planner, patience: int,
                         device=device)
 
     def apply(x):
-        cr, ci = c2c(*r2c(x))
+        with trace.span("fftw.stage.k5"):
+            cr, ci = r2c(x)
+        with trace.span(c2c_span):
+            cr, ci = c2c(cr, ci)
         br = cr.index_select(-2, rows).index_select(-1, cols)
         bi = ci.index_select(-2, rows).index_select(-1, cols)
         return (torch.cat([cr[..., :m_l + 1], br], -2),
@@ -202,17 +241,23 @@ class Plan:
         """Transform `x` (a tensor or array of ``in_shape``), moved to the
         plan's device and input dtype first: complex for c2c and c2r, real
         for r2c and r2r."""
-        x = torch.as_tensor(x, device=self.device)
-        if tuple(x.shape) != self.in_shape:
-            raise ValueError(
-                f"plan expects shape {self.in_shape}, got {tuple(x.shape)}")
-        return self._apply(x.to(self.in_dtype))
+        with trace.call("fftw.execute", self.device):
+            x = torch.as_tensor(x, device=self.device)
+            if tuple(x.shape) != self.in_shape:
+                raise ValueError(f"plan expects shape {self.in_shape}, got "
+                                 f"{tuple(x.shape)}")
+            return self._apply(x.to(self.in_dtype))
 
     @property
     def apply(self) -> Callable:
         """The raw function on tensors of the plan's dtypes, with no shape
-        check: leading batch dims beyond the plan's shape work."""
-        return self._apply
+        check: leading batch dims beyond the plan's shape work.  It runs in
+        the span ``fftw.execute``, as :meth:`execute` does."""
+        return self._apply_traced
+
+    def _apply_traced(self, x):
+        with trace.call("fftw.execute", self.device):
+            return self._apply(x)
 
     # -- introspection (fftw_flops/fftw_cost) --------------------------------
     def flops(self) -> Tuple[float, float, float]:
@@ -292,7 +337,13 @@ def _make_plan_inner(problem: Problem, pl: planner_mod.Planner,
     def vec(a):
         # vector size seen by the axis-a pass: everything except axis a
         return max(1, npoints // max(problem.shape[a], 1))
-    return build(problem, pl, patience, device, rdtype, vec)
+    # planning and building, the root tables' move to the device included,
+    # are the port's set-up (``trace.py``'s counter ``setup.plan_s``)
+    t0 = time.perf_counter()
+    try:
+        return build(problem, pl, patience, device, rdtype, vec)
+    finally:
+        trace.add("setup.plan_s", time.perf_counter() - t0)
 
 
 def _check_trailing(shape, *planes) -> None:
@@ -327,19 +378,19 @@ def _plan_c2c(problem, pl, patience, device, rdtype, vec) -> Plan:
     split_stages = [_c2c_stage(descriptors[a], problem.sign, rdtype, a,
                                shape, device) for a in rest_axes]
     if fuse:
-        split_stages.append(fused2d.build_pallas_c2c_split_2d(
-            shape[nd - 2], shape[nd - 1], problem.sign, rdtype,
-            desc1=descriptors[nd - 2], desc2=descriptors[nd - 1],
-            device=device))
+        split_stages.append(("fftw.stage.k3",
+                             fused2d.build_pallas_c2c_split_2d(
+                                 shape[nd - 2], shape[nd - 1], problem.sign,
+                                 rdtype, desc1=descriptors[nd - 2],
+                                 desc2=descriptors[nd - 1], device=device)))
 
     def apply_split(xr, xi):
         _check_trailing(shape, xr, xi)
-        for s in split_stages:
-            xr, xi = s(xr, xi)
-        return xr, xi
+        return _run_split(split_stages, xr, xi)
 
     def apply_c2c(x):
-        return torch.complex(*apply_split(x.real, x.imag))
+        _check_trailing(shape, x)
+        return _combine(*_run_split(split_stages, x.real, x.imag, x.device))
 
     ctype = c2c_ops.complex_dtype(rdtype)
     return Plan(problem, descriptors, apply_c2c, shape, shape, ctype, ctype,
@@ -360,11 +411,12 @@ def _plan_r2c(problem, pl, patience, device, rdtype, vec) -> Plan:
         desc = pl.plan_r2c(n_last, rdtype, patience, batch=vec(last),
                            device=device)
         descriptors = {last: desc}
+        first_span = _stage_span(desc)
         first = _r2c_along_axis(
             real_ops.build_r2c_split(desc, rdtype, device), last - nd)
         # the non-last axes run on the half spectrum (K2 where the trailing
         # layout allows), on split planes
-        stages: List[Callable] = []
+        stages: List[Tuple[str, Callable]] = []
         for a in axes[:-1]:
             d = pl.plan_c2c(shape[a], rdtype, patience, batch=vec(a),
                             device=device)
@@ -373,17 +425,16 @@ def _plan_r2c(problem, pl, patience, device, rdtype, vec) -> Plan:
                                      device))
 
         def split(x):
-            yr, yi = first(x)
-            for s in stages:
-                yr, yi = s(yr, yi)
-            return yr, yi
+            with trace.span(first_span):
+                yr, yi = first(x)
+            return _run_split(stages, yr, yi)
 
     def apply_split(x):
         _check_trailing(shape, x)
         return split(x)
 
     def apply_r2c(x):
-        return torch.complex(*apply_split(x))
+        return _combine(*apply_split(x))
 
     return Plan(problem, descriptors, apply_r2c, shape, tuple(out),
                 _real_dtype(rdtype), c2c_ops.complex_dtype(rdtype), device,
@@ -402,7 +453,7 @@ def _plan_c2r(problem, pl, patience, device, rdtype, vec) -> Plan:
     ins[last] = n_last // 2 + 1
     ins = tuple(ins)
     descriptors: Dict[int, Dict] = {}
-    stages: List[Callable] = []
+    stages: List[Tuple[str, Callable]] = []
     for a in axes[:-1]:
         d = pl.plan_c2c(shape[a], rdtype, patience, batch=vec(a),
                         device=device)
@@ -411,17 +462,22 @@ def _plan_c2r(problem, pl, patience, device, rdtype, vec) -> Plan:
     desc = pl.plan_c2r(n_last, rdtype, patience, batch=vec(last),
                        device=device)
     descriptors[last] = desc
+    final_span = _stage_span(desc)
     final = _c2r_along_axis(real_ops.build_c2r_split(desc, rdtype, device),
                             last - nd)
 
+    def run(xr, xi, split_on=None):
+        xr, xi = _run_split(stages, xr, xi, split_on)
+        with trace.span(final_span):
+            return final(xr, xi)
+
     def apply_split(xr, xi):
         _check_trailing(ins, xr, xi)
-        for s in stages:
-            xr, xi = s(xr, xi)
-        return final(xr, xi)
+        return run(xr, xi)
 
     def apply_c2r(X):
-        return apply_split(X.real, X.imag)
+        _check_trailing(ins, X)
+        return run(X.real, X.imag, X.device)
 
     return Plan(problem, descriptors, apply_c2r, ins, shape,
                 c2c_ops.complex_dtype(rdtype), _real_dtype(rdtype), device,
@@ -433,18 +489,19 @@ def _plan_r2r(problem, pl, patience, device, rdtype, vec) -> Plan:
     shape = problem.shape
     nd = len(shape)
     descriptors: Dict[int, Dict] = {}
-    stages: List[Callable] = []
+    stages: List[Tuple[str, Callable]] = []
     for a, kind in zip(problem.axes, problem.r2r_kinds):
         desc = pl.plan_r2r(kind, shape[a], rdtype, patience, batch=vec(a),
                            device=device)
         descriptors[a] = desc
-        stages.append(_along_axis(r2r_ops.build_r2r(desc, rdtype, device),
-                                  a - nd))
+        stages.append((_stage_span(desc), _along_axis(
+            r2r_ops.build_r2r(desc, rdtype, device), a - nd)))
 
     def apply_r2r(x):
         _check_trailing(shape, x)
-        for s in stages:
-            x = s(x)
+        for name, s in stages:
+            with trace.span(name):
+                x = s(x)
         return x
 
     rt = _real_dtype(rdtype)
