@@ -137,7 +137,10 @@ device.
 
 The last three lines of standard output are JSON: the r2r path's results,
 the kernels of the paths (name, source, launches, error against the twin,
-times, bound; P1's launches are the probe's own; the measurement arms'
+times, bound; K1's, K1's wide, K2's and K3's rows time the form
+``Plan.execute`` runs on complex64, named in ``layout``, with its
+launches counted in an ``execute`` call and the planar form's time in
+``planes_ms``; P1's launches are the probe's own; the measurement arms'
 launches are their phase's, ``on_path`` false but for the ``pallas4``
 arms; phase 39's rows carry both batches' times and the marginal slope,
 then phase 40's race, then phase 41's K7 arms), then ``{"ok": true,
@@ -2800,12 +2803,18 @@ def main() -> None:
     torch.cuda.synchronize()
     reset_counts()
     yr, yi = plan.apply_split(xr, xi)
+    torch.cuda.synchronize()
+    counts_split = read_counts()
+    reset_counts()
     yc = plan.execute(xc)
     torch.cuda.synchronize()
     counts = read_counts()
     launches = counts["stockham_c2c"]
-    print(f"[4] kernel launches on the main path: {counts}")
-    check(launches >= 2, "the main path did not run the kernel")
+    print(f"[4] kernel launches on the main path: apply_split "
+          f"{counts_split}; execute {counts}")
+    check(counts_split == only(stockham_c2c=1)
+          and counts == only(stockham_c2c=1),
+          "the main path is not one K1 launch a call")
     ref = torch.fft.fft(xc.to(torch.complex128), dim=-1)
     y = torch.complex(yr, yi)
     e_all = relerr(y.to(torch.complex128), ref)
@@ -2820,6 +2829,7 @@ def main() -> None:
           f"apply_split {e_all:.3e}, execute {e_exec:.3e}; "
           f"{ORACLE_ROWS} rows vs numpy f64: {e_np:.3e}")
     check(max(e_all, e_exec, e_np) <= TOL, "main path over tolerance")
+    check(torch.equal(yc, y), "execute differs from apply_split's planes")
     del yc
 
     # -- 5. gradient -------------------------------------------------------
@@ -2852,11 +2862,23 @@ def main() -> None:
         outs[tuple(rad)] = torch.complex(kr, ki)
         t = timing.time_dispatched(kern, (xr, xi), iters=3, reps=7)
         rows.append((f"kernel r{'x'.join(map(str, rad))}", t, e))
+    # the form execute runs: K1 reading and writing interleaved complex64
+    table = S._device_table(N, tuple(MAIN_RADICES), -1, dev)
+
+    def kern_c(z):
+        return S.stockham_c2c_cuda(z, None, MAIN_RADICES, table,
+                                   complex_out=True)
+    kc = kern_c(xc)
+    check(torch.equal(kc, outs[tuple(MAIN_RADICES)]),
+          "K1's interleaved form differs from its planar form")
+    t_c = timing.time_dispatched(kern_c, (xc,), iters=3, reps=7)
+    rows.insert(0, ("kernel r64x16 complex64 in and out (execute's form)",
+                    t_c, relerr(kc.to(torch.complex128), ref)))
     tr, ti = S.stockham_c2c_torch(xr, xi, MAIN_RADICES, -1)
     twin_out = torch.complex(tr, ti)
     e_twin = relerr(twin_out.to(torch.complex128), ref)
-    max_abs = float((outs[tuple(MAIN_RADICES)] - twin_out).abs().max())
-    del tr, ti, twin_out
+    max_abs = float((kc - twin_out).abs().max())
+    del tr, ti, twin_out, kc
     t_twin = timing.time_dispatched(
         lambda a, b: S.stockham_c2c_torch(a, b, MAIN_RADICES, -1),
         (xr, xi), iters=3, reps=7)
@@ -2871,8 +2893,9 @@ def main() -> None:
               f"{gflops(N, BATCH, t):.1f} GFLOPS(5NlogN), rel err {e:.2e} "
               f"(n={N}, B={BATCH}; {smi_line})")
     rel_k1 = max_abs / float(ref.abs().max())
-    print(f"[6] kernel r64x16 vs twin: max abs err {max_abs:.3e}, over "
-          f"max |f64 output| {rel_k1:.2e}")
+    print(f"[6] kernel r64x16 complex64 in and out vs twin on the same "
+          f"input: max abs err {max_abs:.3e}, over max |f64 output| "
+          f"{rel_k1:.2e}")
     check(rel_k1 <= TOL, "kernel vs twin")
     del ref, y, yr, yi, outs      # xr, xi, xc stay for phase 7
     torch.cuda.empty_cache()
@@ -2931,10 +2954,13 @@ def main() -> None:
         "route": "cuda",
         "source": "fftw3_tpu_torch/csrc/stockham_c2c.cu",
         "replaces": "fftw3_tpu/ops/pallas_stockham.py:641",
+        # execute's form: its launches, its time, its error against the twin
+        "layout": "complex64 in and out",
         "launches": launches,
         "max_abs_err": max_abs,
         "rel_err": rel_k1,
         "ms": rows[0][1] * 1e3,
+        "planes_ms": rows[1][1] * 1e3,
         "plain_ms": t_twin * 1e3,
         "library_ms": t_fft * 1e3,
         "stage_form": S.form_label(MAIN_RADICES),
@@ -3037,10 +3063,10 @@ def main() -> None:
     reset_counts()
     yr, yi = p3.apply_split(xr, xi)
     torch.cuda.synchronize()
-    counts3 = read_counts()
-    print(f"[9] launches, one apply_split call: {counts3}")
-    check(counts3 == only(inner_c2c=1, c2c_2d=1),
-          "the 3-D path is not one K2 and one K3 launch")
+    counts3_split = read_counts()
+    print(f"[9] launches, one apply_split call: {counts3_split}")
+    check(counts3_split == only(inner_c2c=1, c2c_2d=1),
+          "the 3-D split path is not one K2 and one K3 launch")
     check(bool(torch.isfinite(yr).all() and torch.isfinite(yi).all()),
           "non-finite 3-D output")
     y = torch.complex(yr, yi)
@@ -3049,9 +3075,19 @@ def main() -> None:
     e3 = relerr(y.to(torch.complex128), ref)
     del ref
     torch.cuda.empty_cache()
-    yc = p3.execute(torch.complex(xr, xi))
+    # execute's own run (K2 reading complex64, K3 writing it): its
+    # launches are the ones the kernels line reports
+    xc = torch.complex(xr, xi)
+    torch.cuda.synchronize()
+    reset_counts()
+    yc = p3.execute(xc)
+    torch.cuda.synchronize()
+    counts3 = read_counts()
+    print(f"[9] launches, one execute call: {counts3}")
+    check(counts3 == only(inner_c2c=1, c2c_2d=1),
+          "the 3-D execute path is not one K2 and one K3 launch")
     e3x = relerr(yc, y)
-    del yc
+    del yc, xc
     print(f"[9] rel err vs torch.fft.fftn complex128: {e3:.3e}; execute vs "
           f"apply_split {e3x:.1e}")
     check(e3 <= TOL and e3x == 0.0, "3-D path over tolerance")
@@ -3093,10 +3129,20 @@ def main() -> None:
     reset_counts()
     yr, yi = p2.apply_split(xr, xi)
     torch.cuda.synchronize()
+    counts2_split = read_counts()
+    xc = torch.complex(xr, xi)
+    torch.cuda.synchronize()
+    reset_counts()
+    yc = p2.execute(xc)        # K3 writing complex64, its entry split
+    torch.cuda.synchronize()
     counts2 = read_counts()
-    print(f"[10] launches, one apply_split call: {counts2}")
-    check(counts2 == only(c2c_2d=1),
+    print(f"[10] launches, one call: apply_split {counts2_split}; execute "
+          f"{counts2}")
+    check(counts2_split == only(c2c_2d=1) and counts2 == only(c2c_2d=1),
           "the 2-D batched path is not one K3 launch")
+    check(torch.equal(yc, torch.complex(yr, yi)),
+          "2-D execute differs from apply_split's planes")
+    del yc, xc
     e2 = relerr(torch.complex(yr, yi).to(torch.complex128),
                 oracle(torch.complex(xr, xi), (1, 2), -1))
     print(f"[10] rel err vs torch.fft.fft2 complex128: {e2:.3e}")
@@ -3178,10 +3224,21 @@ def main() -> None:
     reset_counts()
     yr, yi = pw.apply_split(xr, xi)
     torch.cuda.synchronize()
+    counts_ws = read_counts()
+    xc = torch.complex(xr, xi)
+    torch.cuda.synchronize()
+    reset_counts()
+    yc = pw.execute(xc)        # the wide form reading and writing complex64
+    torch.cuda.synchronize()
     counts_w = read_counts()
-    print(f"[11] (c) launches, one apply_split call: {counts_w}")
-    check(counts_w == only(stockham_c2c_wide=1),
+    print(f"[11] (c) launches, one call: apply_split {counts_ws}; execute "
+          f"{counts_w}")
+    check(counts_ws == only(stockham_c2c_wide=1)
+          and counts_w == only(stockham_c2c_wide=1),
           "the pinned [64, 64] plan is not one launch of K1's wide form")
+    check(torch.equal(yc, torch.complex(yr, yi)),
+          "the wide K1's execute differs from its apply_split")
+    del yc, xc
     ew = relerr(torch.complex(yr, yi).to(torch.complex128), ref4)
     print(f"[11] (c) rel err vs torch.fft complex128 {ew:.2e}")
     check(ew <= TOL, "the wide K1 plan over tolerance")
@@ -3228,16 +3285,20 @@ def main() -> None:
         "name": "stockham_c2c_wide", "route": "cuda",
         "source": "fftw3_tpu_torch/csrc/stockham_c2c.cu",
         "replaces": "fftw3_tpu/ops/pallas_stockham.py:641",
+        "layout": "complex64 in and out",
         "launches": counts_w["stockham_c2c_wide"],
         "max_abs_err": wide_err[0], "rel_err": wide_err[1],
-        "ms": time_ms(lambda a, b: S.stockham_c2c_cuda(a, b, rad_w, t_w),
-                      (xr, xi)),
+        "ms": time_ms(lambda z: S.stockham_c2c_cuda(
+            z, None, rad_w, t_w, complex_out=True), (xc,)),
+        "planes_ms": time_ms(lambda a, b: S.stockham_c2c_cuda(
+            a, b, rad_w, t_w), (xr, xi)),
         "plain_ms": time_ms(lambda a, b: S.stockham_c2c_torch(a, b, rad_w,
                                                               -1), (xr, xi)),
         "library_ms": min(times11["torch.fft.fft"]),
         "bound_ms": b4, "bound_by": by4,
         "stage_form": S.form_label(rad_w)}
-    print(f"[11] K1 wide kernel {wide_row['ms']:.3f} ms, twin "
+    print(f"[11] K1 wide kernel, complex64 in and out {wide_row['ms']:.3f} "
+          f"ms, planes {wide_row['planes_ms']:.3f} ms, twin "
           f"{wide_row['plain_ms']:.3f} ms ({smi_line})")
     del xr, xi, xc, p4, pm4, pw, arms11
     ft.forget_wisdom()
@@ -3301,14 +3362,25 @@ def main() -> None:
               f"kernel-f64 {eo:.2e}")
         torch.cuda.empty_cache()
     xc = torch.complex(xr, xi)
+    # execute's form, complex64 in: bit for bit the planar form's output,
+    # so the planar form's error against the twin is its error
+    cr, ci = inner.inner_c2c_cuda(xc, None, rad, tab)
+    pr, pi = inner.inner_c2c_cuda(xr, xi, rad, tab)
+    check(torch.equal(cr, pr) and torch.equal(ci, pi),
+          "K2's complex64-in form differs from its planar form")
+    del cr, ci, pr, pi
     rows14.append({
         "name": "inner_c2c", "route": "cuda",
         "source": "fftw3_tpu_torch/csrc/inner_c2c.cu",
         "replaces": "fftw3_tpu/ops/pallas_stockham.py:683",
+        "layout": "complex64 in",
         "launches": counts3["inner_c2c"], "max_abs_err": err,
         "rel_err": rel,
-        "ms": time_ms(lambda a, b: inner.inner_c2c_cuda(a, b, rad, tab),
-                      (xr, xi)),
+        "ms": time_ms(lambda z: inner.inner_c2c_cuda(z, None, rad, tab),
+                      (xc,)),
+        "planes_ms": time_ms(lambda a, b: inner.inner_c2c_cuda(a, b, rad,
+                                                               tab),
+                             (xr, xi)),
         "plain_ms": time_ms(lambda a, b: inner.inner_c2c_torch(a, b, rad,
                                                                -1),
                             (xr, xi)),
@@ -3326,16 +3398,25 @@ def main() -> None:
         kr, ki = fused2d.c2c_2d_cuda(xr, xi, rad, rad, tab)
         tr, ti = fused2d.c2c_2d_torch(xr, xi, rad, rad, -1)
         err, rel = twin_err(f"c2c_2d {shape}", kr, ki, tr, ti)
-        del kr, ki, tr, ti
+        del tr, ti
+        # execute's form, complex64 out: bit for bit the planar form's
+        kc = fused2d.c2c_2d_cuda(xr, xi, rad, rad, tab, complex_out=True)
+        check(torch.equal(kc, torch.complex(kr, ki)),
+              f"K3's complex64-out form differs from its planar form "
+              f"at {shape}")
+        del kr, ki, kc
         xc = torch.complex(xr, xi)
         rows14.append({
             "name": "c2c_2d", "route": "cuda",
             "source": "fftw3_tpu_torch/csrc/c2c_2d.cu",
             "replaces": "fftw3_tpu/ops/pallas_stockham.py:897",
+            "layout": "complex64 out",
             "launches": (counts3 if shape[0] == CUBE else counts2)["c2c_2d"],
             "max_abs_err": err, "rel_err": rel,
-            "ms": time_ms(lambda a, b: fused2d.c2c_2d_cuda(a, b, rad, rad,
-                                                           tab), (xr, xi)),
+            "ms": time_ms(lambda a, b: fused2d.c2c_2d_cuda(
+                a, b, rad, rad, tab, complex_out=True), (xr, xi)),
+            "planes_ms": time_ms(lambda a, b: fused2d.c2c_2d_cuda(
+                a, b, rad, rad, tab), (xr, xi)),
             "plain_ms": time_ms(lambda a, b: fused2d.c2c_2d_torch(
                 a, b, rad, rad, -1), (xr, xi)),
             "library_ms": time_ms(lambda z: torch.fft.fft2(z), (xc,)),
@@ -3410,7 +3491,10 @@ def main() -> None:
         lib = r["library_ms"]
         print(f"[14] {r['name']} {r['shape']} "
               f"({r.get('stage_form', 'dense')}): kernel "
-              f"{r['ms']:.3f} ms, twin {r['plain_ms']:.3f} ms, library "
+              f"{r['ms']:.3f} ms"
+              + (f" ({r['layout']}; planes {r['planes_ms']:.3f} ms)"
+                 if "layout" in r else "")
+              + f", twin {r['plain_ms']:.3f} ms, library "
               f"{'none' if lib is None else f'{lib:.3f} ms'}, bound "
               f"{r['bound_ms']:.3f} ms ({r['bound_by']}); kernel-twin max "
               f"abs err {r['max_abs_err']:.3e}, over max |twin| "

@@ -33,6 +33,16 @@
 // PERF.md): about 132/8 planes are in flight, and they must stay in the
 // 50 MB L2 between the two passes for HBM to see one read and one write per
 // point.
+//
+// An interleaved complex64 output (kLayout kOutC, the same kernel): yr is
+// the caller's complex output, each point a float2 (re, im), and yi is
+// unused; the input stays in planes.  The row pass stores a float2 a point,
+// the column pass loads its tiles from that output with __ldcg (two points
+// a 16-byte load, four loads in flight, when tc and n2 are even and the
+// output 16-byte aligned, else 8-byte) and stores them back in place in the
+// same layout.  A plane is the same 2 MiB, so the L2 argument above holds
+// unchanged.  A multi-axis plan's last pass writes the caller's output so,
+// and no conversion pass runs after it.
 
 #include <cooperative_groups.h>
 
@@ -84,6 +94,64 @@ struct ColsMap {
   }
 };
 
+// The same stores of one float2 a point to an interleaved complex output.
+struct RowsMapC : RowsMap {
+  static constexpr bool kInterleaved = true;
+};
+struct ColsMapC : ColsMap {
+  static constexpr bool kInterleaved = true;
+};
+
+// 16-byte loads a thread issues before their stores in the column pass of an
+// interleaved output: these L2 reads are latency-bound; at 512^3 on an H100
+// one in flight took 4.51 ms, two 4.29, four 4.11, the planes' loop (two,
+// one a plane) 4.21 (PERF.md)
+constexpr int kColLoads = 4;
+
+// The column pass's load of an (n1, tc) tile of columns c0 .. c0 + width of
+// an interleaved output, rows n2 apart from yc (element (plane, 0, c0)),
+// into (ar, ai) at i * tc + c (tc a power of two); with vec (a full tile)
+// two columns a 16-byte load, kColLoads of them issued before their stores
+// (an index past the tile reloads the last element, not stored), else the
+// columns from width on are zero.
+__device__ __forceinline__ void load_cols_c(const float2* yc, int n1, int n2,
+                                            int tc, int width, float* ar,
+                                            float* ai, bool vec) {
+  if (vec) {
+    const int t2 = tc >> 1;
+    const int sh = __ffs(t2) - 1;
+    const int total = n1 * t2;
+    const int step = blockDim.x;
+    for (int e = threadIdx.x; e < total; e += kColLoads * step) {
+      float4 v[kColLoads];
+#pragma unroll
+      for (int u = 0; u < kColLoads; ++u) {
+        const int f = min(e + u * step, total - 1);
+        v[u] = __ldcg(reinterpret_cast<const float4*>(
+            yc + static_cast<int64_t>(f >> sh) * n2 + ((f & (t2 - 1)) << 1)));
+      }
+#pragma unroll
+      for (int u = 0; u < kColLoads; ++u) {
+        const int f = e + u * step;
+        if (f < total) {
+          const int o = (f >> sh) * tc + ((f & (t2 - 1)) << 1);
+          *reinterpret_cast<float2*>(ar + o) = make_float2(v[u].x, v[u].z);
+          *reinterpret_cast<float2*>(ai + o) = make_float2(v[u].y, v[u].w);
+        }
+      }
+    }
+  } else {
+    for (int e = threadIdx.x; e < n1 * tc; e += blockDim.x) {
+      const int i = e / tc;
+      const int c = e - i * tc;
+      float2 v = make_float2(0.f, 0.f);
+      if (c < width) v = __ldcg(yc + static_cast<int64_t>(i) * n2 + c);
+      ar[e] = v.x;
+      ai[e] = v.y;
+    }
+  }
+}
+
 __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
@@ -104,11 +172,14 @@ __host__ __device__ inline int smem_bytes(const LevelPlan& p2,
 
 // yr, yi are written by the row pass and read back by other blocks of the
 // cluster in the column pass: no __restrict__ and no read-only loads on them.
+template <int kLayout>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     c2c_2d_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                   float* yr, float* yi, const float* __restrict__ tab,
                   const LevelPlan plan2, const LevelPlan plan1, int pre,
                   int n1, int n2, int rows, int tc) {
+  constexpr bool kCout = kLayout == kOutC;
+  static_assert(kLayout == 0 || kCout, "planes, or an interleaved output");
   extern __shared__ float4 smem4[];
   __shared__ Level lev2[kMaxLevels], lev1[kMaxLevels];
   cg::cluster_group cluster = cg::this_cluster();
@@ -126,10 +197,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   stage_levels(plan1, lev1);
   const int tab_len = plan2.tab_len + plan1.tab_len;
   for (int i = threadIdx.x; i < tab_len; i += blockDim.x) tb2[i] = tab[i];
-  const bool vec = aligned16(xr) && aligned16(xi) && aligned16(yr) &&
-                   aligned16(yi) && n2 % 4 == 0;
-  const bool vrow = vec && plan2.rs % 4 == 0;
-  const bool vcol = vec && tc % 4 == 0;
+  const bool vrow = aligned16(xr) && aligned16(xi) && n2 % 4 == 0 &&
+                    plan2.rs % 4 == 0 &&
+                    (kCout || (aligned16(yr) && aligned16(yi)));
+  const bool vcol =
+      kCout ? aligned16(yr) && n2 % 2 == 0 && tc % 2 == 0
+            : aligned16(xr) && aligned16(xi) && aligned16(yr) &&
+                  aligned16(yi) && n2 % 4 == 0 && tc % 4 == 0;
   // a first level of butterflies reads the rows from the input
   const bool direct = plan2.lev[0].kind != 0;
 
@@ -166,10 +240,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         }
         __syncthreads();
       }
-      run_levels<kPts, Arm::kFull>(plan2, lev2, tb2, ar, ai, br, bi, n2, 1,
-                                   nr, yr, yi, RowsMap{base, n2},
-                                   direct ? xr + base : nullptr,
-                                   direct ? xi + base : nullptr, n2);
+      const float* x0r = direct ? xr + base : nullptr;
+      const float* x0i = direct ? xi + base : nullptr;
+      if constexpr (kCout)
+        run_levels<kPts, Arm::kFull>(plan2, lev2, tb2, ar, ai, br, bi, n2, 1,
+                                     nr, yr, yi, RowsMapC{{base, n2}}, x0r,
+                                     x0i, n2);
+      else
+        run_levels<kPts, Arm::kFull>(plan2, lev2, tb2, ar, ai, br, bi, n2, 1,
+                                     nr, yr, yi, RowsMap{base, n2}, x0r, x0i,
+                                     n2);
     }
     // 2. every row of the plane is written before any column is read
     __threadfence();
@@ -179,7 +259,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       const int width = n2 - c0 < tc ? n2 - c0 : tc;
       const int64_t base = poff + c0;
       __syncthreads();  // previous tile's readers are done
-      if (vcol && width == tc) {
+      if constexpr (kCout) {
+        load_cols_c(reinterpret_cast<const float2*>(yr) + base, n1, n2, tc,
+                    width, ar, ai, vcol && width == tc);
+      } else if (vcol && width == tc) {
         const int t4 = tc / 4;
         for (int e = threadIdx.x; e < n1 * t4; e += blockDim.x) {
           const int i = e / t4;
@@ -205,8 +288,13 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         }
       }
       __syncthreads();
-      run_levels<kPts, Arm::kFull>(plan1, lev1, tb1, ar, ai, br, bi, n1, tc,
-                                   1, yr, yi, ColsMap{base, n2, width});
+      if constexpr (kCout)
+        run_levels<kPts, Arm::kFull>(plan1, lev1, tb1, ar, ai, br, bi, n1,
+                                     tc, 1, yr, yi,
+                                     ColsMapC{{base, n2, width}});
+      else
+        run_levels<kPts, Arm::kFull>(plan1, lev1, tb1, ar, ai, br, bi, n1,
+                                     tc, 1, yr, yi, ColsMap{base, n2, width});
     }
   }
 }
@@ -239,37 +327,43 @@ using namespace fftw3_tpu_torch;
 // whole card runs at once.  Returns the CUDA error code, 0 on success.
 extern "C" int c2c_2d_occupancy(int smem, int* clusters) {
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      c2c_2d_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  for (auto fn : {c2c_2d_kernel<0>, c2c_2d_kernel<kOutC>}) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = make_config(kCluster, smem, nullptr, &attr);
   return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(clusters, c2c_2d_kernel, &cfg));
+      cudaOccupancyMaxActiveClusters(clusters, c2c_2d_kernel<0>, &cfg));
 }
 
 // Launch `grid` blocks (a multiple of kCluster) in clusters of kCluster on
 // `stream`, with the host's level plans of the n2 schedule (tl = 1) and the
 // n1 schedule (tl = tc), each 4 + 8 * nlev ints (stockham.level_plan).
 // Returns the CUDA error code of the launch, 0 on success.  The caller
-// checks shapes: pre >= 1, rows * n2 and n1 * tc within kTilePoints, tab
-// holding the n2 table (plan2's tab_len floats) and then the n1 table, smem
-// as smem_bytes computes it, allowed by c2c_2d_occupancy.
+// checks shapes: pre >= 1, rows * n2 and n1 * tc within kTilePoints, tc a
+// power of two, tab holding the n2 table (plan2's tab_len floats) and then
+// the n1 table, smem as smem_bytes computes it, allowed by
+// c2c_2d_occupancy.  `layout` is 0 (split planes) or kOutC (yr an
+// interleaved complex output, yi unused).
 extern "C" int c2c_2d_launch(const float* xr, const float* xi, float* yr,
                              float* yi, const float* tab, const int* plan2,
                              const int* plan1, int pre, int n1, int n2,
-                             int rows, int tc, int grid, int smem,
+                             int rows, int tc, int layout, int grid, int smem,
                              void* stream) {
   LevelPlan p2, p1;
   if (!read_plan(plan2, 1, &p2) || !read_plan(plan1, tc, &p1) ||
       rows * n2 > kTilePoints || n1 * tc > kTilePoints || grid % kCluster ||
-      smem != smem_bytes(p2, p1, rows))
+      smem != smem_bytes(p2, p1, rows) || (tc & (tc - 1)) ||
+      (layout != 0 && layout != kOutC))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg =
       make_config(grid, smem, static_cast<cudaStream_t>(stream), &attr);
-  cudaError_t err = cudaLaunchKernelEx(&cfg, c2c_2d_kernel, xr, xi, yr, yi,
-                                       tab, p2, p1, pre, n1, n2, rows, tc);
+  cudaError_t err = cudaLaunchKernelEx(
+      &cfg, layout == kOutC ? c2c_2d_kernel<kOutC> : c2c_2d_kernel<0>, xr, xi,
+      yr, yi, tab, p2, p1, pre, n1, n2, rows, tc);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -41,6 +41,15 @@
 //
 // Blocks walk the (groups x tiles) grid with a grid stride, so any pre and
 // L work; offsets into the planes are 64-bit.
+//
+// An interleaved complex64 input (kLayout kInC, the same kernel): xr is the
+// caller's complex tensor, each point a float2 (re, im), and xi is unused;
+// the output stays in planes.  A tile's row segment is then 8 * tl
+// contiguous bytes in place of two runs of 4 * tl: the first level reads a
+// float2 a point, the load pass two points a 16-byte load (a full tile, tl
+// and L even, the tensor 16-byte aligned; else 8-byte).  A multi-axis
+// plan's first pass on a non-last axis reads the caller's tensor so, and no
+// conversion pass runs ahead of it.
 
 #include "stockham_bfly.cuh"
 
@@ -82,11 +91,43 @@ __device__ __forceinline__ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
+// The load pass of one plane of an interleaved tile: n rows of tl columns
+// of gc, rows L apart, into (sr, si) at i * tl + c (tl = 1 << tsh); with
+// vec (a full tile) two columns a 16-byte load, else the columns from width
+// on are zero.
+__device__ __forceinline__ void load_tile_c(const float2* gc, int64_t L,
+                                            int n, int tl, int tsh, int width,
+                                            float* sr, float* si, bool vec) {
+  if (vec) {
+    const int t2sh = tsh - 1;
+    const int c2 = (tl >> 1) - 1;
+    for (int e = threadIdx.x; e < n * (tl >> 1); e += blockDim.x) {
+      const int i = e >> t2sh;
+      const int c = (e & c2) << 1;
+      const float4 v = __ldg(reinterpret_cast<const float4*>(gc + i * L + c));
+      *reinterpret_cast<float2*>(sr + (i << tsh) + c) = make_float2(v.x, v.z);
+      *reinterpret_cast<float2*>(si + (i << tsh) + c) = make_float2(v.y, v.w);
+    }
+  } else {
+    for (int e = threadIdx.x; e < n * tl; e += blockDim.x) {
+      const int i = e >> tsh;
+      const int c = e & (tl - 1);
+      float2 v = make_float2(0.f, 0.f);
+      if (c < width) v = __ldg(gc + i * L + c);
+      sr[e] = v.x;
+      si[e] = v.y;
+    }
+  }
+}
+
+template <int kLayout>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 inner_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                  float* __restrict__ yr, float* __restrict__ yi,
                  const float* __restrict__ tab, const LevelPlan plan, int pre,
                  int n, int64_t L, int tl, int gp) {
+  constexpr bool kCin = kLayout == kInC;
+  static_assert(kLayout == 0 || kCin, "planes, or an interleaved input");
   extern __shared__ float4 smem4[];
   __shared__ Level lev[kMaxLevels];
   float* tb = reinterpret_cast<float*>(smem4);
@@ -99,8 +140,10 @@ inner_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
   for (int i = threadIdx.x; i < plan.tab_len; i += blockDim.x) tb[i] = tab[i];
   const int rs = plan.rs;
   const int64_t npl = static_cast<int64_t>(n) * L;
-  const bool vec = tl % 4 == 0 && L % 4 == 0 && rs % 4 == 0 &&
-                   aligned16(xr) && aligned16(xi);
+  const bool vec =
+      kCin ? tl % 2 == 0 && L % 2 == 0 && rs % 2 == 0 && aligned16(xr)
+           : tl % 4 == 0 && L % 4 == 0 && rs % 4 == 0 && aligned16(xr) &&
+                 aligned16(xi);
   const int tsh = __ffs(tl) - 1;  // tl is a power of two
   // a first level of butterflies reads full tiles from the input, its
   // offsets in int
@@ -119,6 +162,12 @@ inner_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     __syncthreads();  // levels and tables staged; previous tile's readers
                       // are done
     for (int row = 0; row < nr && !direct; ++row) {
+      if constexpr (kCin) {
+        load_tile_c(reinterpret_cast<const float2*>(xr) + base + row * npl, L,
+                    n, tl, tsh, width, ar + row * rs, ai + row * rs,
+                    vec && width == tl);
+        continue;
+      }
       const float* gr = xr + base + row * npl;
       const float* gi = xi + base + row * npl;
       float* sr = ar + row * rs;
@@ -150,11 +199,13 @@ inner_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
       }
     }
     if (!direct) __syncthreads();
-    run_levels<kPts, Arm::kFull>(plan, lev, tb, ar, ai, br, bi, n, tl, nr, yr,
-                                 yi, ColMap{base, npl, L, width},
-                                 direct ? xr + base : nullptr,
-                                 direct ? xi + base : nullptr,
-                                 static_cast<int>(npl), static_cast<int>(L));
+    // an interleaved input's element `base` starts at float 2 * base
+    run_levels<kPts, Arm::kFull, kCin>(
+        plan, lev, tb, ar, ai, br, bi, n, tl, nr, yr, yi,
+        ColMap{base, npl, L, width},
+        direct ? xr + (kCin ? 2 : 1) * base : nullptr,
+        direct && !kCin ? xi + base : nullptr, static_cast<int>(npl),
+        static_cast<int>(L));
   }
 }
 
@@ -171,12 +222,14 @@ using namespace fftw3_tpu_torch;
 // 0 on success.
 extern "C" int inner_c2c_occupancy(int smem, int* blocks_per_sm) {
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      inner_c2c_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kMaxSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  for (auto fn : {inner_c2c_kernel<0>, inner_c2c_kernel<kInC>}) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks_per_sm, inner_c2c_kernel, kThreads, static_cast<size_t>(smem)));
+      blocks_per_sm, inner_c2c_kernel<0>, kThreads,
+      static_cast<size_t>(smem)));
 }
 
 // Launch `grid` blocks on `stream` on the host's level plan `plan` for
@@ -184,17 +237,21 @@ extern "C" int inner_c2c_occupancy(int smem, int* blocks_per_sm) {
 // CUDA error code of the launch, 0 on success.  The caller checks shapes:
 // pre >= 1, L >= 1, tl a power of two, gp * n * tl <= kTilePoints, tab
 // holding the plan's tab_len floats, smem = plan_smem(plan, gp), allowed
-// by inner_c2c_occupancy.
+// by inner_c2c_occupancy.  `layout` is 0 (split planes) or kInC (xr an
+// interleaved complex input, xi unused).
 extern "C" int inner_c2c_launch(const float* xr, const float* xi, float* yr,
                                 float* yi, const float* tab, const int* plan,
                                 int pre, int n, long long L, int tl, int gp,
-                                int grid, int smem, void* stream) {
+                                int layout, int grid, int smem,
+                                void* stream) {
   LevelPlan p;
   if (!read_plan(plan, tl, &p) || gp < 1 || (tl & (tl - 1)) ||
-      gp * n * tl > kTilePoints || smem != plan_smem(p, gp))
+      gp * n * tl > kTilePoints || smem != plan_smem(p, gp) ||
+      (layout != 0 && layout != kInC))
     return static_cast<int>(cudaErrorInvalidValue);
-  inner_c2c_kernel<<<grid, kThreads, static_cast<size_t>(smem),
-                     static_cast<cudaStream_t>(stream)>>>(
+  auto fn = layout == kInC ? inner_c2c_kernel<kInC> : inner_c2c_kernel<0>;
+  fn<<<grid, kThreads, static_cast<size_t>(smem),
+       static_cast<cudaStream_t>(stream)>>>(
       xr, xi, yr, yi, tab, p, pre, n, static_cast<int64_t>(L), tl, gp);
   return static_cast<int>(cudaGetLastError());
 }

@@ -57,6 +57,11 @@ struct Arm {
                        kNoStage = 3;
 };
 
+// The layout bits of K1, K2 and K3 (their kLayout): the input, the output is
+// one interleaved complex64 tensor, each point a float2 (re, im), in place
+// of two float planes.
+constexpr int kInC = 1, kOutC = 2;
+
 // The levels take kPts, the points of a tile a thread holds at most in one
 // level (tile points over threads per block; the host keeps every tile
 // within it), as their first template argument.
@@ -351,9 +356,13 @@ __device__ __forceinline__ void store_out(const Map& map, float* dr,
 // tl in shared memory; a first level reading global memory passes the
 // input's own stride), and writes (dr, di), rows rs apart with the level's
 // pad (in place when they are the same buffer) or, when kLast, the output
-// planes at map(row, o, c).  Every index is computed from the level's
-// ints at run time; the register arrays are indexed by constants only.
-template <int kPts, int R, int kArm, bool kLast, class Map>
+// planes at map(row, o, c).  With kSrcC the level reads interleaved complex
+// points instead, each one float2 (re, im) at that index of sr (si unused):
+// a first level reading the caller's complex tensor.  Every index is
+// computed from the level's ints at run time; the register arrays are
+// indexed by constants only.
+template <int kPts, int R, int kArm, bool kLast, bool kSrcC = false,
+          class Map>
 __device__ __forceinline__ void bfly_level(const float* sr, const float* si,
                                            int rs_in, int pad_in, int ld_in,
                                            float* dr, float* di, int rs,
@@ -379,14 +388,25 @@ __device__ __forceinline__ void bfly_level(const float* sr, const float* si,
       const int t = w - row * per_row;
       const int jd = L.cols.div(t);
       const int c = t - jd * tl;
-      const float* br = sr + row * rs_in;
-      const float* bi = si + row * rs_in;
+      if constexpr (kSrcC) {
+        const float2* bc = reinterpret_cast<const float2*>(sr) + row * rs_in;
 #pragma unroll
-      for (int j1 = 0; j1 < R; ++j1) {
-        const int e = (j1 * qd + jd) * ld_in + c;
-        const int a = e + pad_in * (e >> 5);
-        xr[k][j1] = br[a];
-        xi[k][j1] = bi[a];
+        for (int j1 = 0; j1 < R; ++j1) {
+          const int e = (j1 * qd + jd) * ld_in + c;
+          const float2 v = bc[e + pad_in * (e >> 5)];
+          xr[k][j1] = v.x;
+          xi[k][j1] = v.y;
+        }
+      } else {
+        const float* br = sr + row * rs_in;
+        const float* bi = si + row * rs_in;
+#pragma unroll
+        for (int j1 = 0; j1 < R; ++j1) {
+          const int e = (j1 * qd + jd) * ld_in + c;
+          const int a = e + pad_in * (e >> 5);
+          xr[k][j1] = br[a];
+          xi[k][j1] = bi[a];
+        }
       }
     }
   }
@@ -453,7 +473,7 @@ struct NoMap {
 };
 
 // The butterfly level of radix L.kind.
-template <int kPts, int kArm, bool kLast, class Map>
+template <int kPts, int kArm, bool kLast, bool kSrcC = false, class Map>
 __device__ __forceinline__ void bfly_any(const float* sr, const float* si,
                                          int rs_in, int pad_in, int ld_in,
                                          float* dr, float* di, int rs,
@@ -461,28 +481,28 @@ __device__ __forceinline__ void bfly_any(const float* sr, const float* si,
                                          const Level& L, int tl, int nr) {
   switch (L.kind) {
     case 2:
-      bfly_level<kPts, 2, kArm, kLast>(sr, si, rs_in, pad_in, ld_in, dr, di,
-                                       rs, map, tb, L, tl, nr);
+      bfly_level<kPts, 2, kArm, kLast, kSrcC>(
+          sr, si, rs_in, pad_in, ld_in, dr, di, rs, map, tb, L, tl, nr);
       break;
     case 3:
-      bfly_level<kPts, 3, kArm, kLast>(sr, si, rs_in, pad_in, ld_in, dr, di,
-                                       rs, map, tb, L, tl, nr);
+      bfly_level<kPts, 3, kArm, kLast, kSrcC>(
+          sr, si, rs_in, pad_in, ld_in, dr, di, rs, map, tb, L, tl, nr);
       break;
     case 4:
-      bfly_level<kPts, 4, kArm, kLast>(sr, si, rs_in, pad_in, ld_in, dr, di,
-                                       rs, map, tb, L, tl, nr);
+      bfly_level<kPts, 4, kArm, kLast, kSrcC>(
+          sr, si, rs_in, pad_in, ld_in, dr, di, rs, map, tb, L, tl, nr);
       break;
     case 5:
-      bfly_level<kPts, 5, kArm, kLast>(sr, si, rs_in, pad_in, ld_in, dr, di,
-                                       rs, map, tb, L, tl, nr);
+      bfly_level<kPts, 5, kArm, kLast, kSrcC>(
+          sr, si, rs_in, pad_in, ld_in, dr, di, rs, map, tb, L, tl, nr);
       break;
     case 8:
-      bfly_level<kPts, 8, kArm, kLast>(sr, si, rs_in, pad_in, ld_in, dr, di,
-                                       rs, map, tb, L, tl, nr);
+      bfly_level<kPts, 8, kArm, kLast, kSrcC>(
+          sr, si, rs_in, pad_in, ld_in, dr, di, rs, map, tb, L, tl, nr);
       break;
     default:
-      bfly_level<kPts, 16, kArm, kLast>(sr, si, rs_in, pad_in, ld_in, dr, di,
-                                        rs, map, tb, L, tl, nr);
+      bfly_level<kPts, 16, kArm, kLast, kSrcC>(
+          sr, si, rs_in, pad_in, ld_in, dr, di, rs, map, tb, L, tl, nr);
       break;
   }
 }
@@ -505,10 +525,12 @@ __device__ __forceinline__ void dense_level(const Level& L, const float* tb,
 // the second buffer (used by dense stages only); `lev` is the plan's levels
 // in shared memory.  With x0r (the caller has checked that level 0 is a
 // butterfly level) level 0 reads the transforms from (x0r, x0i), rows x0_rs
-// apart, point i of column c at i * x0_ld + c, in place of the buffer.  The last level stores to
-// (yr, yi)[map(row, o, c)].  The caller has synchronised after filling the
-// buffer; nothing here synchronises after the last level.
-template <int kPts, int kArm, class Map>
+// apart, point i of column c at i * x0_ld + c, in place of the buffer; with
+// kSrcC from x0r alone, interleaved complex, those being float2 indices.
+// The last level stores to (yr, yi)[map(row, o, c)].  The caller has
+// synchronised after filling the buffer; nothing here synchronises after
+// the last level.
+template <int kPts, int kArm, bool kSrcC = false, class Map>
 __device__ __forceinline__ void run_levels(
     const LevelPlan& plan, const Level* lev, const float* tb, float* ar,
     float* ai, float* br_, float* bi_, int n, int tl, int nr, float* yr,
@@ -537,16 +559,25 @@ __device__ __forceinline__ void run_levels(
       }
     } else {
       const bool direct = l == 0 && x0r != nullptr;
-      const float* sr = direct ? x0r : cr;
-      const float* si = direct ? x0i : ci;
-      const int rs_in = direct ? x0_rs : rs;
-      const int ld_in = direct ? x0_ld : tl;
-      if (last)
-        bfly_any<kPts, kArm, true>(sr, si, rs_in, pad_in, ld_in, yr, yi, rs,
-                                   map, tb, L, tl, nr);
-      else
-        bfly_any<kPts, kArm, false>(sr, si, rs_in, pad_in, ld_in, cr, ci, rs,
-                                    NoMap{}, tb, L, tl, nr);
+      if (kSrcC && direct) {
+        if (last)
+          bfly_any<kPts, kArm, true, true>(x0r, x0i, x0_rs, 0, x0_ld, yr, yi,
+                                           rs, map, tb, L, tl, nr);
+        else
+          bfly_any<kPts, kArm, false, true>(x0r, x0i, x0_rs, 0, x0_ld, cr,
+                                            ci, rs, NoMap{}, tb, L, tl, nr);
+      } else {
+        const float* sr = direct ? x0r : cr;
+        const float* si = direct ? x0i : ci;
+        const int rs_in = direct ? x0_rs : rs;
+        const int ld_in = direct ? x0_ld : tl;
+        if (last)
+          bfly_any<kPts, kArm, true>(sr, si, rs_in, pad_in, ld_in, yr, yi, rs,
+                                     map, tb, L, tl, nr);
+        else
+          bfly_any<kPts, kArm, false>(sr, si, rs_in, pad_in, ld_in, cr, ci,
+                                      rs, NoMap{}, tb, L, tl, nr);
+      }
     }
     pad_in = L.pad;
     if (!last) __syncthreads();

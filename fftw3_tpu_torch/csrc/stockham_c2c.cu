@@ -34,6 +34,12 @@
 // all-butterfly schedule [n/h, h] for 2048 < n <= 4096
 // (fftw3_tpu/planner.py:494-506), plain form only.
 //
+// The plain form, narrow and wide, also reads an interleaved complex64
+// input, writes an interleaved complex64 output, or both (`layout`, a
+// template argument of the same kernel, stockham_rows.cuh): the complex
+// entry of a plan hands its tensor to K1 and takes K1's output as its own,
+// with no conversion pass around it.
+//
 // The in-place form (stockham_c2c_inplace_*) is the plain form with the
 // output on the input, E10's `donate` arm (experiments/headline_gap.py),
 // timing only: its planes are not __restrict__ and are not read through the
@@ -45,35 +51,82 @@
 
 using fftw3_tpu_torch::Arm;
 
+namespace fftw3_tpu_torch {
+namespace {
+
+// Allow every form of the kernel at kThreads (plain, its layouts and, at
+// kRowThreads, the four-step's) its shared memory and report how many
+// blocks of `smem` bytes fit on one SM.
+template <int kThreads>
+int occupancy(int smem, int* blocks_per_sm) {
+  const int err = rows_occupancy<Arm::kFull, kThreads>(smem, blocks_per_sm);
+  if (err != 0) return err;
+  return static_cast<int>(allow_layouts_smem<kThreads>());
+}
+
+// rows_launch at the run-time `layout` (bits kInC, kOutC).
+template <int kThreads>
+int launch(const float* xr, const float* xi, float* yr, float* yi,
+           const float* tab, const int* plan, int rows, int n, int rpb,
+           const float* ptw, int ptw_p, int store_p, int layout, int grid,
+           int smem, cudaStream_t stream) {
+  switch (layout) {
+    case 0:
+      return rows_launch<Arm::kFull, kThreads>(xr, xi, yr, yi, tab, plan,
+                                               rows, n, rpb, ptw, ptw_p,
+                                               store_p, grid, smem, stream);
+    case kInC:
+      return rows_launch<Arm::kFull, kThreads, kInC>(
+          xr, xi, yr, yi, tab, plan, rows, n, rpb, ptw, ptw_p, store_p, grid,
+          smem, stream);
+    case kOutC:
+      return rows_launch<Arm::kFull, kThreads, kOutC>(
+          xr, xi, yr, yi, tab, plan, rows, n, rpb, ptw, ptw_p, store_p, grid,
+          smem, stream);
+    case kInC | kOutC:
+      return rows_launch<Arm::kFull, kThreads, kInC | kOutC>(
+          xr, xi, yr, yi, tab, plan, rows, n, rpb, ptw, ptw_p, store_p, grid,
+          smem, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+}  // namespace fftw3_tpu_torch
+
 // Both entry points act on the caller's current device; the caller sets it.
 
-// Allow every form of the kernel (plain and four-step) its shared memory
-// and report how many blocks of `smem` bytes fit on one SM.  Returns the
-// CUDA error code.
+// Allow every form of the kernel (plain, interleaved and four-step) its
+// shared memory and report how many blocks of `smem` bytes fit on one SM.
+// Returns the CUDA error code.
 extern "C" int stockham_c2c_occupancy(int smem, int* blocks_per_sm) {
-  return fftw3_tpu_torch::rows_occupancy<Arm::kFull>(smem, blocks_per_sm);
+  return fftw3_tpu_torch::occupancy<fftw3_tpu_torch::kRowThreads>(
+      smem, blocks_per_sm);
 }
 
 // Launch `grid` blocks on `stream` (a cudaStream_t passed as a pointer):
 // rows of n points in groups of rpb, on the level plan `plan` (host ints,
-// stockham.level_plan) over the root tables `tab`.  Returns the CUDA error
-// code of the launch, 0 on success; the contract is rows_launch's
-// (stockham_rows.cuh).
+// stockham.level_plan) over the root tables `tab`.  `layout` 0 takes split
+// planes in and out; adding 1 (kInC) makes xr an interleaved complex input
+// (xi unused), adding 2 (kOutC) yr an interleaved complex output (yi
+// unused), the plain form only.  Returns the CUDA error code of the launch, 0 on
+// success; the contract is rows_launch's (stockham_rows.cuh).
 extern "C" int stockham_c2c_launch(const float* xr, const float* xi,
                                    float* yr, float* yi, const float* tab,
                                    const int* plan, int rows, int n, int rpb,
                                    const float* ptw, int ptw_p, int store_p,
-                                   int grid, int smem, void* stream) {
-  return fftw3_tpu_torch::rows_launch<Arm::kFull>(
-      xr, xi, yr, yi, tab, plan, rows, n, rpb, ptw, ptw_p, store_p, grid,
-      smem, static_cast<cudaStream_t>(stream));
+                                   int layout, int grid, int smem,
+                                   void* stream) {
+  return fftw3_tpu_torch::launch<fftw3_tpu_torch::kRowThreads>(
+      xr, xi, yr, yi, tab, plan, rows, n, rpb, ptw, ptw_p, store_p, layout,
+      grid, smem, static_cast<cudaStream_t>(stream));
 }
 
 // The wide form: rows of 2048 < n <= 4096 points, one per block, plain
-// form only (ptw nullptr, store_p 0).  Same contracts as above.
+// form only (ptw nullptr, store_p 0), any layout.  Same contracts as above.
 extern "C" int stockham_c2c_wide_occupancy(int smem, int* blocks_per_sm) {
-  return fftw3_tpu_torch::rows_occupancy<Arm::kFull,
-                                         fftw3_tpu_torch::kWideThreads>(
+  return fftw3_tpu_torch::occupancy<fftw3_tpu_torch::kWideThreads>(
       smem, blocks_per_sm);
 }
 
@@ -82,12 +135,11 @@ extern "C" int stockham_c2c_wide_launch(const float* xr, const float* xi,
                                         const float* tab, const int* plan,
                                         int rows, int n, int rpb,
                                         const float* ptw, int ptw_p,
-                                        int store_p, int grid, int smem,
-                                        void* stream) {
-  return fftw3_tpu_torch::rows_launch<Arm::kFull,
-                                      fftw3_tpu_torch::kWideThreads>(
-      xr, xi, yr, yi, tab, plan, rows, n, rpb, ptw, ptw_p, store_p, grid,
-      smem, static_cast<cudaStream_t>(stream));
+                                        int store_p, int layout, int grid,
+                                        int smem, void* stream) {
+  return fftw3_tpu_torch::launch<fftw3_tpu_torch::kWideThreads>(
+      xr, xi, yr, yi, tab, plan, rows, n, rpb, ptw, ptw_p, store_p, layout,
+      grid, smem, static_cast<cudaStream_t>(stream));
 }
 
 namespace fftw3_tpu_torch {

@@ -20,6 +20,16 @@
 // butterfly level: that level reads its butterflies from global memory.
 // Every index of a level is computed from the plan's ints at run time
 // (stockham_bfly.cuh), so every schedule runs the same code.
+//
+// Layouts (kLayout, the plain form only): the input, the output or both may
+// be one interleaved complex64 tensor, each point a float2 (re, im), passed
+// as xr or yr (xi or yi unused): the complex entry's first and last pass, so
+// that no conversion pass runs around the kernel.  An interleaved input is
+// read by the first butterfly level as one 8-byte load a point, or by the
+// load pass as 16-byte loads of two points (when n is even and the tensor
+// 16-byte aligned, else 8-byte); an interleaved output is stored by the last
+// level as one float2 a point.  The butterflies are the planes' own, in the
+// same order on the same values.
 
 #pragma once
 
@@ -50,6 +60,11 @@ struct RowMap {
   __device__ __forceinline__ int64_t operator()(int row, int o, int) const {
     return (r0 + row) * n + o;
   }
+};
+
+// The same store of one float2 a point to an interleaved complex output.
+struct RowMapC : RowMap {
+  static constexpr bool kInterleaved = true;
 };
 
 // Last level's store, transposed: row b*P + k1 writes point k2 to
@@ -89,16 +104,49 @@ __device__ __forceinline__ float4 load_planes4(const float* p) {
   }
 }
 
+// The load pass of an interleaved complex input: rows r0 .. r0 + nr of x
+// (n points each) into the planes (ar, ai), rows rs apart; with vec two
+// points a 16-byte load.
+__device__ __forceinline__ void load_rows_c(const float2* x, int64_t r0,
+                                            int nr, int n, float* ar,
+                                            float* ai, int rs, bool vec) {
+  if (vec) {
+    const int n2 = n / 2;
+    for (int i = threadIdx.x; i < nr * n2; i += blockDim.x) {
+      const int row = i / n2;
+      const int k = 2 * (i - row * n2);
+      const float4 v =
+          __ldg(reinterpret_cast<const float4*>(x + (r0 + row) * n + k));
+      *reinterpret_cast<float2*>(ar + row * rs + k) = make_float2(v.x, v.z);
+      *reinterpret_cast<float2*>(ai + row * rs + k) = make_float2(v.y, v.w);
+    }
+  } else {
+    for (int i = threadIdx.x; i < nr * n; i += blockDim.x) {
+      const int row = i / n;
+      const int k = i - row * n;
+      const float2 v = __ldg(x + (r0 + row) * n + k);
+      ar[row * rs + k] = v.x;
+      ai[row * rs + k] = v.y;
+    }
+  }
+}
+
 // The body of every form.  The kernels that call it say whether the planes
 // are __restrict__; kAliased (yr == xr, yi == xi) keeps read-only loads off
 // the planes.
-template <int kArm, bool kPretwiddle, bool kTransposed, bool kAliased>
+template <int kArm, bool kPretwiddle, bool kTransposed, bool kAliased,
+          int kLayout = 0>
 __device__ __forceinline__ void rows_body(const float* xr, const float* xi,
                                           float* yr, float* yi,
                                           const float* tab,
                                           const LevelPlan& plan, int rows,
                                           int n, int rpb, const float* ptw,
                                           int ptw_p) {
+  constexpr bool kCin = (kLayout & kInC) != 0;
+  constexpr bool kCout = (kLayout & kOutC) != 0;
+  static_assert(kLayout == 0 || (kArm == Arm::kFull && !kPretwiddle &&
+                                 !kTransposed && !kAliased),
+                "interleaved layouts in the plain form only");
   extern __shared__ float4 smem4[];
   __shared__ Level lev[kMaxLevels];
   float* tb = reinterpret_cast<float*>(smem4);
@@ -109,8 +157,10 @@ __device__ __forceinline__ void rows_body(const float* xr, const float* xi,
   float* bi = br + plane;
   stage_levels(plan, lev);
   for (int i = threadIdx.x; i < plan.tab_len; i += blockDim.x) tb[i] = tab[i];
-  const bool vec = n % 4 == 0 && plan.rs % 4 == 0 && aligned16(xr) &&
-                   aligned16(xi) && (!kPretwiddle || aligned16(ptw));
+  const bool vec =
+      kCin ? n % 2 == 0 && plan.rs % 2 == 0 && aligned16(xr)
+           : n % 4 == 0 && plan.rs % 4 == 0 && aligned16(xr) &&
+                 aligned16(xi) && (!kPretwiddle || aligned16(ptw));
   const int groups = (rows + rpb - 1) / rpb;
   // a first level of butterflies reads the rows straight from global
   // memory (4-byte loads, coalesced across a warp), faster at (65536, 1024)
@@ -123,7 +173,10 @@ __device__ __forceinline__ void rows_body(const float* xr, const float* xi,
     __syncthreads();  // levels and tables staged; the previous group's
                       // readers are done
     if (!direct) {
-      if (vec) {
+      if constexpr (kCin) {
+        load_rows_c(reinterpret_cast<const float2*>(xr), r0, nr, n, ar, ai,
+                    plan.rs, vec);
+      } else if (vec) {
         const int n4 = n / 4;
         for (int i = threadIdx.x; i < nr * n4; i += blockDim.x) {
           const int row = i / n4;
@@ -173,6 +226,18 @@ __device__ __forceinline__ void rows_body(const float* xr, const float* xi,
     } else if constexpr (kTransposed) {
       run_levels<kRowPts, kArm>(plan, lev, tb, ar, ai, br, bi, n, 1, nr, yr,
                                 yi, RowMapTransposed{r0, n, ptw_p});
+    } else if constexpr (kLayout != 0) {
+      // an interleaved input's row r0 starts at float 2 * r0 * n
+      const float* x0 = direct ? xr + (kCin ? 2 : 1) * r0 * n : nullptr;
+      const float* x0i = direct && !kCin ? xi + r0 * n : nullptr;
+      if constexpr (kCout)
+        run_levels<kRowPts, kArm, kCin>(plan, lev, tb, ar, ai, br, bi, n, 1,
+                                        nr, yr, yi, RowMapC{{r0, n}}, x0, x0i,
+                                        n);
+      else
+        run_levels<kRowPts, kArm, kCin>(plan, lev, tb, ar, ai, br, bi, n, 1,
+                                        nr, yr, yi, RowMap{r0, n}, x0, x0i,
+                                        n);
     } else {
       run_levels<kRowPts, kArm>(plan, lev, tb, ar, ai, br, bi, n, 1, nr, yr,
                                 yi, RowMap{r0, n},
@@ -182,15 +247,16 @@ __device__ __forceinline__ void rows_body(const float* xr, const float* xi,
   }
 }
 
-template <int kArm, bool kPretwiddle, bool kTransposed, int kThreads>
+template <int kArm, bool kPretwiddle, bool kTransposed, int kThreads,
+          int kLayout = 0>
 __global__ void __launch_bounds__(kThreads, kRowMinThreadsPerSm / kThreads)
 stockham_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                     float* __restrict__ yr, float* __restrict__ yi,
                     const float* __restrict__ tab, const LevelPlan plan,
                     int rows, int n, int rpb, const float* __restrict__ ptw,
                     int ptw_p) {
-  rows_body<kArm, kPretwiddle, kTransposed, false>(xr, xi, yr, yi, tab, plan,
-                                                   rows, n, rpb, ptw, ptw_p);
+  rows_body<kArm, kPretwiddle, kTransposed, false, kLayout>(
+      xr, xi, yr, yi, tab, plan, rows, n, rpb, ptw, ptw_p);
 }
 
 using RowKernel = void (*)(const float*, const float*, float*, float*,
@@ -225,13 +291,30 @@ int rows_occupancy(int smem, int* blocks_per_sm) {
       kThreads, static_cast<size_t>(smem)));
 }
 
+// Allow the plain form's interleaved layouts (kLayout 1-3) at block size
+// kThreads kRowMaxSmem bytes of dynamic shared memory.
+template <int kThreads>
+cudaError_t allow_layouts_smem() {
+  cudaError_t err = allow_smem(
+      stockham_c2c_kernel<Arm::kFull, false, false, kThreads, kInC>);
+  if (err == cudaSuccess)
+    err = allow_smem(
+        stockham_c2c_kernel<Arm::kFull, false, false, kThreads, kOutC>);
+  if (err == cudaSuccess)
+    err = allow_smem(stockham_c2c_kernel<Arm::kFull, false, false, kThreads,
+                                         kInC | kOutC>);
+  return err;
+}
+
 // Launch `grid` blocks of kThreads on `stream` on the host's level plan
 // `plan_ints` (stockham.level_plan).  The caller checks shapes: rows >= 1,
 // rpb * n within kRowPts * kThreads, smem = plan_smem(plan, rpb) allowed by
 // rows_occupancy.  ptw is nullptr (no pre-twiddle) or, at kRowThreads, a
 // (ptw_p, n) re table followed by the im table; store_p is 0 or ptw_p, a
-// divisor of rows.  Returns the CUDA error code, 0 on success.
-template <int kArm, int kThreads = kRowThreads>
+// divisor of rows.  kLayout other than 0 (interleaved input or output,
+// allowed by allow_layouts_smem) takes neither.  Returns the CUDA error
+// code, 0 on success.
+template <int kArm, int kThreads = kRowThreads, int kLayout = 0>
 int rows_launch(const float* xr, const float* xi, float* yr, float* yi,
                 const float* tab, const int* plan_ints, int rows, int n,
                 int rpb, const float* ptw, int ptw_p, int store_p, int grid,
@@ -241,11 +324,12 @@ int rows_launch(const float* xr, const float* xi, float* yr, float* yi,
       rpb * n > kRowPts * kThreads || smem != plan_smem(plan, rpb))
     return static_cast<int>(cudaErrorInvalidValue);
   if ((ptw != nullptr &&
-       (kArm != Arm::kFull || kThreads != kRowThreads)) ||
+       (kArm != Arm::kFull || kThreads != kRowThreads || kLayout != 0)) ||
       (store_p && ptw == nullptr) || (store_p && store_p != ptw_p))
     return static_cast<int>(cudaErrorInvalidValue);
-  RowKernel fn = stockham_c2c_kernel<kArm, false, false, kThreads>;
-  if constexpr (kArm == Arm::kFull && kThreads == kRowThreads) {
+  RowKernel fn = stockham_c2c_kernel<kArm, false, false, kThreads, kLayout>;
+  if constexpr (kArm == Arm::kFull && kThreads == kRowThreads &&
+                kLayout == 0) {
     if (ptw != nullptr)
       fn = store_p ? stockham_c2c_kernel<kArm, true, true, kThreads>
                    : stockham_c2c_kernel<kArm, true, false, kThreads>;

@@ -43,24 +43,26 @@ _K7 = (*(f"df32_c2c_f{f}" for f in range(4)),
 #: C signature (argument types) of every bound entry point; each returns
 #: the CUDA error code as an int
 SIGNATURES = {
-    # xr xi yr yi tab, plan, rows n rpb, ptw, ptw_p store_p grid smem, stream
-    "stockham_c2c_launch": [_P] * 5 + [_IP] + [_I] * 3 + [_P] + [_I] * 4
+    # xr xi yr yi tab, plan, rows n rpb, ptw, ptw_p store_p layout grid
+    # smem, stream
+    "stockham_c2c_launch": [_P] * 5 + [_IP] + [_I] * 3 + [_P] + [_I] * 5
     + [_P],
     "stockham_c2c_occupancy": [_I, ctypes.POINTER(_I)],
     # K1's wide form: the same arguments
     "stockham_c2c_wide_launch": [_P] * 5 + [_IP] + [_I] * 3 + [_P]
-    + [_I] * 4 + [_P],
+    + [_I] * 5 + [_P],
     "stockham_c2c_wide_occupancy": [_I, ctypes.POINTER(_I)],
     # K1 in place (E10's donate, timing only): xr xi tab, plan, rows n rpb
     # grid smem, stream
     "stockham_c2c_inplace_launch": [_P] * 3 + [_IP] + [_I] * 5 + [_P],
     "stockham_c2c_inplace_occupancy": [_I, ctypes.POINTER(_I)],
-    # xr xi yr yi tab, plan, pre n, L, tl gp grid smem, stream
-    "inner_c2c_launch": [_P] * 5 + [_IP] + [_I] * 2 + [_L] + [_I] * 4
+    # xr xi yr yi tab, plan, pre n, L, tl gp layout grid smem, stream
+    "inner_c2c_launch": [_P] * 5 + [_IP] + [_I] * 2 + [_L] + [_I] * 5
     + [_P],
     "inner_c2c_occupancy": [_I, ctypes.POINTER(_I)],
-    # xr xi yr yi tab, plan2 plan1, pre n1 n2 rows tc grid smem, stream
-    "c2c_2d_launch": [_P] * 5 + [_IP] * 2 + [_I] * 7 + [_P],
+    # xr xi yr yi tab, plan2 plan1, pre n1 n2 rows tc layout grid smem,
+    # stream
+    "c2c_2d_launch": [_P] * 5 + [_IP] * 2 + [_I] * 8 + [_P],
     "c2c_2d_occupancy": [_I, ctypes.POINTER(_I)],
     # x yr yi tab, plan, rows n rpb grid smem, stream
     "r2c_launch": [_P] * 4 + [_IP] + [_I] * 5 + [_P],

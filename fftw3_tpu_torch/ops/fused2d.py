@@ -15,7 +15,9 @@ descriptors are ``pallas``.
   in place, with the plane in L2 between the two.  Both passes run the
   stages as K1 does (register butterflies for a 2-3-5-smooth radix, the
   dense sum otherwise; ``stockham.level_plan`` with tl = 1 for the rows and
-  tl = tc for the columns).
+  tl = tc for the columns).  It also writes one interleaved complex64
+  output in place of the two output planes (the last pass of a multi-axis
+  plan's complex entry); its input stays in planes.
 
 The reference's ``tile_b``/``tile_g`` plane grouping is TPU tuning and is
 ignored; so is its ``_inner_radices`` cap.  The kernel runs the
@@ -105,13 +107,16 @@ def _resident_clusters(lib, device: torch.device, smem: int) -> int:
 
 
 def c2c_2d_cuda(xr: torch.Tensor, xi: torch.Tensor, rad1: Sequence[int],
-                rad2: Sequence[int], table: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                rad2: Sequence[int], table: torch.Tensor,
+                complex_out: bool = False):
     """Launch the CUDA kernel on split (pre, n1, n2) f32 planes on one
     card.  ``table`` is ``_device_table_2d(n1, rad1, n2, rad2, sign,
-    device)``.  Returns new (yr, yi); raises on anything the kernel does not
-    take, and when the launch fails."""
+    device)``.  Returns new (yr, yi), or with `complex_out` one new
+    complex64 tensor written interleaved; raises on anything the kernel
+    does not take, and when the launch fails."""
     global launches
+    if xi is None:
+        raise ValueError("c2c_2d_cuda takes split input planes")
     S.check_planes("c2c_2d_cuda", xr, xi, table, 3)
     pre, n1, n2 = xr.shape
     rad1 = [int(r) for r in rad1]
@@ -125,10 +130,9 @@ def c2c_2d_cuda(xr: torch.Tensor, xi: torch.Tensor, rad1: Sequence[int],
                          f"match schedules {rad1}, {rad2}")
     if pre >= 2 ** 31:
         raise ValueError(f"{pre} planes exceed the kernel's int count")
-    yr = torch.empty_like(xr)
-    yi = torch.empty_like(xi)
+    y = S.new_output(xr.shape, xr.device, complex_out)
     if pre == 0:
-        return yr, yi
+        return y[0] if complex_out else y
     rows, tc = tiles(n1, n2)
     plan2 = S.level_plan(n2, tuple(rad2), 1)
     plan1 = S.level_plan(n1, tuple(rad1), tc)
@@ -139,15 +143,15 @@ def c2c_2d_cuda(xr: torch.Tensor, xi: torch.Tensor, rad1: Sequence[int],
         grid = CLUSTER * min(pre, _resident_clusters(lib, xr.device, smem))
         stream = torch.cuda.current_stream(xr.device).cuda_stream
         rc = lib.c2c_2d_launch(
-            xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            table.data_ptr(), S.plan_array(plan2), S.plan_array(plan1), pre,
-            n1, n2, rows, tc, grid, smem, stream)
+            xr.data_ptr(), xi.data_ptr(), *S.pointers(*y), table.data_ptr(),
+            S.plan_array(plan2), S.plan_array(plan1), pre, n1, n2, rows, tc,
+            S.layout_of(xi, complex_out), grid, smem, stream)
     if rc != 0:
         raise RuntimeError(f"c2c_2d kernel launch failed: CUDA error {rc} "
                            f"(pre={pre}, n1={n1}, n2={n2}, radices {rad1}, "
-                           f"{rad2})")
+                           f"{rad2}, complex out {complex_out})")
     launches += 1
-    return yr, yi
+    return y[0] if complex_out else y
 
 
 def build_pallas_c2c_split_2d(n1: int, n2: int, sign: int, rdtype,
@@ -172,18 +176,19 @@ def build_pallas_c2c_split_2d(n1: int, n2: int, sign: int, rdtype,
         for s in (sign, -sign):                # move the tables once
             _device_table_2d(*key, s, torch.device(device))
 
-    def run(xr, xi, s):
+    def run(xr, xi, s, cout=False):
         if xr.dim() < 2 or tuple(xr.shape[-2:]) != (n1, n2) \
-                or xi.shape != xr.shape:
+                or (xi is not None and xi.shape != xr.shape):
             raise ValueError(f"2-D pass expects split planes of shape (..., "
                              f"{n1}, {n2}), got {tuple(xr.shape)} and "
-                             f"{tuple(xi.shape)}")
+                             f"{None if xi is None else tuple(xi.shape)}")
+        xr, xi = S.as_planes(xr, xi)
         if xr.device.type == "cpu":
-            return c2c_2d_torch(xr, xi, rad1, rad2, s, vpu)
+            return S.as_output(c2c_2d_torch(xr, xi, rad1, rad2, s, vpu), cout)
         shp = xr.shape
-        yr, yi = c2c_2d_cuda(xr.reshape(-1, n1, n2).contiguous(),
-                             xi.reshape(-1, n1, n2).contiguous(), rad1, rad2,
-                             _device_table_2d(*key, s, xr.device))
-        return yr.reshape(shp), yi.reshape(shp)
+        y = c2c_2d_cuda(*S.flat(xr, xi, (-1, n1, n2)), rad1, rad2,
+                        _device_table_2d(*key, s, xr.device),
+                        complex_out=cout)
+        return S.shaped(y, shp)
 
-    return S.differentiable(run, sign)
+    return S.differentiable(run, sign, writes=True)

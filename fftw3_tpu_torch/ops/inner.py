@@ -15,7 +15,10 @@ through a reshape, and the four-step sends its p pass here.
   stage, and runs the stages as K1 and K3 do: register butterfly levels for
   a 2-3-5-smooth radix, the dense sum otherwise, on
   ``stockham.level_plan(n, radices, tl)``.  The edge tile of an L that is
-  not a multiple of tl is masked, nothing is padded.
+  not a multiple of tl is masked, nothing is padded.  It also reads one
+  interleaved complex64 tensor in place of the two input planes (the
+  first pass of a multi-axis plan's complex entry); its output stays in
+  planes.
 
 The reference's TPU tuning of this form is not carried over: the narrower
 schedule of ``_inner_radices`` (``INNER_NP_MAX``), the ``INNER_AREA`` and
@@ -73,13 +76,14 @@ def inner_c2c_torch(xr: torch.Tensor, xi: torch.Tensor,
     return st[:, 0].reshape(shp), st[:, 1].reshape(shp)
 
 
-def inner_c2c_cuda(xr: torch.Tensor, xi: torch.Tensor,
+def inner_c2c_cuda(xr: torch.Tensor, xi: Optional[torch.Tensor],
                    radices: Sequence[int], table: torch.Tensor
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on split (pre, n, L) f32 planes on one card.
-    ``table`` is ``stockham._device_table(n, radices, sign, device)``.
-    Returns new (yr, yi); raises on anything the kernel does not take, and
-    when the launch fails."""
+    """Launch the CUDA kernel on split (pre, n, L) f32 planes on one card,
+    or with `xi` None on one (pre, n, L) complex64 tensor `xr` read
+    interleaved.  ``table`` is ``stockham._device_table(n, radices, sign,
+    device)``.  Returns new (yr, yi); raises on anything the kernel does not
+    take, and when the launch fails."""
     global launches
     S.check_planes("inner_c2c_cuda", xr, xi, table, 3)
     pre, n, L = xr.shape
@@ -91,18 +95,20 @@ def inner_c2c_cuda(xr: torch.Tensor, xi: torch.Tensor,
                          f"match schedule {radices}")
     if pre >= 2 ** 31:
         raise ValueError(f"{pre} leading rows exceed the kernel's int count")
-    yr = torch.empty_like(xr)
-    yi = torch.empty_like(xi)
+    yr, yi = S.new_output(xr.shape, xr.device, False)
     if pre == 0 or L == 0:
         return yr, yi
     tl = tile_width(n, L)
     gp = planes_per_group(n, L, pre)
     plan = S.level_plan(n, tuple(radices), tl)
+    layout = S.layout_of(xi, False)
     S.launch("inner_c2c", xr.device, S.plan_smem(plan, gp),
              -(-pre // gp) * -(-L // tl),
-             (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-              table.data_ptr(), S.plan_array(plan), pre, n, L, tl, gp),
-             f"pre={pre}, n={n}, L={L}, radices={radices}, tl={tl}, gp={gp}")
+             (*S.pointers(xr, xi), yr.data_ptr(), yi.data_ptr(),
+              table.data_ptr(), S.plan_array(plan), pre, n, L, tl, gp,
+              layout),
+             f"pre={pre}, n={n}, L={L}, radices={radices}, tl={tl}, gp={gp}, "
+             f"layout {layout}")
     launches += 1
     return yr, yi
 
@@ -126,18 +132,18 @@ def build_pallas_c2c_split_inner(desc: Dict, sign: int, rdtype,
         for s in (sign, -sign):                # move the tables once
             S._device_table(*key, s, torch.device(device))
 
-    def run(xr, xi, s):
-        if xr.dim() < 2 or xr.shape[-2] != n or xi.shape != xr.shape:
+    def run(xr, xi, s, cout=False):
+        if xr.dim() < 2 or xr.shape[-2] != n or \
+                (xi is not None and xi.shape != xr.shape):
             raise ValueError(f"axis -2 pass expects split planes of shape "
                              f"(..., {n}, L), got {tuple(xr.shape)} and "
-                             f"{tuple(xi.shape)}")
+                             f"{None if xi is None else tuple(xi.shape)}")
         if xr.device.type == "cpu":
-            return inner_c2c_torch(xr, xi, radices, s, vpu)
+            return S.as_output(inner_c2c_torch(*S.as_planes(xr, xi), radices,
+                                               s, vpu), cout)
         shp = xr.shape
-        L = shp[-1]
-        yr, yi = inner_c2c_cuda(xr.reshape(-1, n, L).contiguous(),
-                                xi.reshape(-1, n, L).contiguous(), radices,
-                                S._device_table(*key, s, xr.device))
-        return yr.reshape(shp), yi.reshape(shp)
+        y = inner_c2c_cuda(*S.flat(xr, xi, (-1, n, shp[-1])), radices,
+                           S._device_table(*key, s, xr.device))
+        return S.as_output(S.shaped(y, shp), cout)
 
-    return S.differentiable(run, sign)
+    return S.differentiable(run, sign, reads=True)

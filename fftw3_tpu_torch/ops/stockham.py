@@ -69,6 +69,11 @@ MAX_N = 2048
 #: reference races it under MEASURE at MAX_N < n <= 2 * MAX_N)
 ROW_MAX_N = 2 * MAX_N
 
+#: the layout bits of a launch of K1, K2 or K3 (``kInC``, ``kOutC`` in
+#: ``csrc/stockham_bfly.cuh``): the input, the output is one interleaved
+#: complex64 tensor in place of two float32 planes
+IN_COMPLEX, OUT_COMPLEX = 1, 2
+
 #: launches of the CUDA kernel, counted by :func:`stockham_c2c_cuda`:
 #: plain ones, those with the four-step pre-twiddle, and the wide form's
 launches = 0
@@ -527,10 +532,27 @@ def stockham_c2c_torch(xr: torch.Tensor, xi: torch.Tensor,
 # the CUDA kernel
 # ---------------------------------------------------------------------------
 
-def check_planes(name: str, xr: torch.Tensor, xi: torch.Tensor,
+def check_planes(name: str, xr: torch.Tensor, xi: Optional[torch.Tensor],
                  table: torch.Tensor, ndim: int) -> None:
     """The checks every kernel wrapper makes before a launch: one CUDA
-    device, float32, two contiguous planes of one `ndim`-D shape."""
+    device, float32, two contiguous planes of one `ndim`-D shape; with `xi`
+    None one contiguous complex64 tensor `xr` in their place, with no lazy
+    conjugate or negative bit (an interleaved input)."""
+    if xi is None:
+        if xr.device.type != "cuda" or table.device != xr.device:
+            raise ValueError(f"{name} needs all tensors on one CUDA device, "
+                             f"got {xr.device}, {table.device}")
+        if xr.dtype != torch.complex64 or table.dtype != torch.float32:
+            raise ValueError(f"{name} takes complex64 and a float32 table, "
+                             f"got {xr.dtype}, {table.dtype}")
+        if xr.dim() != ndim:
+            raise ValueError(f"{name} takes one {ndim}-D complex tensor, got "
+                             f"{tuple(xr.shape)}")
+        if not (xr.is_contiguous() and table.is_contiguous()) \
+                or xr.is_conj() or xr.is_neg():
+            raise ValueError(f"{name} takes contiguous tensors with no lazy "
+                             f"conjugate or negative bit")
+        return
     if xr.device.type != "cuda" or xi.device != xr.device \
             or table.device != xr.device:
         raise ValueError(f"{name} needs all tensors on one CUDA device, got "
@@ -555,18 +577,20 @@ def device_guard(device: torch.device):
     return torch.cuda.device(device)
 
 
-def stockham_c2c_cuda(xr: torch.Tensor, xi: torch.Tensor,
+def stockham_c2c_cuda(xr: torch.Tensor, xi: Optional[torch.Tensor],
                       radices: Sequence[int], table: torch.Tensor,
                       pretwiddle: Optional[torch.Tensor] = None,
-                      store_transposed: bool = False
-                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the CUDA kernel on split (B, n) f32 planes on one card.
+                      store_transposed: bool = False,
+                      complex_out: bool = False):
+    """Launch the CUDA kernel on split (B, n) f32 planes on one card, or
+    with `xi` None on one (B, n) complex64 tensor `xr` read interleaved.
     ``table`` is ``_device_table(n, radices, sign, device)``: the sign lives
-    in it.  The four-step options: ``pretwiddle`` is
+    in it.  The four-step options (planes only): ``pretwiddle`` is
     ``_device_pretwiddle(P, n, sign, device)``, multiplied into row r by
     its row r mod P on load; ``store_transposed`` (with ``pretwiddle``)
     returns (B/P, n, P) planes, row b*P + k1's point k2 at [b, k2, k1].
-    Returns new (yr, yi); raises on anything the kernel does not take, and
+    Returns new (yr, yi), or with `complex_out` one new complex64 tensor
+    written interleaved; raises on anything the kernel does not take, and
     when the launch fails."""
     global launches, fourstep_launches, wide_launches
     check_planes("stockham_c2c_cuda", xr, xi, table, 2)
@@ -596,28 +620,52 @@ def stockham_c2c_cuda(xr: torch.Tensor, xi: torch.Tensor,
         raise ValueError("store_transposed needs a pretwiddle")
     if store_transposed and B % P:
         raise ValueError(f"{B} rows are not whole groups of {P}")
+    layout = layout_of(xi, complex_out)
+    if P and layout:
+        raise ValueError("the four-step options take split planes only")
     shape = (B // P, n, P) if store_transposed else (B, n)
-    yr = torch.empty(shape, dtype=xr.dtype, device=xr.device)
-    yi = torch.empty(shape, dtype=xi.dtype, device=xi.device)
+    y = new_output(shape, xr.device, complex_out)
     if B == 0:
-        return yr, yi
+        return y[0] if complex_out else y
     plan = level_plan(n, tuple(radices))
     rpb = rows_per_block(n)
     launch("stockham_c2c_wide" if wide else "stockham_c2c", xr.device,
            plan_smem(plan, rpb), -(-B // rpb),
-           (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
-            table.data_ptr(), plan_array(plan), B, n, rpb,
+           (*pointers(xr, xi), *pointers(*y), table.data_ptr(),
+            plan_array(plan), B, n, rpb,
             pretwiddle.data_ptr() if P else None, P,
-            P if store_transposed else 0),
+            P if store_transposed else 0, layout),
            f"n={n}, radices={radices}, B={B}, pretwiddle {P}, transposed "
-           f"{store_transposed}")
+           f"{store_transposed}, layout {layout}")
     if P:
         fourstep_launches += 1
     elif wide:
         wide_launches += 1
     else:
         launches += 1
-    return yr, yi
+    return y[0] if complex_out else y
+
+
+def layout_of(xi: Optional[torch.Tensor], complex_out: bool) -> int:
+    """The layout bits of a launch: IN_COMPLEX when the input is one
+    complex tensor (`xi` None), OUT_COMPLEX with `complex_out`."""
+    return (IN_COMPLEX if xi is None else 0) | \
+        (OUT_COMPLEX if complex_out else 0)
+
+
+def new_output(shape, device: torch.device, complex_out: bool):
+    """A kernel's output: two new float32 planes of `shape`, or with
+    `complex_out` one new complex64 tensor (a 1-tuple)."""
+    if complex_out:
+        return (torch.empty(shape, dtype=torch.complex64, device=device),)
+    return (torch.empty(shape, dtype=torch.float32, device=device),
+            torch.empty(shape, dtype=torch.float32, device=device))
+
+
+def pointers(xr: torch.Tensor, xi: Optional[torch.Tensor] = None):
+    """A kernel's two pointer arguments of a layout: the planes', or the
+    complex tensor's and None."""
+    return xr.data_ptr(), None if xi is None else xi.data_ptr()
 
 
 def launch(kernel: str, device: torch.device, smem: int, work: int, args,
@@ -803,21 +851,31 @@ def plan_array(plan: Sequence[int]):
 # ---------------------------------------------------------------------------
 
 class _StockhamC2C(torch.autograd.Function):
-    """Split c2c with the adjoint as backward: the VJP of an unnormalized
+    """A c2c pass with the adjoint as backward: the VJP of an unnormalized
     DFT on the real planes is the opposite-sign unnormalized DFT (the map
-    [[A, -B], [B, A]] has transpose [[A, B], [-B, A]])."""
+    [[A, -B], [B, A]] has transpose [[A, B], [-B, A]]), and on a complex
+    tensor it is the same (A^H).  The pass takes split planes (xr, xi) or,
+    with xi None, one complex tensor, and gives split planes or, with
+    `cout`, one complex tensor; the adjoint takes the gradient in the
+    output's layout and gives it in the input's."""
 
     @staticmethod
-    def forward(ctx, xr, xi, fwd, adj):
-        ctx.adj = adj
-        return fwd(xr, xi)
+    def forward(ctx, xr, xi, fwd, adj, cout):
+        ctx.adj, ctx.cin = adj, xi is None
+        return fwd(xr, xi, cout)
 
     @staticmethod
-    def backward(ctx, gr, gi):
-        gr = torch.zeros_like(gi) if gr is None else gr
-        gi = torch.zeros_like(gr) if gi is None else gi
-        dr, di = ctx.adj(gr, gi)
-        return dr, di, None, None
+    def backward(ctx, *grads):
+        if len(grads) == 1:                    # a complex output's
+            gr, gi = grads[0], None
+        else:
+            gr, gi = grads
+            gr = torch.zeros_like(gi) if gr is None else gr
+            gi = torch.zeros_like(gr) if gi is None else gi
+        d = ctx.adj(gr, gi, ctx.cin)
+        if ctx.cin:
+            return d, None, None, None, None
+        return d[0], d[1], None, None, None
 
 
 def build_pallas_c2c_split(desc: Dict, sign: int, rdtype,
@@ -844,30 +902,83 @@ def build_pallas_c2c_split(desc: Dict, sign: int, rdtype,
         for s in (sign, -sign):                # move the tables once
             _device_table(*key, s, torch.device(device))
 
-    def run(xr, xi, s):
-        if xr.shape[-1] != n or xi.shape != xr.shape:
+    def run(xr, xi, s, cout=False):
+        if xr.shape[-1] != n or (xi is not None and xi.shape != xr.shape):
             raise ValueError(f"plan expects split planes of shape (..., {n}),"
-                             f" got {tuple(xr.shape)} and {tuple(xi.shape)}")
+                             f" got {tuple(xr.shape)} and "
+                             f"{None if xi is None else tuple(xi.shape)}")
         if xr.device.type == "cpu":
-            return stockham_c2c_torch(xr, xi, radices, s, vpu)
+            return as_output(stockham_c2c_torch(*as_planes(xr, xi), radices,
+                                                s, vpu), cout)
         shp = xr.shape[:-1]
-        yr, yi = stockham_c2c_cuda(xr.reshape(-1, n).contiguous(),
-                                   xi.reshape(-1, n).contiguous(), radices,
-                                   _device_table(*key, s, xr.device))
-        return yr.reshape(*shp, n), yi.reshape(*shp, n)
+        y = stockham_c2c_cuda(*flat(xr, xi, (-1, n)), radices,
+                              _device_table(*key, s, xr.device),
+                              complex_out=cout)
+        return shaped(y, (*shp, n))
 
-    return differentiable(run, sign)
+    return differentiable(run, sign, reads=True, writes=True)
 
 
-def differentiable(run, sign: int):
+def differentiable(run, sign: int, reads: bool = False,
+                   writes: bool = False):
     """The split apply ``run(xr, xi, sign)`` with the opposite-sign run as
-    its backward."""
-    def fwd(xr, xi):
-        return run(xr, xi, sign)
+    its backward: ``apply(xr, xi)``.  K1's, K2's and K3's runs also take
+    the complex tensor itself (`xi` None) and give a complex output
+    (``run(..., cout=True)``), converting in the run where their kernel has
+    no such form: ``apply(x, None)``, ``apply(xr, xi, cout=True)``, and
+    their backward takes and gives the gradients so.  ``apply.reads`` and
+    ``apply.writes`` say which of the two its kernel does itself, with no
+    conversion: what a plan's complex entry reads of a pass."""
+    def at(s):
+        def go(xr, xi, cout):
+            return run(xr, xi, s, cout) if cout else run(xr, xi, s)
+        return go
+    fwd, adj = at(sign), at(-sign)
 
-    def adj(gr, gi):
-        return run(gr, gi, -sign)
-
-    def apply(xr, xi):
-        return _StockhamC2C.apply(xr, xi, fwd, adj)
+    def apply(xr, xi=None, cout=False):
+        return _StockhamC2C.apply(xr, xi, fwd, adj, cout)
+    apply.reads, apply.writes = reads, writes
     return apply
+
+
+# ---------------------------------------------------------------------------
+# the layouts of a pass: split planes or one interleaved complex tensor
+# ---------------------------------------------------------------------------
+
+def as_planes(xr: torch.Tensor, xi: Optional[torch.Tensor]):
+    """A pass's input as split planes: (xr, xi) as they are, or with `xi`
+    None the complex tensor `xr` converted into two contiguous planes (a
+    lazy conjugate or negative bit resolved by the copies), for a pass that
+    cannot read it (a twin, or a kernel with no interleaved-input form)."""
+    if xi is None:
+        with trace.span("fftw.convert.split", xr.device):
+            return xr.real.contiguous(), xr.imag.contiguous()
+    return xr, xi
+
+
+def as_output(y, cout: bool):
+    """A pass's output planes `y` as asked for: with `cout` combined into
+    one complex tensor, for a pass that cannot write it.  Both conversions
+    run in their spans, ``fftw.convert.split`` and ``.combine``, wherever
+    they run: at a plan's complex edge or inside a pass."""
+    if not cout:
+        return y
+    with trace.span("fftw.convert.combine", y[0].device):
+        return torch.complex(*y)
+
+
+def flat(xr: torch.Tensor, xi: Optional[torch.Tensor], shape):
+    """A kernel's operands reshaped to `shape`: two contiguous planes, or
+    the complex tensor (xi None) contiguous with no lazy conjugate or
+    negative bit (copied only where it is not so already)."""
+    if xi is None:
+        return xr.reshape(shape).resolve_conj().resolve_neg().contiguous(), \
+            None
+    return xr.reshape(shape).contiguous(), xi.reshape(shape).contiguous()
+
+
+def shaped(y, shape):
+    """A kernel's output, planes or one complex tensor, reshaped."""
+    if isinstance(y, tuple):
+        return y[0].reshape(shape), y[1].reshape(shape)
+    return y.reshape(shape)

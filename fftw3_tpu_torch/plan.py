@@ -16,11 +16,20 @@ does:
   ``ops/inner.py``) behind a reshape, with no copy;
 * every other axis runs its last-axis solver behind a ``movedim`` lift.
 
+The planes stay split between passes.  At the complex entry of a c2c plan
+(``Plan.execute``, ``Plan.apply``) the first pass reads the caller's
+complex tensor itself and the last pass writes the complex output itself
+where their kernels can (:func:`complex_edges`: a CUDA complex64 tensor,
+contiguous, with no lazy conjugate or negative bit, into K1 on the last
+axis or K2; out of K1 or K3), so no conversion pass runs there.  Every
+other edge converts: one real/imag split at entry
+(``fftw.convert.split``), one combine at exit (``fftw.convert.combine``).
+
 Real transforms (the last transform axis is the real one): r2c runs its
 last axis first (K4 for a ``pallas_r2c`` descriptor), then c2c passes over
 the half spectrum; c2r runs the c2c passes first and its last axis last
-(K6).  The planes stay split between passes and are combined once, at the
-exit of the complex entry point.  One option of the reference, off by
+(K6).  Their complex side converts: r2c combines its planes at the exit,
+c2r splits its input at the entry.  One option of the reference, off by
 default: ``config.r2c_swapped`` (rank-2 r2c as K5 over axis -2, then the
 last-axis c2c, then a Hermitian rebuild).  The reference's other r2c option,
 the DC/Nyquist column pack, is not carried over: on the H100 it computes
@@ -35,7 +44,7 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,26 +70,55 @@ def _stage_span(desc: Dict) -> str:
     return "fftw.stage." + _KERNEL_OF.get(desc["alg"], desc["alg"])
 
 
-def _combine(yr: torch.Tensor, yi: torch.Tensor) -> torch.Tensor:
-    """The complex exit's conversion out: one interleaved tensor."""
-    with trace.span("fftw.convert.combine", yr.device):
-        return torch.complex(yr, yi)
+class _Stage(NamedTuple):
+    """One axis pass: its span, and its apply on split planes, ``run(xr,
+    xi) -> (yr, yi)``.  With `reads` it also takes the complex tensor
+    itself, ``run(x, None)``; with `writes` it also gives the complex
+    output itself, ``run(xr, xi, True)``: what its kernel declares
+    (``reads``/``writes`` of the apply ``stockham.differentiable`` builds;
+    K1 both, K2 reads, K3 writes)."""
+    name: str
+    run: Callable
+    reads: bool = False
+    writes: bool = False
 
 
-def _run_split(stages: List[Tuple[str, Callable]], xr, xi,
-               split_on: Optional[torch.device] = None):
+def _kernel_stage(name: str, run: Callable, fn: Callable) -> _Stage:
+    """The pass `name` running `run`, with the forms the kernel apply `fn`
+    declares (none for an apply that declares none)."""
+    return _Stage(name, run, getattr(fn, "reads", False),
+                  getattr(fn, "writes", False))
+
+
+def complex_edges(x: torch.Tensor, stages: List[_Stage]) -> Tuple[bool, bool]:
+    """Which edges of a c2c call on the complex tensor `x` run in the
+    kernels: (the first pass reads `x` itself, the last pass writes the
+    output itself).  Either needs a pass that can (`stages`, the plan's
+    route) and a CUDA complex64 `x`; reading needs besides an `x` that is
+    contiguous, with no lazy conjugate or negative bit.  Every other edge
+    converts (``stockham.as_planes``, ``stockham.as_output``)."""
+    if not stages or x.device.type != "cuda" or x.dtype != torch.complex64:
+        return False, False
+    return (stages[0].reads and x.is_contiguous() and not x.is_conj()
+            and not x.is_neg()), stages[-1].writes
+
+
+def _run_split(stages: List[_Stage], xr, xi=None, read: bool = False,
+               cout: bool = False):
     """Split-plane passes in order, each in its span.  A complex entry
-    gives the views ``x.real``, ``x.imag`` and, as `split_on`, their
-    device: its conversion in, ``fftw.convert.split``, makes them two
-    contiguous planes here, where no caller holds them, so that they are
-    freed once the first pass has run."""
-    if split_on is not None:
-        with trace.span("fftw.convert.split", split_on):
-            xr, xi = xr.contiguous(), xi.contiguous()
-    for name, stage in stages:
-        with trace.span(name):
-            xr, xi = stage(xr, xi)
-    return xr, xi
+    gives the complex tensor `x` itself as `xr` and `xi` None: the first
+    pass reads it where `read`, else its conversion in
+    (``fftw.convert.split``) makes two contiguous planes here, where no
+    caller holds them, so that they are freed once the first pass has run.
+    With `cout` the last pass returns the complex output itself."""
+    if xi is None and not read:
+        xr, xi = stockham.as_planes(xr, None)
+    y, xr, xi = (xr, xi), None, None     # held by `y` alone from here
+    for i, st in enumerate(stages):
+        with trace.span(st.name):
+            y = st.run(*y, True) if cout and i == len(stages) - 1 \
+                else st.run(*y)
+    return y
 
 
 def _along_axis(fn: Callable, axis: int) -> Callable:
@@ -103,13 +141,14 @@ def _along_axis_split(fn: Callable, axis: int) -> Callable:
 
 
 def _c2c_stage(desc: Dict, sign: int, rdtype, axis: int,
-               shape: Tuple[int, ...], device) -> Tuple[str, Callable]:
+               shape: Tuple[int, ...], device) -> _Stage:
     """One c2c axis pass and its span.  A non-last axis whose trailing-dims
     product is at least one lane tile takes the axis -2 kernel behind a
     reshape (the trailing dims become its columns: no ``movedim`` copies);
     everything else lifts the last-axis transform with ``movedim``.  Axes
     are applied right-relative, so extra *leading* batch dims at call time
-    work."""
+    work.  K2, and K1 on the last axis, carry the complex forms their
+    apply declares (:func:`_kernel_stage`); a lifted pass has none."""
     neg = axis - len(shape)                  # right-relative axis (< 0)
     trail = math.prod(shape[axis + 1:])
     if neg != -1 and stockham.inner_applicable(desc, trail):
@@ -118,12 +157,15 @@ def _c2c_stage(desc: Dict, sign: int, rdtype, axis: int,
         def apply_inner(xr, xi):
             s = xr.shape
             cut = xr.dim() + neg + 1         # runtime position after axis
-            yr, yi = fn(xr.reshape(*s[:cut], trail),
-                        xi.reshape(*s[:cut], trail))
+            flat = (*s[:cut], trail)
+            yr, yi = fn(xr.reshape(flat),
+                        None if xi is None else xi.reshape(flat))
             return yr.reshape(s), yi.reshape(s)
-        return "fftw.stage.k2", apply_inner
+        return _kernel_stage("fftw.stage.k2", apply_inner, fn)
     fn = c2c_ops.build_c2c_split(desc, sign, rdtype, device)
-    return _stage_span(desc), _along_axis_split(fn, neg)
+    if neg == -1:
+        return _kernel_stage(_stage_span(desc), fn, fn)
+    return _Stage(_stage_span(desc), _along_axis_split(fn, neg))
 
 
 def _r2c_along_axis(fn: Callable, axis: int) -> Callable:
@@ -174,8 +216,8 @@ def _r2c_swapped(problem: "Problem", pl: planner_mod.Planner, patience: int,
     cdesc = pl.plan_c2c(n_l, rdtype, patience, batch=vec(nd - 1),
                         device=device)
     m_a, m_l = n_a // 2, n_l // 2
-    c2c_span, c2c = _c2c_stage(cdesc, K.FORWARD, rdtype, nd - 1,
-                               shape[:-2] + (m_a + 1, n_l), device)
+    c2c = _c2c_stage(cdesc, K.FORWARD, rdtype, nd - 1,
+                     shape[:-2] + (m_a + 1, n_l), device)
     # rows m_a-1 .. 1 and columns (n_l - v) % n_l, v = 0..m_l, of the
     # computed half give the rows m_a+1 .. n_a-1 of the output (conjugated)
     rows = torch.arange(m_a - 1, 0, -1, device=device)
@@ -185,8 +227,8 @@ def _r2c_swapped(problem: "Problem", pl: planner_mod.Planner, patience: int,
     def apply(x):
         with trace.span("fftw.stage.k5"):
             cr, ci = r2c(x)
-        with trace.span(c2c_span):
-            cr, ci = c2c(cr, ci)
+        with trace.span(c2c.name):
+            cr, ci = c2c.run(cr, ci)
         br = cr.index_select(-2, rows).index_select(-1, cols)
         bi = ci.index_select(-2, rows).index_select(-1, cols)
         return (torch.cat([cr[..., :m_l + 1], br], -2),
@@ -219,7 +261,8 @@ class Plan:
                  apply_fn: Callable, in_shape: Tuple[int, ...],
                  out_shape: Tuple[int, ...], in_dtype: torch.dtype,
                  out_dtype: torch.dtype, device: torch.device,
-                 apply_split: Optional[Callable] = None):
+                 apply_split: Optional[Callable] = None,
+                 stages: Tuple[_Stage, ...] = ()):
         self.problem = problem
         self.descriptors = descriptors          # axis -> planner descriptor
         self._apply = apply_fn
@@ -232,6 +275,9 @@ class Plan:
         #: kernels take: (xr, xi) -> (yr, yi) for c2c, x -> (yr, yi) for
         #: r2c, (xr, xi) -> y for c2r, x -> y for r2r
         self.apply_split = apply_split
+        #: a c2c plan's axis passes in order (the route its complex entry's
+        #: edges are decided on, :func:`complex_edges`)
+        self.stages = stages
 
     # -- execution (fftw_execute + new-array execute) ----------------------
     def __call__(self, x) -> torch.Tensor:
@@ -359,8 +405,9 @@ def _check_trailing(shape, *planes) -> None:
 
 def _plan_c2c(problem, pl, patience, device, rdtype, vec) -> Plan:
     shape = problem.shape
-    # split-complex through the whole multi-axis pipeline: one real/imag
-    # split at entry, one combine at exit
+    # split-complex through the whole multi-axis pipeline; the complex
+    # entry's edges run in the first and last kernels where they can, else
+    # one real/imag split at entry and one combine at exit
     descriptors: Dict[int, Dict] = {
         a: pl.plan_c2c(shape[a], rdtype, patience, batch=vec(a),
                        device=device) for a in problem.axes}
@@ -378,11 +425,11 @@ def _plan_c2c(problem, pl, patience, device, rdtype, vec) -> Plan:
     split_stages = [_c2c_stage(descriptors[a], problem.sign, rdtype, a,
                                shape, device) for a in rest_axes]
     if fuse:
-        split_stages.append(("fftw.stage.k3",
-                             fused2d.build_pallas_c2c_split_2d(
-                                 shape[nd - 2], shape[nd - 1], problem.sign,
-                                 rdtype, desc1=descriptors[nd - 2],
-                                 desc2=descriptors[nd - 1], device=device)))
+        fn = fused2d.build_pallas_c2c_split_2d(
+            shape[nd - 2], shape[nd - 1], problem.sign, rdtype,
+            desc1=descriptors[nd - 2], desc2=descriptors[nd - 1],
+            device=device)
+        split_stages.append(_kernel_stage("fftw.stage.k3", fn, fn))
 
     def apply_split(xr, xi):
         _check_trailing(shape, xr, xi)
@@ -390,11 +437,14 @@ def _plan_c2c(problem, pl, patience, device, rdtype, vec) -> Plan:
 
     def apply_c2c(x):
         _check_trailing(shape, x)
-        return _combine(*_run_split(split_stages, x.real, x.imag, x.device))
+        read, write = complex_edges(x, split_stages)
+        trace.edges(read, write)
+        return stockham.as_output(
+            _run_split(split_stages, x, None, read, write), not write)
 
     ctype = c2c_ops.complex_dtype(rdtype)
     return Plan(problem, descriptors, apply_c2c, shape, shape, ctype, ctype,
-                device, apply_split=apply_split)
+                device, apply_split=apply_split, stages=tuple(split_stages))
 
 
 def _plan_r2c(problem, pl, patience, device, rdtype, vec) -> Plan:
@@ -416,7 +466,7 @@ def _plan_r2c(problem, pl, patience, device, rdtype, vec) -> Plan:
             real_ops.build_r2c_split(desc, rdtype, device), last - nd)
         # the non-last axes run on the half spectrum (K2 where the trailing
         # layout allows), on split planes
-        stages: List[Tuple[str, Callable]] = []
+        stages: List[_Stage] = []
         for a in axes[:-1]:
             d = pl.plan_c2c(shape[a], rdtype, patience, batch=vec(a),
                             device=device)
@@ -434,7 +484,7 @@ def _plan_r2c(problem, pl, patience, device, rdtype, vec) -> Plan:
         return split(x)
 
     def apply_r2c(x):
-        return _combine(*apply_split(x))
+        return stockham.as_output(apply_split(x), True)
 
     return Plan(problem, descriptors, apply_r2c, shape, tuple(out),
                 _real_dtype(rdtype), c2c_ops.complex_dtype(rdtype), device,
@@ -453,7 +503,7 @@ def _plan_c2r(problem, pl, patience, device, rdtype, vec) -> Plan:
     ins[last] = n_last // 2 + 1
     ins = tuple(ins)
     descriptors: Dict[int, Dict] = {}
-    stages: List[Tuple[str, Callable]] = []
+    stages: List[_Stage] = []
     for a in axes[:-1]:
         d = pl.plan_c2c(shape[a], rdtype, patience, batch=vec(a),
                         device=device)
@@ -466,8 +516,8 @@ def _plan_c2r(problem, pl, patience, device, rdtype, vec) -> Plan:
     final = _c2r_along_axis(real_ops.build_c2r_split(desc, rdtype, device),
                             last - nd)
 
-    def run(xr, xi, split_on=None):
-        xr, xi = _run_split(stages, xr, xi, split_on)
+    def run(xr, xi=None):
+        xr, xi = _run_split(stages, xr, xi)
         with trace.span(final_span):
             return final(xr, xi)
 
@@ -477,7 +527,7 @@ def _plan_c2r(problem, pl, patience, device, rdtype, vec) -> Plan:
 
     def apply_c2r(X):
         _check_trailing(ins, X)
-        return run(X.real, X.imag, X.device)
+        return run(X)
 
     return Plan(problem, descriptors, apply_c2r, ins, shape,
                 c2c_ops.complex_dtype(rdtype), _real_dtype(rdtype), device,

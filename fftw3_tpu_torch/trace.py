@@ -25,6 +25,11 @@ profiler runs, a span
   profiler (an NVIDIA H100: 2.8-3.0 µs), so events in every call would
   add 1-2% to a closed loop's idle share.
 
+A complex entry whose first pass reads the caller's tensor itself, or
+whose last pass writes the complex output itself (no conversion there),
+marks its call so (:func:`edges`, the counts ``edge.in`` and ``edge.out``
+of :func:`snapshot`); off, the mark does nothing.
+
 The record keeps the latest :data:`CAP` spans, the older ones counted as
 dropped, and belongs to one profiler session: a call of the port while the
 profiler is off, or a read of the record after it stopped, ends the
@@ -87,7 +92,8 @@ class Record:
     """One span: `call` is the id of the root span it ran under (None
     outside any), `parent` the record of the span it opened in (None for
     the outermost), `timed` whether its call takes CUDA events.  `events`
-    are its pair until :func:`snapshot` resolves them into `device_ms`."""
+    are its pair until :func:`snapshot` resolves them into `device_ms`.
+    A root's `edges` are its call's marks (:func:`edges`)."""
     name: str
     call: Optional[int]
     parent: Optional["Record"]
@@ -96,6 +102,7 @@ class Record:
     end_ns: Optional[int] = None
     events: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]] = None
     device_ms: Optional[float] = None
+    edges: Tuple[str, ...] = ()
 
     @property
     def root(self) -> bool:
@@ -174,6 +181,18 @@ def call(name: str, device: Optional[torch.device] = None):
     return _Span(name, True, device)
 
 
+def edges(read: bool, wrote: bool) -> None:
+    """Mark the open call, while the profiler runs: `read`, its first pass
+    read the caller's complex tensor itself (``edge.in``); `wrote`, its
+    last pass wrote the complex output itself (``edge.out``).  Off, or
+    outside a call, it does nothing: no lock, no record."""
+    if not _profiler._is_profiler_enabled or not (read or wrote):
+        return
+    stack = getattr(_local, "stack", None)
+    if stack and stack[0].rec.root:
+        stack[0].rec.edges = ("edge.in",) * read + ("edge.out",) * wrote
+
+
 def add(counter: str, seconds: float) -> None:
     """Add `seconds` to a set-up counter."""
     with _lock:
@@ -211,13 +230,14 @@ def counters() -> Dict[str, float]:
 def snapshot(reset: bool = False,
              within: Optional[Tuple[int, int]] = None) -> dict:
     """The record summed by span name: ``{"spans": {name: {"count",
-    "host_ms", "timed", "device_ms"}}, "calls", "timed_calls", "dropped",
-    "counters"}``.
+    "host_ms", "timed", "device_ms"}}, "calls", "timed_calls", "edges",
+    "dropped", "counters"}``.
 
     ``host_ms`` is the total over the name's spans, ``device_ms`` the total
     over the ``timed`` of them that took CUDA events (None where none
     did).  ``calls`` counts root spans, ``timed_calls`` the timed ones: a
-    per-call device time is a ``device_ms`` over ``timed_calls``.  Only
+    per-call device time is a ``device_ms`` over ``timed_calls``.
+    ``edges`` counts the calls marked ``edge.in`` and ``edge.out``.  Only
     closed spans count, and with `within` = (start ns, end ns) on the
     profiler's clock only those inside it.  Waits for the device to pass
     each span's end event, then keeps its time and drops the events.
@@ -226,6 +246,7 @@ def snapshot(reset: bool = False,
     lo, hi = within if within is not None else (None, None)
     spans: Dict[str, dict] = {}
     calls = timed_calls = 0
+    marks = {"edge.in": 0, "edge.out": 0}
     for rec in recs:
         if rec.end_ns is None or (within is not None and not (
                 lo <= rec.start_ns and rec.end_ns <= hi)):
@@ -236,6 +257,8 @@ def snapshot(reset: bool = False,
         s["host_ms"] += (rec.end_ns - rec.start_ns) * 1e-6
         calls += rec.root
         timed_calls += rec.root and rec.timed
+        for mark in rec.edges:
+            marks[mark] += 1
         if rec.events is not None:
             start, end = rec.events
             end.synchronize()
@@ -244,4 +267,4 @@ def snapshot(reset: bool = False,
             s["timed"] += 1
             s["device_ms"] = (s["device_ms"] or 0.0) + rec.device_ms
     return {"spans": spans, "calls": calls, "timed_calls": timed_calls,
-            "dropped": dropped, "counters": counters()}
+            "edges": marks, "dropped": dropped, "counters": counters()}
