@@ -238,7 +238,7 @@ class SplitPlan:
     apply_split = apply
 
     def execute(self, ri, ii):
-        with trace.call("fftw.execute_split", self.device):
+        with trace.call("fftw.execute_split", self.device, self):
             ri, ii = _planes(self._plan, ri, ii)
             if tuple(ri.shape) != self.in_shape:
                 raise ValueError(f"plan expects shape {self.in_shape}, "
@@ -403,7 +403,7 @@ def execute_split_dft(plan, ri, ii):
     planes, nothing else (the user path with no conversion pass), in the
     root span ``fftw.execute_split``."""
     _check_kind(plan, "c2c", "execute_split_dft")
-    with trace.call("fftw.execute_split", plan.device):
+    with trace.call("fftw.execute_split", plan.device, plan):
         return plan.apply_split(*_planes(plan, ri, ii))
 
 
@@ -451,7 +451,7 @@ class SplitR2CPlan:
         self.device = plan.device
 
     def execute(self, x):
-        with trace.call("fftw.execute_split", self.device):
+        with trace.call("fftw.execute_split", self.device, self):
             return self._plan.apply_split(*_planes(self._plan, x))
 
     __call__ = execute
@@ -468,7 +468,7 @@ class SplitC2RPlan:
         self.device = plan.device
 
     def execute(self, ri, ii):
-        with trace.call("fftw.execute_split", self.device):
+        with trace.call("fftw.execute_split", self.device, self):
             return self._plan.apply_split(*_planes(self._plan, ri, ii))
 
     __call__ = execute

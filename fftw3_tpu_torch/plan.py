@@ -287,7 +287,7 @@ class Plan:
         """Transform `x` (a tensor or array of ``in_shape``), moved to the
         plan's device and input dtype first: complex for c2c and c2r, real
         for r2c and r2r."""
-        with trace.call("fftw.execute", self.device):
+        with trace.call("fftw.execute", self.device, self):
             x = torch.as_tensor(x, device=self.device)
             if tuple(x.shape) != self.in_shape:
                 raise ValueError(f"plan expects shape {self.in_shape}, got "
@@ -302,7 +302,7 @@ class Plan:
         return self._apply_traced
 
     def _apply_traced(self, x):
-        with trace.call("fftw.execute", self.device):
+        with trace.call("fftw.execute", self.device, self):
             return self._apply(x)
 
     # -- introspection (fftw_flops/fftw_cost) --------------------------------

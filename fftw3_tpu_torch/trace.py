@@ -20,10 +20,13 @@ profiler runs, a span
 * where it is given a CUDA device (the conversions are), and its call is
   a timed one, records a pair of CUDA events on that device's current
   stream at its edges: the device time of the work issued inside it.  A
-  call on a CUDA device is timed every :data:`EVENT_EVERY`-th: each event
-  recorded on a stream holds the device back about 3 µs under the
-  profiler (an NVIDIA H100: 2.8-3.0 µs), so events in every call would
-  add 1-2% to a closed loop's idle share.
+  call on a CUDA device is timed every :data:`EVENT_EVERY`-th of its
+  plan's calls while the profiler runs (a root given no plan: every
+  :data:`EVENT_EVERY`-th call id): each event recorded on a stream holds
+  the device back about 3 µs under the profiler (an NVIDIA H100: 2.8-3.0
+  µs), so events in every call would add 1-2% to a closed loop's idle
+  share.  Counting per plan, and not by call id, keeps a caller that
+  alternates plans (an r2c, then its c2r) from timing one of them alone.
 
 A complex entry whose first pass reads the caller's tensor itself, or
 whose last pass writes the complex output itself (no conversion there),
@@ -45,6 +48,7 @@ from __future__ import annotations
 import itertools
 import threading
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass
 from typing import Deque, Dict, List, Optional, Tuple
@@ -58,7 +62,7 @@ _range = getattr(torch._C._profiler, "_RecordFunctionFast",
 
 #: records kept at most, the latest
 CAP = 1 << 16
-#: every this many calls (by call id) on a CUDA device take CUDA events
+#: every this many calls of a plan on a CUDA device take CUDA events
 EVENT_EVERY = 8
 
 
@@ -78,6 +82,9 @@ _OFF = _Off()
 _lock = threading.Lock()
 _local = threading.local()
 _calls = itertools.count(1)
+#: each plan's count of its roots recorded
+_plan_calls: "weakref.WeakKeyDictionary[object, itertools.count]" = \
+    weakref.WeakKeyDictionary()
 _records: Deque["Record"] = deque()
 _dropped = 0
 #: the record's profiler session has ended: the next span starts anew
@@ -113,11 +120,21 @@ def _cuda(device) -> bool:
     return device is not None and device.type == "cuda"
 
 
-class _Span:
-    __slots__ = ("name", "root", "device", "rf", "rec")
+def _nth(plan) -> int:
+    """This root's place among `plan`'s roots recorded (1 for the first)."""
+    with _lock:
+        count = _plan_calls.get(plan)
+        if count is None:
+            count = _plan_calls[plan] = itertools.count(1)
+    return next(count)
 
-    def __init__(self, name: str, root: bool, device):
+
+class _Span:
+    __slots__ = ("name", "root", "device", "plan", "rf", "rec")
+
+    def __init__(self, name: str, root: bool, device, plan=None):
         self.name, self.root, self.device = name, root, device
+        self.plan = plan
 
     def __enter__(self):
         global _dropped, _ended
@@ -127,8 +144,9 @@ class _Span:
         outer = stack[-1].rec if stack else None
         if outer is None:
             call = next(_calls) if self.root else None
-            timed = (call is not None and call % EVENT_EVERY == 0
-                     and _cuda(self.device))
+            nth = call if self.plan is None else _nth(self.plan)
+            timed = (call is not None and _cuda(self.device)
+                     and nth % EVENT_EVERY == 0)
         else:
             call, timed = outer.call, outer.timed
         self.rf = _range(self.name)
@@ -168,17 +186,17 @@ def span(name: str, device: Optional[torch.device] = None):
     return _Span(name, False, device)
 
 
-def call(name: str, device: Optional[torch.device] = None):
-    """:func:`span` for an entry point on `device`: the root of a call,
-    which counts a new call id unless a span is already open on this
-    thread, and is timed every ``EVENT_EVERY``-th if `device` is a CUDA
-    device (the root itself takes no events).  Off, it ends the record's
-    session."""
+def call(name: str, device: Optional[torch.device] = None, plan=None):
+    """:func:`span` for an entry point of `plan` on `device`: the root of
+    a call, which counts a new call id unless a span is already open on
+    this thread, and is timed every ``EVENT_EVERY``-th call of `plan` if
+    `device` is a CUDA device (the root itself takes no events).  Off, it
+    ends the record's session."""
     if not _profiler._is_profiler_enabled:
         global _ended
         _ended = True
         return _OFF
-    return _Span(name, True, device)
+    return _Span(name, True, device, plan)
 
 
 def edges(read: bool, wrote: bool) -> None:

@@ -5,6 +5,7 @@ the set-up counters, the record's cap and sessions; and the one namespace
 of the port's kernels in ``csrc/``.  The tests marked ``cuda`` need a
 card and skip without one; this file imports no JAX.
 """
+import itertools
 import json
 import re
 from pathlib import Path
@@ -145,6 +146,55 @@ def test_every_few_calls_take_events(monkeypatch):
     split = snap["spans"]["fftw.convert.split"]
     assert split["count"] == 12 and split["timed"] == 2
     assert split["device_ms"] == 0.5
+
+
+def test_each_plan_samples_its_own_calls(cpu_plans, monkeypatch):
+    """An r2c plan and a c2r plan called in turn, as FFT filtering calls
+    them, each get every ``EVENT_EVERY``-th of their own calls timed, and
+    so both conversions take events (a count by call id would time one
+    plan alone).  The device is made to read as a card, so that the
+    sampling, not the device, decides."""
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: ("s", d))
+    monkeypatch.setattr(trace, "_cuda", lambda d: d is not None)
+    monkeypatch.setattr(trace, "EVENT_EVERY", 4)
+    r2c = ft.plan_many_dft_r2c([64], 2, device="cpu")
+    c2r = ft.plan_many_dft_c2r([64], 2, device="cpu")
+    x = torch.ones(2, 64)
+
+    def calls():
+        for _ in range(8):
+            c2r.execute(r2c.execute(x))
+    _traced(calls)
+    roots = [r for r in trace.records() if r.root]     # r2c, c2r, r2c, ...
+    timed = [k for r, k in zip(roots, ["r2c", "c2r"] * 8) if r.timed]
+    assert len(roots) == 16 and timed == ["r2c", "c2r"] * 2
+    snap = trace.snapshot(reset=True)
+    assert snap["calls"] == 16 and snap["timed_calls"] == 4
+    assert snap["spans"]["fftw.convert.combine"]["timed"] == 2
+    assert snap["spans"]["fftw.convert.split"]["timed"] == 2
+
+
+def test_one_plan_samples_as_by_call_id(cpu_plans, monkeypatch):
+    """A plan called alone in a process times the calls it timed when the
+    count was the call id: those whose id is a multiple of
+    ``EVENT_EVERY``."""
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: ("s", d))
+    monkeypatch.setattr(trace, "_cuda", lambda d: d is not None)
+    monkeypatch.setattr(trace, "EVENT_EVERY", 4)
+    monkeypatch.setattr(trace, "_calls", itertools.count(1))
+    plan = ft.plan_many_dft([64], 2, dtype="complex64", device="cpu")
+    x = _complex((2, 64))
+
+    def calls():
+        for _ in range(12):
+            plan.execute(x)
+    _traced(calls)
+    roots = [r for r in trace.records() if r.root]
+    assert [r.call for r in roots] == list(range(1, 13))
+    assert [r.call for r in roots if r.timed] == [
+        c for c in range(1, 13) if c % trace.EVENT_EVERY == 0]
 
 
 # -- on -----------------------------------------------------------------------
