@@ -67,7 +67,10 @@ and every kernel route's gradient against its opposite-sign launches.
 Phase 13 profiles the c2c paths with ``torch.profiler`` in a child process
 (``--profile-paths c2c``), phase 14 times each kernel, its twin and the one
 PyTorch call that computes the same function at its path's shape, and
-holds each against its twin there.  Phase 15 times the 3-D and 2-D batched
+holds each against its twin there; K3 at (512, 512, 512), (64, 512, 512),
+(256, 256, 1024) and (341, 384, 512) runs on its ring of tile copies and,
+from a misaligned copy of the input, in its in-order form: bit for bit the
+same, the ring no more than 3% slower.  Phase 15 times the 3-D and 2-D batched
 plans against the other routes the port could take for them: K2 on every
 non-last axis with K1 on the last (no fusion), and a ``movedim`` lift
 around K1 on every axis.  Phase 16 holds K4, K5 and K6 against their twins
@@ -140,7 +143,8 @@ the kernels of the paths (name, source, launches, error against the twin,
 times, bound; K1's, K1's wide, K2's and K3's rows time the form
 ``Plan.execute`` runs on complex64, named in ``layout``, with its
 launches counted in an ``execute`` call and the planar form's time in
-``planes_ms``; P1's launches are the probe's own; the measurement arms'
+``planes_ms``; K3's also its launches on the ring, ``ring_launches``, and
+its in-order form's time, ``in_order_ms``; P1's launches are the probe's own; the measurement arms'
 launches are their phase's, ``on_path`` false but for the ``pallas4``
 arms; phase 39's rows carry both batches' times and the marginal slope,
 then phase 40's race, then phase 41's K7 arms), then ``{"ok": true,
@@ -385,6 +389,7 @@ COUNTERS = {"stockham_c2c": (S, "launches"),
             "stockham_c2c_wide": (S, "wide_launches"),
             "inner_c2c": (inner, "launches"),
             "c2c_2d": (fused2d, "launches"),
+            "c2c_2d_ring": (fused2d, "ring_launches"),
             "r2c": (RS, "r2c_launches"),
             "r2c_inner": (RS, "r2c_inner_launches"),
             "c2r": (RS, "c2r_launches"),
@@ -467,6 +472,47 @@ def only(**launches):
 def time_ms(fn, args) -> float:
     """Median of 7 reps of 3 calls, CUDA events, in ms."""
     return timing.time_dispatched(fn, args, iters=3, reps=7) * 1e3
+
+
+def off_by_4(t: torch.Tensor) -> torch.Tensor:
+    """A copy of `t` in a view 4 bytes into its storage: not 16-byte
+    aligned, so K3 takes its in-order form."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    v = flat[1:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+#: how much slower than its in-order form K3's ring may be at a shape
+K3_RING_SLACK = 1.03
+
+
+def k3_forms(xr, xi, r1, r2, tab, shape):
+    """K3 writing complex64 on the ring (the aligned input) and in its
+    in-order form (a misaligned copy of it): bit for bit the same output,
+    one ring launch counted, and the ring's time (ms) within
+    K3_RING_SLACK of the in-order form's.  Returns both times."""
+    mr, mi = off_by_4(xr), off_by_4(xi)
+    ring0 = fused2d.ring_launches
+    a = fused2d.c2c_2d_cuda(xr, xi, r1, r2, tab, complex_out=True)
+    b = fused2d.c2c_2d_cuda(mr, mi, r1, r2, tab, complex_out=True)
+    torch.cuda.synchronize()
+    check(fused2d.ring_launches == ring0 + 1,
+          f"K3 at {shape}: the aligned input did not take the ring, or "
+          f"the misaligned one did")
+    check(torch.equal(a, b), f"K3 at {shape}: the ring's output differs "
+          f"from the in-order form's")
+    del a, b
+    ms = time_ms(lambda u, v: fused2d.c2c_2d_cuda(
+        u, v, r1, r2, tab, complex_out=True), (xr, xi))
+    in_order = time_ms(lambda u, v: fused2d.c2c_2d_cuda(
+        u, v, r1, r2, tab, complex_out=True), (mr, mi))
+    print(f"[14] c2c_2d {shape}: ring {ms:.3f} ms, in order {in_order:.3f} "
+          f"ms ({ms / in_order:.3f}x)")
+    check(ms <= K3_RING_SLACK * in_order,
+          f"K3 at {shape}: the ring ({ms:.3f} ms) is over "
+          f"{K3_RING_SLACK}x the in-order form ({in_order:.3f} ms)")
+    return ms, in_order
 
 
 def time_vs_oracle(fn, xr, xi, ref):
@@ -2505,12 +2551,14 @@ def functional_phase(rng, dev, smi_line):
     torch.cuda.empty_cache()
 
     x = torch.complex(*planes(rng, MANY_2D, dev))
-    surface_call(f"fft2 {MANY_2D}", ft.fft2, (x,), {"c2c_2d": 1},
+    surface_call(f"fft2 {MANY_2D}", ft.fft2, (x,),
+                 {"c2c_2d": 1, "c2c_2d_ring": 1},
                  torch.fft.fft2(x.to(c128)))
     del x
     x = torch.complex(*planes(rng, (CUBE,) * 3, dev))
     surface_call(f"fftn {(CUBE,) * 3}", ft.fftn, (x,),
-                 {"inner_c2c": 1, "c2c_2d": 1}, torch.fft.fftn(x.to(c128)))
+                 {"inner_c2c": 1, "c2c_2d": 1, "c2c_2d_ring": 1},
+                 torch.fft.fftn(x.to(c128)))
     del x
     torch.cuda.empty_cache()
     xr = real_rows(rng, REAL_2D, dev)
@@ -3065,7 +3113,7 @@ def main() -> None:
     torch.cuda.synchronize()
     counts3_split = read_counts()
     print(f"[9] launches, one apply_split call: {counts3_split}")
-    check(counts3_split == only(inner_c2c=1, c2c_2d=1),
+    check(counts3_split == only(inner_c2c=1, c2c_2d=1, c2c_2d_ring=1),
           "the 3-D split path is not one K2 and one K3 launch")
     check(bool(torch.isfinite(yr).all() and torch.isfinite(yi).all()),
           "non-finite 3-D output")
@@ -3084,7 +3132,7 @@ def main() -> None:
     torch.cuda.synchronize()
     counts3 = read_counts()
     print(f"[9] launches, one execute call: {counts3}")
-    check(counts3 == only(inner_c2c=1, c2c_2d=1),
+    check(counts3 == only(inner_c2c=1, c2c_2d=1, c2c_2d_ring=1),
           "the 3-D execute path is not one K2 and one K3 launch")
     e3x = relerr(yc, y)
     del yc, xc
@@ -3138,7 +3186,8 @@ def main() -> None:
     counts2 = read_counts()
     print(f"[10] launches, one call: apply_split {counts2_split}; execute "
           f"{counts2}")
-    check(counts2_split == only(c2c_2d=1) and counts2 == only(c2c_2d=1),
+    check(counts2_split == only(c2c_2d=1, c2c_2d_ring=1)
+          and counts2 == only(c2c_2d=1, c2c_2d_ring=1),
           "the 2-D batched path is not one K3 launch")
     check(torch.equal(yc, torch.complex(yr, yi)),
           "2-D execute differs from apply_split's planes")
@@ -3405,16 +3454,18 @@ def main() -> None:
               f"K3's complex64-out form differs from its planar form "
               f"at {shape}")
         del kr, ki, kc
+        ms, in_order_ms = k3_forms(xr, xi, rad, rad, tab, shape)
         xc = torch.complex(xr, xi)
+        counts = counts3 if shape[0] == CUBE else counts2
         rows14.append({
             "name": "c2c_2d", "route": "cuda",
             "source": "fftw3_tpu_torch/csrc/c2c_2d.cu",
             "replaces": "fftw3_tpu/ops/pallas_stockham.py:897",
             "layout": "complex64 out",
-            "launches": (counts3 if shape[0] == CUBE else counts2)["c2c_2d"],
+            "launches": counts["c2c_2d"],
+            "ring_launches": counts["c2c_2d_ring"],
             "max_abs_err": err, "rel_err": rel,
-            "ms": time_ms(lambda a, b: fused2d.c2c_2d_cuda(
-                a, b, rad, rad, tab, complex_out=True), (xr, xi)),
+            "ms": ms, "in_order_ms": in_order_ms,
             "planes_ms": time_ms(lambda a, b: fused2d.c2c_2d_cuda(
                 a, b, rad, rad, tab), (xr, xi)),
             "plain_ms": time_ms(lambda a, b: fused2d.c2c_2d_torch(
@@ -3437,16 +3488,16 @@ def main() -> None:
                    torch.complex(*fused2d.c2c_2d_torch(xr, xi, r1, r2, -1)))
         check(e <= TOL, f"c2c_2d {shape}: {e:.2e}")
         del kr, ki
+        ms, in_order_ms = k3_forms(xr, xi, r1, r2, tab, shape)
         xc = torch.complex(xr, xi)
-        ms = time_ms(lambda a, b: fused2d.c2c_2d_cuda(a, b, r1, r2, tab),
-                     (xr, xi))
         lib = time_ms(lambda z: torch.fft.fft2(z), (xc,))
         bms, by = bound(16.0 * math.prod(shape),
                         fft_flops(math.prod(shape), *shape[1:]))
         print(f"[14] c2c_2d {shape} (rows: {S.form_label(r2)}; columns: "
-              f"{S.form_label(r1)}): kernel {ms:.3f} ms, library {lib:.3f} "
-              f"ms, bound {bms:.3f} ms ({by}); kernel-twin {e:.2e} "
-              f"({smi_line})")
+              f"{S.form_label(r1)}): kernel {ms:.3f} ms on the ring, "
+              f"{in_order_ms:.3f} in order (complex64 out), library "
+              f"{lib:.3f} ms, bound {bms:.3f} ms ({by}); kernel-twin "
+              f"{e:.2e} ({smi_line})")
         del xr, xi, xc
         torch.cuda.empty_cache()
 
@@ -3494,6 +3545,9 @@ def main() -> None:
               f"{r['ms']:.3f} ms"
               + (f" ({r['layout']}; planes {r['planes_ms']:.3f} ms)"
                  if "layout" in r else "")
+              + (f" (in order {r['in_order_ms']:.3f} ms; "
+                 f"{r['ring_launches']} of {r['launches']} launches on "
+                 f"the ring)" if "in_order_ms" in r else "")
               + f", twin {r['plain_ms']:.3f} ms, library "
               f"{'none' if lib is None else f'{lib:.3f} ms'}, bound "
               f"{r['bound_ms']:.3f} ms ({r['bound_by']}); kernel-twin max "

@@ -7,42 +7,71 @@
 // Like it, it runs the n2 schedule along the rows and then the n1 schedule
 // along the columns, each stage as _stages computes it.  Unnormalized.
 //
-// What bounds it on an H100: one read and one write of the plane from HBM,
-// 16 bytes per point.  The TPU kernel holds a whole plane in VMEM.  A plane
-// here is up to 294,912 points (2.4 MB split), ten times a block's 227 KB
-// of shared memory, so one thread-block cluster owns a plane instead:
-//  1. Row pass: each block takes chunks of whole rows, runs the n2 schedule
-//     and writes the rows to the output tensor.  A first level of
-//     butterflies reads the rows from the input directly; a dense first
-//     stage reads them from shared memory, filled with 16-byte loads.
+// The bound on an H100: one read and one write of the plane from HBM, 16
+// bytes per point (0.641 ms at 512^3).  The TPU kernel holds a whole plane
+// in VMEM.  A plane here is up to 294,912 points (2.4 MB split), ten times a
+// block's 227 KB of shared memory, so one thread-block cluster owns a plane:
+//  1. Row pass: each block takes chunks of `rows` whole rows, runs the n2
+//     schedule and writes the rows to the output tensor.
 //  2. The cluster synchronises: __threadfence() and then cluster.sync(), so
 //     every row of the plane is in the output before any block reads it.
 //  3. Column pass: each block takes (n1, tc) tiles of tc whole columns from
-//     the output (16-byte __ldcg loads: the data was written by other SMs
-//     during this launch, and only L2 is coherent between them), runs the
-//     n1 schedule along axis -2 with one column's butterfly per thread
-//     (consecutive threads on consecutive columns) and writes the tile back
-//     in place.
+//     the output (the data was written by other SMs during this launch, and
+//     only L2 is coherent between them), runs the n1 schedule along axis -2
+//     with one column's butterfly per thread (consecutive threads on
+//     consecutive columns) and writes the tile back in place.
 // The stages are the register butterflies of stockham_bfly.cuh (a radix
 // with a prime factor of 7 or more keeps the dense sum); a butterfly level
-// runs in place, so a tile needs one buffer (two only with a dense stage):
-// at 8192 points and the tables about 90 KB.  A block of 512 threads holds
-// 16 points a thread in a level and takes up to 128 registers, so one block
+// runs in place, so a tile needs one buffer (two with a dense stage): at
+// 8192 points and the tables about 90 KB.  A block of 512 threads holds 16
+// points a thread in a level and takes up to 128 registers, so one block
 // runs per SM.  A cluster is 8 blocks, the portable size (16, and the plane
 // held in the distributed shared memory of a 16-block cluster, were slower:
-// PERF.md): about 132/8 planes are in flight, and they must stay in the
-// 50 MB L2 between the two passes for HBM to see one read and one write per
+// PERF.md): about 132/8 planes are in flight, and they must stay in the 50
+// MB L2 between the two passes for HBM to see one read and one write per
 // point.
+//
+// Two forms walk the tiles, chosen by the host (fused2d.ring_fits) and bit
+// for bit the same:
+//  - The ring (ring_walk), wherever no stage is dense, n2 and tc are
+//    multiples of 4 and the tensors 16-byte aligned: a block walks its tiles
+//    in one sequence, rows of plane p, the barrier, columns of plane p, rows
+//    of plane p + 1, ..., through two tile buffers.  Before the levels of a
+//    tile the copy of the next starts into the other buffer: a row chunk
+//    by thread 0 as two bulk copies (cp.async.bulk, whole rows are
+//    contiguous) that complete an mbarrier, a column tile by every thread
+//    as 16-byte cp.async pieces from L2 in one commit group.  Two working
+//    buffers, and not a staging buffer unpacked into one: the first level
+//    reads the tile where it landed (a row chunk at the input's stride n2,
+//    an interleaved column tile as float2) and writes its own layout in
+//    place, so no pass and no sync is added; the price is the second
+//    padded buffer, 170,752 bytes at 512 x 512 against 89,856.  Only the
+//    first column tile of a plane waits, behind the cluster barrier.
+//  - In order (the rest, e.g. under a dense stage, whose second buffer the
+//    ring would need): copy in, sync, levels, next tile.  A first butterfly
+//    level reads the rows from the input directly, a dense one from shared
+//    memory filled with 16-byte loads; the column tiles are loaded with
+//    16-byte __ldcg loads.
+// What bounds K3 now, at 512^3 on an H100 (PERF.md): the levels.  Writing
+// complex64, the ring takes 3.43-3.47 ms against 4.10-4.19 in order; with
+// the levels taken out, the ring moves the same bytes (same copies, the
+// plain stores, the cluster barriers) in 1.46 ms.  ptxas: every form 128
+// registers; spill stores 4520 / 4508 bytes in order (planes / complex64
+// out), 4428 / 7392 on the ring (the complex64 column pass instantiates the
+// interleaved first level too), stack 560-592 bytes.  The ring's larger
+// shared memory leaves L1 60 KB of the SM's 256 where the in-order form
+// leaves 156: the in-order form given the ring's shared memory ran 3.8-5.3%
+// slower.
 //
 // An interleaved complex64 output (kLayout kOutC, the same kernel): yr is
 // the caller's complex output, each point a float2 (re, im), and yi is
 // unused; the input stays in planes.  The row pass stores a float2 a point,
-// the column pass loads its tiles from that output with __ldcg (two points
-// a 16-byte load, four loads in flight, when tc and n2 are even and the
-// output 16-byte aligned, else 8-byte) and stores them back in place in the
-// same layout.  A plane is the same 2 MiB, so the L2 argument above holds
-// unchanged.  A multi-axis plan's last pass writes the caller's output so,
-// and no conversion pass runs after it.
+// the column pass loads its tiles from that output (in order with __ldcg:
+// two points a 16-byte load, four loads in flight, when tc and n2 are even
+// and the output 16-byte aligned, else 8-byte) and stores them back in
+// place in the same layout.  A plane is the same 2 MiB, so the L2 argument
+// above holds unchanged.  A multi-axis plan's last pass writes the caller's
+// output so, and no conversion pass runs after it.
 
 #include <cooperative_groups.h>
 
@@ -152,7 +181,7 @@ __device__ __forceinline__ void load_cols_c(const float2* yc, int n1, int n2,
   }
 }
 
-__device__ __forceinline__ bool aligned16(const void* p) {
+__host__ __device__ inline bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
@@ -162,17 +191,219 @@ __host__ __device__ inline int buffer_plane(const LevelPlan& p2,
   return ((a > b ? a : b) + 3) & ~3;
 }
 
+// The tables, then one buffer of two planes, or two: with a dense stage, and
+// on the ring.
 __host__ __device__ inline int smem_bytes(const LevelPlan& p2,
-                                          const LevelPlan& p1, int rows) {
-  const int nbuf = p2.nbuf > p1.nbuf ? p2.nbuf : p1.nbuf;
+                                          const LevelPlan& p1, int rows,
+                                          bool ring) {
+  const int nbuf = ring || p2.nbuf > 1 || p1.nbuf > 1 ? 2 : 1;
   return static_cast<int>(sizeof(float)) *
          (((p2.tab_len + p1.tab_len + 3) & ~3) +
           2 * nbuf * buffer_plane(p2, p1, rows));
 }
 
+// The ring's copies.
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Thread 0 copies `count` floats of each input plane from element `base`
+// into (dr, di): two bulk copies by the copy engine, which complete the
+// transaction count of `bar`.  The threads' last reads and writes of the
+// buffer were ordered before this by a block barrier; the proxy fence
+// orders them before the copy engine's writes.
+__device__ __forceinline__ void copy_rows(const float* xr, const float* xi,
+                                          int64_t base, int count, float* dr,
+                                          float* di, uint64_t* bar) {
+  if (threadIdx.x != 0) return;
+  const uint32_t bytes = static_cast<uint32_t>(count) * sizeof(float);
+  const uint32_t b = smem_u32(bar);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               ::"r"(b), "r"(2 * bytes) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dr)), "l"(xr + base),
+      "r"(bytes), "r"(b) : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(di)), "l"(xi + base),
+      "r"(bytes), "r"(b) : "memory");
+}
+
+// Every thread waits for the phase of `bar` of parity `parity` to complete:
+// the row chunk has landed, and its bytes are visible.
+__device__ __forceinline__ void wait_rows(uint64_t* bar, unsigned parity) {
+  const uint32_t b = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done) : "r"(b), "r"(parity) : "memory");
+}
+
+// 16 bytes from global memory into shared memory, L2 only; the bytes past
+// `bytes` (0 or 16) are zero.
+__device__ __forceinline__ void cp_async16(float* dst, const void* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               ::"r"(smem_u32(dst)), "l"(src), "r"(bytes) : "memory");
+}
+
+// Every thread copies its 16-byte pieces of the (n1, tc) tile of columns
+// c0 .. c0 + width of the output (element `base` = (plane, 0, c0), rows n2
+// apart), the columns from width on zero, in one commit group: with kCout
+// the interleaved points into dr, point (i, c) the float2 at i * tc + c;
+// else yr's into dr and yi's into di at i * tc + c.  The block's threads
+// last read and wrote the buffer before a block barrier: the proxy fence
+// orders that before the copies (the tile's own stores by other SMs are
+// ordered once a plane, after the cluster barrier).
+template <bool kCout>
+__device__ __forceinline__ void copy_cols(const float* yr, const float* yi,
+                                          int64_t base, int n1, int n2, int tc,
+                                          int width, float* dr, float* di) {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  constexpr int kPer = kCout ? 2 : 4;  // points a piece
+  const int tp = tc / kPer;
+  const int sh = __ffs(tp) - 1;
+  for (int e = threadIdx.x; e < n1 * tp; e += blockDim.x) {
+    const int c = (e & (tp - 1)) * kPer;
+    const int bytes = c < width ? 16 : 0;
+    const int64_t off =
+        bytes ? base + static_cast<int64_t>(e >> sh) * n2 + c : base;
+    if constexpr (kCout) {
+      cp_async16(dr + 4 * e, reinterpret_cast<const float2*>(yr) + off,
+                 bytes);
+    } else {
+      cp_async16(dr + 4 * e, yr + off, bytes);
+      cp_async16(di + 4 * e, yi + off, bytes);
+    }
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+// Every thread waits for its copies of the column tile, with `newer` (the
+// next column tile's group committed after it) left in flight, and then for
+// the block's: the tile is visible.
+__device__ __forceinline__ void wait_cols(bool newer) {
+  if (newer)
+    asm volatile("cp.async.wait_group 1;" ::: "memory");
+  else
+    asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncthreads();
+}
+
+// The ring: the block's tiles in one sequence (the row chunks of a plane,
+// the cluster barrier, the column tiles of the plane, the row chunks of the
+// next plane, ...) through two buffers, (buf, + plane) and (buf + 2 plane,
+// + 3 plane).  Before the levels of a tile the copy of the next one
+// starts into the other buffer, except across the cluster barrier: the
+// first column tile of a plane is read only after every row is written.
+// A tile is computed where it lands: the first level reads the row chunk
+// at the input's stride n2, or the interleaved column tile as float2, and
+// writes its own layout in place (every thread has read its points before
+// any writes).
+template <int kLayout>
+__device__ __forceinline__ void ring_walk(
+    const float* xr, const float* xi, float* yr, float* yi,
+    const LevelPlan& plan2, const Level* lev2, const float* tb2,
+    const LevelPlan& plan1, const Level* lev1, const float* tb1, int pre,
+    int n1, int n2, int rows, int tc, float* buf, int plane,
+    cg::cluster_group& cluster, int csize, int rank) {
+  constexpr bool kCout = kLayout == kOutC;
+  __shared__ uint64_t bar[2];  // a buffer's: its row chunk has landed
+  if (threadIdx.x == 0) {
+    for (int b = 0; b < 2; ++b)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   ::"r"(smem_u32(bar + b)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();  // the barriers, levels and tables are ready
+  const int64_t npts = static_cast<int64_t>(n1) * n2;
+  const int pstep = gridDim.x / csize;
+  const int rstep = csize * rows, cstep = csize * tc;
+  const int r_first = rank * rows, c_first = rank * tc;
+  int fill = 0, use = 0;  // the buffer of the next copy, of the next tile
+  unsigned parity = 0;    // bit b: the phase of bar[b] waited for next
+  auto copy_rows_of = [&](int64_t p, int r0) {
+    float* d = buf + 2 * fill * plane;
+    copy_rows(xr, xi, p * npts + static_cast<int64_t>(r0) * n2,
+              min(rows, n1 - r0) * n2, d, d + plane, bar + fill);
+    fill ^= 1;
+  };
+  auto copy_cols_of = [&](int64_t p, int c0) {
+    float* d = buf + 2 * fill * plane;
+    copy_cols<kCout>(yr, yi, p * npts + c0, n1, n2, tc, min(tc, n2 - c0), d,
+                     d + plane);
+    fill ^= 1;
+  };
+  int64_t p = blockIdx.x / csize;
+  if (p < pre && r_first < n1) copy_rows_of(p, r_first);
+  for (; p < pre; p += pstep) {
+    const int64_t poff = p * npts;
+    // the next plane has a row chunk for this block
+    const bool more = p + pstep < pre && r_first < n1;
+    // 1. rows
+    for (int r0 = r_first; r0 < n1; r0 += rstep) {
+      const int nr = min(rows, n1 - r0);
+      const int64_t base = poff + static_cast<int64_t>(r0) * n2;
+      __syncthreads();  // the buffer of the tile before is free
+      if (r0 + rstep < n1) copy_rows_of(p, r0 + rstep);
+      wait_rows(bar + use, (parity >> use) & 1);
+      parity ^= 1u << use;
+      float* ar = buf + 2 * use * plane;
+      float* ai = ar + plane;
+      use ^= 1;
+      if constexpr (kCout)
+        run_levels<kPts, Arm::kFull>(plan2, lev2, tb2, ar, ai, nullptr,
+                                     nullptr, n2, 1, nr, yr, yi,
+                                     RowsMapC{{base, n2}}, ar, ai, n2);
+      else
+        run_levels<kPts, Arm::kFull>(plan2, lev2, tb2, ar, ai, nullptr,
+                                     nullptr, n2, 1, nr, yr, yi,
+                                     RowsMap{base, n2}, ar, ai, n2);
+    }
+    // 2. every row of the plane is written before any column is read, and
+    //    the copies see the other SMs' generic stores
+    __threadfence();
+    cluster.sync();
+    asm volatile("fence.proxy.async.global;" ::: "memory");
+    if (c_first < n2)
+      copy_cols_of(p, c_first);
+    else if (more)
+      copy_rows_of(p + pstep, r_first);
+    // 3. columns, in place
+    for (int c0 = c_first; c0 < n2; c0 += cstep) {
+      const int width = min(tc, n2 - c0);
+      const int64_t base = poff + c0;
+      const bool newer = c0 + cstep < n2;
+      __syncthreads();  // the buffer of the tile before is free
+      if (newer)
+        copy_cols_of(p, c0 + cstep);
+      else if (more)
+        copy_rows_of(p + pstep, r_first);
+      wait_cols(newer);
+      float* ar = buf + 2 * use * plane;
+      float* ai = ar + plane;
+      use ^= 1;
+      if constexpr (kCout)
+        run_levels<kPts, Arm::kFull, true>(
+            plan1, lev1, tb1, ar, ai, nullptr, nullptr, n1, tc, 1, yr, yi,
+            ColsMapC{{base, n2, width}}, ar, nullptr, 0, tc);
+      else
+        run_levels<kPts, Arm::kFull>(plan1, lev1, tb1, ar, ai, nullptr,
+                                     nullptr, n1, tc, 1, yr, yi,
+                                     ColsMap{base, n2, width});
+    }
+  }
+}
+
 // yr, yi are written by the row pass and read back by other blocks of the
 // cluster in the column pass: no __restrict__ and no read-only loads on them.
-template <int kLayout>
+// kRing: the ring's walk (ring_walk), else every tile in turn.
+template <int kLayout, bool kRing>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     c2c_2d_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                   float* yr, float* yi, const float* __restrict__ tab,
@@ -197,6 +428,12 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   stage_levels(plan1, lev1);
   const int tab_len = plan2.tab_len + plan1.tab_len;
   for (int i = threadIdx.x; i < tab_len; i += blockDim.x) tb2[i] = tab[i];
+  if constexpr (kRing) {
+    ring_walk<kLayout>(xr, xi, yr, yi, plan2, lev2, tb2, plan1, lev1, tb1,
+                       pre, n1, n2, rows, tc, ar, plane, cluster, csize,
+                       rank);
+    return;
+  }
   const bool vrow = aligned16(xr) && aligned16(xi) && n2 % 4 == 0 &&
                     plan2.rs % 4 == 0 &&
                     (kCout || (aligned16(yr) && aligned16(yi)));
@@ -322,20 +559,31 @@ using namespace fftw3_tpu_torch;
 
 // Both entry points act on the caller's current device; the caller sets it.
 
-// Allow the kernel kMaxSmem bytes of dynamic shared memory on the current
-// device and report how many clusters of kCluster blocks of `smem` bytes the
-// whole card runs at once.  Returns the CUDA error code, 0 on success.
-extern "C" int c2c_2d_occupancy(int smem, int* clusters) {
+// The kernel of a layout and form.
+static decltype(&c2c_2d_kernel<0, false>) kernel_of(int layout, int ring) {
+  if (layout == kOutC)
+    return ring ? c2c_2d_kernel<kOutC, true> : c2c_2d_kernel<kOutC, false>;
+  return ring ? c2c_2d_kernel<0, true> : c2c_2d_kernel<0, false>;
+}
+
+// Allow every form kMaxSmem bytes of dynamic shared memory on the current
+// device and report how many clusters of kCluster blocks of `smem` bytes of
+// the form `ring` the whole card runs at once.  Returns the CUDA error
+// code, 0 on success.
+extern "C" int c2c_2d_occupancy(int smem, int ring, int* clusters) {
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  for (auto fn : {c2c_2d_kernel<0>, c2c_2d_kernel<kOutC>}) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  for (int layout : {0, kOutC})
+    for (int r : {0, 1}) {
+      const cudaError_t err =
+          cudaFuncSetAttribute(kernel_of(layout, r),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxSmem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+    }
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = make_config(kCluster, smem, nullptr, &attr);
   return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(clusters, c2c_2d_kernel<0>, &cfg));
+      cudaOccupancyMaxActiveClusters(clusters, kernel_of(0, ring), &cfg));
 }
 
 // Launch `grid` blocks (a multiple of kCluster) in clusters of kCluster on
@@ -346,24 +594,30 @@ extern "C" int c2c_2d_occupancy(int smem, int* clusters) {
 // power of two, tab holding the n2 table (plan2's tab_len floats) and then
 // the n1 table, smem as smem_bytes computes it, allowed by
 // c2c_2d_occupancy.  `layout` is 0 (split planes) or kOutC (yr an
-// interleaved complex output, yi unused).
+// interleaved complex output, yi unused).  `ring` 1 takes the ring, which
+// needs plans with no dense stage, n2 and tc multiples of 4 and 16-byte
+// aligned tensors (fused2d.ring_fits); it is refused otherwise.
 extern "C" int c2c_2d_launch(const float* xr, const float* xi, float* yr,
                              float* yi, const float* tab, const int* plan2,
                              const int* plan1, int pre, int n1, int n2,
-                             int rows, int tc, int layout, int grid, int smem,
-                             void* stream) {
+                             int rows, int tc, int layout, int ring, int grid,
+                             int smem, void* stream) {
   LevelPlan p2, p1;
   if (!read_plan(plan2, 1, &p2) || !read_plan(plan1, tc, &p1) ||
       rows * n2 > kTilePoints || n1 * tc > kTilePoints || grid % kCluster ||
-      smem != smem_bytes(p2, p1, rows) || (tc & (tc - 1)) ||
-      (layout != 0 && layout != kOutC))
+      smem != smem_bytes(p2, p1, rows, ring) || (tc & (tc - 1)) ||
+      (layout != 0 && layout != kOutC) || (ring != 0 && ring != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (ring && (p2.nbuf != 1 || p1.nbuf != 1 || n2 % 4 || tc % 4 ||
+               !aligned16(xr) || !aligned16(xi) || !aligned16(yr) ||
+               (layout != kOutC && !aligned16(yi))))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg =
       make_config(grid, smem, static_cast<cudaStream_t>(stream), &attr);
-  cudaError_t err = cudaLaunchKernelEx(
-      &cfg, layout == kOutC ? c2c_2d_kernel<kOutC> : c2c_2d_kernel<0>, xr, xi,
-      yr, yi, tab, p2, p1, pre, n1, n2, rows, tc);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel_of(layout, ring), xr, xi,
+                                       yr, yi, tab, p2, p1, pre, n1, n2, rows,
+                                       tc);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,7 +17,12 @@ descriptors are ``pallas``.
   dense sum otherwise; ``stockham.level_plan`` with tl = 1 for the rows and
   tl = tc for the columns).  It also writes one interleaved complex64
   output in place of the two output planes (the last pass of a multi-axis
-  plan's complex entry); its input stays in planes.
+  plan's complex entry); its input stays in planes.  Where it fits
+  (:func:`ring_fits`: no dense stage, 16-byte pieces and alignment, two
+  tile buffers within its shared memory) a block walks its tiles on a
+  ring of two buffers, the next tile copied in while the levels run on
+  the current one; elsewhere every tile in turn.  Both forms give the
+  same output bit for bit.
 
 The reference's ``tile_b``/``tile_g`` plane grouping is TPU tuning and is
 ignored; so is its ``_inner_radices`` cap.  The kernel runs the
@@ -43,8 +48,14 @@ TILE_POINTS = 8192
 #: (``kCluster`` in csrc/c2c_2d.cu)
 CLUSTER = 8
 
-#: launches of the CUDA kernel, counted by :func:`c2c_2d_cuda`
+#: dynamic shared memory the kernel is allowed (``kMaxSmem`` in
+#: csrc/c2c_2d.cu)
+MAX_SMEM = 180224
+
+#: launches of the CUDA kernel, counted by :func:`c2c_2d_cuda`, and those of
+#: them that took the ring
 launches = 0
+ring_launches = 0
 
 
 def tiles(n1: int, n2: int) -> Tuple[int, int]:
@@ -76,28 +87,45 @@ def _device_table_2d(n1: int, rad1: Tuple[int, ...], n2: int,
         S._kernel_table(n1, rad1, sign)])).to(device)
 
 
-def smem_2d(plan2: Sequence[int], plan1: Sequence[int], rows: int) -> int:
+def smem_2d(plan2: Sequence[int], plan1: Sequence[int], rows: int,
+            ring: bool = False) -> int:
     """Shared-memory bytes of K3 (``smem_bytes`` in csrc/c2c_2d.cu): both
-    root tables, then one buffer (two with a dense stage) of two planes
-    that hold a row chunk at the row plan's stride or a column tile."""
+    root tables, then one buffer (two with a dense stage, and on the ring)
+    of two planes that hold a row chunk at the row plan's stride or a
+    column tile."""
     plane = -(-max(rows * plan2[2], plan1[2]) // 4) * 4
     tabs = -(-(plan2[3] + plan1[3]) // 4) * 4
-    return 4 * (tabs + 2 * max(plan2[1], plan1[1]) * plane)
+    nbuf = 2 if ring else max(plan2[1], plan1[1])
+    return 4 * (tabs + 2 * nbuf * plane)
 
 
-#: (device index, shared-memory bytes) -> clusters resident on the card
-_clusters: Dict[Tuple[int, int], int] = {}
+def ring_fits(plan2: Sequence[int], plan1: Sequence[int], rows: int,
+              n2: int, tc: int, pointers: Sequence[int]) -> bool:
+    """Does K3 walk its tiles on the ring?  Its second buffer is the ring's,
+    so neither plan may have a dense stage; a row chunk is copied in whole
+    16-byte pieces (n2 a multiple of 4) and a column tile too (tc one), from
+    and to tensors whose addresses, `pointers`, are 16-byte aligned; both
+    buffers and the tables fit ``MAX_SMEM``."""
+    return (plan2[1] == 1 and plan1[1] == 1 and n2 % 4 == 0 and tc % 4 == 0
+            and all(p % 16 == 0 for p in pointers)
+            and smem_2d(plan2, plan1, rows, ring=True) <= MAX_SMEM)
 
 
-def _resident_clusters(lib, device: torch.device, smem: int) -> int:
-    """How many clusters of CLUSTER blocks of `smem` bytes the card runs at
-    once; the first call per key also allows the kernel its shared memory.
-    The caller has made `device` current."""
-    key = (device.index, smem)
+#: (device index, shared-memory bytes, ring) -> clusters resident on the
+#: card
+_clusters: Dict[Tuple[int, int, bool], int] = {}
+
+
+def _resident_clusters(lib, device: torch.device, smem: int,
+                       ring: bool) -> int:
+    """How many clusters of CLUSTER blocks of `smem` bytes of the form
+    `ring` the card runs at once; the first call per key also allows the
+    kernel its shared memory.  The caller has made `device` current."""
+    key = (device.index, smem, ring)
     got = _clusters.get(key)
     if got is None:
         n = ctypes.c_int(0)
-        rc = lib.c2c_2d_occupancy(smem, ctypes.byref(n))
+        rc = lib.c2c_2d_occupancy(smem, int(ring), ctypes.byref(n))
         if rc != 0 or n.value < 1:
             raise RuntimeError(f"c2c_2d occupancy query failed: CUDA error "
                                f"{rc}, {n.value} clusters of {CLUSTER} "
@@ -114,7 +142,7 @@ def c2c_2d_cuda(xr: torch.Tensor, xi: torch.Tensor, rad1: Sequence[int],
     device)``.  Returns new (yr, yi), or with `complex_out` one new
     complex64 tensor written interleaved; raises on anything the kernel
     does not take, and when the launch fails."""
-    global launches
+    global launches, ring_launches
     if xi is None:
         raise ValueError("c2c_2d_cuda takes split input planes")
     S.check_planes("c2c_2d_cuda", xr, xi, table, 3)
@@ -136,21 +164,29 @@ def c2c_2d_cuda(xr: torch.Tensor, xi: torch.Tensor, rad1: Sequence[int],
     rows, tc = tiles(n1, n2)
     plan2 = S.level_plan(n2, tuple(rad2), 1)
     plan1 = S.level_plan(n1, tuple(rad1), tc)
-    smem = smem_2d(plan2, plan1, rows)
+    ptrs = (xr.data_ptr(), xi.data_ptr(), *S.pointers(*y))
+    ring = ring_fits(plan2, plan1, rows, n2, tc,
+                     [p for p in ptrs if p is not None])
+    smem = smem_2d(plan2, plan1, rows, ring)
     from . import _build
     lib = _build.library()
     with trace.span("fftw.launch.c2c_2d"), S.device_guard(xr.device):
-        grid = CLUSTER * min(pre, _resident_clusters(lib, xr.device, smem))
+        grid = CLUSTER * min(pre, _resident_clusters(lib, xr.device, smem,
+                                                     ring))
         stream = torch.cuda.current_stream(xr.device).cuda_stream
         rc = lib.c2c_2d_launch(
-            xr.data_ptr(), xi.data_ptr(), *S.pointers(*y), table.data_ptr(),
-            S.plan_array(plan2), S.plan_array(plan1), pre, n1, n2, rows, tc,
-            S.layout_of(xi, complex_out), grid, smem, stream)
+            *ptrs, table.data_ptr(), S.plan_array(plan2),
+            S.plan_array(plan1), pre, n1, n2, rows, tc,
+            S.layout_of(xi, complex_out), int(ring), grid, smem, stream)
     if rc != 0:
         raise RuntimeError(f"c2c_2d kernel launch failed: CUDA error {rc} "
                            f"(pre={pre}, n1={n1}, n2={n2}, radices {rad1}, "
-                           f"{rad2}, complex out {complex_out})")
+                           f"{rad2}, complex out {complex_out}, ring "
+                           f"{ring})")
     launches += 1
+    if ring:
+        ring_launches += 1
+        trace.mark("k3.ring")
     return y[0] if complex_out else y
 
 

@@ -13,7 +13,10 @@ power limit.  Exits non-zero when a child fails or torch sees no card.
 
 The kernels, through wrappers every tree since the double-precision
 slice has: K1 at (65536, 1024) [64, 16]; K2 at (1, 512, 262144) and on
-the (8, 2048, 1025) half-spectrum planes; K4 at (65536, 1024) and
+the (8, 2048, 1025) half-spectrum planes; K3 at (512, 512, 512), (64,
+512, 512), (256, 256, 1024) and (341, 384, 512), writing complex64 (the
+form ``Plan.execute`` runs, in every tree since the edge kernels) and
+planes; K4 at (65536, 1024) and
 (16384, 2048); K5 at (8, 2048, 2048); K6 at (65536, 1024) and (16384,
 2048) on their default schedules and at (65536, 512) on [256], the
 DCT-III's child (``c2r_cuda`` has had the same signature since the real
@@ -30,7 +33,8 @@ import sys
 
 CHILD = r"""
 import json, numpy as np, torch
-from fftw3_tpu_torch.ops import df32, inner, stockham as S, real_stockham as RS
+from fftw3_tpu_torch.ops import df32, fused2d, inner, stockham as S
+from fftw3_tpu_torch.ops import real_stockham as RS
 from fftw3_tpu_torch.utils import timing
 dev = torch.device("cuda")
 rng = np.random.default_rng(0)
@@ -51,6 +55,18 @@ for shape in ((1, 512, 262144), (8, 2048, 1025)):
     t = S._device_table(shape[1], tuple(rad), -1, dev)
     out[f"K2 {shape}"] = ms(
         lambda a, b: inner.inner_c2c_cuda(a, b, rad, t), (xr, xi))
+    del xr, xi
+for shape in ((512, 512, 512), (64, 512, 512), (256, 256, 1024),
+              (341, 384, 512)):
+    xr, xi = planes(shape)
+    r1, r2 = S.choose_radices(shape[1]), S.choose_radices(shape[2])
+    t = fused2d._device_table_2d(shape[1], tuple(r1), shape[2], tuple(r2),
+                                 -1, dev)
+    out[f"K3 {shape} complex64 out"] = ms(
+        lambda a, b: fused2d.c2c_2d_cuda(a, b, r1, r2, t, complex_out=True),
+        (xr, xi))
+    out[f"K3 {shape}"] = ms(
+        lambda a, b: fused2d.c2c_2d_cuda(a, b, r1, r2, t), (xr, xi))
     del xr, xi
 for shape in ((65536, 1024), (16384, 2048)):
     x = planes(shape)[0]

@@ -30,8 +30,10 @@ profiler runs, a span
 
 A complex entry whose first pass reads the caller's tensor itself, or
 whose last pass writes the complex output itself (no conversion there),
-marks its call so (:func:`edges`, the counts ``edge.in`` and ``edge.out``
-of :func:`snapshot`); off, the mark does nothing.
+marks its call so (:func:`edges`: ``edge.in``, ``edge.out``), and a call
+whose K3 launch took the ring of tile copies marks it ``k3.ring``
+(:func:`mark`); :func:`snapshot` counts the calls of each mark.  Off, a
+mark does nothing.
 
 The record keeps the latest :data:`CAP` spans, the older ones counted as
 dropped, and belongs to one profiler session: a call of the port while the
@@ -64,6 +66,8 @@ _range = getattr(torch._C._profiler, "_RecordFunctionFast",
 CAP = 1 << 16
 #: every this many calls of a plan on a CUDA device take CUDA events
 EVENT_EVERY = 8
+#: the marks a call may carry (:func:`mark`), counted by :func:`snapshot`
+MARKS = ("edge.in", "edge.out", "k3.ring")
 
 
 class _Off:
@@ -100,7 +104,7 @@ class Record:
     outside any), `parent` the record of the span it opened in (None for
     the outermost), `timed` whether its call takes CUDA events.  `events`
     are its pair until :func:`snapshot` resolves them into `device_ms`.
-    A root's `edges` are its call's marks (:func:`edges`)."""
+    A root's `marks` are its call's (:func:`mark`)."""
     name: str
     call: Optional[int]
     parent: Optional["Record"]
@@ -109,7 +113,7 @@ class Record:
     end_ns: Optional[int] = None
     events: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]] = None
     device_ms: Optional[float] = None
-    edges: Tuple[str, ...] = ()
+    marks: Tuple[str, ...] = ()
 
     @property
     def root(self) -> bool:
@@ -199,16 +203,25 @@ def call(name: str, device: Optional[torch.device] = None, plan=None):
     return _Span(name, True, device, plan)
 
 
-def edges(read: bool, wrote: bool) -> None:
-    """Mark the open call, while the profiler runs: `read`, its first pass
-    read the caller's complex tensor itself (``edge.in``); `wrote`, its
-    last pass wrote the complex output itself (``edge.out``).  Off, or
-    outside a call, it does nothing: no lock, no record."""
-    if not _profiler._is_profiler_enabled or not (read or wrote):
+def mark(name: str) -> None:
+    """Mark the open call with `name`, one of :data:`MARKS`, once, while
+    the profiler runs.  Off, or outside a call, it does nothing: no lock,
+    no record."""
+    if not _profiler._is_profiler_enabled:
         return
     stack = getattr(_local, "stack", None)
-    if stack and stack[0].rec.root:
-        stack[0].rec.edges = ("edge.in",) * read + ("edge.out",) * wrote
+    if stack and stack[0].rec.root and name not in stack[0].rec.marks:
+        stack[0].rec.marks += (name,)
+
+
+def edges(read: bool, wrote: bool) -> None:
+    """Mark the open call: `read`, its first pass read the caller's complex
+    tensor itself (``edge.in``); `wrote`, its last pass wrote the complex
+    output itself (``edge.out``)."""
+    if read:
+        mark("edge.in")
+    if wrote:
+        mark("edge.out")
 
 
 def add(counter: str, seconds: float) -> None:
@@ -248,14 +261,14 @@ def counters() -> Dict[str, float]:
 def snapshot(reset: bool = False,
              within: Optional[Tuple[int, int]] = None) -> dict:
     """The record summed by span name: ``{"spans": {name: {"count",
-    "host_ms", "timed", "device_ms"}}, "calls", "timed_calls", "edges",
+    "host_ms", "timed", "device_ms"}}, "calls", "timed_calls", "marks",
     "dropped", "counters"}``.
 
     ``host_ms`` is the total over the name's spans, ``device_ms`` the total
     over the ``timed`` of them that took CUDA events (None where none
     did).  ``calls`` counts root spans, ``timed_calls`` the timed ones: a
     per-call device time is a ``device_ms`` over ``timed_calls``.
-    ``edges`` counts the calls marked ``edge.in`` and ``edge.out``.  Only
+    ``marks`` counts the calls of each of :data:`MARKS`.  Only
     closed spans count, and with `within` = (start ns, end ns) on the
     profiler's clock only those inside it.  Waits for the device to pass
     each span's end event, then keeps its time and drops the events.
@@ -264,7 +277,7 @@ def snapshot(reset: bool = False,
     lo, hi = within if within is not None else (None, None)
     spans: Dict[str, dict] = {}
     calls = timed_calls = 0
-    marks = {"edge.in": 0, "edge.out": 0}
+    marks = dict.fromkeys(MARKS, 0)
     for rec in recs:
         if rec.end_ns is None or (within is not None and not (
                 lo <= rec.start_ns and rec.end_ns <= hi)):
@@ -275,8 +288,8 @@ def snapshot(reset: bool = False,
         s["host_ms"] += (rec.end_ns - rec.start_ns) * 1e-6
         calls += rec.root
         timed_calls += rec.root and rec.timed
-        for mark in rec.edges:
-            marks[mark] += 1
+        for name in rec.marks:
+            marks[name] += 1
         if rec.events is not None:
             start, end = rec.events
             end.synchronize()
@@ -285,4 +298,4 @@ def snapshot(reset: bool = False,
             s["timed"] += 1
             s["device_ms"] = (s["device_ms"] or 0.0) + rec.device_ms
     return {"spans": spans, "calls": calls, "timed_calls": timed_calls,
-            "edges": marks, "dropped": dropped, "counters": counters()}
+            "marks": marks, "dropped": dropped, "counters": counters()}

@@ -7,6 +7,9 @@ Errors are max-abs error over max-abs: 2e-5 between the packages, 1e-5 for
 each against numpy in float64.  The kernel runs only on a card: the tests
 that launch it are marked ``cuda``.
 """
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -120,6 +123,72 @@ def test_tiles(n1, n2, rows, tc):
     assert n1 * tc <= fused2d.TILE_POINTS
 
 
+#: the dynamic shared memory a block may opt in to on an H100 (232,448 B),
+#: less K3's static shared memory: 16 levels of 64 B and two mbarriers
+OPT_IN_CAP = 232448 - 16 * 64 - 2 * 8
+#: 16-byte aligned addresses of K3's four tensors, and the same with the
+#: first input plane 4 bytes off
+ALIGNED = (1 << 20, 3 << 20, 5 << 20, 7 << 20)
+MISALIGNED = (ALIGNED[0] + 4,) + ALIGNED[1:]
+
+
+@pytest.mark.parametrize("n1,n2,pointers,ring", [
+    # test_tiles' shapes: every one takes the ring
+    (512, 512, ALIGNED, True), (384, 768, ALIGNED, True),
+    (128, 2048, ALIGNED, True), (2048, 128, ALIGNED, True),
+    (256, 1024, ALIGNED, True),
+    # 896 = [56, 16]: a dense stage, which needs the second buffer
+    (896, 128, ALIGNED, False),
+    # tiles of 2 columns: no whole 16-byte pieces
+    (2304, 128, ALIGNED, False),
+    (512, 512, MISALIGNED, False)])
+def test_ring_form_and_its_shared_memory(n1, n2, pointers, ring):
+    r1, r2 = S.choose_radices(n1), S.choose_radices(n2)
+    rows, tc = fused2d.tiles(n1, n2)
+    p2 = S.level_plan(n2, tuple(r2), 1)
+    p1 = S.level_plan(n1, tuple(r1), tc)
+    assert fused2d.ring_fits(p2, p1, rows, n2, tc, pointers) is ring
+    smem = fused2d.smem_2d(p2, p1, rows, ring)
+    assert smem <= fused2d.MAX_SMEM <= OPT_IN_CAP
+    # the ring's two buffers are the in-order form's one buffer twice
+    one = fused2d.smem_2d(p2, p1, rows)
+    tables = 4 * (-(-(p2[3] + p1[3]) // 4) * 4)
+    assert fused2d.smem_2d(p2, p1, rows, True) - tables == \
+        (2 if max(p2[1], p1[1]) == 1 else 1) * (one - tables)
+
+
+def test_ring_shared_memory_at_512():
+    """512 x 512: the tables (8960 B) and two buffers of two planes of
+    10112 floats (16 rows at the row plan's stride 632)."""
+    p2 = S.level_plan(512, (32, 16), 1)
+    p1 = S.level_plan(512, (32, 16), 16)
+    assert fused2d.smem_2d(p2, p1, 16) == 89856
+    assert fused2d.smem_2d(p2, p1, 16, ring=True) == 170752
+
+
+def test_ring_takes_the_addresses_of_the_tensors():
+    """The form follows the input as it is: a view 4 bytes into its
+    storage is not 16-byte aligned and takes the in-order form."""
+    p2 = S.level_plan(512, (32, 16), 1)
+    p1 = S.level_plan(512, (32, 16), 16)
+    flat = torch.zeros(2 * 512 * 512 + 4)
+    x = flat[:-4].view(2, 512, 512)
+    off = flat[1:-3].view(2, 512, 512)
+    ptrs = [t.data_ptr() for t in (x, x, x, x)]
+    assert fused2d.ring_fits(p2, p1, 16, 512, 16, ptrs) is \
+        (x.data_ptr() % 16 == 0)
+    assert not fused2d.ring_fits(p2, p1, 16, 512, 16,
+                                 [off.data_ptr()] + ptrs[1:])
+
+
+def test_max_smem_is_the_kernels():
+    """``MAX_SMEM`` is ``kMaxSmem`` of csrc/c2c_2d.cu."""
+    src = (Path(fused2d.__file__).parents[1] / "csrc" / "c2c_2d.cu"
+           ).read_text()
+    got = re.search(r"constexpr int kMaxSmem = (\d+);", src)
+    assert got and int(got.group(1)) == fused2d.MAX_SMEM
+
+
 @pytest.mark.parametrize("n1,n2,ok", [(128, 128, True), (384, 768, True),
                                       (512, 512, True), (512, 1024, False),
                                       (128, 130, False), (64, 128, False)])
@@ -141,7 +210,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 @pytest.mark.parametrize("n1,n2,rad1,rad2", [
     (128, 128, [128], [128]), (256, 1024, [256], [64, 16]),
     (512, 512, [32, 16], [32, 16]), (384, 768, [24, 16], [48, 16])])
-@pytest.mark.parametrize("pre", [1, 3])
+@pytest.mark.parametrize("pre", [1, 3, 40])
 @pytest.mark.parametrize("sign", [-1, +1])
 def test_kernel_matches_twin_on_card(cuda_device, n1, n2, rad1, rad2, pre,
                                      sign):
@@ -149,13 +218,62 @@ def test_kernel_matches_twin_on_card(cuda_device, n1, n2, rad1, rad2, pre,
               for a in _planes(n1 + pre, (pre, n1, n2)))
     table = fused2d._device_table_2d(n1, tuple(rad1), n2, tuple(rad2), sign,
                                      cuda_device)
-    before = fused2d.launches
+    before = fused2d.launches, fused2d.ring_launches
     kr, ki = fused2d.c2c_2d_cuda(xr, xi, rad1, rad2, table)
     torch.cuda.synchronize()
-    assert fused2d.launches == before + 1
+    # every shape here takes the ring (test_ring_form_and_its_shared_memory)
+    assert (fused2d.launches, fused2d.ring_launches) == \
+        (before[0] + 1, before[1] + 1)
     tr, ti = fused2d.c2c_2d_torch(xr, xi, rad1, rad2, sign)
     got = (kr + 1j * ki).cpu().numpy()
     twin = (tr + 1j * ti).cpu().numpy()
     assert _relerr(got, twin) <= TOL_F64
     assert _relerr(got, _oracle(xr.cpu().numpy(), xi.cpu().numpy(),
                                 sign)) <= TOL_F64
+
+
+def _off_by_4(t):
+    """A copy of `t` in a view 4 bytes into its storage: not 16-byte
+    aligned, so K3 takes the in-order form."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    v = flat[1:].view(t.shape)
+    v.copy_(t)
+    assert v.data_ptr() % 16 == 4
+    return v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pre,n1,n2", [
+    (1, 512, 512), (3, 512, 512), (40, 512, 512), (64, 512, 512),
+    (3, 256, 1024), (3, 384, 768)])
+@pytest.mark.parametrize("sign", [-1, +1])
+@pytest.mark.parametrize("cout", [False, True])
+def test_ring_is_the_in_order_form_bit_for_bit(cuda_device, pre, n1, n2,
+                                               sign, cout):
+    """The ring and the in-order form give the same output bit for bit,
+    in both layouts; 40 and 64 planes are more than the clusters resident
+    at 512 x 512, so the ring crosses planes.  The in-order form is reached
+    through a misaligned input, and only the ring's launches are counted
+    as such."""
+    r1, r2 = S.choose_radices(n1), S.choose_radices(n2)
+    xr, xi = (torch.from_numpy(a).to(cuda_device)
+              for a in _planes(n1 + n2 + pre, (pre, n1, n2)))
+    table = fused2d._device_table_2d(n1, tuple(r1), n2, tuple(r2), sign,
+                                     cuda_device)
+    before = fused2d.launches, fused2d.ring_launches
+    ring = fused2d.c2c_2d_cuda(xr, xi, r1, r2, table, complex_out=cout)
+    in_order = fused2d.c2c_2d_cuda(_off_by_4(xr), _off_by_4(xi), r1, r2,
+                                   table, complex_out=cout)
+    torch.cuda.synchronize()
+    assert (fused2d.launches, fused2d.ring_launches) == \
+        (before[0] + 2, before[1] + 1)
+    if cout:
+        assert torch.equal(ring, in_order)
+        planes = fused2d.c2c_2d_cuda(xr, xi, r1, r2, table)
+        assert torch.equal(ring, torch.complex(*planes))
+    else:
+        assert torch.equal(ring[0], in_order[0])
+        assert torch.equal(ring[1], in_order[1])
+        got = (ring[0] + 1j * ring[1]).cpu().numpy()
+        assert _relerr(got, _oracle(xr.cpu().numpy(), xi.cpu().numpy(),
+                                    sign)) <= TOL_F64

@@ -255,6 +255,10 @@ def test_every_plane_fits_k3(n1):
         _fits(p1, tc)
         assert rows * n2 <= K3_TILE and n1 * tc <= K3_TILE
         assert fused2d.smem_2d(p2, p1, rows) <= K3_MAX_SMEM, (n1, n2)
+        # shared memory never keeps a plane off K3's ring: only a dense
+        # stage or tiles narrower than 4 columns do
+        assert fused2d.ring_fits(p2, p1, rows, n2, tc, [0]) == \
+            (p2[1] == p1[1] == 1 and tc % 4 == 0), (n1, n2)
 
 
 #: what K2, K4 and K1's wide form take (csrc/inner_c2c.cu kMaxSmem,

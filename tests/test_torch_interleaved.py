@@ -193,7 +193,7 @@ def test_cpu_plans_have_no_forms(cpu_plans):
         got, snap = _traced(lambda: plan.execute(x))
         assert torch.equal(got, _split_path(plan, x))
         assert snap["plan_converts"] == set(CONVERT)
-        assert snap["edges"] == {"edge.in": 0, "edge.out": 0}
+        assert snap["marks"] == {"edge.in": 0, "edge.out": 0, "k3.ring": 0}
 
 
 def test_complex128_and_pallas4_passes_have_no_forms(forced):
@@ -226,7 +226,7 @@ def test_other_complex_sides_convert_as_before(forced, kind):
     traced, snap = _traced(lambda: plan.execute(x))
     assert torch.equal(plain, traced)
     assert {n for n in snap["spans"] if n in CONVERT} == set(want)
-    assert snap["edges"] == {"edge.in": 0, "edge.out": 0}
+    assert snap["marks"] == {"edge.in": 0, "edge.out": 0, "k3.ring": 0}
 
 
 # -- the passes' complex layouts on the CPU route ------------------------------
@@ -254,7 +254,8 @@ def test_forced_edges_match_the_conversion_path(forced, shape, axes, sign):
     read, write = plan.stages[0].reads, plan.stages[-1].writes
     assert ("fftw.convert.split" in snap["plan_converts"]) == (not read)
     assert ("fftw.convert.combine" in snap["plan_converts"]) == (not write)
-    assert snap["edges"] == {"edge.in": int(read), "edge.out": int(write)}
+    assert snap["marks"] == {"edge.in": int(read), "edge.out": int(write),
+                             "k3.ring": 0}
     assert snap["calls"] == 1
 
 
@@ -388,12 +389,12 @@ def test_edge_marks_count_per_call_in_the_window(forced):
         trace.edges(True, True)          # outside any call: no mark
     snap = trace.snapshot()
     assert snap["calls"] == 3
-    assert snap["edges"] == {"edge.in": 3, "edge.out": 3}
+    assert snap["marks"] == {"edge.in": 3, "edge.out": 3, "k3.ring": 0}
     roots = [r for r in trace.records() if r.root]
-    assert [r.edges for r in roots] == [("edge.in", "edge.out")] * 3
+    assert [r.marks for r in roots] == [("edge.in", "edge.out")] * 3
     last = roots[-1]
     within = trace.snapshot(within=(last.start_ns, last.end_ns))
-    assert within["edges"] == {"edge.in": 1, "edge.out": 1}
+    assert within["marks"] == {"edge.in": 1, "edge.out": 1, "k3.ring": 0}
 
 
 class _NoLock:
@@ -421,7 +422,8 @@ def test_edge_marks_off_touch_nothing(forced, monkeypatch):
     assert torch.equal(plan.execute(x), want)
     monkeypatch.undo()
     assert trace.records() == []
-    assert trace.snapshot()["edges"] == {"edge.in": 0, "edge.out": 0}
+    assert trace.snapshot()["marks"] == {"edge.in": 0, "edge.out": 0,
+                                         "k3.ring": 0}
 
 
 # -- on the card ----------------------------------------------------------------
@@ -506,7 +508,9 @@ def test_card_execute_is_the_conversion_path(card, shape, axes, sign, route,
     traced, snap = _traced(lambda: plan.execute(x))
     torch.cuda.synchronize()
     assert torch.equal(traced, want)
-    assert snap["edges"] == {"edge.in": edges[0], "edge.out": edges[1]}
+    # K3 reads the planes K2 or the entry made, aligned: it takes the ring
+    assert snap["marks"] == {"edge.in": edges[0], "edge.out": edges[1],
+                             "k3.ring": launches[3]}
     assert ("fftw.convert.split" in snap["spans"]) == (not edges[0])
     assert ("fftw.convert.combine" in snap["spans"]) == (not edges[1])
 
@@ -544,7 +548,8 @@ def test_card_fallbacks_give_the_same(card, view, edge_in, shape, axes):
     got, snap = _traced(lambda: plan.execute(x))
     assert torch.equal(got, want)
     assert torch.equal(plan.execute(x), want)
-    assert snap["edges"] == {"edge.in": edge_in, "edge.out": 1}
+    assert snap["marks"] == {"edge.in": edge_in, "edge.out": 1,
+                             "k3.ring": int(len(shape) == 3)}
     assert ("fftw.convert.split" in snap["spans"]) == (not edge_in)
 
 

@@ -255,6 +255,42 @@ def test_stage_names_say_what_runs(cpu_plans, shape, axes, stages):
     assert got == [f"fftw.stage.{s}" for s in stages], repr(plan)
 
 
+def test_ring_mark_counts_calls(cpu_plans):
+    """``k3.ring`` marks the open call once, however many of its K3
+    launches took the ring, beside the edge marks; outside a call, or with
+    the profiler off, it marks nothing."""
+    trace.mark("k3.ring")                  # off: no record
+    assert trace.records() == []
+
+    def calls():
+        for i in range(3):
+            with trace.call("fftw.execute", CPU):
+                trace.mark("k3.ring")
+                trace.mark("k3.ring")      # a second launch: one mark
+                trace.edges(i == 0, False)
+        trace.mark("k3.ring")              # outside any call: no mark
+    _traced(calls)
+    snap = trace.snapshot()
+    assert snap["calls"] == 3
+    assert snap["marks"] == {"edge.in": 1, "edge.out": 0, "k3.ring": 3}
+    roots = [r for r in trace.records() if r.root]
+    assert [r.marks for r in roots] == \
+        [("k3.ring", "edge.in"), ("k3.ring",), ("k3.ring",)]
+    last = roots[-1]
+    within = trace.snapshot(within=(last.start_ns, last.end_ns))
+    assert within["marks"] == {"edge.in": 0, "edge.out": 0, "k3.ring": 1}
+
+
+def test_k3_twin_takes_no_ring(cpu_plans):
+    """A fused trailing pair on the CPU runs K3's twin: no ring mark."""
+    plan = ft.plan_dft((4, 128, 128), axes=(0, 1, 2), dtype="complex64",
+                       device="cpu")
+    _traced(plan.execute, _complex((4, 128, 128)))
+    snap = trace.snapshot()
+    assert "fftw.stage.k3" in snap["spans"]
+    assert snap["marks"]["k3.ring"] == 0
+
+
 def test_spans_are_profiler_events_on_its_clock(cpu_plans):
     """Each span is a range event of the profiler, and its in-memory
     interval lies inside that event's: one clock."""
@@ -525,7 +561,7 @@ def test_card_spans_events_and_launches(card, monkeypatch):
         assert spans[name]["count"] == 4 and spans[name]["device_ms"] is None
     # K1 reads the complex input and writes the complex output itself
     assert not any(name.startswith("fftw.convert.") for name in spans)
-    assert snap["edges"] == {"edge.in": 4, "edge.out": 4}
+    assert snap["marks"] == {"edge.in": 4, "edge.out": 4, "k3.ring": 0}
     recs = trace.records()
     for name in ("fftw.execute", "fftw.launch.stockham_c2c"):
         evs = sorted((e for e in prof.profiler.kineto_results.events()
@@ -553,7 +589,7 @@ def test_card_spans_events_and_launches(card, monkeypatch):
     _profile_card(lambda: [(plan.execute(strided), rplan.execute(real))
                            for _ in range(2)])
     snap = trace.snapshot()
-    assert snap["edges"] == {"edge.in": 0, "edge.out": 2}
+    assert snap["marks"] == {"edge.in": 0, "edge.out": 2, "k3.ring": 0}
     for name in ("fftw.convert.split", "fftw.convert.combine"):
         spans = snap["spans"]
         assert spans[name]["count"] == spans[name]["timed"] == 2
@@ -567,7 +603,10 @@ def test_card_3d_launches_and_names(card):
     x = _complex((128, 128, 128)).to(card)
     plan.execute(x)
     _, prof = _profile_card(lambda: [plan.execute(x) for _ in range(4)])
-    spans = trace.snapshot()["spans"]
+    snap = trace.snapshot()
+    spans = snap["spans"]
+    # K3 reads K2's planes, aligned: every call's launch took the ring
+    assert snap["marks"]["k3.ring"] == 4
     launches = {k: v["count"] for k, v in spans.items()
                 if k.startswith("fftw.launch.")}
     assert launches == {"fftw.launch.inner_c2c": 4, "fftw.launch.c2c_2d": 4}
