@@ -1059,7 +1059,7 @@ def ablation_phase(rng, dev, smi_line, k1_row):
     (launches: this phase's, the arms are on no user path)."""
     B, n = BATCH, N
     rad = MAIN_RADICES
-    table = S._device_table(n, tuple(rad), -1, dev)
+    table = S.device_table(n, tuple(rad), -1, dev)
     xr, xi = planes(rng, (B, n), dev)
     tr, ti = S.stockham_c2c_torch(xr, xi, rad, -1)
     twin = torch.complex(tr, ti)
@@ -1138,7 +1138,7 @@ def copy_floor_phase(rng, dev, smi_line):
         xr, xi = planes(rng, shape, dev)
         n = shape[1]
         rad = S.choose_radices(n)
-        tab = S._device_table(n, tuple(rad), -1, dev)
+        tab = S.device_table(n, tuple(rad), -1, dev)
         tl = inner.tile_width(n, shape[2])
         kr, ki = inner.inner_c2c_cuda(xr, xi, rad, tab)
         tr, ti = inner.inner_c2c_torch(xr, xi, rad, -1)
@@ -1157,7 +1157,7 @@ def copy_floor_phase(rng, dev, smi_line):
         xr, xi = planes(rng, shape, dev)
         n = shape[1]
         rad = S.choose_radices(n)
-        tab = S._device_table(n, tuple(rad), -1, dev)
+        tab = S.device_table(n, tuple(rad), -1, dev)
         arms[f"K1 {shape}"] = (
             lambda a, b, rad=rad, tab=tab: S.stockham_c2c_cuda(a, b, rad,
                                                                tab),
@@ -1389,7 +1389,7 @@ def r2r_phases(rng, dev, smi_line, seed):
     twins = {}
     rad = R2R_PINS["dct2 K4"][3]["child"]["radices"]
     xp = x.index_select(-1, r2r._makhoul_index(n, False, dev))
-    k4r, k4i = RS.r2c_cuda(xp, rad, RS._device_table(n, tuple(rad), -1, dev))
+    k4r, k4i = RS.r2c_cuda(xp, rad, RS.device_table(n, tuple(rad), -1, dev))
     tr, ti = RS.r2c_torch(xp, rad)
     twins["r2c"] = twin_err(f"K4 {tuple(xp.shape)} on the DCT-II path", k4r,
                             k4i, tr, ti)
@@ -1437,7 +1437,7 @@ def r2r_phases(rng, dev, smi_line, seed):
     # K6 against its twin over every row at the arm's (65536, 257) planes,
     # on the half spectra K4 gave above
     rad3 = R2R_PINS["dct3 K6"][3]["child"]["radices"]
-    k6 = RS.c2r_cuda(k4r, k4i, rad3, RS._device_table(n, tuple(rad3), +1, dev))
+    k6 = RS.c2r_cuda(k4r, k4i, rad3, RS.device_table(n, tuple(rad3), +1, dev))
     t6 = RS.c2r_torch(k4r, k4i, rad3)
     twins["c2r"] = twin_err(f"K6 {tuple(k4r.shape)} on the DCT-III path", k6,
                             torch.zeros_like(k6), t6, torch.zeros_like(t6))
@@ -1493,7 +1493,7 @@ def r2r_phases(rng, dev, smi_line, seed):
     wjr, wji, _, _ = r2r._dct4_twiddles(n, f32, dev)
     pad = torch.nn.functional.pad
     ar, ai = pad(x * wjr, (0, n)), pad(x * wji, (0, n))
-    kr, ki = S.stockham_c2c_cuda(ar, ai, rad4, S._device_table(
+    kr, ki = S.stockham_c2c_cuda(ar, ai, rad4, S.device_table(
         2 * n, tuple(rad4), -1, dev))
     tr, ti = S.stockham_c2c_torch(ar, ai, rad4, -1)
     twins["stockham_c2c"] = twin_err(f"K1 {tuple(ar.shape)} on the DCT-IV "
@@ -1545,8 +1545,8 @@ def r2r_phases(rng, dev, smi_line, seed):
     radc = R2R_PINS["cube K4"][3]["child"]["radices"]
     xp = xc.reshape(-1, R2R_CUBE).index_select(
         -1, r2r._makhoul_index(R2R_CUBE, False, dev))
-    kr, ki = RS.r2c_cuda(xp, radc, RS._device_table(R2R_CUBE, tuple(radc),
-                                                    -1, dev))
+    kr, ki = RS.r2c_cuda(xp, radc, RS.device_table(R2R_CUBE, tuple(radc),
+                                                   -1, dev))
     tr, ti = RS.r2c_torch(xp, radc)
     twins["r2c cube"] = twin_err(f"K4 {tuple(xp.shape)} on the 3-D DCT-II "
                                  f"path", kr, ki, tr, ti)
@@ -1805,7 +1805,7 @@ def unaligned_phase(rng, dev, smi_line):
                 lambda a, arm=arm: unaligned.unaligned_cuda(a, arm), (x,))
         arms[f"1.0001*x n={n}"] = (unaligned.unaligned_torch, (x,))
         rad = E1_K1[n]
-        tab = S._device_table(n, tuple(rad), -1, dev)
+        tab = S.device_table(n, tuple(rad), -1, dev)
         kx = planes(rng, (E1_K1_ROWS, n), dev)
         twin_err(f"K1 ({E1_K1_ROWS}, {n}) {rad}",
                  *S.stockham_c2c_cuda(*kx, rad, tab),
@@ -2117,7 +2117,7 @@ def measure_phases(rng, dev, smi_line, t_start):
     rows = unaligned_phase(rng, dev, smi_line)
     print(f"[36] done at {time.perf_counter() - t_start:.1f} s", flush=True)
     rows += stage_phase(rng, dev, smi_line,
-                        S._device_table(N4, (64, 64), -1, dev))
+                        S.device_table(N4, (64, 64), -1, dev))
     print(f"[37] done at {time.perf_counter() - t_start:.1f} s", flush=True)
     rows += swap_phase(rng, dev, smi_line)
     print(f"[38] done at {time.perf_counter() - t_start:.1f} s", flush=True)
@@ -2239,7 +2239,7 @@ def k1_mma_phase(rng, dev, smi_line):
                     lambda a, b, name=name, rpb=rpb: k1_mma.k1_mma_cuda(
                         a, b, name, rpb), (xr, xi))
         for rad in K1_SCHEDULES:
-            tab = S._device_table(N, tuple(rad), -1, dev)
+            tab = S.device_table(N, tuple(rad), -1, dev)
             arms[f"K1 {rad}", B, 0] = (
                 lambda a, b, rad=rad, tab=tab: S.stockham_c2c_cuda(
                     a, b, rad, tab), (xr, xi))
@@ -2307,7 +2307,7 @@ def e10_host_phase(rng, dev, smi_line):
     K1 twin and ``torch.fft.fft`` at B = 16384.  Returns the phase's
     numbers."""
     B, rad = E40_BATCH, [32, 32]
-    tab = S._device_table(N, tuple(rad), -1, dev)
+    tab = S.device_table(N, tuple(rad), -1, dev)
     xr, xi = planes(rng, (B, N), dev)
     wr, wi = S.stockham_c2c_cuda(xr, xi, rad, tab)
     dr, di = xr.clone(), xi.clone()
@@ -2821,7 +2821,7 @@ def main() -> None:
     # -- 3. kernel vs twin vs float64 --------------------------------------
     for n, rad in CASES:
         for sign in (-1, +1):
-            table = S._device_table(n, tuple(rad), sign, dev)
+            table = S.device_table(n, tuple(rad), sign, dev)
             for b in CASE_BATCHES:
                 xr, xi = planes(rng, (b, n), dev)
                 kr, ki = S.stockham_c2c_cuda(xr, xi, rad, table)
@@ -2887,7 +2887,7 @@ def main() -> None:
     gr, gi = planes(rng, (64, N), dev)
     outr, outi = p64.apply_split(gxr, gxi)
     torch.autograd.backward([outr, outi], [gr, gi])
-    wr, wi = S.stockham_c2c_cuda(gr, gi, MAIN_RADICES, S._device_table(
+    wr, wi = S.stockham_c2c_cuda(gr, gi, MAIN_RADICES, S.device_table(
         N, tuple(MAIN_RADICES), +1, dev))
     want = torch.complex(wr, wi)
     e_g = relerr(torch.complex(gxr.grad, gxi.grad), want)
@@ -2900,7 +2900,7 @@ def main() -> None:
     rows = []
     outs = {}
     for rad in TIMED_RADICES:
-        table = S._device_table(N, tuple(rad), -1, dev)
+        table = S.device_table(N, tuple(rad), -1, dev)
 
         def kern(a, b, rad=rad, table=table):
             return S.stockham_c2c_cuda(a, b, rad, table)
@@ -2911,7 +2911,7 @@ def main() -> None:
         t = timing.time_dispatched(kern, (xr, xi), iters=3, reps=7)
         rows.append((f"kernel r{'x'.join(map(str, rad))}", t, e))
     # the form execute runs: K1 reading and writing interleaved complex64
-    table = S._device_table(N, tuple(MAIN_RADICES), -1, dev)
+    table = S.device_table(N, tuple(MAIN_RADICES), -1, dev)
 
     def kern_c(z):
         return S.stockham_c2c_cuda(z, None, MAIN_RADICES, table,
@@ -3026,7 +3026,7 @@ def main() -> None:
     for n in INNER_NS:
         rad = S.choose_radices(n)
         for sign in (-1, +1):
-            table = S._device_table(n, tuple(rad), sign, dev)
+            table = S.device_table(n, tuple(rad), sign, dev)
             for pre in PRES:
                 for L in INNER_LS:
                     xr, xi = planes(rng, (pre, n, L), dev)
@@ -3045,8 +3045,8 @@ def main() -> None:
     for n1, n2 in PLANES_2D:
         r1, r2 = S.choose_radices(n1), S.choose_radices(n2)
         for sign in (-1, +1):
-            table = fused2d._device_table_2d(n1, tuple(r1), n2, tuple(r2),
-                                             sign, dev)
+            table = fused2d.device_table_2d(n1, tuple(r1), n2, tuple(r2),
+                                            sign, dev)
             for pre in PRES:
                 xr, xi = planes(rng, (pre, n1, n2), dev)
                 e, eo = grid_case(
@@ -3063,8 +3063,8 @@ def main() -> None:
                 del xr, xi
     for q, rad, p, store in PRETWIDDLE_CASES:
         for sign in (-1, +1):
-            table = S._device_table(q, tuple(rad), sign, dev)
-            w = S._device_pretwiddle(p, q, sign, dev)
+            table = S.device_table(q, tuple(rad), sign, dev)
+            w = S.device_pretwiddle(p, q, sign, dev)
             for g in PRETWIDDLE_GROUPS:
                 xr, xi = planes(rng, (g * p, q), dev)
 
@@ -3152,9 +3152,9 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # gradient: K3's adjoint, then K2's, each the opposite-sign launch
-    t_in = S._device_table(CUBE, tuple(d512["radices"]), +1, dev)
-    t_2d = fused2d._device_table_2d(CUBE, tuple(d512["radices"]), CUBE,
-                                    tuple(d512["radices"]), +1, dev)
+    t_in = S.device_table(CUBE, tuple(d512["radices"]), +1, dev)
+    t_2d = fused2d.device_table_2d(CUBE, tuple(d512["radices"]), CUBE,
+                                   tuple(d512["radices"]), +1, dev)
 
     def adj3(gr, gi):
         ar, ai = fused2d.c2c_2d_cuda(gr, gi, d512["radices"],
@@ -3301,7 +3301,7 @@ def main() -> None:
     # the three plans interleaved with torch.fft.fft
     rad_w = WIDE_DESC["radices"]
     for sign in (-1, +1):
-        t_w = S._device_table(N4, tuple(rad_w), sign, dev)
+        t_w = S.device_table(N4, tuple(rad_w), sign, dev)
         kr, ki = S.stockham_c2c_cuda(xr, xi, rad_w, t_w)
         tr, ti = S.stockham_c2c_torch(xr, xi, rad_w, sign)
         err, rel = twin_err(f"stockham_c2c wide sign {sign:+d}", kr, ki, tr,
@@ -3315,7 +3315,7 @@ def main() -> None:
         if sign < 0:
             wide_err = (err, rel)
         del kr, ki, tr, ti
-    t_w = S._device_table(N4, tuple(rad_w), -1, dev)
+    t_w = S.device_table(N4, tuple(rad_w), -1, dev)
     xc = torch.complex(xr, xi)
     arms11 = {"pallas4-32x128": (p4.apply_split, (xr, xi)),
               "K1 wide [64, 64]": (pw.apply_split, (xr, xi)),
@@ -3397,7 +3397,7 @@ def main() -> None:
     shape = (1, CUBE, CUBE * CUBE)
     xr, xi = planes(rng, shape, dev)
     for sign in (+1, -1):
-        tab = S._device_table(CUBE, tuple(rad), sign, dev)
+        tab = S.device_table(CUBE, tuple(rad), sign, dev)
         kr, ki = inner.inner_c2c_cuda(xr, xi, rad, tab)
         tr, ti = inner.inner_c2c_torch(xr, xi, rad, sign)
         err, rel = twin_err(f"inner_c2c {shape} sign {sign:+d}", kr, ki, tr,
@@ -3442,8 +3442,8 @@ def main() -> None:
     # K3: axes 1-2 of 512^3 (512 planes), and the 2-D batched shape
     for shape in ((CUBE,) * 3, MANY_2D):
         xr, xi = planes(rng, shape, dev)
-        tab = fused2d._device_table_2d(CUBE, tuple(rad), CUBE, tuple(rad),
-                                       -1, dev)
+        tab = fused2d.device_table_2d(CUBE, tuple(rad), CUBE, tuple(rad),
+                                      -1, dev)
         kr, ki = fused2d.c2c_2d_cuda(xr, xi, rad, rad, tab)
         tr, ti = fused2d.c2c_2d_torch(xr, xi, rad, rad, -1)
         err, rel = twin_err(f"c2c_2d {shape}", kr, ki, tr, ti)
@@ -3481,8 +3481,8 @@ def main() -> None:
     for shape in K3_OFF_PLANES:
         r1, r2 = S.choose_radices(shape[1]), S.choose_radices(shape[2])
         xr, xi = planes(rng, shape, dev)
-        tab = fused2d._device_table_2d(shape[1], tuple(r1), shape[2],
-                                       tuple(r2), -1, dev)
+        tab = fused2d.device_table_2d(shape[1], tuple(r1), shape[2],
+                                      tuple(r2), -1, dev)
         kr, ki = fused2d.c2c_2d_cuda(xr, xi, r1, r2, tab)
         e = relerr(torch.complex(kr, ki),
                    torch.complex(*fused2d.c2c_2d_torch(xr, xi, r1, r2, -1)))
@@ -3506,8 +3506,8 @@ def main() -> None:
     radq = S.choose_radices(q)
     shape = (B4 * p, q)
     xr, xi = planes(rng, shape, dev)
-    tab = S._device_table(q, tuple(radq), -1, dev)
-    w = S._device_pretwiddle(p, q, -1, dev)
+    tab = S.device_table(q, tuple(radq), -1, dev)
+    w = S.device_pretwiddle(p, q, -1, dev)
     kr, ki = S.stockham_c2c_cuda(xr, xi, radq, tab, pretwiddle=w)
     tr, ti = S.stockham_c2c_torch(xr, xi, radq, -1, pretwiddle_p=p)
     err, rel = twin_err(f"stockham_c2c pretwiddle {shape}", kr, ki, tr, ti)
@@ -3557,7 +3557,7 @@ def main() -> None:
     # segments, half a sector): K2 against K1 on the same 2**26 points and
     # the same schedule, where K1 reads and writes whole rows
     n, rad = 2048, S.choose_radices(2048)
-    tab = S._device_table(n, tuple(rad), -1, dev)
+    tab = S.device_table(n, tuple(rad), -1, dev)
     xr, xi = planes(rng, (1, n, (1 << 26) // n), dev)
     t_k2 = time_ms(lambda a, b: inner.inner_c2c_cuda(a, b, rad, tab),
                    (xr, xi))
@@ -3637,8 +3637,8 @@ def main() -> None:
         return max(e_kt, e_kb)
     for n in REAL_NS:
         rad = S.choose_radices(n // 2)
-        t_fwd = RS._device_table(n, tuple(rad), -1, dev)
-        t_inv = RS._device_table(n, tuple(rad), +1, dev)
+        t_fwd = RS.device_table(n, tuple(rad), -1, dev)
+        t_inv = RS.device_table(n, tuple(rad), +1, dev)
         for b in REAL_BATCHES:
             x = real_rows(rng, (b, n), dev)
             kr, ki = RS.r2c_cuda(x, rad, t_fwd)
@@ -3676,7 +3676,7 @@ def main() -> None:
     # K6 on a radix-5, a dense-first, a dense-last and the DCT-III's [256]
     # schedule
     for n, rad in K6_SCHEDULES:
-        t_inv = RS._device_table(n, tuple(rad), +1, dev)
+        t_inv = RS.device_table(n, tuple(rad), +1, dev)
         for b in REAL_BATCHES:
             worst["c2r"] = max(worst["c2r"], k6_case(n, rad, b, t_inv))
             ncases["c2r"] += 1
@@ -3842,11 +3842,11 @@ def main() -> None:
     # (K5's output).  Launches made here are not counted.
     n_a = REAL_2D[1]
     rad_a, rad_h = S.choose_radices(n_a), S.choose_radices(n_a // 2)
-    t_h = RS._device_table(n_a, tuple(rad_h), -1, dev)
+    t_h = RS.device_table(n_a, tuple(rad_h), -1, dev)
     kr, ki = RS.r2c_cuda(x.reshape(-1, n2), rad_h, t_h)
     half = (kr.view(*REAL_2D[:2], -1), ki.view(*REAL_2D[:2], -1))
     for sign, (pr, pi) in ((-1, half), (+1, y2)):
-        t_a = S._device_table(n_a, tuple(rad_a), sign, dev)
+        t_a = S.device_table(n_a, tuple(rad_a), sign, dev)
         kr, ki = inner.inner_c2c_cuda(pr, pi, rad_a, t_a)
         tr, ti = inner.inner_c2c_torch(pr, pi, rad_a, sign)
         err, rel = twin_err(f"inner_c2c {tuple(pr.shape)} sign {sign:+d}",
@@ -3865,7 +3865,7 @@ def main() -> None:
     kr, ki = RS.r2c_inner_cuda(x, rad_h, t_h)
     rows = (kr.reshape(-1, n2), ki.reshape(-1, n2))
     del kr, ki
-    kr, ki = S.stockham_c2c_cuda(*rows, rad_a, S._device_table(
+    kr, ki = S.stockham_c2c_cuda(*rows, rad_a, S.device_table(
         n2, tuple(rad_a), -1, dev))
     tr, ti = S.stockham_c2c_torch(*rows, rad_a, -1)
     err, rel = twin_err(f"stockham_c2c {tuple(rows[0].shape)}", kr, ki, tr,
@@ -3914,8 +3914,8 @@ def main() -> None:
                               counts18["c2r"]["c2r"]))):
         B, n = shape
         rad = S.choose_radices(n // 2)
-        tf = RS._device_table(n, tuple(rad), -1, dev)
-        ti_ = RS._device_table(n, tuple(rad), +1, dev)
+        tf = RS.device_table(n, tuple(rad), -1, dev)
+        ti_ = RS.device_table(n, tuple(rad), +1, dev)
         x = real_rows(rng, shape, dev)
         kr, ki = RS.r2c_cuda(x, rad, tf)
         tr, ti = RS.r2c_torch(x, rad)
@@ -3974,7 +3974,7 @@ def main() -> None:
     # K5 at the swapped path's shape
     n = REAL_2D[1]
     rad = S.choose_radices(n // 2)
-    tf = RS._device_table(n, tuple(rad), -1, dev)
+    tf = RS.device_table(n, tuple(rad), -1, dev)
     x = real_rows(rng, REAL_2D, dev)
     kr, ki = RS.r2c_inner_cuda(x, rad, tf)
     tr, ti = RS.r2c_inner_torch(x, rad, "all")

@@ -82,7 +82,7 @@ inline int c2r_smem(const LevelPlan& plan, int m, int rpb) {
          (((plan.tab_len + 2 * (m + 1) + 3) & ~3) + 2 * plan.nbuf * plane);
 }
 
-// tab: the m-point tables of sign +1 (stockham._kernel_table layout,
+// tab: the m-point tables of sign +1 (stockham.kernel_table layout,
 // plan.tab_len floats) followed by re(v[0..m]) and im(v[0..m]).
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 c2r_kernel(const float* __restrict__ xr, const float* __restrict__ xi,

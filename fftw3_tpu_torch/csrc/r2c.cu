@@ -81,7 +81,7 @@ inline int r2c_smem(const LevelPlan& plan, int m, int rpb) {
           2 * zplane);
 }
 
-// tab: the m-point tables (stockham._kernel_table layout, plan.tab_len
+// tab: the m-point tables (stockham.kernel_table layout, plan.tab_len
 // floats) followed by re(w[0..m]) and im(w[0..m]).
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 r2c_kernel(const float* __restrict__ x, float* __restrict__ yr,

@@ -18,6 +18,7 @@ from typing import Dict, Sequence, Tuple
 
 import torch
 
+from . import passes
 from . import stockham as S
 
 ARMS = ("full", "no twiddle", "const roots", "no stage")
@@ -31,16 +32,16 @@ def ablate_cuda(xr: torch.Tensor, xi: torch.Tensor, radices: Sequence[int],
                 table: torch.Tensor, form: str, arm: str
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of K1's `form` with `arm` on split (B, n) f32 planes on
-    one card; ``table`` is ``stockham._device_table(n, radices, sign,
+    one card; ``table`` is ``stockham.device_table(n, radices, sign,
     device)``.  Returns new (yr, yi); raises on anything the kernel does not
     take, and when the launch fails."""
-    S.check_planes("ablate_cuda", xr, xi, table, 2)
+    passes.check_planes("ablate_cuda", xr, xi, table, 2)
     B, n = xr.shape
     radices = [int(r) for r in radices]
     if not S.radices_ok(n, radices) or form not in FORMS or arm not in ARMS:
         raise ValueError(f"no E5 arm {form!r}/{arm!r} for schedule "
                          f"{radices} at n={n}")
-    if table.numel() != S._table_len(n, radices):
+    if table.numel() != S.table_len(n, radices):
         raise ValueError(f"root table of {table.numel()} floats does not "
                          f"match schedule {radices}")
     yr = torch.empty_like(xr)
@@ -51,14 +52,15 @@ def ablate_cuda(xr: torch.Tensor, xi: torch.Tensor, radices: Sequence[int],
     what = f"E5 {form} {arm}, n={n}, radices={radices}, B={B}"
     if form == "dense":
         p1 = radices[1] if len(radices) == 2 else 1
-        S.launch("ablate_dense", xr.device, 4 * (table.numel() + 4 * n), B,
-                 ptrs + (table.numel(), B, n, len(radices), radices[0], p1,
-                         a), what)
+        passes.launch("ablate_dense", xr.device,
+                      4 * (table.numel() + 4 * n), B,
+                      ptrs + (table.numel(), B, n, len(radices), radices[0],
+                              p1, a), what)
     else:
         plan = S.level_plan(n, tuple(radices))
         rpb = S.rows_per_block(n)
-        S.launch("ablate_bfly", xr.device, S.plan_smem(plan, rpb),
-                 -(-B // rpb), ptrs + (S.plan_array(plan), B, n, rpb, a),
-                 what)
+        passes.launch("ablate_bfly", xr.device, S.plan_smem(plan, rpb),
+                      -(-B // rpb), ptrs + (S.plan_array(plan), B, n, rpb, a),
+                      what)
     launches[form, arm] = launches.get((form, arm), 0) + 1
     return yr, yi

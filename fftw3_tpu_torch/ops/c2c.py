@@ -6,11 +6,12 @@ planner) into an apply closure on the last axis.  Transforms are
 unnormalized; ``sign`` is FFTW_FORWARD (-1) or FFTW_BACKWARD (+1).
 
 The core representation is **split complex**, as in the reference: every
-algorithm is built as a function ``(xr, xi) -> (yr, yi)`` on real tensors
-(:func:`build_c2c_split`); :func:`build_c2c` wraps it into a complex
-closure.  Plan constants are computed on the host in float64 (numpy), cast
-to the plan's real dtype and moved to the plan's device once, when the
-closure is built.
+algorithm is built as a function ``(xr, xi) -> (yr, yi)`` on real tensors,
+and :func:`build_c2c_split` gives it as a pass that also takes and gives
+one complex tensor (``ops/passes.py``); :func:`build_c2c` wraps it into a
+complex closure.  Plan constants are computed on the host in float64
+(numpy), cast to the plan's real dtype and moved to the plan's device once,
+when the closure is built.
 
 Solvers: ``nop``, ``direct`` (one dense DFT-matrix product), ``mixed``
 (one Cooley-Tukey stage plus a child), ``pallas`` (the fused Stockham
@@ -28,7 +29,7 @@ import numpy as np
 import torch
 
 from ..utils import primes
-from . import matrices
+from . import matrices, passes
 from .dense import exact_matmul
 
 Apply = Callable[[torch.Tensor], torch.Tensor]
@@ -79,7 +80,19 @@ def build_c2c(desc: Dict, sign: int, rdtype, device) -> Apply:
 
 
 def build_c2c_split(desc: Dict, sign: int, rdtype, device) -> SplitApply:
-    """Build the split-complex apply closure for a c2c descriptor tree."""
+    """The pass of a c2c descriptor tree: ``apply(xr, xi=None, cout=False)``
+    (``ops/passes.py``), on split planes or one complex tensor.  A ``pallas``
+    descriptor's kernel takes both layouts itself; every other solver runs
+    on split planes behind :func:`passes.split_pass`."""
+    if desc["alg"] == "pallas" and desc["n"] != 1:
+        from . import stockham
+        return stockham.build_pallas_c2c_split(desc, sign, rdtype, device)
+    return passes.split_pass(_split_apply(desc, sign, rdtype, device))
+
+
+def _split_apply(desc: Dict, sign: int, rdtype, device) -> SplitApply:
+    """The split-complex apply closure of a c2c descriptor tree (every alg
+    but ``pallas``): ``(xr, xi) -> (yr, yi)``."""
     alg = desc["alg"]
     n = desc["n"]
     rdtype = np.dtype(rdtype)
@@ -163,10 +176,6 @@ def build_c2c_split(desc: Dict, sign: int, rdtype, device) -> SplitApply:
             yr, yi = cmul(t1 - t2, t3 - t1 - t2, twr, twi)
             return finish(yr, yi, shp)
         return apply_mixed
-
-    if alg == "pallas":
-        from . import stockham
-        return stockham.build_pallas_c2c_split(desc, sign, rdtype, device)
 
     if alg == "pallas4":
         from . import fourstep
@@ -316,7 +325,7 @@ def c2c_opcount(desc: Dict) -> Dict[str, float]:
         for si, p in enumerate(desc["radices"]):
             q = rest // p
             if (vpu and (si == last or vpu == "all")
-                    and stockham._vpu_last_ok(p, 1)):
+                    and stockham.vpu_last_ok(p, 1)):
                 a, m = _vpu_stage_opcount(p)
                 total["add"] += a * (n / p)
                 total["mul"] += m * (n / p)

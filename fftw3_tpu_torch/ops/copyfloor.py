@@ -24,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from . import inner
+from . import passes
 from . import stockham as S
 
 #: launches per arm, (kind "inner" or "rows", shape, tile columns or 0),
@@ -43,7 +44,7 @@ def copy_inner_cuda(xr: torch.Tensor, xi: torch.Tensor,
     card, in tiles of `tl` columns (K2's own, ``inner.tile_width``, when
     None).  Returns new (yr, yi); raises on anything the kernel does not
     take, and when the launch fails."""
-    S.check_planes("copy_inner_cuda", xr, xi, xr, 3)
+    passes.check_planes("copy_inner_cuda", xr, xi, xr, 3)
     pre, n, L = xr.shape
     if tl is None:
         tl = inner.tile_width(n, L)
@@ -53,9 +54,9 @@ def copy_inner_cuda(xr: torch.Tensor, xi: torch.Tensor,
     if tl < 1 or tl & (tl - 1) or n * tl > inner.TILE_POINTS:
         raise ValueError(f"tile of {tl} columns at n={n} is not one K2 takes")
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    S.launch("copy_inner", xr.device, 8 * gp * n * tl,
-             -(-pre // gp) * -(-L // tl),
-             (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+    passes.launch("copy_inner", xr.device, 8 * gp * n * tl,
+                  -(-pre // gp) * -(-L // tl),
+                  (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
               pre, n, L, tl, gp), f"E8 inner ({pre}, {n}, {L}), tl={tl}")
     key = ("inner", (pre, n, L), tl)
     launches[key] = launches.get(key, 0) + 1
@@ -67,13 +68,13 @@ def copy_rows_cuda(xr: torch.Tensor, xi: torch.Tensor
     """One launch of the rows arm on split (rows, n) f32 planes on one
     card.  Returns new (yr, yi); raises on anything the kernel does not
     take, and when the launch fails."""
-    S.check_planes("copy_rows_cuda", xr, xi, xr, 2)
+    passes.check_planes("copy_rows_cuda", xr, xi, xr, 2)
     rows, n = xr.shape
     rpb = S.rows_per_block(n)
     yr, yi = torch.empty_like(xr), torch.empty_like(xi)
-    S.launch("copy_rows", xr.device, 8 * (-(-rpb * n // 4) * 4),
-             -(-rows // rpb),
-             (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+    passes.launch("copy_rows", xr.device, 8 * (-(-rpb * n // 4) * 4),
+                  -(-rows // rpb),
+                  (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
               rows, n, rpb), f"E8 rows ({rows}, {n})")
     key = ("rows", (rows, n), 0)
     launches[key] = launches.get(key, 0) + 1

@@ -151,8 +151,8 @@ class DdPlan:
         self.sign = sign
         self.device = _device_of(device)
         # df32's recursive builder on f64 planes, with dd64's constants
-        core, adj = (df32._build(n, df32_radices(n), s, self.device,
-                                 _dd_consts) for s in (sign, -sign))
+        core, adj = (df32.df_pipeline(n, df32_radices(n), s, self.device,
+                                      _dd_consts) for s in (sign, -sign))
 
         def apply_dd(rh, rl, ih, il):
             """Four (..., n) f64 planes on the plan's device in and out."""

@@ -42,7 +42,7 @@ import torch
 
 from .. import config
 from ..utils import primes
-from . import matrices
+from . import matrices, passes
 from . import stockham as S
 
 #: Dekker split constants (2^ceil(t/2) + 1 for a t-bit mantissa): f32
@@ -185,8 +185,8 @@ def _df32_consts(p: int, q: int, sign: int, device):
                                  *_split_const(tw.imag)))
 
 
-def _build(n: int, radices: Sequence[int], sign: int, device,
-           consts=_df32_consts):
+def df_pipeline(n: int, radices: Sequence[int], sign: int, device,
+                consts=_df32_consts):
     """Recursive CT level: butterfly radix p over axis -2 in df arithmetic,
     fused df twiddle, child along the tail.  Returns a closure on df
     complex 4-tuples of (..., n)-shaped tensors; ``consts(p, q, sign,
@@ -196,7 +196,7 @@ def _build(n: int, radices: Sequence[int], sign: int, device,
         return lambda x: x
     p = radices[0]
     q = n // p
-    child = _build(q, radices[1:], sign, device, consts)
+    child = df_pipeline(q, radices[1:], sign, device, consts)
     coeffs, csplit, tw = consts(p, q, sign, device)
 
     def apply(x):
@@ -238,14 +238,14 @@ def build_df32_c2c_split(desc: Dict, sign: int, rdtype, device):
     dtype = torch.float64 if np.dtype(rdtype) == np.float64 \
         else torch.float32
     device = torch.device(device)
-    cores = {s: _build(n, radices, s, device) for s in (sign, -sign)}
+    cores = {s: df_pipeline(n, radices, s, device) for s in (sign, -sign)}
 
     def run(xr, xi, s):
         xr, xi = xr.to(dtype), xi.to(dtype)
         yrh, yrl, yih, yil = cores[s]((*_split(xr), *_split(xi)))
         return _rebuild(yrh, yrl, dtype), _rebuild(yih, yil, dtype)
 
-    return S.differentiable(run, sign)
+    return passes.differentiable(run, sign)
 
 
 # ---------------------------------------------------------------------------
@@ -835,8 +835,8 @@ def _launch_k7(kernel: str, xr: torch.Tensor, xi: torch.Tensor,
         return yr, yi
     table = _device_table(n, radices, sign, xr.device)
     itab = _device_itab(n, radices, xr.device)
-    S.launch(kernel, xr.device, smem, -(-B // rpb),
-             (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+    passes.launch(kernel, xr.device, smem, -(-B // rpb),
+                  (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
               table.data_ptr(), itab.data_ptr(), plan, B, n, rpb, sign),
              f"n={n}, radices={list(radices)}, B={B}")
     return yr, yi
@@ -887,7 +887,7 @@ def df32p_radices(n: int) -> Optional[List[int]]:
     (2-3-5-smooth <= 64), so the f32 tier's single-stage window falls back
     to the best two-factor eligible split by the same ranking rule."""
     def ok(rad):
-        return all(S._vpu_last_ok(r, 1) for r in rad)
+        return all(S.vpu_last_ok(r, 1) for r in rad)
 
     try:
         rad = S.choose_radices(n)
@@ -901,7 +901,7 @@ def df32p_radices(n: int) -> Optional[List[int]]:
         q = n // p
         if p < 2 or q < 2 or not ok([p, q]):
             continue
-        cost = S._stage_cost(p) + S._stage2_cost(q)
+        cost = S.stage_cost(p) + S.stage2_cost(q)
         if best is None or cost < best_cost:
             best, best_cost = [p, q], cost
     return best
@@ -950,4 +950,4 @@ def build_df32_pallas_split(desc: Dict, sign: int, rdtype, device=None):
         return (yr.reshape(*shp, n).to(dtype),
                 yi.reshape(*shp, n).to(dtype))
 
-    return S.differentiable(run, sign)
+    return passes.differentiable(run, sign)

@@ -25,7 +25,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from . import inner
+from . import inner, passes
 from . import stockham as S
 
 #: the reference's row tile: the transposed store is used when p equals it
@@ -51,9 +51,9 @@ def build_pallas_c2c_split_fourstep(desc: Dict, sign: int, rdtype,
     if device is not None and torch.device(device).type == "cuda":
         dev = torch.device(device)
         for s in (sign, -sign):                # move the tables once
-            S._device_table(*kp, s, dev)
-            S._device_table(*kq, s, dev)
-            S._device_pretwiddle(p, q, s, dev)
+            S.device_table(*kp, s, dev)
+            S.device_table(*kq, s, dev)
+            S.device_pretwiddle(p, q, s, dev)
 
     def run(xr, xi, s):
         if xr.shape[-1] != n or xi.shape != xr.shape:
@@ -71,11 +71,11 @@ def build_pallas_c2c_split_fourstep(desc: Dict, sign: int, rdtype,
         else:
             dev = xr.device
             ar, ai = inner.inner_c2c_cuda(x3r.contiguous(), x3i.contiguous(),
-                                          rad_p, S._device_table(*kp, s, dev))
+                                          rad_p, S.device_table(*kp, s, dev))
             zr, zi = S.stockham_c2c_cuda(
                 ar.reshape(B * p, q), ai.reshape(B * p, q), rad_q,
-                S._device_table(*kq, s, dev),
-                pretwiddle=S._device_pretwiddle(p, q, s, dev),
+                S.device_table(*kq, s, dev),
+                pretwiddle=S.device_pretwiddle(p, q, s, dev),
                 store_transposed=fstore)
         if not fstore:
             # X[k1 + p*k2] at [b, k1, k2] -> k2-major
@@ -83,4 +83,4 @@ def build_pallas_c2c_split_fourstep(desc: Dict, sign: int, rdtype,
             zi = zi.reshape(B, p, q).transpose(-1, -2).contiguous()
         return zr.reshape(*lead, n), zi.reshape(*lead, n)
 
-    return S.differentiable(run, sign)
+    return passes.differentiable(run, sign)

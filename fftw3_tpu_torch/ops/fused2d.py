@@ -16,8 +16,8 @@ descriptors are ``pallas``.
   stages as K1 does (register butterflies for a 2-3-5-smooth radix, the
   dense sum otherwise; ``stockham.level_plan`` with tl = 1 for the rows and
   tl = tc for the columns).  It also writes one interleaved complex64
-  output in place of the two output planes (the last pass of a multi-axis
-  plan's complex entry); its input stays in planes.  Where it fits
+  output in place of the two output planes (a plan's last pass asked for
+  the complex output); its input stays in planes.  Where it fits
   (:func:`ring_fits`: no dense stage, 16-byte pieces and alignment, two
   tile buffers within its shared memory) a block walks its tiles on a
   ring of two buffers, the next tile copied in while the levels run on
@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from .. import trace
-from . import inner
+from . import inner, passes
 from . import stockham as S
 
 #: points of a row chunk or a column tile (``kTilePoints`` in
@@ -77,14 +77,14 @@ def c2c_2d_torch(xr: torch.Tensor, xi: torch.Tensor, rad1: Sequence[int],
 
 
 @lru_cache(maxsize=None)
-def _device_table_2d(n1: int, rad1: Tuple[int, ...], n2: int,
-                     rad2: Tuple[int, ...], sign: int,
-                     device: torch.device) -> torch.Tensor:
+def device_table_2d(n1: int, rad1: Tuple[int, ...], n2: int,
+                    rad2: Tuple[int, ...], sign: int,
+                    device: torch.device) -> torch.Tensor:
     """The n2 schedule's root tables, then the n1 schedule's, as one f32
     tensor on `device`, made once."""
     return torch.from_numpy(np.concatenate([
-        S._kernel_table(n2, rad2, sign),
-        S._kernel_table(n1, rad1, sign)])).to(device)
+        S.kernel_table(n2, rad2, sign),
+        S.kernel_table(n1, rad1, sign)])).to(device)
 
 
 def smem_2d(plan2: Sequence[int], plan1: Sequence[int], rows: int,
@@ -138,46 +138,46 @@ def c2c_2d_cuda(xr: torch.Tensor, xi: torch.Tensor, rad1: Sequence[int],
                 rad2: Sequence[int], table: torch.Tensor,
                 complex_out: bool = False):
     """Launch the CUDA kernel on split (pre, n1, n2) f32 planes on one
-    card.  ``table`` is ``_device_table_2d(n1, rad1, n2, rad2, sign,
+    card.  ``table`` is ``device_table_2d(n1, rad1, n2, rad2, sign,
     device)``.  Returns new (yr, yi), or with `complex_out` one new
     complex64 tensor written interleaved; raises on anything the kernel
     does not take, and when the launch fails."""
     global launches, ring_launches
     if xi is None:
         raise ValueError("c2c_2d_cuda takes split input planes")
-    S.check_planes("c2c_2d_cuda", xr, xi, table, 3)
+    passes.check_planes("c2c_2d_cuda", xr, xi, table, 3)
     pre, n1, n2 = xr.shape
     rad1 = [int(r) for r in rad1]
     rad2 = [int(r) for r in rad2]
     if not (S.radices_ok(n1, rad1) and S.radices_ok(n2, rad2)):
         raise ValueError(f"kernel schedules {rad1}, {rad2} do not fit "
                          f"({n1}, {n2})")
-    len2, len1 = S._table_len(n2, rad2), S._table_len(n1, rad1)
+    len2, len1 = S.table_len(n2, rad2), S.table_len(n1, rad1)
     if table.numel() != len2 + len1:
         raise ValueError(f"root tables of {table.numel()} floats do not "
                          f"match schedules {rad1}, {rad2}")
     if pre >= 2 ** 31:
         raise ValueError(f"{pre} planes exceed the kernel's int count")
-    y = S.new_output(xr.shape, xr.device, complex_out)
+    y = passes.new_output(xr.shape, xr.device, complex_out)
     if pre == 0:
         return y[0] if complex_out else y
     rows, tc = tiles(n1, n2)
     plan2 = S.level_plan(n2, tuple(rad2), 1)
     plan1 = S.level_plan(n1, tuple(rad1), tc)
-    ptrs = (xr.data_ptr(), xi.data_ptr(), *S.pointers(*y))
+    ptrs = (xr.data_ptr(), xi.data_ptr(), *passes.pointers(*y))
     ring = ring_fits(plan2, plan1, rows, n2, tc,
                      [p for p in ptrs if p is not None])
     smem = smem_2d(plan2, plan1, rows, ring)
     from . import _build
     lib = _build.library()
-    with trace.span("fftw.launch.c2c_2d"), S.device_guard(xr.device):
+    with trace.span("fftw.launch.c2c_2d"), passes.device_guard(xr.device):
         grid = CLUSTER * min(pre, _resident_clusters(lib, xr.device, smem,
                                                      ring))
         stream = torch.cuda.current_stream(xr.device).cuda_stream
         rc = lib.c2c_2d_launch(
             *ptrs, table.data_ptr(), S.plan_array(plan2),
             S.plan_array(plan1), pre, n1, n2, rows, tc,
-            S.layout_of(xi, complex_out), int(ring), grid, smem, stream)
+            passes.layout_of(xi, complex_out), int(ring), grid, smem, stream)
     if rc != 0:
         raise RuntimeError(f"c2c_2d kernel launch failed: CUDA error {rc} "
                            f"(pre={pre}, n1={n1}, n2={n2}, radices {rad1}, "
@@ -186,7 +186,6 @@ def c2c_2d_cuda(xr: torch.Tensor, xi: torch.Tensor, rad1: Sequence[int],
     launches += 1
     if ring:
         ring_launches += 1
-        trace.mark("k3.ring")
     return y[0] if complex_out else y
 
 
@@ -194,37 +193,22 @@ def build_pallas_c2c_split_2d(n1: int, n2: int, sign: int, rdtype,
                               desc1: Optional[Dict] = None,
                               desc2: Optional[Dict] = None,
                               device: Optional[torch.device] = None):
-    """Split-complex apply transforming both trailing axes of (..., n1, n2)
-    in one kernel pass.  ``desc1``/``desc2`` are the per-axis planner
+    """The pass (``ops/passes.py``) over both trailing axes of (..., n1,
+    n2) in one kernel launch.  ``desc1``/``desc2`` are the per-axis planner
     descriptors; their ``radices`` and ``vpu`` pins are honoured (``vpu``
-    by the twin only: on the card the radix picks the stage form)."""
+    by the twin only: on the card the radix picks the stage form).  K3
+    writes the complex output itself; a complex input is split first."""
     desc1, desc2 = desc1 or {}, desc2 or {}
     rad1 = list(desc1.get("radices") or S.choose_radices(n1))
     rad2 = list(desc2.get("radices") or S.choose_radices(n2))
     if not (S.radices_ok(n1, rad1) and S.radices_ok(n2, rad2)):
         raise ValueError(f"schedules {rad1}, {rad2} do not fit ({n1}, {n2})")
-    if np.dtype(rdtype) != np.float32:
-        raise ValueError(f"the Stockham kernel is float32 only, got "
-                         f"{np.dtype(rdtype)}")
     vpu = desc1.get("vpu", desc2.get("vpu"))
     key = (n1, tuple(rad1), n2, tuple(rad2))
-    if device is not None and torch.device(device).type == "cuda":
-        for s in (sign, -sign):                # move the tables once
-            _device_table_2d(*key, s, torch.device(device))
-
-    def run(xr, xi, s, cout=False):
-        if xr.dim() < 2 or tuple(xr.shape[-2:]) != (n1, n2) \
-                or (xi is not None and xi.shape != xr.shape):
-            raise ValueError(f"2-D pass expects split planes of shape (..., "
-                             f"{n1}, {n2}), got {tuple(xr.shape)} and "
-                             f"{None if xi is None else tuple(xi.shape)}")
-        xr, xi = S.as_planes(xr, xi)
-        if xr.device.type == "cpu":
-            return S.as_output(c2c_2d_torch(xr, xi, rad1, rad2, s, vpu), cout)
-        shp = xr.shape
-        y = c2c_2d_cuda(*S.flat(xr, xi, (-1, n1, n2)), rad1, rad2,
-                        _device_table_2d(*key, s, xr.device),
-                        complex_out=cout)
-        return S.shaped(y, shp)
-
-    return S.differentiable(run, sign, writes=True)
+    return passes.kernel_pass(
+        (n1, n2), sign, rdtype, device,
+        lambda s, dev: device_table_2d(*key, s, dev),
+        lambda xr, xi, s: c2c_2d_torch(xr, xi, rad1, rad2, s, vpu),
+        lambda xr, xi, table, cout: c2c_2d_cuda(xr, xi, rad1, rad2, table,
+                                                complex_out=cout),
+        writes=True)

@@ -3,11 +3,11 @@ form of ``fftw3_tpu/ops/pallas_stockham.py`` (``_kernel_inner``,
 ``_make_call_inner``, ``build_pallas_c2c_split_inner``).
 
 Split f32 planes (pre, n, L) are transformed along n for each of the L
-columns, with no transpose: multi-axis plans send every non-last axis here
-through a reshape, and the four-step sends its p pass here.
+columns, with no transpose: multi-axis plans send every non-last axis here,
+its trailing dims as the columns, and the four-step sends its p pass here.
 
 * :func:`inner_c2c_torch`, the plain twin: the shared stage loop
-  (``stockham._stages_torch``) with the L columns in the place of the
+  (``stockham.stages_torch``) with the L columns in the place of the
   reference's lane tile.
 * :func:`inner_c2c_cuda`, the wrapper of ``csrc/inner_c2c.cu``.  A block
   holds an (n, tl) tile of tl consecutive columns (of gp planes when one
@@ -16,9 +16,8 @@ through a reshape, and the four-step sends its p pass here.
   a 2-3-5-smooth radix, the dense sum otherwise, on
   ``stockham.level_plan(n, radices, tl)``.  The edge tile of an L that is
   not a multiple of tl is masked, nothing is padded.  It also reads one
-  interleaved complex64 tensor in place of the two input planes (the
-  first pass of a multi-axis plan's complex entry); its output stays in
-  planes.
+  interleaved complex64 tensor in place of the two input planes (a
+  plan's first pass on a complex input); its output stays in planes.
 
 The reference's TPU tuning of this form is not carried over: the narrower
 schedule of ``_inner_radices`` (``INNER_NP_MAX``), the ``INNER_AREA`` and
@@ -31,9 +30,9 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional, Sequence, Tuple
 
-import numpy as np
 import torch
 
+from . import passes
 from . import stockham as S
 
 #: points of the kernel's group, gp * n * tl (``kTilePoints`` in
@@ -72,7 +71,7 @@ def inner_c2c_torch(xr: torch.Tensor, xi: torch.Tensor,
         raise ValueError(f"radices {list(radices)} do not multiply to {n}")
     shp = xr.shape
     st = torch.stack([xr.reshape(-1, n * L), xi.reshape(-1, n * L)], 1)
-    st = S._stages_torch(st, n, L, radices, sign, vpu)
+    st = S.stages_torch(st, n, L, radices, sign, vpu)
     return st[:, 0].reshape(shp), st[:, 1].reshape(shp)
 
 
@@ -81,32 +80,32 @@ def inner_c2c_cuda(xr: torch.Tensor, xi: Optional[torch.Tensor],
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the CUDA kernel on split (pre, n, L) f32 planes on one card,
     or with `xi` None on one (pre, n, L) complex64 tensor `xr` read
-    interleaved.  ``table`` is ``stockham._device_table(n, radices, sign,
+    interleaved.  ``table`` is ``stockham.device_table(n, radices, sign,
     device)``.  Returns new (yr, yi); raises on anything the kernel does not
     take, and when the launch fails."""
     global launches
-    S.check_planes("inner_c2c_cuda", xr, xi, table, 3)
+    passes.check_planes("inner_c2c_cuda", xr, xi, table, 3)
     pre, n, L = xr.shape
     radices = [int(r) for r in radices]
     if not S.radices_ok(n, radices):
         raise ValueError(f"kernel schedule {radices} does not fit n={n}")
-    if table.numel() != S._table_len(n, radices):
+    if table.numel() != S.table_len(n, radices):
         raise ValueError(f"root table of {table.numel()} floats does not "
                          f"match schedule {radices}")
     if pre >= 2 ** 31:
         raise ValueError(f"{pre} leading rows exceed the kernel's int count")
-    yr, yi = S.new_output(xr.shape, xr.device, False)
+    yr, yi = passes.new_output(xr.shape, xr.device, False)
     if pre == 0 or L == 0:
         return yr, yi
     tl = tile_width(n, L)
     gp = planes_per_group(n, L, pre)
     plan = S.level_plan(n, tuple(radices), tl)
-    layout = S.layout_of(xi, False)
-    S.launch("inner_c2c", xr.device, S.plan_smem(plan, gp),
-             -(-pre // gp) * -(-L // tl),
-             (*S.pointers(xr, xi), yr.data_ptr(), yi.data_ptr(),
-              table.data_ptr(), S.plan_array(plan), pre, n, L, tl, gp,
-              layout),
+    layout = passes.layout_of(xi, False)
+    passes.launch("inner_c2c", xr.device, S.plan_smem(plan, gp),
+                  -(-pre // gp) * -(-L // tl),
+                  (*passes.pointers(xr, xi), yr.data_ptr(), yi.data_ptr(),
+                   table.data_ptr(), S.plan_array(plan), pre, n, L, tl, gp,
+                   layout),
              f"pre={pre}, n={n}, L={L}, radices={radices}, tl={tl}, gp={gp}, "
              f"layout {layout}")
     launches += 1
@@ -114,36 +113,28 @@ def inner_c2c_cuda(xr: torch.Tensor, xi: Optional[torch.Tensor],
 
 
 def build_pallas_c2c_split_inner(desc: Dict, sign: int, rdtype,
-                                 device: Optional[torch.device] = None):
-    """Split-complex apply over axis -2 of (..., n, L) tensors for a
-    ``{"alg": "pallas", ...}`` descriptor: its schedule and ``vpu`` pin
+                                 device: Optional[torch.device] = None,
+                                 columns: int = 1):
+    """The pass (``ops/passes.py``) over axis -1 - `columns` of (..., n,
+    *cols) tensors for a ``{"alg": "pallas", ...}`` descriptor, the
+    `columns` trailing dims K2's L columns: its schedule and ``vpu`` pin
     (the twin's stage form; on the card the radix alone picks each stage's
-    form, ``stockham.stage_form``)."""
+    form, ``stockham.stage_form``).  K2 reads the complex input itself; its
+    output is planes, combined where the complex output is asked for."""
     n = desc["n"]
     radices = list(desc.get("radices") or S.choose_radices(n))
     if not S.radices_ok(n, radices):
         raise ValueError(f"pallas schedule {radices} does not fit n={n}")
-    if np.dtype(rdtype) != np.float32:
-        raise ValueError(f"the Stockham kernel is float32 only, got "
-                         f"{np.dtype(rdtype)}")
     vpu = desc.get("vpu")
     key = (n, tuple(radices))
-    if device is not None and torch.device(device).type == "cuda":
-        for s in (sign, -sign):                # move the tables once
-            S._device_table(*key, s, torch.device(device))
 
-    def run(xr, xi, s, cout=False):
-        if xr.dim() < 2 or xr.shape[-2] != n or \
-                (xi is not None and xi.shape != xr.shape):
-            raise ValueError(f"axis -2 pass expects split planes of shape "
-                             f"(..., {n}, L), got {tuple(xr.shape)} and "
-                             f"{None if xi is None else tuple(xi.shape)}")
-        if xr.device.type == "cpu":
-            return S.as_output(inner_c2c_torch(*S.as_planes(xr, xi), radices,
-                                               s, vpu), cout)
-        shp = xr.shape
-        y = inner_c2c_cuda(*S.flat(xr, xi, (-1, n, shp[-1])), radices,
-                           S._device_table(*key, s, xr.device))
-        return S.as_output(S.shaped(y, shp), cout)
+    def twin(xr, xi, s):
+        cols = (-1, n, math.prod(xr.shape[xr.dim() - columns:]))
+        return passes.shaped(inner_c2c_torch(xr.reshape(cols), xi.reshape(
+            cols), radices, s, vpu), xr.shape)
 
-    return S.differentiable(run, sign, reads=True)
+    return passes.kernel_pass(
+        (n,), sign, rdtype, device,
+        lambda s, dev: S.device_table(*key, s, dev), twin,
+        lambda xr, xi, table, cout: inner_c2c_cuda(xr, xi, radices, table),
+        columns=columns, reads=True)

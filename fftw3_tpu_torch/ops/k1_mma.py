@@ -59,9 +59,10 @@ import numpy as np
 import torch
 
 from . import matrices
+from . import passes
 from . import stockham as S
 from .dense import exact_matmul
-from .stage4096 import _bf16, f_planes, g_matrix, mma_fragments, split_hi_lo
+from .stage4096 import bf16, f_planes, g_matrix, mma_fragments, split_hi_lo
 
 N = 1024
 #: rows per block the kernel is run at, where they fit
@@ -294,7 +295,7 @@ def _product(Gm: torch.Tensor, X: torch.Tensor, group: str) -> torch.Tensor:
     is (rows, K, N)."""
     Gh, Gl = split_hi_lo(Gm)
     if group == "noxl":
-        Xh = _bf16(X)
+        Xh = bf16(X)
         return exact_matmul(torch.cat([Gh, Gl], 1), torch.cat([Xh, Xh], 1))
     Xh, Xl = split_hi_lo(X)
     if group == "three":
@@ -401,7 +402,7 @@ def _check(name: str, xr: torch.Tensor, xi: torch.Tensor, rpb: int) -> Arm:
     if rpb < 1 or smem > MAX_SMEM:
         raise ValueError(f"{rpb} rows a block of {name} need {smem} bytes "
                          f"of shared memory, over {MAX_SMEM}")
-    S.check_planes("k1_mma_cuda", xr, xi, xr, 2)
+    passes.check_planes("k1_mma_cuda", xr, xi, xr, 2)
     if xr.shape[0] >= 2 ** 31 // N:
         raise ValueError(f"{xr.shape[0]} rows exceed the kernel's int row "
                          "count")
@@ -426,7 +427,7 @@ def k1_mma_cuda(xr: torch.Tensor, xi: torch.Tensor, name: str,
     smem = smem_bytes(name, rpb)
     c1, c2, tw = _device_consts(name, xr.device)
     lib = _build.library()
-    with S.device_guard(xr.device):
+    with passes.device_guard(xr.device):
         key = (a.source, a.variant, rpb, xr.device.index)
         grid = _grids.get(key)
         if grid is None:
@@ -458,21 +459,22 @@ def k1_inplace_cuda(xr: torch.Tensor, xi: torch.Tensor, radices,
     on split (B, n) planes with the output written over the input, through
     the in-place kernel; returns (xr, xi)."""
     global inplace_launches
-    S.check_planes("k1_inplace_cuda", xr, xi, table, 2)
+    passes.check_planes("k1_inplace_cuda", xr, xi, table, 2)
     B, n = xr.shape
     radices = [int(r) for r in radices]
     if n > S.MAX_N or not S.radices_ok(n, radices):
         raise ValueError(f"kernel schedule {radices} does not fit n={n}")
-    if table.numel() != S._table_len(n, radices):
+    if table.numel() != S.table_len(n, radices):
         raise ValueError(f"root table of {table.numel()} floats does not "
                          f"match schedule {radices}")
     if B == 0:
         return xr, xi
     plan = S.level_plan(n, tuple(radices))
     rpb = S.rows_per_block(n)
-    S.launch("stockham_c2c_inplace", xr.device, S.plan_smem(plan, rpb),
-             -(-B // rpb), (xr.data_ptr(), xi.data_ptr(), table.data_ptr(),
-                            S.plan_array(plan), B, n, rpb),
-             f"in place, n={n}, radices={radices}, B={B}")
+    passes.launch("stockham_c2c_inplace", xr.device, S.plan_smem(plan, rpb),
+                  -(-B // rpb), (xr.data_ptr(), xi.data_ptr(),
+                                 table.data_ptr(), S.plan_array(plan), B, n,
+                                 rpb),
+                  f"in place, n={n}, radices={radices}, B={B}")
     inplace_launches += 1
     return xr, xi

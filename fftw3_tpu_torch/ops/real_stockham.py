@@ -25,7 +25,7 @@ K2 does, on ``stockham.level_plan(m, radices, tl)`` for tiles of tl
 columns (:func:`r2c_inner_tile`), its first level reading the packed rows
 from the input; K6 runs it as K4 does, the tangle writing the level buffer
 and the last level storing the real rows.  The twins follow the same
-form on the shared stage loop (``stockham._stages_torch``, the
+form on the shared stage loop (``stockham.stages_torch``, the
 descriptor's ``vpu`` picking the butterfly form), so the two agree to
 rounding and both agree with the reference's kernels to rounding.
 
@@ -46,6 +46,7 @@ import torch
 
 from . import inner
 from . import matrices
+from . import passes
 from . import real as real_ops
 from . import stockham as S
 
@@ -77,22 +78,22 @@ def r2c_inner_applicable(n: int, trail: int, rdtype, device) -> bool:
 
 def _real_table(n: int, radices: Sequence[int], sign: int) -> np.ndarray:
     """The kernels' f32 table: the m-point stage tables of ``sign``
-    (``stockham._kernel_table``), then re and im of
+    (``stockham.kernel_table``), then re and im of
     w[k] = exp(sign*2*pi*i*k/n), k = 0..m, from the host in f64."""
     m = n // 2
     w = matrices.roots(n, sign)[:m + 1]
     return np.ascontiguousarray(np.concatenate(
-        [S._kernel_table(m, radices, sign), w.real, w.imag]), np.float32)
+        [S.kernel_table(m, radices, sign), w.real, w.imag]), np.float32)
 
 
-def _table_len(n: int, radices: Sequence[int]) -> int:
+def table_len(n: int, radices: Sequence[int]) -> int:
     m = n // 2
-    return S._table_len(m, radices) + 2 * (m + 1)
+    return S.table_len(m, radices) + 2 * (m + 1)
 
 
 @lru_cache(maxsize=None)
-def _device_table(n: int, radices: Tuple[int, ...], sign: int,
-                  device: torch.device) -> torch.Tensor:
+def device_table(n: int, radices: Tuple[int, ...], sign: int,
+                 device: torch.device) -> torch.Tensor:
     """``_real_table`` as one f32 tensor on `device`, made once."""
     return torch.from_numpy(_real_table(n, radices, sign)).to(device)
 
@@ -131,7 +132,7 @@ def r2c_inner_torch(x: torch.Tensor, radices: Sequence[int], vpu=None):
     lead = x.shape[:-2]
     st = torch.stack([x[..., 0::2, :].reshape(-1, m * L),
                       x[..., 1::2, :].reshape(-1, m * L)], 1)
-    st = S._stages_torch(st, m, L, radices, -1, vpu)
+    st = S.stages_torch(st, m, L, radices, -1, vpu)
     wr, wi = real_ops._roots_half(n, -1, np.float32, x.device)
     yr, yi = real_ops.untangle(st[:, 0].reshape(-1, m, L),
                                st[:, 1].reshape(-1, m, L), wr[:, None],
@@ -160,7 +161,7 @@ def _check_schedule(name: str, n: int, radices: Sequence[int],
     if n % 2 or not S.radices_ok(n // 2, radices):
         raise ValueError(f"{name}: schedule {list(radices)} does not fit "
                          f"n={n} (an even n with n/2 = its product)")
-    if table.numel() != _table_len(n, radices):
+    if table.numel() != table_len(n, radices):
         raise ValueError(f"{name}: table of {table.numel()} floats does "
                          f"not match n={n}, schedule {list(radices)}")
 
@@ -188,11 +189,11 @@ def c2r_smem(plan: Sequence[int], m: int, rpb: int) -> int:
 def r2c_cuda(x: torch.Tensor, radices: Sequence[int], table: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K4 on real (B, n) f32 rows on one card.  ``table`` is
-    ``_device_table(n, radices, -1, device)``.  Returns new (yr, yi) of
+    ``device_table(n, radices, -1, device)``.  Returns new (yr, yi) of
     shape (B, n/2+1); raises on anything the kernel does not take, and
     when the launch fails."""
     global r2c_launches
-    S.check_planes("r2c_cuda", x, x, table, 2)
+    passes.check_planes("r2c_cuda", x, x, table, 2)
     B, n = x.shape
     radices = [int(r) for r in radices]
     _check_schedule("r2c_cuda", n, radices, table)
@@ -207,10 +208,10 @@ def r2c_cuda(x: torch.Tensor, radices: Sequence[int], table: torch.Tensor
         x = x.clone()               # the kernel loads sample pairs as float2
     plan = S.level_plan(m, tuple(radices))
     rpb = S.rows_per_block(m)
-    S.launch("r2c", x.device, r2c_smem(plan, m, rpb), -(-B // rpb),
-             (x.data_ptr(), yr.data_ptr(), yi.data_ptr(), table.data_ptr(),
-              S.plan_array(plan), B, n, rpb),
-             f"B={B}, n={n}, radices={radices}")
+    passes.launch("r2c", x.device, r2c_smem(plan, m, rpb), -(-B // rpb),
+                  (x.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                   table.data_ptr(), S.plan_array(plan), B, n, rpb),
+                  f"B={B}, n={n}, radices={radices}")
     r2c_launches += 1
     return yr, yi
 
@@ -218,11 +219,11 @@ def r2c_cuda(x: torch.Tensor, radices: Sequence[int], table: torch.Tensor
 def c2r_cuda(xr: torch.Tensor, xi: torch.Tensor, radices: Sequence[int],
              table: torch.Tensor) -> torch.Tensor:
     """Launch K6 on split (B, n/2+1) f32 planes on one card.  ``table`` is
-    ``_device_table(n, radices, +1, device)`` (n from the schedule: 2 *
+    ``device_table(n, radices, +1, device)`` (n from the schedule: 2 *
     its product).  Returns new real (B, n) rows; raises on anything the
     kernel does not take, and when the launch fails."""
     global c2r_launches
-    S.check_planes("c2r_cuda", xr, xi, table, 2)
+    passes.check_planes("c2r_cuda", xr, xi, table, 2)
     B, h = xr.shape
     radices = [int(r) for r in radices]
     n = 2 * (h - 1)
@@ -235,10 +236,10 @@ def c2r_cuda(xr: torch.Tensor, xi: torch.Tensor, radices: Sequence[int],
     m = n // 2
     plan = S.level_plan(m, tuple(radices))
     rpb = S.rows_per_block(m)
-    S.launch("c2r", xr.device, c2r_smem(plan, m, rpb), -(-B // rpb),
-             (xr.data_ptr(), xi.data_ptr(), y.data_ptr(), table.data_ptr(),
-              S.plan_array(plan), B, n, rpb),
-             f"B={B}, n={n}, radices={radices}")
+    passes.launch("c2r", xr.device, c2r_smem(plan, m, rpb), -(-B // rpb),
+                  (xr.data_ptr(), xi.data_ptr(), y.data_ptr(),
+                   table.data_ptr(), S.plan_array(plan), B, n, rpb),
+                  f"B={B}, n={n}, radices={radices}")
     c2r_launches += 1
     return y
 
@@ -277,11 +278,11 @@ def r2c_inner_tile(m: int, L: int, radices: Sequence[int]) -> int:
 def r2c_inner_cuda(x: torch.Tensor, radices: Sequence[int],
                    table: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch K5 on real (pre, n, L) f32 on one card.  ``table`` is
-    ``_device_table(n, radices, -1, device)``.  Returns new (yr, yi) of
+    ``device_table(n, radices, -1, device)``.  Returns new (yr, yi) of
     shape (pre, n/2+1, L); raises on anything the kernel does not take, and
     when the launch fails."""
     global r2c_inner_launches
-    S.check_planes("r2c_inner_cuda", x, x, table, 3)
+    passes.check_planes("r2c_inner_cuda", x, x, table, 3)
     pre, n, L = x.shape
     radices = [int(r) for r in radices]
     _check_schedule("r2c_inner_cuda", n, radices, table)
@@ -294,11 +295,11 @@ def r2c_inner_cuda(x: torch.Tensor, radices: Sequence[int],
         return yr, yi
     tl = r2c_inner_tile(m, L, radices)
     plan = S.level_plan(m, tuple(radices), tl)
-    S.launch("r2c_inner", x.device, r2c_inner_smem(plan, m, tl),
-             pre * -(-L // tl),
-             (x.data_ptr(), yr.data_ptr(), yi.data_ptr(), table.data_ptr(),
-              S.plan_array(plan), pre, n, L, tl),
-             f"pre={pre}, n={n}, L={L}, radices={radices}, tl={tl}")
+    passes.launch("r2c_inner", x.device, r2c_inner_smem(plan, m, tl),
+                  pre * -(-L // tl),
+                  (x.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                   table.data_ptr(), S.plan_array(plan), pre, n, L, tl),
+                  f"pre={pre}, n={n}, L={L}, radices={radices}, tl={tl}")
     r2c_inner_launches += 1
     return yr, yi
 
@@ -306,33 +307,6 @@ def r2c_inner_cuda(x: torch.Tensor, radices: Sequence[int],
 # ---------------------------------------------------------------------------
 # descriptors -> applies
 # ---------------------------------------------------------------------------
-
-class _R2C(torch.autograd.Function):
-    """Real in, split planes out, with the backward it is given."""
-
-    @staticmethod
-    def forward(ctx, x, fwd, adj):
-        ctx.adj = adj
-        return fwd(x)
-
-    @staticmethod
-    def backward(ctx, gr, gi):
-        return ctx.adj(gr, gi), None, None
-
-
-class _C2R(torch.autograd.Function):
-    """Split planes in, real out, with the backward it is given."""
-
-    @staticmethod
-    def forward(ctx, xr, xi, fwd, adj):
-        ctx.adj = adj
-        return fwd(xr, xi)
-
-    @staticmethod
-    def backward(ctx, g):
-        dr, di = ctx.adj(g)
-        return dr, di, None, None
-
 
 def _schedule(desc: Dict, rdtype) -> list:
     """The m-point schedule of a real-kernel descriptor, checked."""
@@ -382,7 +356,7 @@ def build_pallas_r2c(desc: Dict, rdtype, device: Optional[torch.device] = None):
     vpu = desc.get("vpu")
     key = (n, tuple(radices), -1)
     if device is not None and torch.device(device).type == "cuda":
-        _device_table(*key, torch.device(device))       # move it once
+        device_table(*key, torch.device(device))       # move it once
     adj_cache: Dict = {}
 
     def fwd(x):
@@ -393,7 +367,7 @@ def build_pallas_r2c(desc: Dict, rdtype, device: Optional[torch.device] = None):
             return r2c_torch(x, radices, vpu)
         lead = x.shape[:-1]
         yr, yi = r2c_cuda(x.reshape(-1, n).contiguous(), radices,
-                          _device_table(*key, x.device))
+                          device_table(*key, x.device))
         return yr.reshape(*lead, m + 1), yi.reshape(*lead, m + 1)
 
     def adj(gr, gi):
@@ -403,7 +377,7 @@ def build_pallas_r2c(desc: Dict, rdtype, device: Optional[torch.device] = None):
                     torch.nn.functional.pad(gi, pad))
         return dr
 
-    return lambda x: _R2C.apply(x, fwd, adj)
+    return lambda x: passes.Adjoint.apply(fwd, adj, x)
 
 
 def build_pallas_c2r(desc: Dict, rdtype, device: Optional[torch.device] = None):
@@ -421,7 +395,7 @@ def build_pallas_c2r(desc: Dict, rdtype, device: Optional[torch.device] = None):
     vpu = desc.get("vpu")
     key = (n, tuple(radices), +1)
     if device is not None and torch.device(device).type == "cuda":
-        _device_table(*key, torch.device(device))
+        device_table(*key, torch.device(device))
     adj_cache: Dict = {}
 
     def fwd(xr, xi):
@@ -434,7 +408,7 @@ def build_pallas_c2r(desc: Dict, rdtype, device: Optional[torch.device] = None):
         lead = xr.shape[:-1]
         y = c2r_cuda(xr.reshape(-1, m + 1).contiguous(),
                      xi.reshape(-1, m + 1).contiguous(), radices,
-                     _device_table(*key, xr.device))
+                     device_table(*key, xr.device))
         return y.reshape(*lead, n)
 
     def adj(g):
@@ -442,7 +416,7 @@ def build_pallas_c2r(desc: Dict, rdtype, device: Optional[torch.device] = None):
         w = _c2r_weights(n, g.device)
         return rr * w[0], ri * w[1]
 
-    return lambda xr, xi: _C2R.apply(xr, xi, fwd, adj)
+    return lambda xr, xi: passes.Adjoint.apply(fwd, adj, xr, xi)
 
 
 def _no_gradient(gr, gi):
@@ -466,7 +440,7 @@ def build_pallas_r2c_inner(desc: Dict, rdtype,
     vpu = desc.get("vpu")
     key = (n, tuple(radices), -1)
     if device is not None and torch.device(device).type == "cuda":
-        _device_table(*key, torch.device(device))
+        device_table(*key, torch.device(device))
 
     def fwd(x):
         if x.dim() < 2 or x.shape[-2] != n:
@@ -476,8 +450,8 @@ def build_pallas_r2c_inner(desc: Dict, rdtype,
             return r2c_inner_torch(x, radices, vpu)
         shp = x.shape
         yr, yi = r2c_inner_cuda(x.reshape(-1, n, shp[-1]).contiguous(),
-                                radices, _device_table(*key, x.device))
+                                radices, device_table(*key, x.device))
         out = (*shp[:-2], m + 1, shp[-1])
         return yr.reshape(out), yi.reshape(out)
 
-    return lambda x: _R2C.apply(x, fwd, _no_gradient)
+    return lambda x: passes.Adjoint.apply(fwd, _no_gradient, x)

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from . import matrices
+from . import passes
 from . import stockham as S
 from .dense import exact_matmul
 
@@ -76,7 +77,7 @@ def g_matrix(p: int) -> np.ndarray:
     return np.block([[fr, -fi], [fi, fr]])
 
 
-def _bf16(a: torch.Tensor) -> torch.Tensor:
+def bf16(a: torch.Tensor) -> torch.Tensor:
     """float32 rounded to bf16 (nearest even) and back."""
     return a.to(torch.bfloat16).to(torch.float32)
 
@@ -84,8 +85,8 @@ def _bf16(a: torch.Tensor) -> torch.Tensor:
 def split_hi_lo(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(hi, lo) with hi = bf16(a), lo = bf16(a - hi), both as float32
     (``bisect4096b.gmats`` for G, ``k_stage1``'s Xh, Xl for X)."""
-    hi = _bf16(a)
-    return hi, _bf16(a - hi)
+    hi = bf16(a)
+    return hi, bf16(a - hi)
 
 
 @lru_cache(maxsize=None)
@@ -192,7 +193,7 @@ def stage_torch(xr: torch.Tensor, xi: torch.Tensor, arm: str
         Y = exact_matmul(Gh, Xh) + (exact_matmul(Gh, Xl)
                                     + exact_matmul(Gl, Xh))
     else:
-        Y = exact_matmul(_bf16(G), _bf16(X))
+        Y = exact_matmul(bf16(G), bf16(X))
     yr, yi = Y[:, :p], Y[:, p:]
     if arm == "stage1_tw_perm":
         wr, wi = (torch.from_numpy(w).to(xr.device) for w in twiddle(n))
@@ -225,7 +226,7 @@ def stage_cuda(xr: torch.Tensor, xi: torch.Tensor, arm: str,
     if rpb < 1 or smem > MAX_SMEM:
         raise ValueError(f"{rpb} rows a block of {arm} at n={n} need "
                          f"{smem} bytes of shared memory, over {MAX_SMEM}")
-    S.check_planes("stage_cuda", xr, xi, xr, 2)
+    passes.check_planes("stage_cuda", xr, xi, xr, 2)
     R = xr.shape[0]
     if R >= 2 ** 31 // n:
         raise ValueError(f"{R} rows exceed the kernel's int row count")
@@ -237,7 +238,7 @@ def stage_cuda(xr: torch.Tensor, xi: torch.Tensor, arm: str,
     consts, twr, twi = _device_consts(arm, n, xr.device)
     lib = _build.library()
     a = ARMS.index(arm)
-    with S.device_guard(xr.device):
+    with passes.device_guard(xr.device):
         key = (arm, n, rpb, xr.device.index)
         grid = _grids.get(key)
         if grid is None:

@@ -1,6 +1,6 @@
 """Batched 1-D c2c as one Stockham kernel — the port of the K1 part of
-``fftw3_tpu/ops/pallas_stockham.py``, and what the port's Stockham kernels
-share.
+``fftw3_tpu/ops/pallas_stockham.py``, and the Stockham algorithm the port's
+kernels share: schedules, root tables, level plans and the route gates.
 
 The reference runs the whole transform of a tile of rows inside one Pallas
 kernel: one or two radix stages, each a p-point complex DFT contraction, a
@@ -8,7 +8,7 @@ twiddle and an autosort permute, with one HBM read and one HBM write per
 point.  Here the same stage loop exists twice:
 
 * :func:`stockham_c2c_torch`, the plain PyTorch twin, on the stage loop
-  :func:`_stages_torch` that the twins of the axis -2 and fused 2-D kernels
+  :func:`stages_torch` that the twins of the axis -2 and fused 2-D kernels
   (``ops/inner.py``, ``ops/fused2d.py``) share.  It follows ``_stages``
   exactly: the stage contraction is one real (2p, 2p) matmul by the stacked
   matrix G = [[Fr, -Fi], [Fi, Fr]] over the stacked (re, im) planes, or the
@@ -30,9 +30,10 @@ point.  Here the same stage loop exists twice:
   reference races there.
 
 :func:`build_pallas_c2c_split` turns a ``{"alg": "pallas", ...}`` descriptor
-into a split apply backed by a ``torch.autograd.Function`` whose backward is
-the same transform with the opposite sign.  A CUDA tensor runs the kernel
-(or raises); only a CPU tensor runs the twin.
+into a pass of the port's pass contract (``ops/passes.py``, which holds the
+launch and the layouts every kernel wrapper shares), whose backward is the
+same transform with the opposite sign.  A CUDA tensor runs the kernel (or
+raises); only a CPU tensor runs the twin.
 
 The route gates of the multi-axis and four-step paths (``INNER_TILE_L``,
 ``MAX_2D_POINTS``, :func:`inner_applicable`, :func:`applicable_2d`,
@@ -41,7 +42,6 @@ the reference.
 """
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import math
 from functools import lru_cache
@@ -50,9 +50,9 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import config, trace
+from .. import config
 from ..utils import primes
-from . import matrices
+from . import matrices, passes
 from .dense import exact_matmul
 
 #: largest stage radix (one p-point DFT contraction per stage)
@@ -68,11 +68,6 @@ MAX_N = 2048
 #: reference's all-butterfly schedule above MAX_N (:func:`wide_ok`; the
 #: reference races it under MEASURE at MAX_N < n <= 2 * MAX_N)
 ROW_MAX_N = 2 * MAX_N
-
-#: the layout bits of a launch of K1, K2 or K3 (``kInC``, ``kOutC`` in
-#: ``csrc/stockham_bfly.cuh``): the input, the output is one interleaved
-#: complex64 tensor in place of two float32 planes
-IN_COMPLEX, OUT_COMPLEX = 1, 2
 
 #: launches of the CUDA kernel, counted by :func:`stockham_c2c_cuda`:
 #: plain ones, those with the four-step pre-twiddle, and the wide form's
@@ -90,12 +85,12 @@ wide_launches = 0
 # curves were fitted on another device; they are to be fitted again on the
 # H100 (ROADMAP), and nothing here claims they describe the card.
 
-def _stage_cost(p: int) -> float:
+def stage_cost(p: int) -> float:
     """Relative cost of the first stage at radix p."""
     return 230.0 / p + p / 9.0
 
 
-def _stage2_cost(q: int) -> float:
+def stage2_cost(q: int) -> float:
     """Relative cost of the second stage at radix q."""
     return 230.0 / q + float(q)
 
@@ -112,7 +107,7 @@ def choose_radices(n: int) -> List[int]:
         q = n // p
         if not (q >= 2 and p >= q and p <= MAX_RADIX):
             continue
-        cost = _stage_cost(p) + _stage2_cost(q)
+        cost = stage_cost(p) + stage2_cost(q)
         if q < 8:
             cost += 1000.0                  # last resort only
         if best is None or cost < best_cost:
@@ -134,7 +129,7 @@ def alternative_radices(n: int, k: int = 3) -> List[List[int]]:
         q = n // p
         if q >= 8 and p >= q and p <= MAX_RADIX:
             pairs.append((p, q))
-    pairs.sort(key=lambda pq: _stage_cost(pq[0]) + _stage2_cost(pq[1]))
+    pairs.sort(key=lambda pq: stage_cost(pq[0]) + stage2_cost(pq[1]))
     outs.extend([list(pq) for pq in pairs])
     return outs[:k]
 
@@ -258,10 +253,10 @@ def radices_ok(n: int, radices) -> bool:
 def wide_ok(n: int, radices) -> bool:
     """Can K1's wide form run this schedule?  MAX_N < n <= ROW_MAX_N, one
     or two radices whose product is n, every one a butterfly radix of at
-    most 64 (:func:`_vpu_last_ok`): the reference's all-butterfly MEASURE
+    most 64 (:func:`vpu_last_ok`): the reference's all-butterfly MEASURE
     candidate [n/h, h] above MAX_N."""
     return (isinstance(radices, (list, tuple)) and 1 <= len(radices) <= 2
-            and all(isinstance(r, int) and r > 1 and _vpu_last_ok(r, 1)
+            and all(isinstance(r, int) and r > 1 and vpu_last_ok(r, 1)
                     for r in radices)
             and math.prod(radices) == n and MAX_N < n <= ROW_MAX_N)
 
@@ -274,7 +269,7 @@ def schedule_ok(n: int, radices, vpu=None) -> bool:
     return radices_ok(n, radices) or (vpu == "all" and wide_ok(n, radices))
 
 
-def _vpu_last_ok(p: int, sign: int) -> bool:
+def vpu_last_ok(p: int, sign: int) -> bool:
     """Gate of the butterfly stage form: radix 2-3-5-smooth and <= 64.
     ``sign`` is the variant channel of :func:`_vpu_sign` (0 = dense form
     everywhere)."""
@@ -317,7 +312,7 @@ def _stage_consts(n: int, radices: Sequence[int], sign: int):
     return out
 
 
-def _kernel_table(n: int, radices: Sequence[int], sign: int) -> np.ndarray:
+def kernel_table(n: int, radices: Sequence[int], sign: int) -> np.ndarray:
     """The kernel's f32 root tables, stage by stage: re and im of r_p, then
     re and im of r_rest when the stage has a twiddle (layout documented in
     csrc/stockham_c2c.cu)."""
@@ -342,15 +337,15 @@ def _device_consts(n: int, radices: Tuple[int, ...], sign: int,
 
 
 @lru_cache(maxsize=None)
-def _device_table(n: int, radices: Tuple[int, ...], sign: int,
-                  device: torch.device) -> torch.Tensor:
+def device_table(n: int, radices: Tuple[int, ...], sign: int,
+                 device: torch.device) -> torch.Tensor:
     """The kernel's root tables as one f32 tensor on `device`, made once."""
-    return torch.from_numpy(_kernel_table(n, radices, sign)).to(device)
+    return torch.from_numpy(kernel_table(n, radices, sign)).to(device)
 
 
 @lru_cache(maxsize=None)
-def _device_pretwiddle(p: int, n: int, sign: int,
-                       device: torch.device) -> torch.Tensor:
+def device_pretwiddle(p: int, n: int, sign: int,
+                      device: torch.device) -> torch.Tensor:
     """The four-step twiddle w[k1, j] = exp(sign*2*pi*i*k1*j/(p*n)) as a
     (2, p, n) f32 tensor (re, im) on `device`, made once: the reference's
     ``_make_call`` pretwiddle constant, bit for bit."""
@@ -456,8 +451,8 @@ def _vpu_dft(xr, xi, m: int, sign: int):
     return yr, yi
 
 
-def _stages_torch(st: torch.Tensor, n: int, L: int, radices: Sequence[int],
-                  sign: int, vpu=None) -> torch.Tensor:
+def stages_torch(st: torch.Tensor, n: int, L: int, radices: Sequence[int],
+                 sign: int, vpu=None) -> torch.Tensor:
     """The stage loop of the twins on stacked planes ``st`` of shape
     (B, 2, n*L): point i of column l at i*L + l, transformed along the n
     points of every column (L = 1 is the last-axis form).  Stage by stage as
@@ -471,7 +466,7 @@ def _stages_torch(st: torch.Tensor, n: int, L: int, radices: Sequence[int],
     for p, c in zip(radices, consts):
         q = rest // p
         M = q * done * L
-        if _vpu_last_ok(p, vsign) and (q == 1 or vpu_all):
+        if vpu_last_ok(p, vsign) and (q == 1 or vpu_all):
             x = st.reshape(B, 2, p, M)
             yr, yi = _vpu_dft(x[:, 0], x[:, 1], p, sign)
             y = torch.stack([yr, yi], 1)
@@ -517,11 +512,11 @@ def stockham_c2c_torch(xr: torch.Tensor, xi: torch.Tensor,
     if P:
         if R % P:
             raise ValueError(f"{R} rows are not whole groups of {P}")
-        w = _device_pretwiddle(P, n, sign, xr.device)
+        w = device_pretwiddle(P, n, sign, xr.device)
         x3r, x3i = xr2.reshape(-1, P, n), xi2.reshape(-1, P, n)
         xr2 = (x3r * w[0] - x3i * w[1]).reshape(R, n)
         xi2 = (x3r * w[1] + x3i * w[0]).reshape(R, n)
-    st = _stages_torch(torch.stack([xr2, xi2], 1), n, 1, radices, sign, vpu)
+    st = stages_torch(torch.stack([xr2, xi2], 1), n, 1, radices, sign, vpu)
     if store_transposed:
         st = st.reshape(R // P, P, 2, n).permute(2, 0, 3, 1)
         return st[0].contiguous(), st[1].contiguous()
@@ -532,51 +527,6 @@ def stockham_c2c_torch(xr: torch.Tensor, xi: torch.Tensor,
 # the CUDA kernel
 # ---------------------------------------------------------------------------
 
-def check_planes(name: str, xr: torch.Tensor, xi: Optional[torch.Tensor],
-                 table: torch.Tensor, ndim: int) -> None:
-    """The checks every kernel wrapper makes before a launch: one CUDA
-    device, float32, two contiguous planes of one `ndim`-D shape; with `xi`
-    None one contiguous complex64 tensor `xr` in their place, with no lazy
-    conjugate or negative bit (an interleaved input)."""
-    if xi is None:
-        if xr.device.type != "cuda" or table.device != xr.device:
-            raise ValueError(f"{name} needs all tensors on one CUDA device, "
-                             f"got {xr.device}, {table.device}")
-        if xr.dtype != torch.complex64 or table.dtype != torch.float32:
-            raise ValueError(f"{name} takes complex64 and a float32 table, "
-                             f"got {xr.dtype}, {table.dtype}")
-        if xr.dim() != ndim:
-            raise ValueError(f"{name} takes one {ndim}-D complex tensor, got "
-                             f"{tuple(xr.shape)}")
-        if not (xr.is_contiguous() and table.is_contiguous()) \
-                or xr.is_conj() or xr.is_neg():
-            raise ValueError(f"{name} takes contiguous tensors with no lazy "
-                             f"conjugate or negative bit")
-        return
-    if xr.device.type != "cuda" or xi.device != xr.device \
-            or table.device != xr.device:
-        raise ValueError(f"{name} needs all tensors on one CUDA device, got "
-                         f"{xr.device}, {xi.device}, {table.device}")
-    if xr.dtype != torch.float32 or xi.dtype != torch.float32 \
-            or table.dtype != torch.float32:
-        raise ValueError(f"{name} takes float32, got {xr.dtype}, "
-                         f"{xi.dtype}, {table.dtype}")
-    if xr.dim() != ndim or xi.shape != xr.shape:
-        raise ValueError(f"{name} takes two {ndim}-D planes of one shape, "
-                         f"got {tuple(xr.shape)} and {tuple(xi.shape)}")
-    if not (xr.is_contiguous() and xi.is_contiguous()
-            and table.is_contiguous()):
-        raise ValueError(f"{name} takes contiguous tensors")
-
-
-def device_guard(device: torch.device):
-    """The kernels launch on the current device: make it `device` for the
-    call (and restore it after), at no cost when it already is."""
-    if torch.cuda.current_device() == device.index:
-        return contextlib.nullcontext()
-    return torch.cuda.device(device)
-
-
 def stockham_c2c_cuda(xr: torch.Tensor, xi: Optional[torch.Tensor],
                       radices: Sequence[int], table: torch.Tensor,
                       pretwiddle: Optional[torch.Tensor] = None,
@@ -584,22 +534,22 @@ def stockham_c2c_cuda(xr: torch.Tensor, xi: Optional[torch.Tensor],
                       complex_out: bool = False):
     """Launch the CUDA kernel on split (B, n) f32 planes on one card, or
     with `xi` None on one (B, n) complex64 tensor `xr` read interleaved.
-    ``table`` is ``_device_table(n, radices, sign, device)``: the sign lives
+    ``table`` is ``device_table(n, radices, sign, device)``: the sign lives
     in it.  The four-step options (planes only): ``pretwiddle`` is
-    ``_device_pretwiddle(P, n, sign, device)``, multiplied into row r by
+    ``device_pretwiddle(P, n, sign, device)``, multiplied into row r by
     its row r mod P on load; ``store_transposed`` (with ``pretwiddle``)
     returns (B/P, n, P) planes, row b*P + k1's point k2 at [b, k2, k1].
     Returns new (yr, yi), or with `complex_out` one new complex64 tensor
     written interleaved; raises on anything the kernel does not take, and
     when the launch fails."""
     global launches, fourstep_launches, wide_launches
-    check_planes("stockham_c2c_cuda", xr, xi, table, 2)
+    passes.check_planes("stockham_c2c_cuda", xr, xi, table, 2)
     B, n = xr.shape
     radices = [int(r) for r in radices]
     wide = n > MAX_N
     if not (wide_ok(n, radices) if wide else radices_ok(n, radices)):
         raise ValueError(f"kernel schedule {radices} does not fit n={n}")
-    if table.numel() != _table_len(n, radices):
+    if table.numel() != table_len(n, radices):
         raise ValueError(f"root table of {table.numel()} floats does not "
                          f"match schedule {radices}")
     if B >= 2 ** 31:
@@ -620,23 +570,23 @@ def stockham_c2c_cuda(xr: torch.Tensor, xi: Optional[torch.Tensor],
         raise ValueError("store_transposed needs a pretwiddle")
     if store_transposed and B % P:
         raise ValueError(f"{B} rows are not whole groups of {P}")
-    layout = layout_of(xi, complex_out)
+    layout = passes.layout_of(xi, complex_out)
     if P and layout:
         raise ValueError("the four-step options take split planes only")
     shape = (B // P, n, P) if store_transposed else (B, n)
-    y = new_output(shape, xr.device, complex_out)
+    y = passes.new_output(shape, xr.device, complex_out)
     if B == 0:
         return y[0] if complex_out else y
     plan = level_plan(n, tuple(radices))
     rpb = rows_per_block(n)
-    launch("stockham_c2c_wide" if wide else "stockham_c2c", xr.device,
-           plan_smem(plan, rpb), -(-B // rpb),
-           (*pointers(xr, xi), *pointers(*y), table.data_ptr(),
-            plan_array(plan), B, n, rpb,
-            pretwiddle.data_ptr() if P else None, P,
-            P if store_transposed else 0, layout),
-           f"n={n}, radices={radices}, B={B}, pretwiddle {P}, transposed "
-           f"{store_transposed}, layout {layout}")
+    passes.launch("stockham_c2c_wide" if wide else "stockham_c2c", xr.device,
+                  plan_smem(plan, rpb), -(-B // rpb),
+                  (*passes.pointers(xr, xi), *passes.pointers(*y),
+                   table.data_ptr(), plan_array(plan), B, n, rpb,
+                   pretwiddle.data_ptr() if P else None, P,
+                   P if store_transposed else 0, layout),
+                  f"n={n}, radices={radices}, B={B}, pretwiddle {P}, "
+                  f"transposed {store_transposed}, layout {layout}")
     if P:
         fourstep_launches += 1
     elif wide:
@@ -646,74 +596,8 @@ def stockham_c2c_cuda(xr: torch.Tensor, xi: Optional[torch.Tensor],
     return y[0] if complex_out else y
 
 
-def layout_of(xi: Optional[torch.Tensor], complex_out: bool) -> int:
-    """The layout bits of a launch: IN_COMPLEX when the input is one
-    complex tensor (`xi` None), OUT_COMPLEX with `complex_out`."""
-    return (IN_COMPLEX if xi is None else 0) | \
-        (OUT_COMPLEX if complex_out else 0)
-
-
-def new_output(shape, device: torch.device, complex_out: bool):
-    """A kernel's output: two new float32 planes of `shape`, or with
-    `complex_out` one new complex64 tensor (a 1-tuple)."""
-    if complex_out:
-        return (torch.empty(shape, dtype=torch.complex64, device=device),)
-    return (torch.empty(shape, dtype=torch.float32, device=device),
-            torch.empty(shape, dtype=torch.float32, device=device))
-
-
-def pointers(xr: torch.Tensor, xi: Optional[torch.Tensor] = None):
-    """A kernel's two pointer arguments of a layout: the planes', or the
-    complex tensor's and None."""
-    return xr.data_ptr(), None if xi is None else xi.data_ptr()
-
-
-def launch(kernel: str, device: torch.device, smem: int, work: int, args,
-           what: str) -> None:
-    """Launch ``<kernel>_launch(*args, grid, smem, stream)`` with `smem`
-    bytes of shared memory per block (the root tables and the row or tile
-    buffers) on `device`'s current stream, with a grid that fills the card
-    and is at most `work` blocks; raises when the launch fails, naming
-    `what`, in the span ``fftw.launch.<kernel>``.  Every single-block
-    kernel launches here (K1, K2, K4, K5, K6, K7, E1, E5, E7, E8); K3
-    launches clusters (``ops/fused2d.py``), E2/E3 pick their instantiation
-    by arm (``ops/stage4096.py``)."""
-    from . import _build
-    lib = _build.library()
-    with trace.span(f"fftw.launch.{kernel}"), device_guard(device):
-        grid = min(work, resident_blocks(lib, kernel, device, smem))
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, f"{kernel}_launch")(*args, grid, smem, stream)
-    if rc != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc} "
-                           f"({what})")
-
-
-#: (kernel, device index, shared-memory bytes) -> blocks resident on the
-#: whole card
-_grids: Dict[Tuple[str, int, int], int] = {}
-
-
-def resident_blocks(lib, kernel: str, device: torch.device,
-                    smem: int) -> int:
-    """The grid that fills `device` with `kernel` at `smem` bytes per
-    block; the first call per (kernel, device, smem) also allows the kernel
-    its shared memory (``<kernel>_occupancy``).  The caller has made
-    `device` current."""
-    key = (kernel, device.index, smem)
-    grid = _grids.get(key)
-    if grid is None:
-        per_sm = ctypes.c_int(0)
-        rc = getattr(lib, f"{kernel}_occupancy")(smem, ctypes.byref(per_sm))
-        if rc != 0:
-            raise RuntimeError(f"{kernel} occupancy query failed: CUDA "
-                               f"error {rc} (smem={smem} bytes)")
-        sms = torch.cuda.get_device_properties(device).multi_processor_count
-        grid = _grids[key] = sms * max(1, per_sm.value)
-    return grid
-
-
-def _table_len(n: int, radices: Sequence[int]) -> int:
+def table_len(n: int, radices: Sequence[int]) -> int:
+    """Floats of the root tables of `radices` (:func:`kernel_table`)."""
     total, rest = 0, n
     for p in radices:
         total += 2 * p + (2 * rest if rest // p > 1 else 0)
@@ -817,7 +701,7 @@ def level_plan(n: int, radices: Tuple[int, ...], tl: int = 1
     m = n * tl
     smax = max(lv[7] for lv in levels)
     rs = m if smax == 0 else -(-(m + smax * ((m - 1) >> 5)) // 4) * 4
-    head = [len(levels), 2 if dense else 1, rs, _table_len(n, radices)]
+    head = [len(levels), 2 if dense else 1, rs, table_len(n, radices)]
     return tuple(head + [v for lv in levels for v in lv])
 
 
@@ -847,42 +731,15 @@ def plan_array(plan: Sequence[int]):
 
 
 # ---------------------------------------------------------------------------
-# descriptor -> split apply
+# descriptor -> pass
 # ---------------------------------------------------------------------------
-
-class _StockhamC2C(torch.autograd.Function):
-    """A c2c pass with the adjoint as backward: the VJP of an unnormalized
-    DFT on the real planes is the opposite-sign unnormalized DFT (the map
-    [[A, -B], [B, A]] has transpose [[A, B], [-B, A]]), and on a complex
-    tensor it is the same (A^H).  The pass takes split planes (xr, xi) or,
-    with xi None, one complex tensor, and gives split planes or, with
-    `cout`, one complex tensor; the adjoint takes the gradient in the
-    output's layout and gives it in the input's."""
-
-    @staticmethod
-    def forward(ctx, xr, xi, fwd, adj, cout):
-        ctx.adj, ctx.cin = adj, xi is None
-        return fwd(xr, xi, cout)
-
-    @staticmethod
-    def backward(ctx, *grads):
-        if len(grads) == 1:                    # a complex output's
-            gr, gi = grads[0], None
-        else:
-            gr, gi = grads
-            gr = torch.zeros_like(gi) if gr is None else gr
-            gi = torch.zeros_like(gr) if gi is None else gi
-        d = ctx.adj(gr, gi, ctx.cin)
-        if ctx.cin:
-            return d, None, None, None, None
-        return d[0], d[1], None, None, None
-
 
 def build_pallas_c2c_split(desc: Dict, sign: int, rdtype,
                            device: Optional[torch.device] = None):
-    """Split-complex apply for ``{"alg": "pallas", "n": n, "radices":
-    [...]}`` on any leading batch shape, ragged batches included (each CUDA
-    block takes whole rows, so nothing is padded).
+    """The pass (``ops/passes.py``) of ``{"alg": "pallas", "n": n,
+    "radices": [...]}`` on any leading batch shape, ragged batches included
+    (each CUDA block takes whole rows, so nothing is padded); K1 reads and
+    writes both layouts itself.
 
     ``vpu`` selects the twin's butterfly stage form; on the card the radix
     alone picks each stage's form (:func:`stage_form`).  Above MAX_N only a
@@ -894,91 +751,11 @@ def build_pallas_c2c_split(desc: Dict, sign: int, rdtype,
     radices = list(desc.get("radices") or choose_radices(n))
     if not schedule_ok(n, radices, vpu):
         raise ValueError(f"pallas schedule {radices} does not fit n={n}")
-    if np.dtype(rdtype) != np.float32:
-        raise ValueError(f"the Stockham kernel is float32 only, got "
-                         f"{np.dtype(rdtype)}")
     key = (n, tuple(radices))
-    if device is not None and torch.device(device).type == "cuda":
-        for s in (sign, -sign):                # move the tables once
-            _device_table(*key, s, torch.device(device))
-
-    def run(xr, xi, s, cout=False):
-        if xr.shape[-1] != n or (xi is not None and xi.shape != xr.shape):
-            raise ValueError(f"plan expects split planes of shape (..., {n}),"
-                             f" got {tuple(xr.shape)} and "
-                             f"{None if xi is None else tuple(xi.shape)}")
-        if xr.device.type == "cpu":
-            return as_output(stockham_c2c_torch(*as_planes(xr, xi), radices,
-                                                s, vpu), cout)
-        shp = xr.shape[:-1]
-        y = stockham_c2c_cuda(*flat(xr, xi, (-1, n)), radices,
-                              _device_table(*key, s, xr.device),
-                              complex_out=cout)
-        return shaped(y, (*shp, n))
-
-    return differentiable(run, sign, reads=True, writes=True)
-
-
-def differentiable(run, sign: int, reads: bool = False,
-                   writes: bool = False):
-    """The split apply ``run(xr, xi, sign)`` with the opposite-sign run as
-    its backward: ``apply(xr, xi)``.  K1's, K2's and K3's runs also take
-    the complex tensor itself (`xi` None) and give a complex output
-    (``run(..., cout=True)``), converting in the run where their kernel has
-    no such form: ``apply(x, None)``, ``apply(xr, xi, cout=True)``, and
-    their backward takes and gives the gradients so.  ``apply.reads`` and
-    ``apply.writes`` say which of the two its kernel does itself, with no
-    conversion: what a plan's complex entry reads of a pass."""
-    def at(s):
-        def go(xr, xi, cout):
-            return run(xr, xi, s, cout) if cout else run(xr, xi, s)
-        return go
-    fwd, adj = at(sign), at(-sign)
-
-    def apply(xr, xi=None, cout=False):
-        return _StockhamC2C.apply(xr, xi, fwd, adj, cout)
-    apply.reads, apply.writes = reads, writes
-    return apply
-
-
-# ---------------------------------------------------------------------------
-# the layouts of a pass: split planes or one interleaved complex tensor
-# ---------------------------------------------------------------------------
-
-def as_planes(xr: torch.Tensor, xi: Optional[torch.Tensor]):
-    """A pass's input as split planes: (xr, xi) as they are, or with `xi`
-    None the complex tensor `xr` converted into two contiguous planes (a
-    lazy conjugate or negative bit resolved by the copies), for a pass that
-    cannot read it (a twin, or a kernel with no interleaved-input form)."""
-    if xi is None:
-        with trace.span("fftw.convert.split", xr.device):
-            return xr.real.contiguous(), xr.imag.contiguous()
-    return xr, xi
-
-
-def as_output(y, cout: bool):
-    """A pass's output planes `y` as asked for: with `cout` combined into
-    one complex tensor, for a pass that cannot write it.  Both conversions
-    run in their spans, ``fftw.convert.split`` and ``.combine``, wherever
-    they run: at a plan's complex edge or inside a pass."""
-    if not cout:
-        return y
-    with trace.span("fftw.convert.combine", y[0].device):
-        return torch.complex(*y)
-
-
-def flat(xr: torch.Tensor, xi: Optional[torch.Tensor], shape):
-    """A kernel's operands reshaped to `shape`: two contiguous planes, or
-    the complex tensor (xi None) contiguous with no lazy conjugate or
-    negative bit (copied only where it is not so already)."""
-    if xi is None:
-        return xr.reshape(shape).resolve_conj().resolve_neg().contiguous(), \
-            None
-    return xr.reshape(shape).contiguous(), xi.reshape(shape).contiguous()
-
-
-def shaped(y, shape):
-    """A kernel's output, planes or one complex tensor, reshaped."""
-    if isinstance(y, tuple):
-        return y[0].reshape(shape), y[1].reshape(shape)
-    return y.reshape(shape)
+    return passes.kernel_pass(
+        (n,), sign, rdtype, device,
+        lambda s, dev: device_table(*key, s, dev),
+        lambda xr, xi, s: stockham_c2c_torch(xr, xi, radices, s, vpu),
+        lambda xr, xi, table, cout: stockham_c2c_cuda(
+            xr, xi, radices, table, complex_out=cout),
+        reads=True, writes=True)

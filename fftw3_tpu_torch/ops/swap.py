@@ -25,6 +25,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from . import passes
 from . import stockham as S
 
 #: the measurement's shape: B matrices of (p, q) at n = 4096
@@ -69,7 +70,7 @@ def swap_cuda(xr: torch.Tensor, xi: torch.Tensor
     if q % 4 or smem > 98304:
         raise ValueError(f"swap takes q % 4 == 0 and 8*p*(q+4) <= 98304 "
                          f"bytes, got {tuple(xr.shape)}")
-    S.check_planes("swap_cuda", xr, xi, xr, 3)
+    passes.check_planes("swap_cuda", xr, xi, xr, 3)
     B = xr.shape[0]
     if xr.data_ptr() % 16 or xi.data_ptr() % 16:
         raise ValueError("swap_cuda takes 16-byte aligned planes")
@@ -79,8 +80,8 @@ def swap_cuda(xr: torch.Tensor, xi: torch.Tensor
     yi = torch.empty_like(yr)
     if B == 0:
         return yr, yi
-    S.launch("swap", xr.device, smem, B,
-             (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(), B,
-              p, q), f"E7 swap ({B}, {p}, {q})")
+    passes.launch("swap", xr.device, smem, B,
+                  (xr.data_ptr(), xi.data_ptr(), yr.data_ptr(), yi.data_ptr(),
+                   B, p, q), f"E7 swap ({B}, {p}, {q})")
     launches[B, p, q] = launches.get((B, p, q), 0) + 1
     return yr, yi

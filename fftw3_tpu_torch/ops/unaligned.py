@@ -23,6 +23,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from . import passes
 from . import stockham as S
 
 ARMS = ("copy", "trans")
@@ -57,7 +58,7 @@ def unaligned_cuda(x: torch.Tensor, arm: str) -> torch.Tensor:
     when the launch fails."""
     if arm not in ARMS:
         raise ValueError(f"no E1 arm {arm!r}; the arms are {ARMS}")
-    S.check_planes("unaligned_cuda", x, x, x, 2)
+    passes.check_planes("unaligned_cuda", x, x, x, 2)
     rows, n = x.shape
     if n < 1 or rows >= 2 ** 31 or rows * n >= 2 ** 31:
         raise ValueError(f"plane {tuple(x.shape)} is not one E1 takes")
@@ -70,12 +71,12 @@ def unaligned_cuda(x: torch.Tensor, arm: str) -> torch.Tensor:
     what = f"E1 {arm} ({rows}, {n})"
     if arm == "copy":
         rpb = S.rows_per_block(n)
-        S.launch("unaligned_copy", x.device, 4 * (-(-rpb * n // 4) * 4),
-                 -(-rows // rpb), (x.data_ptr(), y.data_ptr(), rows, n, rpb),
-                 what)
+        passes.launch("unaligned_copy", x.device,
+                      4 * (-(-rpb * n // 4) * 4), -(-rows // rpb),
+                      (x.data_ptr(), y.data_ptr(), rows, n, rpb), what)
     else:
-        S.launch("unaligned_trans", x.device, trans_smem(n),
-                 -(-rows // TRANS_ROWS), (x.data_ptr(), y.data_ptr(), rows,
-                                          n), what)
+        passes.launch("unaligned_trans", x.device, trans_smem(n),
+                      -(-rows // TRANS_ROWS),
+                      (x.data_ptr(), y.data_ptr(), rows, n), what)
     launches[arm, n] = launches.get((arm, n), 0) + 1
     return y

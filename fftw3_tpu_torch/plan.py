@@ -13,17 +13,17 @@ does:
   and both axes' descriptors are ``pallas`` (c2c only);
 * a non-last axis with a ``pallas`` descriptor whose trailing-dims product
   reaches ``stockham.INNER_TILE_L`` goes through the axis -2 kernel (K2,
-  ``ops/inner.py``) behind a reshape, with no copy;
+  ``ops/inner.py``), the trailing dims its columns, with no copy;
 * every other axis runs its last-axis solver behind a ``movedim`` lift.
 
-The planes stay split between passes.  At the complex entry of a c2c plan
-(``Plan.execute``, ``Plan.apply``) the first pass reads the caller's
-complex tensor itself and the last pass writes the complex output itself
-where their kernels can (:func:`complex_edges`: a CUDA complex64 tensor,
-contiguous, with no lazy conjugate or negative bit, into K1 on the last
-axis or K2; out of K1 or K3), so no conversion pass runs there.  Every
-other edge converts: one real/imag split at entry
-(``fftw.convert.split``), one combine at exit (``fftw.convert.combine``).
+Every axis pass takes and gives split planes or one complex tensor, and
+converts only where its kernel cannot (the pass contract of
+``ops/passes.py``).  A c2c plan runs its route: the first pass gets what
+the caller passed, the planes stay split between passes, and at the
+complex entry (``Plan.execute``, ``Plan.apply``) the last pass is asked for
+the complex output.  So K1 reads and writes the complex tensor itself, K2
+reads it and K3 writes it, and every other edge converts in its span
+(``fftw.convert.split``, ``fftw.convert.combine``).
 
 Real transforms (the last transform axis is the real one): r2c runs its
 last axis first (K4 for a ``pallas_r2c`` descriptor), then c2c passes over
@@ -54,7 +54,7 @@ from . import kinds as K
 from . import planner as planner_mod
 from . import trace
 from .ops import c2c as c2c_ops
-from .ops import fused2d, inner, real_stockham, stockham
+from .ops import fused2d, inner, passes, real_stockham, stockham
 from .ops import r2r as r2r_ops
 from .ops import real as real_ops
 
@@ -71,54 +71,21 @@ def _stage_span(desc: Dict) -> str:
 
 
 class _Stage(NamedTuple):
-    """One axis pass: its span, and its apply on split planes, ``run(xr,
-    xi) -> (yr, yi)``.  With `reads` it also takes the complex tensor
-    itself, ``run(x, None)``; with `writes` it also gives the complex
-    output itself, ``run(xr, xi, True)``: what its kernel declares
-    (``reads``/``writes`` of the apply ``stockham.differentiable`` builds;
-    K1 both, K2 reads, K3 writes)."""
+    """One axis pass: its span, and its apply in the pass contract,
+    ``run(xr, xi=None, cout=False)`` (``ops/passes.py``)."""
     name: str
     run: Callable
-    reads: bool = False
-    writes: bool = False
 
 
-def _kernel_stage(name: str, run: Callable, fn: Callable) -> _Stage:
-    """The pass `name` running `run`, with the forms the kernel apply `fn`
-    declares (none for an apply that declares none)."""
-    return _Stage(name, run, getattr(fn, "reads", False),
-                  getattr(fn, "writes", False))
-
-
-def complex_edges(x: torch.Tensor, stages: List[_Stage]) -> Tuple[bool, bool]:
-    """Which edges of a c2c call on the complex tensor `x` run in the
-    kernels: (the first pass reads `x` itself, the last pass writes the
-    output itself).  Either needs a pass that can (`stages`, the plan's
-    route) and a CUDA complex64 `x`; reading needs besides an `x` that is
-    contiguous, with no lazy conjugate or negative bit.  Every other edge
-    converts (``stockham.as_planes``, ``stockham.as_output``)."""
-    if not stages or x.device.type != "cuda" or x.dtype != torch.complex64:
-        return False, False
-    return (stages[0].reads and x.is_contiguous() and not x.is_conj()
-            and not x.is_neg()), stages[-1].writes
-
-
-def _run_split(stages: List[_Stage], xr, xi=None, read: bool = False,
-               cout: bool = False):
-    """Split-plane passes in order, each in its span.  A complex entry
-    gives the complex tensor `x` itself as `xr` and `xi` None: the first
-    pass reads it where `read`, else its conversion in
-    (``fftw.convert.split``) makes two contiguous planes here, where no
-    caller holds them, so that they are freed once the first pass has run.
-    With `cout` the last pass returns the complex output itself."""
-    if xi is None and not read:
-        xr, xi = stockham.as_planes(xr, None)
-    y, xr, xi = (xr, xi), None, None     # held by `y` alone from here
+def _run_passes(stages: List[_Stage], xr, xi=None, cout: bool = False):
+    """The passes in order, each in its span: the first on what the caller
+    passed (split planes, or with `xi` None the complex tensor `xr`), the
+    last asked for the complex output where `cout`."""
+    y = (xr, xi)
     for i, st in enumerate(stages):
         with trace.span(st.name):
-            y = st.run(*y, True) if cout and i == len(stages) - 1 \
-                else st.run(*y)
-    return y
+            y = st.run(*y, cout and i == len(stages) - 1)
+    return y if stages else passes.as_output(passes.as_planes(*y), cout)
 
 
 def _along_axis(fn: Callable, axis: int) -> Callable:
@@ -131,10 +98,9 @@ def _along_axis(fn: Callable, axis: int) -> Callable:
 
 
 def _along_axis_split(fn: Callable, axis: int) -> Callable:
-    """Lift a split-complex last-axis transform to an arbitrary axis."""
+    """Lift a split-complex last-axis transform to the non-last axis
+    `axis` (right-relative, < -1)."""
     def apply(xr, xi):
-        if axis in (-1, xr.dim() - 1):
-            return fn(xr, xi)
         yr, yi = fn(xr.movedim(axis, -1), xi.movedim(axis, -1))
         return yr.movedim(-1, axis), yi.movedim(-1, axis)
     return apply
@@ -143,29 +109,20 @@ def _along_axis_split(fn: Callable, axis: int) -> Callable:
 def _c2c_stage(desc: Dict, sign: int, rdtype, axis: int,
                shape: Tuple[int, ...], device) -> _Stage:
     """One c2c axis pass and its span.  A non-last axis whose trailing-dims
-    product is at least one lane tile takes the axis -2 kernel behind a
-    reshape (the trailing dims become its columns: no ``movedim`` copies);
-    everything else lifts the last-axis transform with ``movedim``.  Axes
+    product is at least one lane tile takes the axis -2 kernel, the
+    trailing dims its columns (no ``movedim`` copies); everything else
+    lifts the last-axis transform with ``movedim``, on split planes.  Axes
     are applied right-relative, so extra *leading* batch dims at call time
-    work.  K2, and K1 on the last axis, carry the complex forms their
-    apply declares (:func:`_kernel_stage`); a lifted pass has none."""
+    work."""
     neg = axis - len(shape)                  # right-relative axis (< 0)
-    trail = math.prod(shape[axis + 1:])
-    if neg != -1 and stockham.inner_applicable(desc, trail):
-        fn = inner.build_pallas_c2c_split_inner(desc, sign, rdtype, device)
-
-        def apply_inner(xr, xi):
-            s = xr.shape
-            cut = xr.dim() + neg + 1         # runtime position after axis
-            flat = (*s[:cut], trail)
-            yr, yi = fn(xr.reshape(flat),
-                        None if xi is None else xi.reshape(flat))
-            return yr.reshape(s), yi.reshape(s)
-        return _kernel_stage("fftw.stage.k2", apply_inner, fn)
+    if neg != -1 and stockham.inner_applicable(
+            desc, math.prod(shape[axis + 1:])):
+        return _Stage("fftw.stage.k2", inner.build_pallas_c2c_split_inner(
+            desc, sign, rdtype, device, columns=-neg - 1))
     fn = c2c_ops.build_c2c_split(desc, sign, rdtype, device)
-    if neg == -1:
-        return _kernel_stage(_stage_span(desc), fn, fn)
-    return _Stage(_stage_span(desc), _along_axis_split(fn, neg))
+    if neg != -1:
+        fn = passes.split_pass(_along_axis_split(fn, neg))
+    return _Stage(_stage_span(desc), fn)
 
 
 def _r2c_along_axis(fn: Callable, axis: int) -> Callable:
@@ -275,8 +232,7 @@ class Plan:
         #: kernels take: (xr, xi) -> (yr, yi) for c2c, x -> (yr, yi) for
         #: r2c, (xr, xi) -> y for c2r, x -> y for r2r
         self.apply_split = apply_split
-        #: a c2c plan's axis passes in order (the route its complex entry's
-        #: edges are decided on, :func:`complex_edges`)
+        #: a c2c plan's axis passes in order: its route
         self.stages = stages
 
     # -- execution (fftw_execute + new-array execute) ----------------------
@@ -405,9 +361,6 @@ def _check_trailing(shape, *planes) -> None:
 
 def _plan_c2c(problem, pl, patience, device, rdtype, vec) -> Plan:
     shape = problem.shape
-    # split-complex through the whole multi-axis pipeline; the complex
-    # entry's edges run in the first and last kernels where they can, else
-    # one real/imag split at entry and one combine at exit
     descriptors: Dict[int, Dict] = {
         a: pl.plan_c2c(shape[a], rdtype, patience, batch=vec(a),
                        device=device) for a in problem.axes}
@@ -429,18 +382,15 @@ def _plan_c2c(problem, pl, patience, device, rdtype, vec) -> Plan:
             shape[nd - 2], shape[nd - 1], problem.sign, rdtype,
             desc1=descriptors[nd - 2], desc2=descriptors[nd - 1],
             device=device)
-        split_stages.append(_kernel_stage("fftw.stage.k3", fn, fn))
+        split_stages.append(_Stage("fftw.stage.k3", fn))
 
     def apply_split(xr, xi):
         _check_trailing(shape, xr, xi)
-        return _run_split(split_stages, xr, xi)
+        return _run_passes(split_stages, xr, xi)
 
     def apply_c2c(x):
         _check_trailing(shape, x)
-        read, write = complex_edges(x, split_stages)
-        trace.edges(read, write)
-        return stockham.as_output(
-            _run_split(split_stages, x, None, read, write), not write)
+        return _run_passes(split_stages, x, None, True)
 
     ctype = c2c_ops.complex_dtype(rdtype)
     return Plan(problem, descriptors, apply_c2c, shape, shape, ctype, ctype,
@@ -477,14 +427,14 @@ def _plan_r2c(problem, pl, patience, device, rdtype, vec) -> Plan:
         def split(x):
             with trace.span(first_span):
                 yr, yi = first(x)
-            return _run_split(stages, yr, yi)
+            return _run_passes(stages, yr, yi)
 
     def apply_split(x):
         _check_trailing(shape, x)
         return split(x)
 
     def apply_r2c(x):
-        return stockham.as_output(apply_split(x), True)
+        return passes.as_output(apply_split(x), True)
 
     return Plan(problem, descriptors, apply_r2c, shape, tuple(out),
                 _real_dtype(rdtype), c2c_ops.complex_dtype(rdtype), device,
@@ -517,7 +467,7 @@ def _plan_c2r(problem, pl, patience, device, rdtype, vec) -> Plan:
                             last - nd)
 
     def run(xr, xi=None):
-        xr, xi = _run_split(stages, xr, xi)
+        xr, xi = _run_passes(stages, *passes.as_planes(xr, xi))
         with trace.span(final_span):
             return final(xr, xi)
 

@@ -480,9 +480,9 @@ class Planner:
                 on_card = torch.device(device).type == "cuda"
                 for cand in [c for c in out if c["alg"] == "pallas"
                              and not on_card]:
-                    if stockham._vpu_last_ok(cand["radices"][-1], 1):
+                    if stockham.vpu_last_ok(cand["radices"][-1], 1):
                         out.append({**cand, "vpu": True})
-                    if all(stockham._vpu_last_ok(r, 1)
+                    if all(stockham.vpu_last_ok(r, 1)
                            for r in cand["radices"]):
                         out.append({**cand, "vpu": "all"})
         elif (patience >= K.PATIENCE_MEASURE
@@ -494,7 +494,7 @@ class Planner:
             # CUDA device too: it is the only pallas candidate there)
             h = 1 << ((n.bit_length() - 1) // 2)
             rad = [n // h, h]
-            if all(stockham._vpu_last_ok(r, 1) for r in rad):
+            if all(stockham.vpu_last_ok(r, 1) for r in rad):
                 out.append({"alg": "pallas", "n": n, "radices": rad,
                             "vpu": "all"})
         if stockham.fourstep_applicable(n, rdtype, device):

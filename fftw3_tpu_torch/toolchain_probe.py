@@ -55,7 +55,7 @@ def matmul_cuda(g: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     and when the launch fails."""
     global launches
     from .ops import _build
-    from .ops.stockham import device_guard
+    from .ops.passes import device_guard
     for name, t in (("G", g), ("x", x)):
         if t.device.type != "cuda" or t.dtype != torch.float32 \
                 or t.dim() != 2 or not t.is_contiguous():

@@ -78,7 +78,7 @@ def _arms(torch, dev):
 
     def k1(shape, rad):
         n = shape[-1]
-        tab = S._device_table(n, tuple(rad), -1, dev)
+        tab = S.device_table(n, tuple(rad), -1, dev)
 
         def run(*a, cout=False):
             return S.stockham_c2c_cuda(*a, rad, tab, complex_out=cout)
@@ -97,7 +97,7 @@ def _arms(torch, dev):
         return arms
 
     def k2(shape, rad):
-        tab = S._device_table(shape[1], tuple(rad), -1, dev)
+        tab = S.device_table(shape[1], tuple(rad), -1, dev)
 
         def run(*a):
             return inner.inner_c2c_cuda(*a, rad, tab)
@@ -105,8 +105,8 @@ def _arms(torch, dev):
         return {"planes": (run, planes(x)), "in": (run, (x, None))}
 
     def k3(shape, rad):
-        tab = fused2d._device_table_2d(shape[1], tuple(rad), shape[2],
-                                       tuple(rad), -1, dev)
+        tab = fused2d.device_table_2d(shape[1], tuple(rad), shape[2],
+                                      tuple(rad), -1, dev)
 
         def run(a, b, cout=False):
             return fused2d.c2c_2d_cuda(a, b, rad, rad, tab, complex_out=cout)

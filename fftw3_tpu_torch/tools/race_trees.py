@@ -45,14 +45,14 @@ def ms(fn, args):
     return timing.time_dispatched(fn, args, iters=3, reps=7) * 1e3
 out = {}
 xr, xi = planes((65536, 1024))
-t = S._device_table(1024, (64, 16), -1, dev)
+t = S.device_table(1024, (64, 16), -1, dev)
 out["K1 (65536, 1024) [64, 16]"] = ms(
     lambda a, b: S.stockham_c2c_cuda(a, b, [64, 16], t), (xr, xi))
 del xr, xi
 for shape in ((1, 512, 262144), (8, 2048, 1025)):
     xr, xi = planes(shape)
     rad = S.choose_radices(shape[1])
-    t = S._device_table(shape[1], tuple(rad), -1, dev)
+    t = S.device_table(shape[1], tuple(rad), -1, dev)
     out[f"K2 {shape}"] = ms(
         lambda a, b: inner.inner_c2c_cuda(a, b, rad, t), (xr, xi))
     del xr, xi
@@ -60,8 +60,8 @@ for shape in ((512, 512, 512), (64, 512, 512), (256, 256, 1024),
               (341, 384, 512)):
     xr, xi = planes(shape)
     r1, r2 = S.choose_radices(shape[1]), S.choose_radices(shape[2])
-    t = fused2d._device_table_2d(shape[1], tuple(r1), shape[2], tuple(r2),
-                                 -1, dev)
+    t = fused2d.device_table_2d(shape[1], tuple(r1), shape[2], tuple(r2),
+                                -1, dev)
     out[f"K3 {shape} complex64 out"] = ms(
         lambda a, b: fused2d.c2c_2d_cuda(a, b, r1, r2, t, complex_out=True),
         (xr, xi))
@@ -71,7 +71,7 @@ for shape in ((512, 512, 512), (64, 512, 512), (256, 256, 1024),
 for shape in ((65536, 1024), (16384, 2048)):
     x = planes(shape)[0]
     rad = S.choose_radices(shape[1] // 2)
-    t = RS._device_table(shape[1], tuple(rad), -1, dev)
+    t = RS.device_table(shape[1], tuple(rad), -1, dev)
     out[f"K4 {shape}"] = ms(lambda a: RS.r2c_cuda(a, rad, t), (x,))
     del x
 for shape, rad in (((65536, 1024), None), ((16384, 2048), None),
@@ -79,13 +79,13 @@ for shape, rad in (((65536, 1024), None), ((16384, 2048), None),
     n = shape[1]
     rad = rad or S.choose_radices(n // 2)
     xr, xi = planes((shape[0], n // 2 + 1))
-    t = RS._device_table(n, tuple(rad), +1, dev)
+    t = RS.device_table(n, tuple(rad), +1, dev)
     out[f"K6 {shape} {rad}"] = ms(
         lambda a, b: RS.c2r_cuda(a, b, rad, t), (xr, xi))
     del xr, xi
 x = planes((8, 2048, 2048))[0]
 rad = S.choose_radices(1024)
-t = RS._device_table(2048, tuple(rad), -1, dev)
+t = RS.device_table(2048, tuple(rad), -1, dev)
 out["K5 (8, 2048, 2048)"] = ms(lambda a: RS.r2c_inner_cuda(a, rad, t), (x,))
 del x
 for shape in ((8192, 1024), (1024, 512)):

@@ -28,13 +28,6 @@ profiler runs, a span
   share.  Counting per plan, and not by call id, keeps a caller that
   alternates plans (an r2c, then its c2r) from timing one of them alone.
 
-A complex entry whose first pass reads the caller's tensor itself, or
-whose last pass writes the complex output itself (no conversion there),
-marks its call so (:func:`edges`: ``edge.in``, ``edge.out``), and a call
-whose K3 launch took the ring of tile copies marks it ``k3.ring``
-(:func:`mark`); :func:`snapshot` counts the calls of each mark.  Off, a
-mark does nothing.
-
 The record keeps the latest :data:`CAP` spans, the older ones counted as
 dropped, and belongs to one profiler session: a call of the port while the
 profiler is off, or a read of the record after it stopped, ends the
@@ -66,8 +59,6 @@ _range = getattr(torch._C._profiler, "_RecordFunctionFast",
 CAP = 1 << 16
 #: every this many calls of a plan on a CUDA device take CUDA events
 EVENT_EVERY = 8
-#: the marks a call may carry (:func:`mark`), counted by :func:`snapshot`
-MARKS = ("edge.in", "edge.out", "k3.ring")
 
 
 class _Off:
@@ -103,8 +94,7 @@ class Record:
     """One span: `call` is the id of the root span it ran under (None
     outside any), `parent` the record of the span it opened in (None for
     the outermost), `timed` whether its call takes CUDA events.  `events`
-    are its pair until :func:`snapshot` resolves them into `device_ms`.
-    A root's `marks` are its call's (:func:`mark`)."""
+    are its pair until :func:`snapshot` resolves them into `device_ms`."""
     name: str
     call: Optional[int]
     parent: Optional["Record"]
@@ -113,7 +103,6 @@ class Record:
     end_ns: Optional[int] = None
     events: Optional[Tuple[torch.cuda.Event, torch.cuda.Event]] = None
     device_ms: Optional[float] = None
-    marks: Tuple[str, ...] = ()
 
     @property
     def root(self) -> bool:
@@ -203,27 +192,6 @@ def call(name: str, device: Optional[torch.device] = None, plan=None):
     return _Span(name, True, device, plan)
 
 
-def mark(name: str) -> None:
-    """Mark the open call with `name`, one of :data:`MARKS`, once, while
-    the profiler runs.  Off, or outside a call, it does nothing: no lock,
-    no record."""
-    if not _profiler._is_profiler_enabled:
-        return
-    stack = getattr(_local, "stack", None)
-    if stack and stack[0].rec.root and name not in stack[0].rec.marks:
-        stack[0].rec.marks += (name,)
-
-
-def edges(read: bool, wrote: bool) -> None:
-    """Mark the open call: `read`, its first pass read the caller's complex
-    tensor itself (``edge.in``); `wrote`, its last pass wrote the complex
-    output itself (``edge.out``)."""
-    if read:
-        mark("edge.in")
-    if wrote:
-        mark("edge.out")
-
-
 def add(counter: str, seconds: float) -> None:
     """Add `seconds` to a set-up counter."""
     with _lock:
@@ -261,14 +229,13 @@ def counters() -> Dict[str, float]:
 def snapshot(reset: bool = False,
              within: Optional[Tuple[int, int]] = None) -> dict:
     """The record summed by span name: ``{"spans": {name: {"count",
-    "host_ms", "timed", "device_ms"}}, "calls", "timed_calls", "marks",
-    "dropped", "counters"}``.
+    "host_ms", "timed", "device_ms"}}, "calls", "timed_calls", "dropped",
+    "counters"}``.
 
     ``host_ms`` is the total over the name's spans, ``device_ms`` the total
     over the ``timed`` of them that took CUDA events (None where none
     did).  ``calls`` counts root spans, ``timed_calls`` the timed ones: a
-    per-call device time is a ``device_ms`` over ``timed_calls``.
-    ``marks`` counts the calls of each of :data:`MARKS`.  Only
+    per-call device time is a ``device_ms`` over ``timed_calls``.  Only
     closed spans count, and with `within` = (start ns, end ns) on the
     profiler's clock only those inside it.  Waits for the device to pass
     each span's end event, then keeps its time and drops the events.
@@ -277,7 +244,6 @@ def snapshot(reset: bool = False,
     lo, hi = within if within is not None else (None, None)
     spans: Dict[str, dict] = {}
     calls = timed_calls = 0
-    marks = dict.fromkeys(MARKS, 0)
     for rec in recs:
         if rec.end_ns is None or (within is not None and not (
                 lo <= rec.start_ns and rec.end_ns <= hi)):
@@ -288,8 +254,6 @@ def snapshot(reset: bool = False,
         s["host_ms"] += (rec.end_ns - rec.start_ns) * 1e-6
         calls += rec.root
         timed_calls += rec.root and rec.timed
-        for name in rec.marks:
-            marks[name] += 1
         if rec.events is not None:
             start, end = rec.events
             end.synchronize()
@@ -298,4 +262,4 @@ def snapshot(reset: bool = False,
             s["timed"] += 1
             s["device_ms"] = (s["device_ms"] or 0.0) + rec.device_ms
     return {"spans": spans, "calls": calls, "timed_calls": timed_calls,
-            "marks": marks, "dropped": dropped, "counters": counters()}
+            "dropped": dropped, "counters": counters()}

@@ -200,8 +200,8 @@ def test_applicable_2d_equals_reference(n1, n2, ok):
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     x = torch.ones(1, 128, 128)
-    table = fused2d._device_table_2d(128, (128,), 128, (128,), -1,
-                                     torch.device("cpu"))
+    table = fused2d.device_table_2d(128, (128,), 128, (128,), -1,
+                                    torch.device("cpu"))
     with pytest.raises(ValueError, match="CUDA"):
         fused2d.c2c_2d_cuda(x, x, [128], [128], table)
 
@@ -216,8 +216,8 @@ def test_kernel_matches_twin_on_card(cuda_device, n1, n2, rad1, rad2, pre,
                                      sign):
     xr, xi = (torch.from_numpy(a).to(cuda_device)
               for a in _planes(n1 + pre, (pre, n1, n2)))
-    table = fused2d._device_table_2d(n1, tuple(rad1), n2, tuple(rad2), sign,
-                                     cuda_device)
+    table = fused2d.device_table_2d(n1, tuple(rad1), n2, tuple(rad2), sign,
+                                    cuda_device)
     before = fused2d.launches, fused2d.ring_launches
     kr, ki = fused2d.c2c_2d_cuda(xr, xi, rad1, rad2, table)
     torch.cuda.synchronize()
@@ -258,8 +258,8 @@ def test_ring_is_the_in_order_form_bit_for_bit(cuda_device, pre, n1, n2,
     r1, r2 = S.choose_radices(n1), S.choose_radices(n2)
     xr, xi = (torch.from_numpy(a).to(cuda_device)
               for a in _planes(n1 + n2 + pre, (pre, n1, n2)))
-    table = fused2d._device_table_2d(n1, tuple(r1), n2, tuple(r2), sign,
-                                     cuda_device)
+    table = fused2d.device_table_2d(n1, tuple(r1), n2, tuple(r2), sign,
+                                    cuda_device)
     before = fused2d.launches, fused2d.ring_launches
     ring = fused2d.c2c_2d_cuda(xr, xi, r1, r2, table, complex_out=cout)
     in_order = fused2d.c2c_2d_cuda(_off_by_4(xr), _off_by_4(xi), r1, r2,

@@ -132,7 +132,7 @@ def _execute_plan(x, n, radices, sign):
     """The level plan run in numpy on the kernel's f32 root tables, read at
     the plan's offsets and strides as the kernel reads them."""
     plan = S.level_plan(n, tuple(radices))
-    tab = S._kernel_table(n, radices, sign).astype(np.float64)
+    tab = S.kernel_table(n, radices, sign).astype(np.float64)
     B = x.shape[0]
     for lv in range(plan[0]):
         kind, r, done, rest, off_a, off_b, ln, _ = plan[4 + 8 * lv:12 + 8 * lv]
@@ -372,7 +372,7 @@ def test_every_wide_schedule_fits_k1():
     """Every schedule K1's wide form takes (two butterfly radices of at
     most 64 above MAX_N) has a plan it runs: one row a block, within its
     shared memory and threads; the reference's [n/h, h] at 4096 is one."""
-    rads = [r for r in range(2, 65) if S._vpu_last_ok(r, 1)]
+    rads = [r for r in range(2, 65) if S.vpu_last_ok(r, 1)]
     seen = set()
     for a in rads:
         for b in rads:
@@ -449,7 +449,7 @@ def _emulate_k2(x, radices, sign):
     tl = inner.tile_width(n, L)
     gp = inner.planes_per_group(n, L, pre)
     plan = S.level_plan(n, tuple(radices), tl)
-    tab = S._kernel_table(n, radices, sign).astype(np.float64)
+    tab = S.kernel_table(n, radices, sign).astype(np.float64)
     y = np.full(x.shape, np.nan, complex)
     for b0 in range(0, pre, gp):
         nr = min(gp, pre - b0)
@@ -737,7 +737,7 @@ def test_k1_levels_match_numpy(n, radices, sign):
     B = 2 * S.rows_per_block(n) + 1
     x = rng.standard_normal((B, n)) + 1j * rng.standard_normal((B, n))
     plan = S.level_plan(n, tuple(radices))
-    tab = S._kernel_table(n, radices, sign).astype(np.float64)
+    tab = S.kernel_table(n, radices, sign).astype(np.float64)
     rpb = S.rows_per_block(n)
     y = np.full(x.shape, np.nan, complex)
     for r0 in range(0, B, rpb):
@@ -788,13 +788,13 @@ def test_register_report_reads_ptxas(tmp_path, monkeypatch):
 
 def test_kernel_wrappers_refuse_cpu_tensors():
     x = torch.ones(2, 1024)
-    table = torch.from_numpy(S._kernel_table(1024, [64, 16], -1))
+    table = torch.from_numpy(S.kernel_table(1024, [64, 16], -1))
     with pytest.raises(ValueError, match="CUDA"):
         ablate.ablate_cuda(x, x, [64, 16], table, "bfly", "full")
     w = torch.ones(2, 4096)
     with pytest.raises(ValueError, match="CUDA"):
         S.stockham_c2c_cuda(w, w, [64, 64], torch.from_numpy(
-            S._kernel_table(4096, [64, 64], -1)))
+            S.kernel_table(4096, [64, 64], -1)))
     with pytest.raises(ValueError, match="CUDA"):
         copyfloor.copy_inner_cuda(x.reshape(2, 64, 16), x.reshape(2, 64, 16))
     with pytest.raises(ValueError, match="CUDA"):
@@ -823,7 +823,7 @@ def test_k1_matches_twin_and_complex128(cuda_device, n, radices, batch,
     rng = np.random.default_rng(n + batch)
     xr, xi = (torch.from_numpy(rng.standard_normal((batch, n)).astype(
         np.float32)).to(cuda_device) for _ in range(2))
-    table = S._device_table(n, tuple(radices), sign, cuda_device)
+    table = S.device_table(n, tuple(radices), sign, cuda_device)
     before = S.launches
     kr, ki = S.stockham_c2c_cuda(xr, xi, radices, table)
     torch.cuda.synchronize()
@@ -845,8 +845,8 @@ def test_k1_fourstep_options(cuda_device, q, radices, p, store, sign):
     g = 3
     xr, xi = (torch.from_numpy(rng.standard_normal((g * p, q)).astype(
         np.float32)).to(cuda_device) for _ in range(2))
-    table = S._device_table(q, tuple(radices), sign, cuda_device)
-    w = S._device_pretwiddle(p, q, sign, cuda_device)
+    table = S.device_table(q, tuple(radices), sign, cuda_device)
+    w = S.device_pretwiddle(p, q, sign, cuda_device)
     kr, ki = S.stockham_c2c_cuda(xr, xi, radices, table, pretwiddle=w,
                                  store_transposed=store)
     tr, ti = S.stockham_c2c_torch(xr, xi, radices, sign, pretwiddle_p=p,
@@ -871,8 +871,8 @@ def test_k3_over_the_2d_grid(cuda_device, n1, n2, pre):
     xr, xi = (torch.from_numpy(rng.standard_normal((pre, n1, n2)).astype(
         np.float32)).to(cuda_device) for _ in range(2))
     for sign in (-1, +1):
-        table = fused2d._device_table_2d(n1, tuple(r1), n2, tuple(r2), sign,
-                                         cuda_device)
+        table = fused2d.device_table_2d(n1, tuple(r1), n2, tuple(r2), sign,
+                                        cuda_device)
         kr, ki = fused2d.c2c_2d_cuda(xr, xi, r1, r2, table)
         tr, ti = fused2d.c2c_2d_torch(xr, xi, r1, r2, sign)
         k = torch.complex(kr, ki)
@@ -894,7 +894,7 @@ def test_e5_full_arms(cuda_device, radices):
     rng = np.random.default_rng(5)
     xr, xi = (torch.from_numpy(rng.standard_normal((B, n)).astype(
         np.float32)).to(cuda_device) for _ in range(2))
-    table = S._device_table(n, tuple(radices), -1, cuda_device)
+    table = S.device_table(n, tuple(radices), -1, cuda_device)
     kr, ki = S.stockham_c2c_cuda(xr, xi, radices, table)
     br, bi = ablate.ablate_cuda(xr, xi, radices, table, "bfly", "full")
     assert torch.equal(kr, br) and torch.equal(ki, bi)
@@ -930,7 +930,7 @@ def test_k2_matches_twin_and_complex128(cuda_device, n, radices, shape,
     """K2 on ragged plane groups, edge tiles and a dense stage, both
     signs, against its twin and complex128."""
     xr, xi = _cuda_planes(cuda_device, n + shape[-1], shape)
-    table = S._device_table(n, tuple(radices), sign, cuda_device)
+    table = S.device_table(n, tuple(radices), sign, cuda_device)
     before = inner.launches
     kr, ki = inner.inner_c2c_cuda(xr, xi, radices, table)
     torch.cuda.synchronize()
@@ -955,7 +955,7 @@ def test_k2_gradient_is_the_opposite_sign_launch(cuda_device):
     before = inner.launches
     torch.autograd.backward([yr, yi], [gr, gi])
     assert inner.launches == before + 1
-    wr, wi = inner.inner_c2c_cuda(gr, gi, radices, S._device_table(
+    wr, wi = inner.inner_c2c_cuda(gr, gi, radices, S.device_table(
         n, tuple(radices), +1, cuda_device))
     assert torch.equal(xr.grad, wr) and torch.equal(xi.grad, wi)
 
@@ -975,7 +975,7 @@ def test_k5_matches_twin_and_float64(cuda_device, n, radices, shape):
                          .standard_normal(shape).astype(np.float32)) \
         .to(cuda_device)
     before = RS.r2c_inner_launches
-    kr, ki = RS.r2c_inner_cuda(x, radices, RS._device_table(
+    kr, ki = RS.r2c_inner_cuda(x, radices, RS.device_table(
         n, tuple(radices), -1, cuda_device))
     torch.cuda.synchronize()
     assert RS.r2c_inner_launches == before + 1
@@ -999,7 +999,7 @@ def test_k4_matches_twin_and_complex128(cuda_device, n, radices, batch):
     x = torch.from_numpy(np.random.default_rng(n + batch).standard_normal(
         (batch, n)).astype(np.float32)).to(cuda_device)
     before = RS.r2c_launches
-    kr, ki = RS.r2c_cuda(x, radices, RS._device_table(
+    kr, ki = RS.r2c_cuda(x, radices, RS.device_table(
         n, tuple(radices), -1, cuda_device))
     torch.cuda.synchronize()
     assert RS.r2c_launches == before + 1
@@ -1025,7 +1025,7 @@ def test_k4_is_the_c2r_gradient(cuda_device):
     before = RS.r2c_launches
     y.backward(g)
     assert RS.r2c_launches == before + 1
-    rr, ri = RS.r2c_cuda(g, radices, RS._device_table(
+    rr, ri = RS.r2c_cuda(g, radices, RS.device_table(
         n, tuple(radices), -1, cuda_device))
     w = RS._c2r_weights(n, cuda_device)
     assert torch.equal(hr.grad, rr * w[0]) and torch.equal(hi.grad, ri * w[1])
@@ -1037,7 +1037,7 @@ def test_k4_is_the_c2r_gradient(cuda_device):
 def test_k1_wide_matches_twin_and_complex128(cuda_device, batch, sign):
     n, radices = 4096, [64, 64]
     xr, xi = _cuda_planes(cuda_device, batch, (batch, n))
-    table = S._device_table(n, tuple(radices), sign, cuda_device)
+    table = S.device_table(n, tuple(radices), sign, cuda_device)
     before = S.wide_launches
     kr, ki = S.stockham_c2c_cuda(xr, xi, radices, table)
     torch.cuda.synchronize()

@@ -106,7 +106,7 @@ def test_k1_options_match_reference(n, radices, p, store, sign):
                                        else (256, n))
     assert _relerr(got, want) <= TOL_PKG
     # the pre-twiddle constant is the reference's, bit for bit
-    w = S._device_pretwiddle(p, n, sign, torch.device("cpu")).numpy()
+    w = S.device_pretwiddle(p, n, sign, torch.device("cpu")).numpy()
     e = np.mod(np.outer(np.arange(p), np.arange(n)), p * n)
     ref_w = np.exp(sign * 2j * np.pi * e / (p * n))
     assert np.array_equal(w[0], ref_w.real.astype(np.float32))
@@ -246,9 +246,9 @@ def test_k1_options_on_card(cuda_device, n, radices, p, store, sign):
               for a in _planes(n + p, (3 * p, n)))
     before = S.fourstep_launches
     kr, ki = S.stockham_c2c_cuda(
-        xr, xi, radices, S._device_table(n, tuple(radices), sign,
-                                         cuda_device),
-        pretwiddle=S._device_pretwiddle(p, n, sign, cuda_device),
+        xr, xi, radices, S.device_table(n, tuple(radices), sign,
+                                        cuda_device),
+        pretwiddle=S.device_pretwiddle(p, n, sign, cuda_device),
         store_transposed=store)
     torch.cuda.synchronize()
     assert S.fourstep_launches == before + 1

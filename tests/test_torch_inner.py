@@ -126,7 +126,7 @@ def test_planes_per_group(n, L, pre, gp):
 def test_kernel_wrapper_refuses_cpu_tensors():
     n, radices = 128, [128]
     x = torch.ones(2, n, 3)
-    table = torch.from_numpy(S._kernel_table(n, radices, -1))
+    table = torch.from_numpy(S.kernel_table(n, radices, -1))
     with pytest.raises(ValueError, match="CUDA"):
         inner.inner_c2c_cuda(x, x, radices, table)
     split = inner.build_pallas_c2c_split_inner(
@@ -144,7 +144,7 @@ def test_kernel_wrapper_refuses_cpu_tensors():
 def test_kernel_matches_twin_on_card(cuda_device, n, radices, L, sign):
     xr, xi = (torch.from_numpy(a).to(cuda_device)
               for a in _planes(n + L, (3, n, L)))
-    table = S._device_table(n, tuple(radices), sign, cuda_device)
+    table = S.device_table(n, tuple(radices), sign, cuda_device)
     before = inner.launches
     kr, ki = inner.inner_c2c_cuda(xr, xi, radices, table)
     torch.cuda.synchronize()
@@ -167,7 +167,7 @@ def test_kernel_on_real_path_half_spectrum(cuda_device, sign):
     radices = S.choose_radices(n)
     xr, xi = (torch.from_numpy(a).to(cuda_device)
               for a in _planes(L + sign, (pre, n, L)))
-    table = S._device_table(n, tuple(radices), sign, cuda_device)
+    table = S.device_table(n, tuple(radices), sign, cuda_device)
     before = inner.launches
     kr, ki = inner.inner_c2c_cuda(xr, xi, radices, table)
     torch.cuda.synchronize()

@@ -1,17 +1,21 @@
-"""The complex entry's edges in the kernels: a c2c plan's first pass reads
-the caller's complex64 tensor itself and its last pass writes the complex
+"""The pass contract at a plan's complex edges: every axis pass takes and
+gives split planes or one complex tensor and converts only where its
+kernel cannot (``ops/passes.py``), so a c2c plan's first pass reads the
+caller's complex64 tensor itself and its last pass writes the complex
 output itself where their kernels can (K1 on the last axis both, K2 the
-input, K3 the output), and every other edge converts as before.
+input, K3 the output), and every other edge converts in its span.
 
-The CPU tests hold the decision (the forms each kernel's apply declares,
-``plan.complex_edges``), the routes that get the forms, the plans that
-convert as before (CPU, complex128, ``pallas4``, r2c, c2r), the passes'
-complex layouts through the twins and autograd, the conversions' spans,
-an empty batch, and the edge counters of ``trace.py``.  The card tests (``cuda`` marker) hold ``Plan.execute``
-bit for bit against the conversion path and skip without a card.  This
-file imports no JAX.
+The CPU tests run the plans as on the card (the ``forced`` fixture: the
+kernel passes take their kernel branch, with CPU stand-ins of K1, K2 and
+K3 that check the layouts the kernels take): the spans a call records,
+its output bit for bit against the split-planes path, the plans that
+convert as before (CPU, complex128, ``pallas4``, r2c, c2r), the input
+decision (:func:`passes.kernel_input`), the passes' complex layouts
+through the twins and autograd, and an empty batch.  The card tests
+(``cuda`` marker) hold ``Plan.execute`` bit for bit against the
+split-planes path and skip without a card.  This file imports no JAX.
 """
-from types import SimpleNamespace
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -25,13 +29,13 @@ from fftw3_tpu_torch import plan as plan_mod
 from fftw3_tpu_torch import planner as planner_mod
 from fftw3_tpu_torch import trace
 from fftw3_tpu_torch.ops import c2c as c2c_ops
-from fftw3_tpu_torch.ops import fused2d, inner
-from fftw3_tpu_torch.ops import real as real_ops
+from fftw3_tpu_torch.ops import df32, fused2d, inner, passes
 from fftw3_tpu_torch.ops import stockham as S
 
 CPU = torch.device("cpu")
 CUDA = torch.device("cuda")
-CONVERT = ("fftw.convert.split", "fftw.convert.combine")
+SPLIT, COMBINE = "fftw.convert.split", "fftw.convert.combine"
+CONVERT = (SPLIT, COMBINE)
 
 
 def _complex(shape, seed=0, device=CPU, dtype=torch.complex64):
@@ -40,22 +44,21 @@ def _complex(shape, seed=0, device=CPU, dtype=torch.complex64):
 
 
 def _split_path(plan, x):
-    """The conversion path: split planes, ``apply_split``, combine."""
+    """The split-planes path: split planes, ``apply_split``, combine."""
     return torch.complex(*plan.apply_split(x.real.contiguous(),
                                            x.imag.contiguous()))
 
 
 def _traced(fn):
     """`fn()` under the profiler, and the record's snapshot; its
-    ``plan_converts`` are the names of the conversion spans a plan's
-    entry or exit ran (those opened in the call's root, not in a pass)."""
+    ``converts`` count the conversion spans the call ran, wherever they
+    opened (at a plan's edge or inside a pass)."""
     trace.reset()
     with profile(activities=[ProfilerActivity.CPU]):
         out = fn()
-    plan_converts = {r.name for r in trace.records() if r.name in CONVERT
-                     and r.parent is not None and r.parent.root}
+    converts = Counter(r.name for r in trace.records() if r.name in CONVERT)
     snap = trace.snapshot(reset=True)
-    snap["plan_converts"] = plan_converts
+    snap["converts"] = converts
     return out, snap
 
 
@@ -71,145 +74,252 @@ def cpu_plans(monkeypatch):
     trace.reset()
 
 
+def _sign(table, tables):
+    """The sign s whose root tables ``tables(s)`` `table` is."""
+    return next(s for s in (-1, 1) if torch.equal(table, tables(s)))
+
+
+def _operands(name, xr, xi):
+    """What a kernel checks of its operands (``passes.check_planes`` but
+    the device), and its input as planes for the twin."""
+    if xi is None:
+        if xr.dtype != torch.complex64 or not xr.is_contiguous() \
+                or xr.is_conj() or xr.is_neg():
+            raise ValueError(f"{name} takes contiguous complex64 with no "
+                             f"lazy conjugate or negative bit")
+        return xr.real, xr.imag
+    if xr.dtype != torch.float32 or xi.dtype != torch.float32 \
+            or not (xr.is_contiguous() and xi.is_contiguous()):
+        raise ValueError(f"{name} takes contiguous float32 planes")
+    return xr, xi
+
+
+def _k1(xr, xi, radices, table, complex_out=False):
+    n = xr.shape[-1]
+    s = _sign(table, lambda s: S.device_table(n, tuple(radices), s, CPU))
+    y = S.stockham_c2c_torch(*_operands("K1", xr, xi), radices, s)
+    return torch.complex(*y) if complex_out else y
+
+
+def _k2(xr, xi, radices, table):
+    n = xr.shape[-2]
+    s = _sign(table, lambda s: S.device_table(n, tuple(radices), s, CPU))
+    return inner.inner_c2c_torch(*_operands("K2", xr, xi), radices, s)
+
+
+def _k3(xr, xi, rad1, rad2, table, complex_out=False):
+    if xi is None:
+        raise ValueError("K3 takes split input planes")
+    n1, n2 = xr.shape[-2:]
+    s = _sign(table, lambda s: fused2d.device_table_2d(
+        n1, tuple(rad1), n2, tuple(rad2), s, CPU))
+    y = fused2d.c2c_2d_torch(*_operands("K3", xr, xi), rad1, rad2, s)
+    return torch.complex(*y) if complex_out else y
+
+
 @pytest.fixture
 def forced(cpu_plans, monkeypatch):
-    """CPU plans and a decision that takes their passes' forms on the CPU
-    too: the twins then run the complex layouts (converting inside each
-    pass) on the CUDA route's logic."""
-    monkeypatch.setattr(
-        plan_mod, "complex_edges",
-        lambda x, stages: (bool(stages) and stages[0].reads,
-                           bool(stages) and stages[-1].writes))
+    """CPU plans run as on the card: their kernel passes take the kernel
+    branch (``passes.on_twin`` false), where CPU stand-ins of K1, K2 and
+    K3 take and give the layouts the kernels do and refuse the rest."""
+    monkeypatch.setattr(passes, "on_twin", lambda x: False)
+    monkeypatch.setattr(S, "stockham_c2c_cuda", _k1)
+    monkeypatch.setattr(inner, "inner_c2c_cuda", _k2)
+    monkeypatch.setattr(fused2d, "c2c_2d_cuda", _k3)
 
 
-# -- the decision -------------------------------------------------------------
+def _pinned(shape, axes, desc, dtype="complex64"):
+    """A CPU plan whose transform axes run `desc`, pinned in a planner of
+    its own."""
+    pl = planner_mod.Planner()
+    rdtype = np.float32 if dtype == "complex64" else np.float64
+    total = int(np.prod(shape))
+    for a in axes:
+        pl.wisdom[pl._key("c2c", shape[a], rdtype, total // shape[a], CPU)] \
+            = {"desc": desc, "cost": 0.0, "patience": K.PATIENCE_EXHAUSTIVE}
+    return plan_mod.make_plan(plan_mod.Problem(
+        shape, axes, "c2c", K.FORWARD, rdtype=np.dtype(rdtype).name),
+        K.ESTIMATE, planner=pl, device=CPU)
+
+
+def _route(plan):
+    return [s.name[len("fftw.stage."):] for s in plan.stages]
+
+
+# -- the edges a call converts ------------------------------------------------
 
 def _kernel_apply(kernel):
-    """The apply of a pass on `kernel`, built on the CPU (the forms it
-    declares do not depend on the device)."""
+    """A pass on `kernel` and an input of its shape (K4: an r2c plan on a
+    real input, whose exit combines)."""
     desc = {"alg": "pallas", "n": 128, "radices": [128]}
     if kernel == "k1":
-        return S.build_pallas_c2c_split(desc, K.FORWARD, np.float32, CPU)
+        return S.build_pallas_c2c_split(desc, K.FORWARD, np.float32,
+                                        CPU), (2, 4, 128)
     if kernel == "k2":
         return inner.build_pallas_c2c_split_inner(desc, K.FORWARD,
-                                                  np.float32, CPU)
+                                                  np.float32, CPU), (2, 128, 8)
     if kernel == "k3":
-        return fused2d.build_pallas_c2c_split_2d(128, 128, K.FORWARD,
-                                                 np.float32, desc, desc, CPU)
+        return fused2d.build_pallas_c2c_split_2d(
+            128, 128, K.FORWARD, np.float32, desc, desc, CPU), (2, 128, 128)
     if kernel == "k4":
-        return real_ops.build_r2c_split(
-            {"alg": "pallas_r2c", "n": 256, "radices": [16, 8]},
-            np.float32, CPU)
+        plan = ft.plan_dft_r2c((4, 1024), axes=(1,))
+        assert plan.descriptors[1]["alg"] == "pallas_r2c"
+        return plan, (4, 1024)
     return c2c_ops.build_c2c_split({"alg": "mixed", "n": 64, "p": 8,
                                     "child": {"alg": "direct", "n": 8}},
-                                   K.FORWARD, np.float32, CPU)
+                                   K.FORWARD, np.float32, CPU), (3, 64)
 
 
-@pytest.mark.parametrize("kernel,device,forms", [
-    ("k1", "cuda", (True, True)), ("k2", "cuda", (True, False)),
-    ("k3", "cuda", (False, True)), ("k4", "cuda", (False, False)),
-    ("mixed", "cuda", (False, False)), ("k1", "cpu", (False, False)),
-    ("k2", "cpu", (False, False)), ("k3", "cpu", (False, False)),
+@pytest.mark.parametrize("kernel,device,converts", [
+    ("k1", "cuda", ()), ("k2", "cuda", (COMBINE,)),
+    ("k3", "cuda", (SPLIT,)), ("k4", "cuda", (COMBINE,)),
+    ("mixed", "cuda", CONVERT), ("k1", "cpu", CONVERT),
+    ("k2", "cpu", CONVERT), ("k3", "cpu", CONVERT),
 ])
-def test_edge_forms_by_kernel_and_device(kernel, device, forms):
-    """The edges a one-pass route on `kernel` takes for a complex64 input
-    on `device`: the forms the kernel's apply declares (K1 both, K2 the
-    input, K3 the output, others none), on a CUDA input only."""
-    fn = _kernel_apply(kernel)
-    stage = plan_mod._kernel_stage("fftw.stage.x", fn, fn)
-    assert plan_mod.complex_edges(_x(device), [stage]) == forms
+def test_edge_forms_by_kernel_and_device(cpu_plans, monkeypatch, kernel,
+                                         device, converts):
+    """A pass on `kernel` given a complex64 input and asked for the
+    complex output, on the card (the stand-ins) or on the CPU (the twins):
+    the conversions it runs are those of the layouts its kernel does not
+    take or give (K1 none, K2 the combine, K3 the split, others both), and
+    its output is the split-planes path's bit for bit."""
+    if device == "cuda":
+        monkeypatch.setattr(passes, "on_twin", lambda x: False)
+        monkeypatch.setattr(S, "stockham_c2c_cuda", _k1)
+        monkeypatch.setattr(inner, "inner_c2c_cuda", _k2)
+        monkeypatch.setattr(fused2d, "c2c_2d_cuda", _k3)
+    fn, shape = _kernel_apply(kernel)
+    if kernel == "k4":
+        x = torch.randn(shape)
+        got, snap = _traced(lambda: fn.execute(x))
+        want = torch.complex(*fn.apply_split(x))
+    else:
+        x = _complex(shape, seed=1)
+        got, snap = _traced(lambda: fn(x, None, True))
+        want = torch.complex(*fn(x.real.contiguous(), x.imag.contiguous()))
+    assert torch.equal(got, want)
+    assert snap["converts"] == Counter(converts)
 
 
-def _x(device="cuda", dtype=torch.complex64, contiguous=True, conj=False,
-       neg=False):
-    """A stand-in for the input: what the decision reads of a tensor."""
-    return SimpleNamespace(device=torch.device(device), dtype=dtype,
-                           is_contiguous=lambda: contiguous,
-                           is_conj=lambda: conj, is_neg=lambda: neg)
+def _x(shape, view="plain", dtype=torch.complex64, device=CPU):
+    """A complex input of `shape`: plain, a lazy conjugate, a lazy
+    negative, or a strided view."""
+    if view == "strided":
+        return _complex(shape[:-1] + (2 * shape[-1],), seed=2,
+                        device=device, dtype=dtype)[..., ::2]
+    x = _complex(shape, seed=2, device=device, dtype=dtype)
+    if view == "conj":
+        return x.conj()
+    return torch._neg_view(x) if view == "neg" else x
 
 
-def _route(*forms):
-    return [plan_mod._Stage(f"fftw.stage.{i}", None, r, w)
-            for i, (r, w) in enumerate(forms)]
-
-
-K1 = (True, True)
-K2 = (True, False)
-K3 = (False, True)
-OTHER = (False, False)
-
-
-@pytest.mark.parametrize("x,route,edges", [
-    (_x(), [K1], (True, True)),
-    (_x(), [K2, K3], (True, True)),
-    (_x(), [K2, K1], (True, True)),
-    (_x(), [K3], (False, True)),
-    (_x(), [K2], (True, False)),
-    (_x(), [OTHER, K1], (False, True)),
-    (_x(), [K2, OTHER], (True, False)),
-    (_x(), [OTHER], (False, False)),
-    (_x(), [], (False, False)),
-    (_x(device="cpu"), [K1], (False, False)),
-    (_x(dtype=torch.complex128), [K1], (False, False)),
-    (_x(contiguous=False), [K1], (False, True)),
-    (_x(conj=True), [K1], (False, True)),
-    (_x(neg=True), [K2, K3], (False, True)),
+@pytest.mark.parametrize("shape,axes,route,view,converts", [
+    ((4, 1024), (1,), ["k1"], "plain", ()),
+    ((128, 128, 128), (0, 1, 2), ["k2", "k3"], "plain", ()),
+    ((128, 4, 128), (0, 2), ["k2", "k1"], "plain", ()),
+    ((3, 128, 128), (1, 2), ["k3"], "plain", (SPLIT,)),
+    ((128, 8, 16), (0,), ["k2"], "plain", (COMBINE,)),
+    ((16, 1024), (0, 1), ["direct", "k1"], "plain", (SPLIT,)),
+    ((128, 2, 64), (0, 2), ["k2", "direct"], "plain", (COMBINE,)),
+    ((8, 64), (1,), ["direct"], "plain", CONVERT),
+    ((4, 8), (), [], "plain", CONVERT),
+    ((4, 1024), (1,), ["k1"], "cpu", CONVERT),
+    ((4, 1024), (1,), ["k1"], "strided", (SPLIT,)),
+    ((4, 1024), (1,), ["k1"], "conj", (SPLIT,)),
+    ((128, 128, 128), (0, 1, 2), ["k2", "k3"], "neg", (SPLIT,)),
+    ((128, 128, 128), (0, 1, 2), ["k2", "k3"], "strided", (SPLIT,)),
 ])
-def test_complex_edges_decision(x, route, edges):
-    assert plan_mod.complex_edges(x, _route(*route)) == edges
+def test_complex_edges_decision(forced, monkeypatch, shape, axes, route,
+                                view, converts):
+    """The conversions of a call on the card by its route and its input:
+    none where the first pass reads the input (K1 on the last axis, K2)
+    and the last writes the output (K1, K3); a split where the first
+    cannot read it, or the input is a lazy conjugate, a lazy negative or
+    strided (one complex copy), a combine where the last cannot write it;
+    both on the CPU.  The output is the split-planes path's bit for
+    bit."""
+    if view == "cpu":
+        monkeypatch.undo()
+        monkeypatch.setattr(config, "kernel_mode", "on")
+        monkeypatch.setattr(ft.the_planner, "wisdom", {})
+    plan = ft.plan_dft(shape, axes=axes, dtype="complex64", device="cpu")
+    assert _route(plan) == route
+    x = _x(shape, "plain" if view == "cpu" else view)
+    got, snap = _traced(lambda: plan.execute(x))
+    assert torch.equal(got, _split_path(plan, x))
+    assert snap["converts"] == Counter(converts)
+    assert snap["calls"] == 1
 
 
-def _forms(plan):
-    return [(s.name, s.reads, s.writes) for s in plan.stages]
+def test_complex128_is_split_for_k1(forced):
+    """A complex128 tensor is no input K1 reads: its pass splits it, and
+    the kernel refuses the float64 planes (``Plan.execute`` casts to the
+    plan's complex64 first)."""
+    plan = ft.plan_many_dft([1024], 4, dtype="complex64")
+    x = _complex((4, 1024), dtype=torch.complex128)
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        with pytest.raises(ValueError, match="float32"):
+            plan.apply(x)
+    assert [r.name for r in trace.records() if r.name in CONVERT] == [SPLIT]
+    trace.reset()
+    assert torch.equal(plan.execute(x), _split_path(plan, x.to(
+        torch.complex64)))
 
 
-@pytest.mark.parametrize("make,forms", [
-    (lambda: ft.plan_many_dft([1024], 8, dtype="complex64"),
-     [("fftw.stage.k1", True, True)]),
+@pytest.mark.parametrize("make,route,converts", [
+    (lambda: ft.plan_many_dft([1024], 8, dtype="complex64"), ["k1"], ()),
     (lambda: ft.plan_dft((128, 128, 128), axes=(0, 1, 2), dtype="complex64"),
-     [("fftw.stage.k2", True, False), ("fftw.stage.k3", False, True)]),
+     ["k2", "k3"], ()),
     (lambda: ft.plan_dft((128, 4, 128), axes=(0, 2), dtype="complex64"),
-     [("fftw.stage.k2", True, False), ("fftw.stage.k1", True, True)]),
-    # K1 lifted onto a non-last axis (a movedim): no form
-    (lambda: ft.plan_dft((128, 8), axes=(0,), dtype="complex64"),
-     [("fftw.stage.k1", False, False)]),
-    (lambda: ft.plan_many_dft([64], 8, dtype="complex64"),
-     [("fftw.stage.direct", False, False)]),
+     ["k2", "k1"], ()),
+    # K1 lifted onto a non-last axis (a movedim): it runs on planes
+    (lambda: ft.plan_dft((128, 8), axes=(0,), dtype="complex64"), ["k1"],
+     CONVERT),
+    (lambda: ft.plan_many_dft([64], 8, dtype="complex64"), ["direct"],
+     CONVERT),
 ])
-def test_routes_get_the_forms_of_their_kernels(forced, make, forms):
-    assert _forms(make()) == forms
+def test_routes_get_the_forms_of_their_kernels(forced, make, route,
+                                               converts):
+    plan = make()
+    assert _route(plan) == route
+    x = _complex(plan.problem.shape, seed=3)
+    got, snap = _traced(lambda: plan.execute(x))
+    assert torch.equal(got, _split_path(plan, x))
+    assert snap["converts"] == Counter(converts)
 
 
 def test_cpu_plans_have_no_forms(cpu_plans):
-    """A CPU plan's passes declare their kernels' forms, but a CPU input
-    takes none of them: its entry splits and its exit combines, as
-    before."""
+    """A CPU input runs the twins, which take no complex form: each call
+    splits at its entry and combines at its exit, once, as before."""
     for plan in (ft.plan_many_dft([1024], 8, dtype="complex64"),
                  ft.plan_dft((128, 128, 128), axes=(0, 1, 2),
                              dtype="complex64")):
-        assert plan.stages[0].reads and plan.stages[-1].writes
         x = _complex(plan.problem.shape, seed=6)
-        assert plan_mod.complex_edges(x, plan.stages) == (False, False)
         got, snap = _traced(lambda: plan.execute(x))
         assert torch.equal(got, _split_path(plan, x))
-        assert snap["plan_converts"] == set(CONVERT)
-        assert snap["marks"] == {"edge.in": 0, "edge.out": 0, "k3.ring": 0}
+        assert snap["converts"] == Counter(CONVERT)
 
 
 def test_complex128_and_pallas4_passes_have_no_forms(forced):
+    """A complex128 plan's pass (``df32``) and a ``pallas4`` pass run on
+    planes: a call splits and combines, with the split-planes path's
+    output."""
     plan = ft.plan_many_dft([1024], 4, dtype="complex128")
-    assert [(s.reads, s.writes) for s in plan.stages] == [(False, False)]
-    four = plan_mod._c2c_stage({"alg": "pallas4", "n": 4096, "p": 32,
-                                "q": 128}, K.FORWARD, np.float32, 1,
-                               (2, 4096), CPU)
-    assert (four.name, four.reads, four.writes) == \
-        ("fftw.stage.pallas4", False, False)
+    four = _pinned((2, 4096), (1,), {"alg": "pallas4", "n": 4096, "p": 32,
+                                     "q": 128})
+    assert (_route(plan), _route(four)) == (["df32"], ["pallas4"])
+    for p, dtype in ((plan, torch.complex128), (four, torch.complex64)):
+        x = _complex(p.problem.shape, seed=4, dtype=dtype)
+        got, snap = _traced(lambda: p.execute(x))
+        assert torch.equal(got, _split_path(p, x))
+        assert snap["converts"] == Counter(CONVERT)
 
 
 @pytest.mark.parametrize("kind", ["r2c", "c2r", "c2c128"])
 def test_other_complex_sides_convert_as_before(forced, kind):
     """r2c combines at the exit, c2r splits at the entry, complex128
-    does both: their records hold the conversions and no edge."""
+    does both."""
     if kind == "r2c":
         plan = ft.plan_dft_r2c((4, 1024), axes=(1,))
         x = torch.randn(4, 1024)
@@ -225,25 +335,94 @@ def test_other_complex_sides_convert_as_before(forced, kind):
     plain = plan.execute(x)
     traced, snap = _traced(lambda: plan.execute(x))
     assert torch.equal(plain, traced)
-    assert {n for n in snap["spans"] if n in CONVERT} == set(want)
-    assert snap["marks"] == {"edge.in": 0, "edge.out": 0, "k3.ring": 0}
+    assert snap["converts"] == Counter(want)
+
+
+@pytest.mark.parametrize("route,view", [
+    ("k1", "plain"), ("k2-k3", "plain"), ("k3", "plain"), ("pallas4", "plain"),
+    ("df32p", "plain"), ("k1", "conj"), ("k1", "strided"), ("cpu", "plain"),
+])
+def test_a_call_converts_only_where_its_route_cannot(forced, monkeypatch,
+                                                     route, view):
+    """A c2c call records ``fftw.convert.split`` exactly where its route's
+    first pass cannot read the caller's tensor as it is (a lazy conjugate
+    and a strided view are copied once into a complex64 tensor K1 reads),
+    and ``fftw.convert.combine`` exactly where its last pass cannot write
+    the complex output; the output is the split-planes path's bit for
+    bit."""
+    if route == "cpu":
+        monkeypatch.setattr(passes, "on_twin", lambda x: x.device.type ==
+                            "cpu")
+    dtype = "complex64"
+    if route in ("k1", "cpu"):
+        plan = ft.plan_many_dft([1024], 4, dtype=dtype)
+    elif route == "k2-k3":
+        plan = ft.plan_dft((128, 128, 128), axes=(0, 1, 2), dtype=dtype)
+    elif route == "k3":
+        plan = ft.plan_dft((3, 128, 128), axes=(1, 2), dtype=dtype)
+    elif route == "pallas4":
+        plan = _pinned((2, 4096), (1,), {"alg": "pallas4", "n": 4096,
+                                         "p": 32, "q": 128})
+    else:
+        dtype = "complex128"
+        plan = _pinned((4, 1024), (1,), {"alg": "df32p", "n": 1024,
+                                         "radices": df32.df32p_radices(1024)},
+                       dtype)
+    stages = _route(plan)
+    first, last = stages[0], stages[-1]
+    split = route == "cpu" or view != "plain" or first not in ("k1", "k2")
+    combine = route == "cpu" or last not in ("k1", "k3")
+    x = _x(plan.problem.shape, view, getattr(torch, dtype))
+    got, snap = _traced(lambda: plan.execute(x))
+    assert torch.equal(got, _split_path(plan, x))
+    assert snap["converts"] == Counter([SPLIT] * split + [COMBINE] * combine)
+
+
+@pytest.mark.parametrize("view", ["plain", "conj", "neg", "strided"])
+@pytest.mark.parametrize("reads", [True, False])
+def test_kernel_input_decision(view, reads):
+    """What a kernel gets of a complex input: a complex64 tensor itself
+    where it reads one, copied once (in ``fftw.convert.split``) where it
+    is a lazy conjugate, a lazy negative or strided; else two contiguous
+    planes, in the same span.  Planes pass as they are."""
+    x = _x((4, 8), view)
+    pr, pi = torch.randn(4, 8), torch.randn(4, 8)
+    trace.reset()
+    with profile(activities=[ProfilerActivity.CPU]):
+        xr, xi = passes.kernel_input(x, None, reads)
+        planes = passes.kernel_input(pr, pi, reads)
+    spans = [r.name for r in trace.records()]
+    trace.reset()
+    assert planes[0] is pr and planes[1] is pi
+    if reads:
+        assert xi is None and xr.dtype == torch.complex64
+        assert xr.is_contiguous() and not (xr.is_conj() or xr.is_neg())
+        assert (xr is x) == (view == "plain")
+        assert torch.equal(xr, x.resolve_conj().resolve_neg())
+        assert spans == ([] if view == "plain" else [SPLIT])
+    else:
+        assert xr.dtype == xi.dtype == torch.float32
+        assert torch.equal(torch.complex(xr, xi),
+                           x.resolve_conj().resolve_neg())
+        assert spans == [SPLIT]
 
 
 # -- the passes' complex layouts on the CPU route ------------------------------
 
-@pytest.mark.parametrize("shape,axes,sign", [
-    ((6, 1024), (1,), K.FORWARD),
-    ((5, 1000), (1,), K.BACKWARD),
-    ((128, 128, 128), (0, 1, 2), K.FORWARD),
-    ((128, 4, 128), (0, 2), K.BACKWARD),
-    ((3, 128, 128), (1, 2), K.FORWARD),
-    ((3, 128, 256), (1, 2), K.FORWARD),
+@pytest.mark.parametrize("shape,axes,sign,converts", [
+    ((6, 1024), (1,), K.FORWARD, ()),
+    ((5, 1000), (1,), K.BACKWARD, ()),
+    ((128, 128, 128), (0, 1, 2), K.FORWARD, ()),
+    ((128, 4, 128), (0, 2), K.BACKWARD, ()),
+    ((3, 128, 128), (1, 2), K.FORWARD, (SPLIT,)),
+    ((3, 128, 256), (1, 2), K.FORWARD, (COMBINE,)),
 ])
-def test_forced_edges_match_the_conversion_path(forced, shape, axes, sign):
-    """The edges taken (twins converting inside the passes): the same
-    output bit for bit, the input untouched, a conversion span only at an
-    edge the route's kernels do not take, one mark of each edge they take
-    a call."""
+def test_forced_edges_match_the_conversion_path(forced, shape, axes, sign,
+                                                converts):
+    """The edges taken on the card's route: the same output bit for bit,
+    the input untouched, a conversion span only at an edge the route's
+    kernels do not take (K3 reads no complex input; K2 then ``mixed``
+    write none)."""
     plan = ft.plan_dft(shape, axes=axes, sign=sign, dtype="complex64")
     x = _complex(shape, seed=1)
     x0 = x.clone()
@@ -251,11 +430,7 @@ def test_forced_edges_match_the_conversion_path(forced, shape, axes, sign):
     got, snap = _traced(lambda: plan.execute(x))
     assert torch.equal(got, want) and got.dtype == torch.complex64
     assert torch.equal(x, x0)
-    read, write = plan.stages[0].reads, plan.stages[-1].writes
-    assert ("fftw.convert.split" in snap["plan_converts"]) == (not read)
-    assert ("fftw.convert.combine" in snap["plan_converts"]) == (not write)
-    assert snap["marks"] == {"edge.in": int(read), "edge.out": int(write),
-                             "k3.ring": 0}
+    assert snap["converts"] == Counter(converts)
     assert snap["calls"] == 1
 
 
@@ -302,10 +477,9 @@ def test_a_pass_takes_and_gives_every_layout(cpu_plans, kernel, cin, cout):
     assert torch.equal(d_got, d_want)
 
 
-def test_in_pass_conversions_are_traced(forced):
-    """A conversion inside a pass (a twin's, or a kernel's adjoint with no
-    such form) runs in the same ``fftw.convert.*`` spans as the plan's
-    edges, opened in the pass's span."""
+def test_in_pass_conversions_are_traced(cpu_plans):
+    """A conversion inside a pass (here the twin's) runs in the
+    ``fftw.convert.*`` spans, opened in the pass's span."""
     plan = ft.plan_many_dft([1024], 4, dtype="complex64")
     x = _complex((4, 1024), seed=7)
     trace.reset()
@@ -326,8 +500,8 @@ def test_empty_batch_gives_the_layout_asked_for(monkeypatch, n, radices,
     """K1's wrapper on an empty batch launches nothing and returns the
     layout asked for: planes, or one complex tensor with `complex_out`
     (the device checks skipped, so that it runs on the CPU)."""
-    monkeypatch.setattr(S, "check_planes", lambda *a: None)
-    table = torch.zeros(S._table_len(n, radices))
+    monkeypatch.setattr(passes, "check_planes", lambda *a: None)
+    table = torch.zeros(S.table_len(n, radices))
     if cin:
         args = (torch.empty(0, n, dtype=torch.complex64), None)
     else:
@@ -337,7 +511,7 @@ def test_empty_batch_gives_the_layout_asked_for(monkeypatch, n, radices,
     assert (S.launches, S.wide_launches) == before
     if cout:
         assert isinstance(y, torch.Tensor) and y.dtype == torch.complex64
-        assert tuple(S.shaped(y, (0, n)).shape) == (0, n)
+        assert tuple(passes.shaped(y, (0, n)).shape) == (0, n)
     else:
         assert len(y) == 2 and all(t.dtype == torch.float32 for t in y)
         assert all(tuple(t.shape) == (0, n) for t in y)
@@ -375,55 +549,6 @@ def test_edge_layouts_hold_keeps_the_last_outputs(hold):
         assert outs == [None] * 5 and list(kept) == list(range(5))[-hold:]
     else:
         assert outs == list(range(5)) and kept is None
-
-
-# -- the counters ---------------------------------------------------------------
-
-def test_edge_marks_count_per_call_in_the_window(forced):
-    plan = ft.plan_many_dft([1024], 4, dtype="complex64")
-    x = _complex((4, 1024))
-    trace.reset()
-    with profile(activities=[ProfilerActivity.CPU]):
-        for _ in range(3):
-            plan.execute(x)
-        trace.edges(True, True)          # outside any call: no mark
-    snap = trace.snapshot()
-    assert snap["calls"] == 3
-    assert snap["marks"] == {"edge.in": 3, "edge.out": 3, "k3.ring": 0}
-    roots = [r for r in trace.records() if r.root]
-    assert [r.marks for r in roots] == [("edge.in", "edge.out")] * 3
-    last = roots[-1]
-    within = trace.snapshot(within=(last.start_ns, last.end_ns))
-    assert within["marks"] == {"edge.in": 1, "edge.out": 1, "k3.ring": 0}
-
-
-class _NoLock:
-    def __enter__(self):
-        raise AssertionError("the untraced path took the trace lock")
-
-    def __exit__(self, *exc):
-        return False
-
-
-def test_edge_marks_off_touch_nothing(forced, monkeypatch):
-    """Tracing off, the marks cost nothing: no lock, no counter, no
-    record, on the mark itself and on a call that takes both edges."""
-    assert not torch.autograd.profiler._is_profiler_enabled
-    plan = ft.plan_many_dft([1024], 4, dtype="complex64")
-    x = _complex((4, 1024))
-    want = _split_path(plan, x)
-    trace.reset()
-
-    def no_add(*a, **k):
-        raise AssertionError("the untraced path added to a counter")
-    monkeypatch.setattr(trace, "_lock", _NoLock())
-    monkeypatch.setattr(trace, "add", no_add)
-    trace.edges(True, True)
-    assert torch.equal(plan.execute(x), want)
-    monkeypatch.undo()
-    assert trace.records() == []
-    assert trace.snapshot()["marks"] == {"edge.in": 0, "edge.out": 0,
-                                         "k3.ring": 0}
 
 
 # -- on the card ----------------------------------------------------------------
@@ -489,10 +614,9 @@ def _launches():
 ])
 def test_card_execute_is_the_conversion_path(card, shape, axes, sign, route,
                                              edges, launches):
-    """``Plan.execute`` bit for bit as the conversion path, the input
-    untouched, the edges its route has marked once a traced call, no
-    conversion span where both edges are the kernels', one launch a
-    kernel pass."""
+    """``Plan.execute`` bit for bit as the split-planes path, the input
+    untouched, a conversion span only at an edge its route's kernels do
+    not take, one launch a kernel pass, K3's on the ring."""
     plan = _card_plan(shape, axes, sign)
     assert [{"fftw.stage.k1": "k1", "fftw.stage.k2": "k2",
              "fftw.stage.k3": "k3"}.get(s.name) for s in plan.stages] \
@@ -500,19 +624,18 @@ def test_card_execute_is_the_conversion_path(card, shape, axes, sign, route,
     x = _complex(shape, seed=11, device=card)
     x0 = x.clone()
     want = _split_path(plan, x)
-    before = _launches()
+    before = _launches(), fused2d.ring_launches
     got = plan.execute(x)
-    assert tuple(a - b for a, b in zip(_launches(), before)) == launches
+    assert tuple(a - b for a, b in zip(_launches(), before[0])) == launches
+    # K3 reads the planes K2 or the entry made, aligned: it takes the ring
+    assert fused2d.ring_launches - before[1] == launches[3]
     assert torch.equal(got, want) and got.is_contiguous()
     assert torch.equal(x, x0)
     traced, snap = _traced(lambda: plan.execute(x))
     torch.cuda.synchronize()
     assert torch.equal(traced, want)
-    # K3 reads the planes K2 or the entry made, aligned: it takes the ring
-    assert snap["marks"] == {"edge.in": edges[0], "edge.out": edges[1],
-                             "k3.ring": launches[3]}
-    assert ("fftw.convert.split" in snap["spans"]) == (not edges[0])
-    assert ("fftw.convert.combine" in snap["spans"]) == (not edges[1])
+    assert snap["converts"] == Counter([SPLIT] * (1 - edges[0])
+                                       + [COMBINE] * (1 - edges[1]))
 
 
 def _neg(x):
@@ -528,8 +651,8 @@ def _neg(x):
 def test_card_fallbacks_give_the_same(card, view, edge_in, shape, axes):
     """A lazy conjugate, a lazy negative, a non-contiguous view and a
     storage offset that breaks 16-byte alignment: the same result as the
-    conversion path.  The first three convert at the entry; the offset
-    tensor is read by the kernel itself, 8 bytes a point."""
+    split-planes path.  The first three are copied once at the entry; the
+    offset tensor is read by the kernel itself, 8 bytes a point."""
     plan = _card_plan(shape, axes, K.FORWARD)
     n = int(np.prod(shape))
     if view == "conj":
@@ -545,12 +668,12 @@ def test_card_fallbacks_give_the_same(card, view, edge_in, shape, axes):
     want = _split_path(plan, x)
     assert torch.equal(want, _split_path(plan, x.resolve_conj()
                                          .resolve_neg().contiguous()))
+    ring = fused2d.ring_launches
     got, snap = _traced(lambda: plan.execute(x))
     assert torch.equal(got, want)
     assert torch.equal(plan.execute(x), want)
-    assert snap["marks"] == {"edge.in": edge_in, "edge.out": 1,
-                             "k3.ring": int(len(shape) == 3)}
-    assert ("fftw.convert.split" in snap["spans"]) == (not edge_in)
+    assert fused2d.ring_launches - ring == 2 * (len(shape) == 3)
+    assert snap["converts"] == Counter([SPLIT] * (1 - edge_in))
 
 
 @pytest.mark.cuda
@@ -581,7 +704,8 @@ def test_card_empty_batch(card, entry, shape, axes):
     else:
         plan = _card_plan((0,) + shape, tuple(a + 1 for a in axes),
                           K.FORWARD)
-    assert plan.stages[0].reads and plan.stages[-1].writes
+    assert [s.name for s in plan.stages] in (
+        ["fftw.stage.k1"], ["fftw.stage.k2", "fftw.stage.k3"])
     x = torch.empty((0,) + shape, dtype=torch.complex64, device=card)
     before = _launches()
     got = plan.apply(x) if entry == "apply" else plan.execute(x)
@@ -589,3 +713,29 @@ def test_card_empty_batch(card, entry, shape, axes):
     want = _split_path(plan, x)
     assert got.dtype == torch.complex64 and tuple(got.shape) == x.shape
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("view", ["conj", "neg", "strided"])
+@pytest.mark.parametrize("shape,axes,allocations", [
+    ((64, 1024), (1,), 2), ((128, 128, 128), (0, 1, 2), 4)])
+def test_card_lazy_and_strided_inputs_make_one_copy(card, view, shape, axes,
+                                                    allocations):
+    """A lazy conjugate, a lazy negative and a strided complex64 input to
+    a K1- or K2-first plan: one complex copy in ``fftw.convert.split``
+    (K1's call allocates that copy and its output; K2 then K3 the copy,
+    K2's two planes and K3's output), and the output of the split-planes
+    path bit for bit."""
+    plan = _card_plan(shape, axes, K.FORWARD)
+    x = _x(shape, view, device=card)
+    want = _split_path(plan, x.resolve_conj().resolve_neg().contiguous())
+    torch.cuda.synchronize()
+    count = torch.cuda.memory_stats(card)["allocation.all.allocated"]
+    got = plan.execute(x)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_stats(card)["allocation.all.allocated"] \
+        - count == allocations
+    assert torch.equal(got, want)
+    traced, snap = _traced(lambda: plan.execute(x))
+    assert torch.equal(traced, want)
+    assert snap["converts"] == Counter([SPLIT])

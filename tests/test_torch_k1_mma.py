@@ -436,7 +436,7 @@ def test_inplace_k1_equals_out_of_place(rows):
     bit."""
     dev = _card()
     xr, xi = (torch.from_numpy(a).to(dev) for a in _planes((rows, 1024), 4))
-    tab = S._device_table(1024, (32, 32), -1, dev)
+    tab = S.device_table(1024, (32, 32), -1, dev)
     wr, wi = S.stockham_c2c_cuda(xr, xi, [32, 32], tab)
     n0 = K.inplace_launches
     yr, yi = K.k1_inplace_cuda(xr, xi, [32, 32], tab)

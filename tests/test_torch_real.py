@@ -169,8 +169,8 @@ def test_real_tables_match_reference_constants():
     m = n // 2
     for sign in (-1, +1):
         tab = RS._real_table(n, radices, sign)
-        assert tab.size == RS._table_len(n, radices)
-        stage = S._kernel_table(m, radices, sign)
+        assert tab.size == RS.table_len(n, radices)
+        stage = S.kernel_table(m, radices, sign)
         assert np.array_equal(tab[:stage.size], stage)
         w = np.exp(sign * 2j * np.pi * np.arange(m + 1, dtype=np.int64) / n)
         assert np.array_equal(tab[stage.size:stage.size + m + 1],
@@ -370,14 +370,14 @@ def test_kernels_match_twins_on_card(cuda_device, n, b):
     radices = S.choose_radices(n // 2)
     x = _t(_real(n + b, (b, n))).to(cuda_device)
     before = RS.r2c_launches, RS.c2r_launches
-    kr, ki = RS.r2c_cuda(x, radices, RS._device_table(
+    kr, ki = RS.r2c_cuda(x, radices, RS.device_table(
         n, tuple(radices), -1, cuda_device))
     tr, ti = RS.r2c_torch(x, radices)
     X = np.fft.rfft(x.cpu().numpy().astype(np.float64), axis=-1)
     got = (kr + 1j * ki).cpu().numpy()
     assert _relerr(got, (tr + 1j * ti).cpu().numpy()) <= TOL_F64
     assert _relerr(got, X) <= TOL_F64
-    y = RS.c2r_cuda(kr, ki, radices, RS._device_table(
+    y = RS.c2r_cuda(kr, ki, radices, RS.device_table(
         n, tuple(radices), +1, cuda_device))
     torch.cuda.synchronize()
     assert (RS.r2c_launches, RS.c2r_launches) == (before[0] + 1,
@@ -404,7 +404,7 @@ def test_k6_matches_both_twins_and_float64(cuda_device, n, radices, b):
     xr, xi = (_t(a.astype(np.float32)).to(cuda_device)
               for a in (X.real, X.imag))
     before = RS.c2r_launches
-    y = RS.c2r_cuda(xr, xi, radices, RS._device_table(
+    y = RS.c2r_cuda(xr, xi, radices, RS.device_table(
         n, tuple(radices), +1, cuda_device))
     torch.cuda.synchronize()
     assert RS.c2r_launches == before + 1
@@ -423,7 +423,7 @@ def test_r2c_inner_kernel_matches_twin_on_card(cuda_device, n, pre, L):
     radices = S.choose_radices(n // 2)
     x = _t(_real(n + L, (pre, n, L))).to(cuda_device)
     before = RS.r2c_inner_launches
-    kr, ki = RS.r2c_inner_cuda(x, radices, RS._device_table(
+    kr, ki = RS.r2c_inner_cuda(x, radices, RS.device_table(
         n, tuple(radices), -1, cuda_device))
     torch.cuda.synchronize()
     assert RS.r2c_inner_launches == before + 1

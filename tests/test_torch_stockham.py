@@ -117,8 +117,8 @@ def test_stage_constants_bit_equal(n, radices, sign):
             assert np.array_equal(a.view(np.uint32), b.view(np.uint32))
     # the kernel's first root table is column 1 of the reference's F_p
     # (F[j, 1] = r_p[j]), stored in the stacked G as [[Fr], [Fi]]
-    tab = S._kernel_table(n, radices, sign)
-    assert tab.size == S._table_len(n, radices)
+    tab = S.kernel_table(n, radices, sign)
+    assert tab.size == S.table_len(n, radices)
     p = radices[0]
     assert np.array_equal(tab[:2 * p], ref[0][0][:, 1])
 
@@ -182,7 +182,7 @@ def test_cpu_tensor_runs_twin_and_kernel_wrapper_refuses_it():
     yr, _ = split(x, torch.zeros(2, n))
     assert S.launches == before
     assert float(yr[0, 0]) == n
-    table = torch.from_numpy(S._kernel_table(n, radices, -1))
+    table = torch.from_numpy(S.kernel_table(n, radices, -1))
     with pytest.raises(ValueError, match="CUDA"):
         S.stockham_c2c_cuda(x, x, radices, table)
     with pytest.raises(ValueError):
@@ -198,7 +198,7 @@ def test_kernel_matches_twin_on_card(cuda_device, n, radices, sign):
     rng = np.random.default_rng(n)
     xr, xi = (torch.from_numpy(rng.standard_normal((37, n)).astype(
         np.float32)).to(cuda_device) for _ in range(2))
-    table = S._device_table(n, tuple(radices), sign, cuda_device)
+    table = S.device_table(n, tuple(radices), sign, cuda_device)
     before = S.launches
     kr, ki = S.stockham_c2c_cuda(xr, xi, radices, table)
     torch.cuda.synchronize()
@@ -221,7 +221,7 @@ def test_kernel_on_swapped_route_rows(cuda_device):
     rng = np.random.default_rng(B)
     xr, xi = (torch.from_numpy(rng.standard_normal((B, n)).astype(
         np.float32)).to(cuda_device) for _ in range(2))
-    table = S._device_table(n, tuple(radices), -1, cuda_device)
+    table = S.device_table(n, tuple(radices), -1, cuda_device)
     kr, ki = S.stockham_c2c_cuda(xr, xi, radices, table)
     tr, ti = S.stockham_c2c_torch(xr, xi, radices, -1)
     got = (kr + 1j * ki).cpu().numpy()
@@ -240,7 +240,7 @@ def test_kernel_shared_memory_sizes_interleave(cuda_device):
                        (256, [256])]:
         xr, xi = (torch.from_numpy(rng.standard_normal((5, n)).astype(
             np.float32)).to(cuda_device) for _ in range(2))
-        table = S._device_table(n, tuple(radices), -1, cuda_device)
+        table = S.device_table(n, tuple(radices), -1, cuda_device)
         kr, ki = S.stockham_c2c_cuda(xr, xi, radices, table)
         tr, ti = S.stockham_c2c_torch(xr, xi, radices, -1)
         assert _relerr((kr + 1j * ki).cpu().numpy(),
@@ -256,7 +256,7 @@ def test_kernel_sets_and_restores_the_device(cuda_device, monkeypatch):
     rng = np.random.default_rng(4)
     xr, xi = (torch.from_numpy(rng.standard_normal((7, n)).astype(
         np.float32)).to(cuda_device) for _ in range(2))
-    table = S._device_table(n, tuple(radices), +1, cuda_device)
+    table = S.device_table(n, tuple(radices), +1, cuda_device)
     before = torch.cuda.current_device()
     monkeypatch.setattr(torch.cuda, "current_device", lambda: -1)
     kr, ki = S.stockham_c2c_cuda(xr, xi, radices, table)

@@ -18,6 +18,7 @@ from torch.profiler import ProfilerActivity, profile
 
 import fftw3_tpu_torch as ft
 from fftw3_tpu_torch import api, config, trace
+from fftw3_tpu_torch.ops import fused2d
 
 CSRC = Path(ft.__file__).parent / "csrc"
 KERNEL_MAPS = Path(__file__).resolve().parents[1] / "bench_torch" / "kernels"
@@ -210,14 +211,20 @@ def test_c2c_spans_nest_under_one_call(cpu_plans):
     recs = trace.records()
     root = recs[0]
     assert root.name == "fftw.execute" and root.root and root.parent is None
-    assert _names(recs)[1] == "fftw.convert.split"
-    assert _names(recs)[-1] == "fftw.convert.combine"
-    stages = recs[2:-1]
-    assert len(stages) == 3 and all(
-        r.name.startswith("fftw.stage.") for r in stages)
+    stages = [r for r in recs if r.parent is root]
+    assert _names(stages) == ["fftw.stage.direct", "fftw.stage.direct",
+                              "fftw.stage.k1"]
+    # the first pass splits the complex input, the last combines its
+    # output: each conversion runs inside the pass that needs it
+    split, combine = recs[2], recs[-1]
+    assert (split.name, split.parent) == ("fftw.convert.split", stages[0])
+    assert (combine.name, combine.parent) == ("fftw.convert.combine",
+                                              stages[-1])
+    assert len(recs) == 6
     for r in recs[1:]:
-        assert r.call == root.call and r.parent is root and not r.root
-        assert root.start_ns <= r.start_ns <= r.end_ns <= root.end_ns
+        assert r.call == root.call and not r.root
+        assert r.parent.start_ns <= r.start_ns <= r.end_ns \
+            <= r.parent.end_ns
     snap = trace.snapshot()
     assert snap["calls"] == 1 and snap["dropped"] == 0
     assert snap["spans"]["fftw.convert.split"]["count"] == 1
@@ -255,40 +262,15 @@ def test_stage_names_say_what_runs(cpu_plans, shape, axes, stages):
     assert got == [f"fftw.stage.{s}" for s in stages], repr(plan)
 
 
-def test_ring_mark_counts_calls(cpu_plans):
-    """``k3.ring`` marks the open call once, however many of its K3
-    launches took the ring, beside the edge marks; outside a call, or with
-    the profiler off, it marks nothing."""
-    trace.mark("k3.ring")                  # off: no record
-    assert trace.records() == []
-
-    def calls():
-        for i in range(3):
-            with trace.call("fftw.execute", CPU):
-                trace.mark("k3.ring")
-                trace.mark("k3.ring")      # a second launch: one mark
-                trace.edges(i == 0, False)
-        trace.mark("k3.ring")              # outside any call: no mark
-    _traced(calls)
-    snap = trace.snapshot()
-    assert snap["calls"] == 3
-    assert snap["marks"] == {"edge.in": 1, "edge.out": 0, "k3.ring": 3}
-    roots = [r for r in trace.records() if r.root]
-    assert [r.marks for r in roots] == \
-        [("k3.ring", "edge.in"), ("k3.ring",), ("k3.ring",)]
-    last = roots[-1]
-    within = trace.snapshot(within=(last.start_ns, last.end_ns))
-    assert within["marks"] == {"edge.in": 0, "edge.out": 0, "k3.ring": 1}
-
-
 def test_k3_twin_takes_no_ring(cpu_plans):
-    """A fused trailing pair on the CPU runs K3's twin: no ring mark."""
+    """A fused trailing pair on the CPU runs K3's twin: no launch, no
+    ring."""
     plan = ft.plan_dft((4, 128, 128), axes=(0, 1, 2), dtype="complex64",
                        device="cpu")
+    before = fused2d.launches, fused2d.ring_launches
     _traced(plan.execute, _complex((4, 128, 128)))
-    snap = trace.snapshot()
-    assert "fftw.stage.k3" in snap["spans"]
-    assert snap["marks"]["k3.ring"] == 0
+    assert "fftw.stage.k3" in trace.snapshot()["spans"]
+    assert (fused2d.launches, fused2d.ring_launches) == before
 
 
 def test_spans_are_profiler_events_on_its_clock(cpu_plans):
@@ -400,10 +382,11 @@ def test_the_cap_counts_dropped_records(cpu_plans, monkeypatch):
     plan = ft.plan_many_dft([128], 2, dtype="complex64", device="cpu")
     _traced(plan.execute, _complex((2, 128)))
     recs = trace.records()
-    assert [r.name for r in recs][-1] == "fftw.convert.combine"
-    assert len(recs) == 2 and recs[0].name.startswith("fftw.stage.")
+    # the pass converts inside its span: root, pass, split, combine
+    assert [r.name for r in recs] == ["fftw.convert.split",
+                                      "fftw.convert.combine"]
     snap = trace.snapshot(reset=True)
-    assert snap["dropped"] == 2          # the root and the split
+    assert snap["dropped"] == 2          # the root and the pass
     assert snap["calls"] == 0
     assert trace.records() == [] and trace.snapshot()["dropped"] == 0
 
@@ -561,7 +544,6 @@ def test_card_spans_events_and_launches(card, monkeypatch):
         assert spans[name]["count"] == 4 and spans[name]["device_ms"] is None
     # K1 reads the complex input and writes the complex output itself
     assert not any(name.startswith("fftw.convert.") for name in spans)
-    assert snap["marks"] == {"edge.in": 4, "edge.out": 4, "k3.ring": 0}
     recs = trace.records()
     for name in ("fftw.execute", "fftw.launch.stockham_c2c"):
         evs = sorted((e for e in prof.profiler.kineto_results.events()
@@ -581,7 +563,7 @@ def test_card_spans_events_and_launches(card, monkeypatch):
     assert 1 <= len(kernels) <= 4
     assert all("fftw3_tpu_torch::" in k for k in kernels)
     # the conversions, timed, on routes that still convert: a strided
-    # input's split ahead of K1, an r2c plan's combine after K4
+    # input's one complex copy ahead of K1, an r2c plan's combine after K4
     strided = _complex((64, 2048)).to(card)[:, ::2]
     rplan = ft.plan_dft_r2c((64, 1024), axes=(1,), device=card)
     real = torch.randn(64, 1024, device=card)
@@ -589,7 +571,6 @@ def test_card_spans_events_and_launches(card, monkeypatch):
     _profile_card(lambda: [(plan.execute(strided), rplan.execute(real))
                            for _ in range(2)])
     snap = trace.snapshot()
-    assert snap["marks"] == {"edge.in": 0, "edge.out": 2, "k3.ring": 0}
     for name in ("fftw.convert.split", "fftw.convert.combine"):
         spans = snap["spans"]
         assert spans[name]["count"] == spans[name]["timed"] == 2
@@ -602,11 +583,12 @@ def test_card_3d_launches_and_names(card):
                        device=card)
     x = _complex((128, 128, 128)).to(card)
     plan.execute(x)
+    ring = fused2d.ring_launches
     _, prof = _profile_card(lambda: [plan.execute(x) for _ in range(4)])
     snap = trace.snapshot()
     spans = snap["spans"]
     # K3 reads K2's planes, aligned: every call's launch took the ring
-    assert snap["marks"]["k3.ring"] == 4
+    assert fused2d.ring_launches - ring == 4
     launches = {k: v["count"] for k, v in spans.items()
                 if k.startswith("fftw.launch.")}
     assert launches == {"fftw.launch.inner_c2c": 4, "fftw.launch.c2c_2d": 4}
