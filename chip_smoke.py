@@ -70,7 +70,12 @@ PyTorch call that computes the same function at its path's shape, and
 holds each against its twin there; K3 at (512, 512, 512), (64, 512, 512),
 (256, 256, 1024) and (341, 384, 512) runs on its ring of tile copies and,
 from a misaligned copy of the input, in its in-order form: bit for bit the
-same, the ring no more than 3% slower.  Phase 15 times the 3-D and 2-D batched
+same, the ring no more than 3% slower.  At the two 512 x 512 shapes it runs
+the levels compiled into it (``fused2d.fixed_launches``), timed against its
+run-time level plans, bit for bit the same; at the other two it runs the
+run-time plans, their time printed beside the one ``K3_OFF_PLANES_BEFORE_MS``
+records on the card named there (reported, not enforced: the same code
+read 4% apart in two calls).  Phase 15 times the 3-D and 2-D batched
 plans against the other routes the port could take for them: K2 on every
 non-last axis with K1 on the last (no fusion), and a ``movedim`` lift
 around K1 on every axis.  Phase 16 holds K4, K5 and K6 against their twins
@@ -144,7 +149,9 @@ times, bound; K1's, K1's wide, K2's and K3's rows time the form
 ``Plan.execute`` runs on complex64, named in ``layout``, with its
 launches counted in an ``execute`` call and the planar form's time in
 ``planes_ms``; K3's also its launches on the ring, ``ring_launches``, and
-its in-order form's time, ``in_order_ms``; P1's launches are the probe's own; the measurement arms'
+its in-order form's time, ``in_order_ms``, its launches with the levels
+compiled in, ``fixed_launches``, and the times of both level forms,
+``fixed_ms`` and ``run_time_ms``; P1's launches are the probe's own; the measurement arms'
 launches are their phase's, ``on_path`` false but for the ``pallas4``
 arms; phase 39's rows carry both batches' times and the marginal slope,
 then phase 40's race, then phase 41's K7 arms), then ``{"ok": true,
@@ -207,6 +214,12 @@ INNER_LS = [1, 37, 130, 4096]
 PLANES_2D = [(128, 128), (256, 1024), (512, 512), (384, 768)]
 #: K3 timed at planes off the main paths' 512 x 512, 2**26 points each
 K3_OFF_PLANES = [(256, 256, 1024), (341, 384, 512)]
+#: K3's time (ms, complex64 out, on the ring) at K3_OFF_PLANES before the
+#: 512 x 512 levels were compiled in (the mean of two turns beside the
+#: change, tools.race_trees), and the card it was read on: these shapes
+#: still run the run-time level plans
+K3_OFF_PLANES_BEFORE_MS = {(256, 256, 1024): 1.3834, (341, 384, 512): 2.1075}
+K3_BEFORE_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 PRES = [1, 3, 64]
 #: K1 with the four-step options: (q, radices, P, transposed store)
 PRETWIDDLE_CASES = [(128, [128], 32, False), (128, [128], 128, True),
@@ -390,6 +403,7 @@ COUNTERS = {"stockham_c2c": (S, "launches"),
             "inner_c2c": (inner, "launches"),
             "c2c_2d": (fused2d, "launches"),
             "c2c_2d_ring": (fused2d, "ring_launches"),
+            "c2c_2d_fixed": (fused2d, "fixed_launches"),
             "r2c": (RS, "r2c_launches"),
             "r2c_inner": (RS, "r2c_inner_launches"),
             "c2r": (RS, "c2r_launches"),
@@ -513,6 +527,43 @@ def k3_forms(xr, xi, r1, r2, tab, shape):
           f"K3 at {shape}: the ring ({ms:.3f} ms) is over "
           f"{K3_RING_SLACK}x the in-order form ({in_order:.3f} ms)")
     return ms, in_order
+
+
+def k3_fixed(xr, xi, rad, tab, shape):
+    """K3 writing complex64 on a 512 x 512 schedule with the levels
+    compiled in (the host's choice) and with its run-time level plans (the
+    host made to ask for them): bit for bit the same output, the first
+    counted in ``fixed_launches`` and the second not.  Returns the two
+    times (ms), each the faster of two turns taken in order and back."""
+    def run(u, v):
+        return fused2d.c2c_2d_cuda(u, v, rad, rad, tab, complex_out=True)
+
+    def run_time(u, v):
+        keep = fused2d.fixed_fits
+        fused2d.fixed_fits = lambda p2, p1: False
+        try:
+            return run(u, v)
+        finally:
+            fused2d.fixed_fits = keep
+    fixed0 = fused2d.fixed_launches
+    a = run(xr, xi)
+    torch.cuda.synchronize()
+    check(fused2d.fixed_launches == fixed0 + 1,
+          f"K3 at {shape}: the 512 x 512 plans did not take the compiled-in "
+          f"levels")
+    b = run_time(xr, xi)
+    torch.cuda.synchronize()
+    check(fused2d.fixed_launches == fixed0 + 1,
+          f"K3 at {shape}: the run-time form counted as compiled in")
+    check(torch.equal(a, b), f"K3 at {shape}: the compiled-in levels' "
+          f"output differs from the run-time form's")
+    del a, b
+    turns = [time_ms(f, (xr, xi)) for f in (run, run_time, run_time, run)]
+    fixed, slow = min(turns[0], turns[3]), min(turns[1], turns[2])
+    print(f"[14] c2c_2d {shape}: levels compiled in {turns[0]:.3f} / "
+          f"{turns[3]:.3f} ms, run-time plans {turns[1]:.3f} / "
+          f"{turns[2]:.3f} ms ({fixed / slow:.3f}x)")
+    return fixed, slow
 
 
 def time_vs_oracle(fn, xr, xi, ref):
@@ -2552,12 +2603,13 @@ def functional_phase(rng, dev, smi_line):
 
     x = torch.complex(*planes(rng, MANY_2D, dev))
     surface_call(f"fft2 {MANY_2D}", ft.fft2, (x,),
-                 {"c2c_2d": 1, "c2c_2d_ring": 1},
+                 {"c2c_2d": 1, "c2c_2d_ring": 1, "c2c_2d_fixed": 1},
                  torch.fft.fft2(x.to(c128)))
     del x
     x = torch.complex(*planes(rng, (CUBE,) * 3, dev))
     surface_call(f"fftn {(CUBE,) * 3}", ft.fftn, (x,),
-                 {"inner_c2c": 1, "c2c_2d": 1, "c2c_2d_ring": 1},
+                 {"inner_c2c": 1, "c2c_2d": 1, "c2c_2d_ring": 1,
+                  "c2c_2d_fixed": 1},
                  torch.fft.fftn(x.to(c128)))
     del x
     torch.cuda.empty_cache()
@@ -3113,7 +3165,8 @@ def main() -> None:
     torch.cuda.synchronize()
     counts3_split = read_counts()
     print(f"[9] launches, one apply_split call: {counts3_split}")
-    check(counts3_split == only(inner_c2c=1, c2c_2d=1, c2c_2d_ring=1),
+    check(counts3_split == only(inner_c2c=1, c2c_2d=1, c2c_2d_ring=1,
+                                c2c_2d_fixed=1),
           "the 3-D split path is not one K2 and one K3 launch")
     check(bool(torch.isfinite(yr).all() and torch.isfinite(yi).all()),
           "non-finite 3-D output")
@@ -3132,7 +3185,8 @@ def main() -> None:
     torch.cuda.synchronize()
     counts3 = read_counts()
     print(f"[9] launches, one execute call: {counts3}")
-    check(counts3 == only(inner_c2c=1, c2c_2d=1, c2c_2d_ring=1),
+    check(counts3 == only(inner_c2c=1, c2c_2d=1, c2c_2d_ring=1,
+                          c2c_2d_fixed=1),
           "the 3-D execute path is not one K2 and one K3 launch")
     e3x = relerr(yc, y)
     del yc, xc
@@ -3186,8 +3240,8 @@ def main() -> None:
     counts2 = read_counts()
     print(f"[10] launches, one call: apply_split {counts2_split}; execute "
           f"{counts2}")
-    check(counts2_split == only(c2c_2d=1, c2c_2d_ring=1)
-          and counts2 == only(c2c_2d=1, c2c_2d_ring=1),
+    check(counts2_split == only(c2c_2d=1, c2c_2d_ring=1, c2c_2d_fixed=1)
+          and counts2 == only(c2c_2d=1, c2c_2d_ring=1, c2c_2d_fixed=1),
           "the 2-D batched path is not one K3 launch")
     check(torch.equal(yc, torch.complex(yr, yi)),
           "2-D execute differs from apply_split's planes")
@@ -3455,6 +3509,7 @@ def main() -> None:
               f"at {shape}")
         del kr, ki, kc
         ms, in_order_ms = k3_forms(xr, xi, rad, rad, tab, shape)
+        fixed_ms, run_time_ms = k3_fixed(xr, xi, rad, tab, shape)
         xc = torch.complex(xr, xi)
         counts = counts3 if shape[0] == CUBE else counts2
         rows14.append({
@@ -3464,8 +3519,10 @@ def main() -> None:
             "layout": "complex64 out",
             "launches": counts["c2c_2d"],
             "ring_launches": counts["c2c_2d_ring"],
+            "fixed_launches": counts["c2c_2d_fixed"],
             "max_abs_err": err, "rel_err": rel,
-            "ms": ms, "in_order_ms": in_order_ms,
+            "ms": ms, "in_order_ms": in_order_ms, "fixed_ms": fixed_ms,
+            "run_time_ms": run_time_ms,
             "planes_ms": time_ms(lambda a, b: fused2d.c2c_2d_cuda(
                 a, b, rad, rad, tab), (xr, xi)),
             "plain_ms": time_ms(lambda a, b: fused2d.c2c_2d_torch(
@@ -3476,19 +3533,28 @@ def main() -> None:
             "cluster": fused2d.CLUSTER, "shape": shape})
         del xr, xi, xc
         torch.cuda.empty_cache()
-    # K3 off the 512 x 512 planes: every schedule runs the same code, so a
-    # plane of other schedules should cost about the same per point
+    # K3 off the 512 x 512 planes: the run-time level plans, as before the
+    # 512 x 512 levels were compiled in
     for shape in K3_OFF_PLANES:
         r1, r2 = S.choose_radices(shape[1]), S.choose_radices(shape[2])
         xr, xi = planes(rng, shape, dev)
         tab = fused2d.device_table_2d(shape[1], tuple(r1), shape[2],
                                       tuple(r2), -1, dev)
+        fixed0 = fused2d.fixed_launches
         kr, ki = fused2d.c2c_2d_cuda(xr, xi, r1, r2, tab)
         e = relerr(torch.complex(kr, ki),
                    torch.complex(*fused2d.c2c_2d_torch(xr, xi, r1, r2, -1)))
         check(e <= TOL, f"c2c_2d {shape}: {e:.2e}")
         del kr, ki
         ms, in_order_ms = k3_forms(xr, xi, r1, r2, tab, shape)
+        check(fused2d.fixed_launches == fixed0,
+              f"K3 at {shape} took the levels compiled in for 512 x 512")
+        before = K3_OFF_PLANES_BEFORE_MS[shape]
+        if smi_line == K3_BEFORE_CARD:
+            verdict = ("within" if ms <= K3_RING_SLACK * before else "OVER")
+            print(f"[14] c2c_2d {shape}: run-time plans {ms:.3f} ms against "
+                  f"{before:.3f} before the compiled-in levels "
+                  f"({ms / before:.3f}x, {verdict} {K3_RING_SLACK}x)")
         xc = torch.complex(xr, xi)
         lib = time_ms(lambda z: torch.fft.fft2(z), (xc,))
         bms, by = bound(16.0 * math.prod(shape),
@@ -3548,6 +3614,10 @@ def main() -> None:
               + (f" (in order {r['in_order_ms']:.3f} ms; "
                  f"{r['ring_launches']} of {r['launches']} launches on "
                  f"the ring)" if "in_order_ms" in r else "")
+              + (f" (levels compiled in {r['fixed_ms']:.3f} ms, run-time "
+                 f"plans {r['run_time_ms']:.3f} ms; {r['fixed_launches']} "
+                 f"of {r['launches']} launches compiled in)"
+                 if "fixed_ms" in r else "")
               + f", twin {r['plain_ms']:.3f} ms, library "
               f"{'none' if lib is None else f'{lib:.3f} ms'}, bound "
               f"{r['bound_ms']:.3f} ms ({r['bound_by']}); kernel-twin max "

@@ -52,16 +52,36 @@
 //    level reads the rows from the input directly, a dense one from shared
 //    memory filled with 16-byte loads; the column tiles are loaded with
 //    16-byte __ldcg loads.
-// What bounds K3 now, at 512^3 on an H100 (PERF.md): the levels.  Writing
-// complex64, the ring takes 3.43-3.47 ms against 4.10-4.19 in order; with
-// the levels taken out, the ring moves the same bytes (same copies, the
-// plain stores, the cluster barriers) in 1.46 ms.  ptxas: every form 128
-// registers; spill stores 4520 / 4508 bytes in order (planes / complex64
-// out), 4428 / 7392 on the ring (the complex64 column pass instantiates the
-// interleaved first level too), stack 560-592 bytes.  The ring's larger
-// shared memory leaves L1 60 KB of the SM's 256 where the in-order form
-// leaves 156: the in-order form given the ring's shared memory ran 3.8-5.3%
-// slower.
+// Two forms run the levels, chosen by the host (fused2d.fixed_fits), for
+// either walk and bit for bit the same:
+//  - Run-time plans (every schedule): plan2 and plan1 arrive as kernel
+//    arguments, are staged in shared memory, and each level reads its
+//    radix, strides, pads and table offsets there, divides through FastDiv
+//    and switches on its radix (run_levels, bfly_any).  One body serves
+//    every schedule, and ptxas holds the union of every radix's level: 128
+//    registers, spill stores 4520 / 4508 bytes in order (planes / complex64
+//    out), 4428 / 7392 on the ring (the complex64 column pass instantiates
+//    the interleaved first level too), stack 560-592 bytes, which the
+//    ring's L1 of 60 KB cannot hold (a block's stack is 300 KB).
+//  - Compiled in (kFixed): a 512 x 512 plane on [32, 16] both ways, the
+//    schedule ESTIMATE gives 512 and the users' 512^3 grid runs.  The plans
+//    are the constants FixedRows and FixedCols (run_fixed_levels): each of
+//    the three levels, radices 8, 4 and 16, is the one bfly_level body of
+//    its radix with every index a constant; nothing is staged and no
+//    FastDiv runs.  ptxas: 121-128 registers, no spill stores, no stack, in
+//    all four (layout, walk) forms.  The host asks for it exactly when its
+//    level plans equal fused2d.FIXED_PLANS, and the launch refuses it
+//    unless they equal the constants here: a change of
+//    stockham.level_plan sends 512 x 512 to the run-time form, not to
+//    stale constants.
+// What bounds K3, at 512^3 on an H100 (PERF.md), writing complex64 on the
+// ring: with the run-time plans the levels (3.38-3.42 ms; with the levels
+// taken out the ring moves the same bytes, same copies, plain stores and
+// cluster barriers, in 1.46 ms); compiled in, 1.61-1.64 ms, near that
+// floor.  In order it took 4.10-4.19 ms with the run-time plans.  The
+// ring's larger shared memory leaves L1 60 KB of the SM's 256 where the
+// in-order form leaves 156: the in-order form given the ring's shared
+// memory ran 3.8-5.3% slower.
 //
 // An interleaved complex64 output (kLayout kOutC, the same kernel): yr is
 // the caller's complex output, each point a float2 (re, im), and yi is
@@ -83,10 +103,12 @@ namespace fftw3_tpu_torch {
 namespace {
 
 using fftw3_tpu_torch::Arm;
+using fftw3_tpu_torch::FixedLevel;
 using fftw3_tpu_torch::Level;
 using fftw3_tpu_torch::LevelPlan;
 using fftw3_tpu_torch::kMaxLevels;
 using fftw3_tpu_torch::read_plan;
+using fftw3_tpu_torch::run_fixed_levels;
 using fftw3_tpu_torch::run_levels;
 using fftw3_tpu_torch::stage_levels;
 
@@ -101,6 +123,24 @@ constexpr int kTilePoints = kPts * kThreads;
 constexpr int kCluster = 8;
 // a cap on any pair of plans' shared memory, set once
 constexpr int kMaxSmem = 180224;
+
+// The level plans compiled in (the form kFixed): a 512 x 512 plane on the
+// schedule [32, 16] both ways (ESTIMATE's at 512: bfly 32=8x4, bfly 16),
+// chunks of 16 rows and tiles of 16 columns; stockham.level_plan(512,
+// (32, 16), tl) at tl = 1 and 16, which fused2d.FIXED_PLANS repeats.
+constexpr int kFixedN = 512, kFixedChunk = 16;
+struct FixedRows {
+  static constexpr int tl = 1;
+  static constexpr int plan[] = {3,  1,  632, 1120, 8,    8, 1,   512, 64, 0,
+                                 512, 1, 4,   4,    8,    64, 64, 0,   512, 8,
+                                 16, 16, 32,  16,   1088, 0,  16, 0};
+};
+struct FixedCols {
+  static constexpr int tl = 16;
+  static constexpr int plan[] = {3,  1,  9212, 1120, 8,    8, 1,   512, 64, 0,
+                                 512, 4, 4,    4,    8,    64, 64, 0,   512, 0,
+                                 16, 16, 32,   16,   1088, 0,  16, 0};
+};
 
 // Row pass store: point o of row `row` of the chunk.
 struct RowsMap {
@@ -130,6 +170,61 @@ struct RowsMapC : RowsMap {
 struct ColsMapC : ColsMap {
   static constexpr bool kInterleaved = true;
 };
+
+template <bool kCout>
+__device__ __forceinline__ auto rows_map(int64_t base, int n2) {
+  if constexpr (kCout)
+    return RowsMapC{{base, n2}};
+  else
+    return RowsMap{base, n2};
+}
+
+template <bool kCout>
+__device__ __forceinline__ auto cols_map(int64_t base, int n2, int width) {
+  if constexpr (kCout)
+    return ColsMapC{{base, n2, width}};
+  else
+    return ColsMap{base, n2, width};
+}
+
+// The levels of a row chunk of nr rows, level 0 reading them at (x0r, x0i),
+// rows n2 apart (the input, or the ring buffer the chunk landed in; null:
+// the buffer (ar, ai), where a dense first stage reads them), the last
+// storing through map.  kFixed: the plan compiled in, whose chunks hold
+// kFixedChunk rows.
+template <bool kFixed, class Map>
+__device__ __forceinline__ void row_levels(
+    const LevelPlan& plan, const Level* lev, const float* tb, float* ar,
+    float* ai, float* br, float* bi, int n2, int nr, float* yr, float* yi,
+    const Map& map, const float* x0r, const float* x0i) {
+  if constexpr (kFixed)
+    run_fixed_levels<kPts, FixedRows, Arm::kFull>(
+        tb, x0r, x0i, kFixedN, 1, ar, ai, kFixedChunk, yr, yi, map);
+  else
+    run_levels<kPts, Arm::kFull>(plan, lev, tb, ar, ai, br, bi, n2, 1, nr,
+                                 yr, yi, map, x0r, x0i, n2);
+}
+
+// The levels of a column tile of tc columns in the buffer (ar, ai), with
+// kSrcC interleaved in ar (as the ring's copy lands it), the last storing
+// through map.  kFixed: the plan compiled in.
+template <bool kFixed, bool kSrcC, class Map>
+__device__ __forceinline__ void col_levels(
+    const LevelPlan& plan, const Level* lev, const float* tb, float* ar,
+    float* ai, float* br, float* bi, int n1, int tc, float* yr, float* yi,
+    const Map& map) {
+  if constexpr (kFixed)
+    run_fixed_levels<kPts, FixedCols, Arm::kFull, kSrcC>(
+        tb, ar, kSrcC ? nullptr : ai,
+        kSrcC ? 0 : FixedLevel<FixedCols, 0>::rs, FixedCols::tl, ar, ai, 1,
+        yr, yi, map);
+  else if constexpr (kSrcC)
+    run_levels<kPts, Arm::kFull, true>(plan, lev, tb, ar, ai, br, bi, n1, tc,
+                                       1, yr, yi, map, ar, nullptr, 0, tc);
+  else
+    run_levels<kPts, Arm::kFull>(plan, lev, tb, ar, ai, br, bi, n1, tc, 1,
+                                 yr, yi, map);
+}
 
 // 16-byte loads a thread issues before their stores in the column pass of an
 // interleaved output: these L2 reads are latency-bound; at 512^3 on an H100
@@ -305,7 +400,7 @@ __device__ __forceinline__ void wait_cols(bool newer) {
 // at the input's stride n2, or the interleaved column tile as float2, and
 // writes its own layout in place (every thread has read its points before
 // any writes).
-template <int kLayout>
+template <int kLayout, bool kFixed>
 __device__ __forceinline__ void ring_walk(
     const float* xr, const float* xi, float* yr, float* yi,
     const LevelPlan& plan2, const Level* lev2, const float* tb2,
@@ -356,14 +451,8 @@ __device__ __forceinline__ void ring_walk(
       float* ar = buf + 2 * use * plane;
       float* ai = ar + plane;
       use ^= 1;
-      if constexpr (kCout)
-        run_levels<kPts, Arm::kFull>(plan2, lev2, tb2, ar, ai, nullptr,
-                                     nullptr, n2, 1, nr, yr, yi,
-                                     RowsMapC{{base, n2}}, ar, ai, n2);
-      else
-        run_levels<kPts, Arm::kFull>(plan2, lev2, tb2, ar, ai, nullptr,
-                                     nullptr, n2, 1, nr, yr, yi,
-                                     RowsMap{base, n2}, ar, ai, n2);
+      row_levels<kFixed>(plan2, lev2, tb2, ar, ai, nullptr, nullptr, n2, nr,
+                         yr, yi, rows_map<kCout>(base, n2), ar, ai);
     }
     // 2. every row of the plane is written before any column is read, and
     //    the copies see the other SMs' generic stores
@@ -388,22 +477,20 @@ __device__ __forceinline__ void ring_walk(
       float* ar = buf + 2 * use * plane;
       float* ai = ar + plane;
       use ^= 1;
-      if constexpr (kCout)
-        run_levels<kPts, Arm::kFull, true>(
-            plan1, lev1, tb1, ar, ai, nullptr, nullptr, n1, tc, 1, yr, yi,
-            ColsMapC{{base, n2, width}}, ar, nullptr, 0, tc);
-      else
-        run_levels<kPts, Arm::kFull>(plan1, lev1, tb1, ar, ai, nullptr,
-                                     nullptr, n1, tc, 1, yr, yi,
-                                     ColsMap{base, n2, width});
+      col_levels<kFixed, kCout>(plan1, lev1, tb1, ar, ai, nullptr, nullptr,
+                                n1, tc, yr, yi,
+                                cols_map<kCout>(base, n2, width));
     }
   }
 }
 
 // yr, yi are written by the row pass and read back by other blocks of the
 // cluster in the column pass: no __restrict__ and no read-only loads on them.
-// kRing: the ring's walk (ring_walk), else every tile in turn.
-template <int kLayout, bool kRing>
+// kRing: the ring's walk (ring_walk), else every tile in turn.  kFixed: the
+// levels of the plans compiled in (FixedRows, FixedCols), which the launch
+// has checked against plan2 and plan1, else those of plan2 and plan1 read
+// at run time.
+template <int kLayout, bool kRing, bool kFixed>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     c2c_2d_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                   float* yr, float* yi, const float* __restrict__ tab,
@@ -411,6 +498,11 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
                   int n1, int n2, int rows, int tc) {
   constexpr bool kCout = kLayout == kOutC;
   static_assert(kLayout == 0 || kCout, "planes, or an interleaved output");
+  if constexpr (kFixed) {
+    n1 = n2 = kFixedN;
+    rows = kFixedChunk;
+    tc = FixedCols::tl;
+  }
   extern __shared__ float4 smem4[];
   __shared__ Level lev2[kMaxLevels], lev1[kMaxLevels];
   cg::cluster_group cluster = cg::this_cluster();
@@ -424,14 +516,16 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   float* br = ai + plane;  // second buffer, only with a dense stage
   float* bi = br + plane;
 
-  stage_levels(plan2, lev2);
-  stage_levels(plan1, lev1);
+  if constexpr (!kFixed) {
+    stage_levels(plan2, lev2);
+    stage_levels(plan1, lev1);
+  }
   const int tab_len = plan2.tab_len + plan1.tab_len;
   for (int i = threadIdx.x; i < tab_len; i += blockDim.x) tb2[i] = tab[i];
   if constexpr (kRing) {
-    ring_walk<kLayout>(xr, xi, yr, yi, plan2, lev2, tb2, plan1, lev1, tb1,
-                       pre, n1, n2, rows, tc, ar, plane, cluster, csize,
-                       rank);
+    ring_walk<kLayout, kFixed>(xr, xi, yr, yi, plan2, lev2, tb2, plan1, lev1,
+                               tb1, pre, n1, n2, rows, tc, ar, plane, cluster,
+                               csize, rank);
     return;
   }
   const bool vrow = aligned16(xr) && aligned16(xi) && n2 % 4 == 0 &&
@@ -442,7 +536,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
             : aligned16(xr) && aligned16(xi) && aligned16(yr) &&
                   aligned16(yi) && n2 % 4 == 0 && tc % 4 == 0;
   // a first level of butterflies reads the rows from the input
-  const bool direct = plan2.lev[0].kind != 0;
+  const bool direct = kFixed || plan2.lev[0].kind != 0;
 
   const int64_t npts = static_cast<int64_t>(n1) * n2;
   for (int64_t plane_i = blockIdx.x / csize; plane_i < pre;
@@ -479,14 +573,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       }
       const float* x0r = direct ? xr + base : nullptr;
       const float* x0i = direct ? xi + base : nullptr;
-      if constexpr (kCout)
-        run_levels<kPts, Arm::kFull>(plan2, lev2, tb2, ar, ai, br, bi, n2, 1,
-                                     nr, yr, yi, RowsMapC{{base, n2}}, x0r,
-                                     x0i, n2);
-      else
-        run_levels<kPts, Arm::kFull>(plan2, lev2, tb2, ar, ai, br, bi, n2, 1,
-                                     nr, yr, yi, RowsMap{base, n2}, x0r, x0i,
-                                     n2);
+      row_levels<kFixed>(plan2, lev2, tb2, ar, ai, br, bi, n2, nr, yr, yi,
+                         rows_map<kCout>(base, n2), x0r, x0i);
     }
     // 2. every row of the plane is written before any column is read
     __threadfence();
@@ -525,13 +613,8 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
         }
       }
       __syncthreads();
-      if constexpr (kCout)
-        run_levels<kPts, Arm::kFull>(plan1, lev1, tb1, ar, ai, br, bi, n1,
-                                     tc, 1, yr, yi,
-                                     ColsMapC{{base, n2, width}});
-      else
-        run_levels<kPts, Arm::kFull>(plan1, lev1, tb1, ar, ai, br, bi, n1,
-                                     tc, 1, yr, yi, ColsMap{base, n2, width});
+      col_levels<kFixed, false>(plan1, lev1, tb1, ar, ai, br, bi, n1, tc, yr,
+                                yi, cols_map<kCout>(base, n2, width));
     }
   }
 }
@@ -560,30 +643,47 @@ using namespace fftw3_tpu_torch;
 // Both entry points act on the caller's current device; the caller sets it.
 
 // The kernel of a layout and form.
-static decltype(&c2c_2d_kernel<0, false>) kernel_of(int layout, int ring) {
-  if (layout == kOutC)
-    return ring ? c2c_2d_kernel<kOutC, true> : c2c_2d_kernel<kOutC, false>;
-  return ring ? c2c_2d_kernel<0, true> : c2c_2d_kernel<0, false>;
+using Kernel = decltype(&c2c_2d_kernel<0, false, false>);
+static Kernel kernel_of(int layout, int ring, int fixed) {
+  static const Kernel forms[2][2][2] = {
+      {{c2c_2d_kernel<0, false, false>, c2c_2d_kernel<0, false, true>},
+       {c2c_2d_kernel<0, true, false>, c2c_2d_kernel<0, true, true>}},
+      {{c2c_2d_kernel<kOutC, false, false>,
+        c2c_2d_kernel<kOutC, false, true>},
+       {c2c_2d_kernel<kOutC, true, false>,
+        c2c_2d_kernel<kOutC, true, true>}}};
+  return forms[layout == kOutC][ring != 0][fixed != 0];
+}
+
+// Does the host's level plan p equal the plan P compiled in?
+template <class P>
+static bool is_plan(const int* p) {
+  if (p == nullptr || p[0] != P::plan[0]) return false;
+  for (size_t i = 0; i < sizeof(P::plan) / sizeof(int); ++i)
+    if (p[i] != P::plan[i]) return false;
+  return true;
 }
 
 // Allow every form kMaxSmem bytes of dynamic shared memory on the current
 // device and report how many clusters of kCluster blocks of `smem` bytes of
-// the form `ring` the whole card runs at once.  Returns the CUDA error
-// code, 0 on success.
-extern "C" int c2c_2d_occupancy(int smem, int ring, int* clusters) {
+// the form (`ring`, `fixed`) the whole card runs at once.  Returns the CUDA
+// error code, 0 on success.
+extern "C" int c2c_2d_occupancy(int smem, int ring, int fixed,
+                                int* clusters) {
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   for (int layout : {0, kOutC})
-    for (int r : {0, 1}) {
-      const cudaError_t err =
-          cudaFuncSetAttribute(kernel_of(layout, r),
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMaxSmem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
+    for (int r : {0, 1})
+      for (int f : {0, 1}) {
+        const cudaError_t err =
+            cudaFuncSetAttribute(kernel_of(layout, r, f),
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 kMaxSmem);
+        if (err != cudaSuccess) return static_cast<int>(err);
+      }
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg = make_config(kCluster, smem, nullptr, &attr);
-  return static_cast<int>(
-      cudaOccupancyMaxActiveClusters(clusters, kernel_of(0, ring), &cfg));
+  return static_cast<int>(cudaOccupancyMaxActiveClusters(
+      clusters, kernel_of(0, ring, fixed), &cfg));
 }
 
 // Launch `grid` blocks (a multiple of kCluster) in clusters of kCluster on
@@ -596,28 +696,37 @@ extern "C" int c2c_2d_occupancy(int smem, int ring, int* clusters) {
 // c2c_2d_occupancy.  `layout` is 0 (split planes) or kOutC (yr an
 // interleaved complex output, yi unused).  `ring` 1 takes the ring, which
 // needs plans with no dense stage, n2 and tc multiples of 4 and 16-byte
-// aligned tensors (fused2d.ring_fits); it is refused otherwise.
+// aligned tensors (fused2d.ring_fits); it is refused otherwise.  `fixed`
+// 1 takes the levels compiled in, which needs plan2 and plan1 equal to
+// FixedRows' and FixedCols' on a 512 x 512 plane in chunks of kFixedChunk
+// rows and tiles of 16 columns (fused2d.FIXED_PLANS); it is refused
+// otherwise.
 extern "C" int c2c_2d_launch(const float* xr, const float* xi, float* yr,
                              float* yi, const float* tab, const int* plan2,
                              const int* plan1, int pre, int n1, int n2,
-                             int rows, int tc, int layout, int ring, int grid,
-                             int smem, void* stream) {
+                             int rows, int tc, int layout, int ring,
+                             int fixed, int grid, int smem, void* stream) {
   LevelPlan p2, p1;
   if (!read_plan(plan2, 1, &p2) || !read_plan(plan1, tc, &p1) ||
       rows * n2 > kTilePoints || n1 * tc > kTilePoints || grid % kCluster ||
       smem != smem_bytes(p2, p1, rows, ring) || (tc & (tc - 1)) ||
-      (layout != 0 && layout != kOutC) || (ring != 0 && ring != 1))
+      (layout != 0 && layout != kOutC) || (ring != 0 && ring != 1) ||
+      (fixed != 0 && fixed != 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (ring && (p2.nbuf != 1 || p1.nbuf != 1 || n2 % 4 || tc % 4 ||
                !aligned16(xr) || !aligned16(xi) || !aligned16(yr) ||
                (layout != kOutC && !aligned16(yi))))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (fixed && (n1 != kFixedN || n2 != kFixedN || rows != kFixedChunk ||
+                tc != FixedCols::tl || !is_plan<FixedRows>(plan2) ||
+                !is_plan<FixedCols>(plan1)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchAttribute attr;
   cudaLaunchConfig_t cfg =
       make_config(grid, smem, static_cast<cudaStream_t>(stream), &attr);
-  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel_of(layout, ring), xr, xi,
-                                       yr, yi, tab, p2, p1, pre, n1, n2, rows,
-                                       tc);
+  cudaError_t err = cudaLaunchKernelEx(&cfg, kernel_of(layout, ring, fixed),
+                                       xr, xi, yr, yi, tab, p2, p1, pre, n1,
+                                       n2, rows, tc);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

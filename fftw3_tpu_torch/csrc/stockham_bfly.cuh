@@ -40,7 +40,9 @@
 // (stockham.level_plan) arrives as a kernel argument, the kernel copies its
 // levels to shared memory, and each level reads its geometry there at run
 // time; the levels are inlined, one butterfly body per radix of
-// LEVEL_RADICES.
+// LEVEL_RADICES.  Beside it, a plan compiled in (FixedLevel,
+// run_fixed_levels): the same level bodies with every radix and geometry a
+// constant, for a schedule a kernel instantiates (K3 at 512 x 512).
 
 #pragma once
 
@@ -359,15 +361,16 @@ __device__ __forceinline__ void store_out(const Map& map, float* dr,
 // planes at map(row, o, c).  With kSrcC the level reads interleaved complex
 // points instead, each one float2 (re, im) at that index of sr (si unused):
 // a first level reading the caller's complex tensor.  Every index is
-// computed from the level's ints at run time; the register arrays are
-// indexed by constants only.
+// computed from the level's ints, L a Level read at run time or a
+// FixedLevel whose ints are constants; the register arrays are indexed by
+// constants only.
 template <int kPts, int R, int kArm, bool kLast, bool kSrcC = false,
-          class Map>
+          class Map, class Lv>
 __device__ __forceinline__ void bfly_level(const float* sr, const float* si,
                                            int rs_in, int pad_in, int ld_in,
                                            float* dr, float* di, int rs,
                                            const Map& map, const float* tb,
-                                           const Level& L, int tl, int nr) {
+                                           const Lv& L, int tl, int nr) {
   constexpr int K = (kPts + R - 1) / R;
   const int done = L.done, rest = L.rest, q = L.q;
   const int qd = q * done;
@@ -581,6 +584,70 @@ __device__ __forceinline__ void run_levels(
     }
     pad_in = L.pad;
     if (!last) __syncthreads();
+  }
+}
+
+// Division by a divisor fixed at compile time, exact for 0 <= x < 2^31
+// (FastDiv's range): a shift for a power of two.
+template <int D>
+struct ConstDiv {
+  __device__ __forceinline__ int div(int x) const {
+    return static_cast<int>(static_cast<unsigned>(x) / D);
+  }
+};
+
+// Level l of a plan compiled in: P::plan holds the host's ints
+// (stockham.level_plan, 4 + 8 * nlev) for tiles of P::tl columns.  It reads
+// as the Level that read_plan makes of them, every field a constant, and
+// holds what run_levels keeps of the plan.  (Device code reads the plan
+// only through these scalars: an element of a host array is not a value it
+// may use.)
+template <class P, int l>
+struct FixedLevel {
+  static constexpr int nlev = P::plan[0], nbuf = P::plan[1], rs = P::plan[2];
+  static constexpr int kind = P::plan[4 + 8 * l], r = P::plan[5 + 8 * l],
+                       done = P::plan[6 + 8 * l], rest = P::plan[7 + 8 * l],
+                       off_a = P::plan[8 + 8 * l], len = P::plan[10 + 8 * l],
+                       pad = P::plan[11 + 8 * l];
+  static constexpr int q = rest / r, wstep = len / rest;
+  // the pad of the buffer this level reads: the level before's
+  static constexpr int pad_in = l == 0 ? 0 : P::plan[3 + 8 * l];
+  static_assert(nbuf == 1 && l < nlev && kind == r && rest % r == 0 &&
+                    len % rest == 0,
+                "a butterfly level of a plan in one buffer");
+  ConstDiv<q * done * P::tl> per_row;
+  ConstDiv<P::tl> cols;
+  ConstDiv<done> dn;
+};
+
+// run_levels on the plan P compiled in, from level l on: each level is the
+// one bfly_level body of its radix with its geometry constant, so no plan
+// is staged or read at run time and nothing switches on a radix.  P has
+// butterfly levels only, in one buffer (ar, ai).  Level 0 reads (sr, si),
+// rows rs_in apart, point i of column c at i * ld_in + c (the buffer
+// itself at P's stride and P::tl, or run_levels' x0r and x0i; with kSrcC
+// interleaved complex from sr alone), and the last stores to
+// (yr, yi)[map(row, o, c)].  The same butterflies on the same table entries
+// in the same order as run_levels on the same plan.  The caller has
+// synchronised after filling the buffer; nothing here synchronises after
+// the last level.
+template <int kPts, class P, int kArm, bool kSrcC = false, int l = 0,
+          class Map>
+__device__ __forceinline__ void run_fixed_levels(
+    const float* tb, const float* sr, const float* si, int rs_in, int ld_in,
+    float* ar, float* ai, int nr, float* yr, float* yi, const Map& map) {
+  using L = FixedLevel<P, l>;
+  if constexpr (l == L::nlev - 1) {
+    bfly_level<kPts, L::r, kArm, true, kSrcC>(sr, si, rs_in, L::pad_in,
+                                              ld_in, yr, yi, L::rs, map, tb,
+                                              L{}, P::tl, nr);
+  } else {
+    bfly_level<kPts, L::r, kArm, false, kSrcC>(sr, si, rs_in, L::pad_in,
+                                               ld_in, ar, ai, L::rs, NoMap{},
+                                               tb, L{}, P::tl, nr);
+    __syncthreads();
+    run_fixed_levels<kPts, P, kArm, false, l + 1>(tb, ar, ai, L::rs, P::tl,
+                                                  ar, ai, nr, yr, yi, map);
   }
 }
 

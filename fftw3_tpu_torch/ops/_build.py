@@ -60,10 +60,10 @@ SIGNATURES = {
     "inner_c2c_launch": [_P] * 5 + [_IP] + [_I] * 2 + [_L] + [_I] * 5
     + [_P],
     "inner_c2c_occupancy": [_I, ctypes.POINTER(_I)],
-    # xr xi yr yi tab, plan2 plan1, pre n1 n2 rows tc layout ring grid
-    # smem, stream; smem ring
-    "c2c_2d_launch": [_P] * 5 + [_IP] * 2 + [_I] * 9 + [_P],
-    "c2c_2d_occupancy": [_I, _I, ctypes.POINTER(_I)],
+    # xr xi yr yi tab, plan2 plan1, pre n1 n2 rows tc layout ring fixed
+    # grid smem, stream; smem ring fixed
+    "c2c_2d_launch": [_P] * 5 + [_IP] * 2 + [_I] * 10 + [_P],
+    "c2c_2d_occupancy": [_I, _I, _I, ctypes.POINTER(_I)],
     # x yr yi tab, plan, rows n rpb grid smem, stream
     "r2c_launch": [_P] * 4 + [_IP] + [_I] * 5 + [_P],
     "r2c_occupancy": [_I, ctypes.POINTER(_I)],

@@ -21,8 +21,11 @@ descriptors are ``pallas``.
   (:func:`ring_fits`: no dense stage, 16-byte pieces and alignment, two
   tile buffers within its shared memory) a block walks its tiles on a
   ring of two buffers, the next tile copied in while the levels run on
-  the current one; elsewhere every tile in turn.  Both forms give the
-  same output bit for bit.
+  the current one; elsewhere every tile in turn.  On 512 x 512 planes
+  with ESTIMATE's [32, 16] both ways (:func:`fixed_fits`) either walk
+  runs the levels compiled into the kernel, every radix and geometry a
+  constant; every other schedule reads its level plans at run time.
+  Every form gives the same output bit for bit.
 
 The reference's ``tile_b``/``tile_g`` plane grouping is TPU tuning and is
 ignored; so is its ``_inner_radices`` cap.  The kernel runs the
@@ -52,10 +55,22 @@ CLUSTER = 8
 #: csrc/c2c_2d.cu)
 MAX_SMEM = 180224
 
-#: launches of the CUDA kernel, counted by :func:`c2c_2d_cuda`, and those of
-#: them that took the ring
+#: the level plans compiled into the kernel (``FixedRows``, ``FixedCols``
+#: in csrc/c2c_2d.cu): ``stockham.level_plan(512, (32, 16), tl)`` of the
+#: row pass (tl = 1) and of the column pass (tl = 16, the tiles of 512 x
+#: 512).  Written out, not computed: when the host's plans change, they no
+#: longer equal these and the kernel's run-time form runs them.
+FIXED_PLANS = (
+    (3, 1, 632, 1120, 8, 8, 1, 512, 64, 0, 512, 1, 4, 4, 8, 64, 64, 0, 512,
+     8, 16, 16, 32, 16, 1088, 0, 16, 0),
+    (3, 1, 9212, 1120, 8, 8, 1, 512, 64, 0, 512, 4, 4, 4, 8, 64, 64, 0, 512,
+     0, 16, 16, 32, 16, 1088, 0, 16, 0))
+
+#: launches of the CUDA kernel, counted by :func:`c2c_2d_cuda`, those of
+#: them that took the ring, and those that ran the levels compiled in
 launches = 0
 ring_launches = 0
+fixed_launches = 0
 
 
 def tiles(n1: int, n2: int) -> Tuple[int, int]:
@@ -111,21 +126,29 @@ def ring_fits(plan2: Sequence[int], plan1: Sequence[int], rows: int,
             and smem_2d(plan2, plan1, rows, ring=True) <= MAX_SMEM)
 
 
-#: (device index, shared-memory bytes, ring) -> clusters resident on the
-#: card
-_clusters: Dict[Tuple[int, int, bool], int] = {}
+def fixed_fits(plan2: Sequence[int], plan1: Sequence[int]) -> bool:
+    """Does K3 run the levels compiled into it?  Exactly when the row and
+    column level plans are :data:`FIXED_PLANS`."""
+    return (tuple(plan2), tuple(plan1)) == FIXED_PLANS
 
 
-def _resident_clusters(lib, device: torch.device, smem: int,
-                       ring: bool) -> int:
+#: (device index, shared-memory bytes, ring, fixed) -> clusters resident
+#: on the card
+_clusters: Dict[Tuple[int, int, bool, bool], int] = {}
+
+
+def _resident_clusters(lib, device: torch.device, smem: int, ring: bool,
+                       fixed: bool) -> int:
     """How many clusters of CLUSTER blocks of `smem` bytes of the form
-    `ring` the card runs at once; the first call per key also allows the
-    kernel its shared memory.  The caller has made `device` current."""
-    key = (device.index, smem, ring)
+    (`ring`, `fixed`) the card runs at once; the first call per key also
+    allows the kernel its shared memory.  The caller has made `device`
+    current."""
+    key = (device.index, smem, ring, fixed)
     got = _clusters.get(key)
     if got is None:
         n = ctypes.c_int(0)
-        rc = lib.c2c_2d_occupancy(smem, int(ring), ctypes.byref(n))
+        rc = lib.c2c_2d_occupancy(smem, int(ring), int(fixed),
+                                  ctypes.byref(n))
         if rc != 0 or n.value < 1:
             raise RuntimeError(f"c2c_2d occupancy query failed: CUDA error "
                                f"{rc}, {n.value} clusters of {CLUSTER} "
@@ -142,7 +165,7 @@ def c2c_2d_cuda(xr: torch.Tensor, xi: torch.Tensor, rad1: Sequence[int],
     device)``.  Returns new (yr, yi), or with `complex_out` one new
     complex64 tensor written interleaved; raises on anything the kernel
     does not take, and when the launch fails."""
-    global launches, ring_launches
+    global launches, ring_launches, fixed_launches
     if xi is None:
         raise ValueError("c2c_2d_cuda takes split input planes")
     passes.check_planes("c2c_2d_cuda", xr, xi, table, 3)
@@ -167,25 +190,29 @@ def c2c_2d_cuda(xr: torch.Tensor, xi: torch.Tensor, rad1: Sequence[int],
     ptrs = (xr.data_ptr(), xi.data_ptr(), *passes.pointers(*y))
     ring = ring_fits(plan2, plan1, rows, n2, tc,
                      [p for p in ptrs if p is not None])
+    fixed = fixed_fits(plan2, plan1)
     smem = smem_2d(plan2, plan1, rows, ring)
     from . import _build
     lib = _build.library()
     with trace.span("fftw.launch.c2c_2d"), passes.device_guard(xr.device):
         grid = CLUSTER * min(pre, _resident_clusters(lib, xr.device, smem,
-                                                     ring))
+                                                     ring, fixed))
         stream = torch.cuda.current_stream(xr.device).cuda_stream
         rc = lib.c2c_2d_launch(
             *ptrs, table.data_ptr(), S.plan_array(plan2),
             S.plan_array(plan1), pre, n1, n2, rows, tc,
-            passes.layout_of(xi, complex_out), int(ring), grid, smem, stream)
+            passes.layout_of(xi, complex_out), int(ring), int(fixed), grid,
+            smem, stream)
     if rc != 0:
         raise RuntimeError(f"c2c_2d kernel launch failed: CUDA error {rc} "
                            f"(pre={pre}, n1={n1}, n2={n2}, radices {rad1}, "
                            f"{rad2}, complex out {complex_out}, ring "
-                           f"{ring})")
+                           f"{ring}, fixed {fixed})")
     launches += 1
     if ring:
         ring_launches += 1
+    if fixed:
+        fixed_launches += 1
     return y[0] if complex_out else y
 
 

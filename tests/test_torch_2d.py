@@ -181,6 +181,63 @@ def test_ring_takes_the_addresses_of_the_tensors():
                                  [off.data_ptr()] + ptrs[1:])
 
 
+@pytest.mark.parametrize("pointers", [ALIGNED, MISALIGNED],
+                         ids=["ring", "in_order"])
+@pytest.mark.parametrize("n1,n2,rad1,rad2,fixed", [
+    # ESTIMATE's [32, 16] on both axes of a 512 x 512 plane
+    (512, 512, None, None, True),
+    # the off-plane shapes: (256, 256, 1024), and (341, 384, 512), whose
+    # rows are 512 on [32, 16] but whose columns are 384
+    (256, 1024, None, None, False), (384, 512, None, None, False),
+    # a descriptor that pins other radices at 512, on either axis
+    (512, 512, [8, 8, 8], [8, 8, 8], False),
+    (512, 512, None, [8, 8, 8], False),
+    # a dense stage: 448 = [32, 14] along the columns, rows as at 512
+    (448, 512, None, None, False)])
+def test_fixed_form_is_the_512_plans_alone(n1, n2, rad1, rad2, fixed,
+                                           pointers):
+    """The host runs the levels compiled into K3 exactly when both level
+    plans it computed are ``FIXED_PLANS``, on the ring and in order."""
+    r1 = tuple(rad1 or S.choose_radices(n1))
+    r2 = tuple(rad2 or S.choose_radices(n2))
+    rows, tc = fused2d.tiles(n1, n2)
+    p2, p1 = S.level_plan(n2, r2, 1), S.level_plan(n1, r1, tc)
+    assert fused2d.fixed_fits(p2, p1) is fixed
+    ring = fused2d.ring_fits(p2, p1, rows, n2, tc, pointers)
+    assert ring is (pointers == ALIGNED and p1[1] == 1)
+
+
+def _kernel_ints(name):
+    """The int array ``plan`` of struct `name` in csrc/c2c_2d.cu."""
+    src = (Path(fused2d.__file__).parents[1] / "csrc" / "c2c_2d.cu"
+           ).read_text()
+    got = re.search(r"struct %s \{\s*static constexpr int tl = (\d+);\s*"
+                    r"static constexpr int plan\[\] = \{([^}]*)\};" % name,
+                    src)
+    assert got, name
+    return int(got.group(1)), tuple(int(v) for v in got.group(2).split(","))
+
+
+def test_fixed_plans_are_the_hosts_and_the_kernels():
+    """``FIXED_PLANS`` are the host's level plans of a 512 x 512 plane on
+    ESTIMATE's schedule, and the kernel's compiled-in ``FixedRows`` and
+    ``FixedCols``: a change to ``level_plan`` shows here, and the host
+    stops asking for the compiled-in form rather than run stale
+    constants."""
+    rad = tuple(S.choose_radices(512))
+    assert rad == (32, 16)
+    rows, tc = fused2d.tiles(512, 512)
+    assert (rows, tc) == (16, 16)
+    assert fused2d.FIXED_PLANS == (S.level_plan(512, rad, 1),
+                                   S.level_plan(512, rad, tc))
+    assert _kernel_ints("FixedRows") == (1, fused2d.FIXED_PLANS[0])
+    assert _kernel_ints("FixedCols") == (tc, fused2d.FIXED_PLANS[1])
+    src = (Path(fused2d.__file__).parents[1] / "csrc" / "c2c_2d.cu"
+           ).read_text()
+    assert re.search(r"constexpr int kFixedN = 512, kFixedChunk = %d;"
+                     % rows, src)
+
+
 def test_max_smem_is_the_kernels():
     """``MAX_SMEM`` is ``kMaxSmem`` of csrc/c2c_2d.cu."""
     src = (Path(fused2d.__file__).parents[1] / "csrc" / "c2c_2d.cu"
@@ -277,3 +334,47 @@ def test_ring_is_the_in_order_form_bit_for_bit(cuda_device, pre, n1, n2,
         got = (ring[0] + 1j * ring[1]).cpu().numpy()
         assert _relerr(got, _oracle(xr.cpu().numpy(), xi.cpu().numpy(),
                                     sign)) <= TOL_F64
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pre", [2, 64])
+@pytest.mark.parametrize("sign", [-1, +1])
+@pytest.mark.parametrize("cout", [False, True])
+@pytest.mark.parametrize("ring", [True, False], ids=["ring", "in_order"])
+def test_fixed_is_the_run_time_form_bit_for_bit(cuda_device, monkeypatch,
+                                                pre, sign, cout, ring):
+    """On 512 x 512 planes the levels compiled into K3 give the run-time
+    form's output bit for bit, on the ring and in order (a misaligned
+    input), in both layouts, and match the twin; ``fixed_launches`` and
+    ``ring_launches`` count one a launch.  The run-time form is reached by
+    the host asking for it (``c2c_2d_launch``'s ``fixed`` 0)."""
+    n, rad = 512, S.choose_radices(512)
+    xr, xi = (torch.from_numpy(a).to(cuda_device)
+              for a in _planes(pre + sign + 5 * cout, (pre, n, n)))
+    if not ring:
+        xr, xi = _off_by_4(xr), _off_by_4(xi)
+    table = fused2d.device_table_2d(n, tuple(rad), n, tuple(rad), sign,
+                                    cuda_device)
+    counts = (fused2d.launches, fused2d.ring_launches,
+              fused2d.fixed_launches)
+    fixed = fused2d.c2c_2d_cuda(xr, xi, rad, rad, table, complex_out=cout)
+    torch.cuda.synchronize()
+    assert (fused2d.launches, fused2d.ring_launches,
+            fused2d.fixed_launches) == \
+        (counts[0] + 1, counts[1] + ring, counts[2] + 1)
+    monkeypatch.setattr(fused2d, "fixed_fits", lambda p2, p1: False)
+    run_time = fused2d.c2c_2d_cuda(xr, xi, rad, rad, table,
+                                   complex_out=cout)
+    torch.cuda.synchronize()
+    assert (fused2d.launches, fused2d.ring_launches,
+            fused2d.fixed_launches) == \
+        (counts[0] + 2, counts[1] + 2 * ring, counts[2] + 1)
+    if cout:
+        assert torch.equal(fixed, run_time)
+        got = fixed.cpu().numpy()
+    else:
+        assert torch.equal(fixed[0], run_time[0])
+        assert torch.equal(fixed[1], run_time[1])
+        got = (fixed[0] + 1j * fixed[1]).cpu().numpy()
+    tr, ti = fused2d.c2c_2d_torch(xr, xi, rad, rad, sign)
+    assert _relerr(got, (tr + 1j * ti).cpu().numpy()) <= TOL_F64

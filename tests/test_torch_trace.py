@@ -264,13 +264,15 @@ def test_stage_names_say_what_runs(cpu_plans, shape, axes, stages):
 
 def test_k3_twin_takes_no_ring(cpu_plans):
     """A fused trailing pair on the CPU runs K3's twin: no launch, no
-    ring."""
+    ring, no compiled-in levels."""
     plan = ft.plan_dft((4, 128, 128), axes=(0, 1, 2), dtype="complex64",
                        device="cpu")
-    before = fused2d.launches, fused2d.ring_launches
+    before = (fused2d.launches, fused2d.ring_launches,
+              fused2d.fixed_launches)
     _traced(plan.execute, _complex((4, 128, 128)))
     assert "fftw.stage.k3" in trace.snapshot()["spans"]
-    assert (fused2d.launches, fused2d.ring_launches) == before
+    assert (fused2d.launches, fused2d.ring_launches,
+            fused2d.fixed_launches) == before
 
 
 def test_spans_are_profiler_events_on_its_clock(cpu_plans):
