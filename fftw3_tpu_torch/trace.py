@@ -28,6 +28,13 @@ profiler runs, a span
   share.  Counting per plan, and not by call id, keeps a caller that
   alternates plans (an r2c, then its c2r) from timing one of them alone.
 
+A model's step (``models/``) marks its layers with :func:`model`:
+``fftw.model.ns_step`` around a Navier-Stokes step and
+``fftw.model.ns.nonlinear`` around each evaluation of its advection term.
+A model span is a profiler range alone: it takes no events and appends no
+record, so a plan called inside a step still opens a root of its own
+(``fftw.execute``), sampled by its own plan's count.
+
 The record keeps the latest :data:`CAP` spans, the older ones counted as
 dropped, and belongs to one profiler session: a call of the port while the
 profiler is off, or a read of the record after it stopped, ends the
@@ -190,6 +197,14 @@ def call(name: str, device: Optional[torch.device] = None, plan=None):
         _ended = True
         return _OFF
     return _Span(name, True, device, plan)
+
+
+def model(name: str):
+    """A context manager marking a layer `name` of a model's step while the
+    profiler runs (a profiler range, no record), else the shared no-op."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return _range(name)
 
 
 def add(counter: str, seconds: float) -> None:

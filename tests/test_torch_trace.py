@@ -1,7 +1,8 @@
 """The port's spans and counters (``fftw3_tpu_torch/trace.py``): nothing
 recorded with the profiler off, the call path's spans nested under one
 call id with it on, on the profiler's own clock, outputs unchanged by it,
-the set-up counters, the record's cap and sessions; and the one namespace
+the set-up counters, the record's cap and sessions; a model's step
+spans beside the plans' roots, which stay as they are; and the one namespace
 of the port's kernels in ``csrc/``.  The tests marked ``cuda`` need a
 card and skip without one; this file imports no JAX.
 """
@@ -17,7 +18,7 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 import fftw3_tpu_torch as ft
-from fftw3_tpu_torch import api, config, trace
+from fftw3_tpu_torch import api, config, models, trace
 from fftw3_tpu_torch.ops import fused2d
 
 CSRC = Path(ft.__file__).parent / "csrc"
@@ -444,6 +445,116 @@ def test_functional_call_is_one_root(cpu_plans):
     _traced(ft.fft, x)
     assert [r.name for r in trace.records() if r.root] == ["fftw.execute"]
     api._cached_plan.cache_clear()
+
+
+# -- models -------------------------------------------------------------------
+
+def _ranges(prof):
+    """The profiler's host ranges, in the order they opened."""
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CPU]
+    return sorted(events, key=lambda e: e.start_ns())
+
+
+def test_model_off_records_nothing(cpu_plans):
+    """With the profiler off a model span is the shared no-op and a step
+    records nothing."""
+    assert trace.model("fftw.model.ns_step") is trace.span("x")
+    step = models.navier_stokes_step(32, 64, 0.01, 0.01)
+    step(torch.rand(2, 32, 64) - 0.5)
+    assert trace.records() == [] and trace.snapshot()["calls"] == 0
+    api._cached_plan.cache_clear()
+
+
+def test_model_step_spans(cpu_plans):
+    """A step opens one ``fftw.model.ns_step`` range, two ``nonlinear``
+    ranges and the ``fftw.execute`` roots of its six plan calls, each a
+    root of its own inside the step's range; the model's ranges append
+    nothing to the record."""
+    api._cached_plan.cache_clear()
+    step = models.navier_stokes_step(32, 64, 0.01, 0.01)
+    w = torch.rand(2, 32, 64) - 0.5
+    step(w)                              # plans outside the profiler
+    _, prof = _traced(step, w)
+    recs = trace.records()
+    assert not any(r.name.startswith("fftw.model.") for r in recs)
+    roots = [r for r in recs if r.root]
+    assert [r.name for r in roots] == ["fftw.execute"] * 6
+    assert len({r.call for r in roots}) == 6
+    assert trace.snapshot()["calls"] == 6
+    ranges = _ranges(prof)
+    names = [e.name() for e in ranges]
+    assert names.count("fftw.model.ns_step") == 1
+    assert names.count("fftw.model.ns.nonlinear") == 2
+    assert names.count("fftw.execute") == 6
+    (head,) = [e for e in ranges if e.name() == "fftw.model.ns_step"]
+    for e in ranges:
+        if e.name() in ("fftw.execute", "fftw.model.ns.nonlinear"):
+            assert head.start_ns() <= e.start_ns() <= e.end_ns() \
+                <= head.end_ns()
+    api._cached_plan.cache_clear()
+
+
+def _shape_of(recs):
+    index = {id(r): i for i, r in enumerate(recs)}
+    return [(r.name, r.root, None if r.parent is None
+             else index[id(r.parent)]) for r in recs]
+
+
+@pytest.mark.parametrize("kind", ["r2c", "c2r", "c2c"])
+def test_plan_roots_inside_a_model_step_are_unchanged(cpu_plans, kind):
+    """A plan called inside a model's step records what it records alone:
+    the same root, the same spans under it."""
+    if kind == "c2c":
+        plan = ft.plan_dft((4, 32, 64), axes=(1, 2), device="cpu")
+        x = _complex((4, 32, 64))
+    elif kind == "r2c":
+        plan = ft.plan_dft_r2c((4, 32, 64), axes=(1, 2), device="cpu")
+        x = torch.randn(4, 32, 64)
+    else:
+        plan = ft.plan_dft_c2r((4, 32, 64), axes=(1, 2), device="cpu")
+        x = _complex((4, 32, 33))
+    alone, _ = _traced(plan.execute, x)
+    plain = _shape_of(trace.records())
+    trace.reset()
+
+    def inside():
+        with trace.model("fftw.model.ns_step"):
+            return plan.execute(x)
+    got, _ = _traced(inside)
+    recs = trace.records()
+    assert _shape_of(recs) == plain
+    assert recs[0].root and recs[0].parent is None
+    assert torch.equal(got, alone)
+
+
+@pytest.mark.parametrize("name", ["fftw.model.ns_step",
+                                  "fftw.model.ns.nonlinear"])
+def test_model_span_is_a_range_alone(monkeypatch, name):
+    """A model span, even around a timed call on a CUDA device, is one
+    profiler range: no record, no events, and the call's root keeps its
+    place and its sampling."""
+    monkeypatch.setattr(torch.cuda, "Event", _Event)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: ("s", d))
+    monkeypatch.setattr(trace, "EVENT_EVERY", 1)
+    trace.reset()
+    dev = torch.device("cuda", 0)
+    made = _Event.made
+
+    def inside():
+        with trace.model(name):
+            with trace.call("fftw.execute", dev):
+                with trace.span("fftw.convert.split", dev):
+                    pass
+    _, prof = _traced(inside)
+    assert [r.name for r in trace.records()] == ["fftw.execute",
+                                                 "fftw.convert.split"]
+    assert trace.records()[0].root and trace.records()[0].timed
+    assert _Event.made == made + 2
+    assert [e.name() for e in _ranges(prof)
+            if e.name().startswith("fftw.")] == [
+        name, "fftw.execute", "fftw.convert.split"]
+    trace.reset()
 
 
 # -- one namespace for the kernels -----------------------------------------
