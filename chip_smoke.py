@@ -33,7 +33,10 @@ launch count set to 0 just before the path and read just after:
   call, their gradients through K1 (K4) (phase 17);
 * 2-D r2c and c2r at full width, ``plan_dft_r2c((8, 2048, 2048),
   axes=(1, 2))`` and its inverse: K4 then K2, K2 then K6; with
-  ``config.r2c_swapped`` the axis -2 r2c kernel K5 then K1; the three arms
+  ``config.r2c_swapped`` the axis -2 r2c kernel K5 then K1; ``execute``
+  bit for bit its ``apply_split`` with the conversions, the r2c's K2
+  writing the complex output (``inner.cout_launches``, printed beside
+  the launches) and the c2r's reading the complex input; the three arms
   timed interleaved, and K2 and K1 held against their twins on this path's
   own planes (phase 18);
 * complex128 c2c, ``plan_many_dft([1024], howmany=8192,
@@ -401,6 +404,7 @@ COUNTERS = {"stockham_c2c": (S, "launches"),
             "stockham_c2c_fourstep": (S, "fourstep_launches"),
             "stockham_c2c_wide": (S, "wide_launches"),
             "inner_c2c": (inner, "launches"),
+            "inner_c2c_cout": (inner, "cout_launches"),
             "c2c_2d": (fused2d, "launches"),
             "c2c_2d_ring": (fused2d, "ring_launches"),
             "c2c_2d_fixed": (fused2d, "fixed_launches"),
@@ -2616,7 +2620,7 @@ def functional_phase(rng, dev, smi_line):
     xr = real_rows(rng, REAL_2D, dev)
     X = surface_call(f"rfftn {REAL_2D} axes (1, 2)",
                      lambda a: ft.rfftn(a, axes=(1, 2)), (xr,),
-                     {"r2c": 1, "inner_c2c": 1},
+                     {"r2c": 1, "inner_c2c": 1, "inner_c2c_cout": 1},
                      torch.fft.rfftn(xr.double(), dim=(1, 2)))
     surface_call(f"irfftn {tuple(X.shape)} axes (1, 2)",
                  lambda a: ft.irfftn(a, axes=(1, 2)), (X,),
@@ -3477,7 +3481,8 @@ def main() -> None:
         "source": "fftw3_tpu_torch/csrc/inner_c2c.cu",
         "replaces": "fftw3_tpu/ops/pallas_stockham.py:683",
         "layout": "complex64 in",
-        "launches": counts3["inner_c2c"], "max_abs_err": err,
+        "launches": counts3["inner_c2c"],
+        "cout_launches": counts3["inner_c2c_cout"], "max_abs_err": err,
         "rel_err": rel,
         "ms": time_ms(lambda z: inner.inner_c2c_cuda(z, None, rad, tab),
                       (xc,)),
@@ -3611,6 +3616,8 @@ def main() -> None:
               f"{r['ms']:.3f} ms"
               + (f" ({r['layout']}; planes {r['planes_ms']:.3f} ms)"
                  if "layout" in r else "")
+              + (f" ({r['cout_launches']} of {r['launches']} launches "
+                 f"writing complex64)" if "cout_launches" in r else "")
               + (f" (in order {r['in_order_ms']:.3f} ms; "
                  f"{r['ring_launches']} of {r['launches']} launches on "
                  f"the ring)" if "in_order_ms" in r else "")
@@ -3882,7 +3889,21 @@ def main() -> None:
           f"rel err vs irfftn * N complex128 {e_c:.3e}, c2r(r2c(x)) vs N x "
           f"{e_rt:.3e}")
     check(e_c <= TOL and e_rt <= TOL, "2-D c2r over tolerance")
-    del z
+    # execute's forms, complex64 at the edge K2 crosses: bit for bit the
+    # conversion path above, one K2 launch writing complex64 in the r2c
+    # and none in the c2r, which reads it
+    yc, c_x = run_counted(arms["r2c"].execute, x)
+    check(c_x == only(r2c=1, inner_c2c=1, inner_c2c_cout=1),
+          f"2-D r2c execute launched {c_x}")
+    check(torch.equal(yc, torch.complex(*y2)),
+          "2-D r2c execute differs from its apply_split")
+    zx, c_z = run_counted(arms["c2r"].execute, yc)
+    check(c_z == only(inner_c2c=1, c2r=1), f"2-D c2r execute launched {c_z}")
+    check(torch.equal(zx, z), "2-D c2r execute differs from its apply_split")
+    print(f"[18] execute: r2c launches {launched(c_x)}, K2 writing "
+          f"complex64 in {c_x['inner_c2c_cout']} of {c_x['inner_c2c']}; "
+          f"c2r launches {launched(c_z)}; both bit for bit apply_split")
+    del z, zx, yc
 
     # gradients through K2, K4's and K6's backward, against torch.fft's
     xg = x.clone().requires_grad_()

@@ -50,6 +50,17 @@
 // and L even, the tensor 16-byte aligned; else 8-byte).  A multi-axis
 // plan's first pass on a non-last axis reads the caller's tensor so, and no
 // conversion pass runs ahead of it.
+//
+// An interleaved complex64 output (kLayout kOutC, with or without kInC):
+// yr is a new complex tensor, yi is unused, and the last level stores a
+// point as one float2 (re, im) through ColMapC, in place of one float in
+// each plane: a tile's row segment is then 8 * tl contiguous bytes (32 at
+// tl = 4) in place of two runs of 4 * tl.  The edge tile stays masked.  A
+// plan's last pass on a non-last axis writes the caller's complex output
+// so (a multi-axis r2c's K2 pass on the half spectrum), and no combine
+// runs after it.  The four forms compute the same values; only the loads
+// of the first level or the load pass and the stores of the last level
+// differ.
 
 #include "stockham_bfly.cuh"
 
@@ -85,6 +96,11 @@ struct ColMap {
   __device__ __forceinline__ int64_t operator()(int row, int o, int c) const {
     return base + row * plane + o * L + c;
   }
+};
+
+// The same store of one float2 a point to an interleaved complex output.
+struct ColMapC : ColMap {
+  static constexpr bool kInterleaved = true;
 };
 
 __device__ __forceinline__ bool aligned16(const void* p) {
@@ -126,8 +142,9 @@ inner_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
                  float* __restrict__ yr, float* __restrict__ yi,
                  const float* __restrict__ tab, const LevelPlan plan, int pre,
                  int n, int64_t L, int tl, int gp) {
-  constexpr bool kCin = kLayout == kInC;
-  static_assert(kLayout == 0 || kCin, "planes, or an interleaved input");
+  constexpr bool kCin = (kLayout & kInC) != 0;
+  constexpr bool kCout = (kLayout & kOutC) != 0;
+  static_assert((kLayout & ~(kInC | kOutC)) == 0, "layout bits");
   extern __shared__ float4 smem4[];
   __shared__ Level lev[kMaxLevels];
   float* tb = reinterpret_cast<float*>(smem4);
@@ -200,12 +217,17 @@ inner_c2c_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
     }
     if (!direct) __syncthreads();
     // an interleaved input's element `base` starts at float 2 * base
-    run_levels<kPts, Arm::kFull, kCin>(
-        plan, lev, tb, ar, ai, br, bi, n, tl, nr, yr, yi,
-        ColMap{base, npl, L, width},
-        direct ? xr + (kCin ? 2 : 1) * base : nullptr,
-        direct && !kCin ? xi + base : nullptr, static_cast<int>(npl),
-        static_cast<int>(L));
+    const ColMap map{base, npl, L, width};
+    const float* x0r = direct ? xr + (kCin ? 2 : 1) * base : nullptr;
+    const float* x0i = direct && !kCin ? xi + base : nullptr;
+    if constexpr (kCout)
+      run_levels<kPts, Arm::kFull, kCin>(
+          plan, lev, tb, ar, ai, br, bi, n, tl, nr, yr, yi, ColMapC{map},
+          x0r, x0i, static_cast<int>(npl), static_cast<int>(L));
+    else
+      run_levels<kPts, Arm::kFull, kCin>(
+          plan, lev, tb, ar, ai, br, bi, n, tl, nr, yr, yi, map, x0r, x0i,
+          static_cast<int>(npl), static_cast<int>(L));
   }
 }
 
@@ -216,13 +238,19 @@ using namespace fftw3_tpu_torch;
 
 // Both entry points act on the caller's current device; the caller sets it.
 
+// The kernel of each layout, indexed by its bits.
+using Kernel = decltype(&inner_c2c_kernel<0>);
+static const Kernel kForms[4] = {inner_c2c_kernel<0>, inner_c2c_kernel<kInC>,
+                                 inner_c2c_kernel<kOutC>,
+                                 inner_c2c_kernel<kInC | kOutC>};
+
 // Allow the kernel kMaxSmem bytes of dynamic shared memory on the current
 // device (always the same value: the attribute is a cap) and report how
 // many blocks of `smem` bytes fit on one SM.  Returns the CUDA error code,
 // 0 on success.
 extern "C" int inner_c2c_occupancy(int smem, int* blocks_per_sm) {
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  for (auto fn : {inner_c2c_kernel<0>, inner_c2c_kernel<kInC>}) {
+  for (const Kernel fn : kForms) {
     const cudaError_t err = cudaFuncSetAttribute(
         fn, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -237,8 +265,9 @@ extern "C" int inner_c2c_occupancy(int smem, int* blocks_per_sm) {
 // CUDA error code of the launch, 0 on success.  The caller checks shapes:
 // pre >= 1, L >= 1, tl a power of two, gp * n * tl <= kTilePoints, tab
 // holding the plan's tab_len floats, smem = plan_smem(plan, gp), allowed
-// by inner_c2c_occupancy.  `layout` is 0 (split planes) or kInC (xr an
-// interleaved complex input, xi unused).
+// by inner_c2c_occupancy.  `layout` holds the bits kInC (xr an interleaved
+// complex input, xi unused) and kOutC (yr an interleaved complex output, yi
+// unused); 0 is split planes both ways.
 extern "C" int inner_c2c_launch(const float* xr, const float* xi, float* yr,
                                 float* yi, const float* tab, const int* plan,
                                 int pre, int n, long long L, int tl, int gp,
@@ -247,9 +276,9 @@ extern "C" int inner_c2c_launch(const float* xr, const float* xi, float* yr,
   LevelPlan p;
   if (!read_plan(plan, tl, &p) || gp < 1 || (tl & (tl - 1)) ||
       gp * n * tl > kTilePoints || smem != plan_smem(p, gp) ||
-      (layout != 0 && layout != kInC))
+      (layout & ~(kInC | kOutC)))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto fn = layout == kInC ? inner_c2c_kernel<kInC> : inner_c2c_kernel<0>;
+  const Kernel fn = kForms[layout];
   fn<<<grid, kThreads, static_cast<size_t>(smem),
        static_cast<cudaStream_t>(stream)>>>(
       xr, xi, yr, yi, tab, p, pre, n, static_cast<int64_t>(L), tl, gp);

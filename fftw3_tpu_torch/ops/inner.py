@@ -17,7 +17,9 @@ its trailing dims as the columns, and the four-step sends its p pass here.
   ``stockham.level_plan(n, radices, tl)``.  The edge tile of an L that is
   not a multiple of tl is masked, nothing is padded.  It also reads one
   interleaved complex64 tensor in place of the two input planes (a
-  plan's first pass on a complex input); its output stays in planes.
+  plan's first pass on a complex input), and writes one in place of the
+  two output planes (a plan's last pass asked for the complex output, as
+  a multi-axis r2c's on its half spectrum), in any of the four pairings.
 
 The reference's TPU tuning of this form is not carried over: the narrower
 schedule of ``_inner_radices`` (``INNER_NP_MAX``), the ``INNER_AREA`` and
@@ -28,7 +30,7 @@ rounding only.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -42,6 +44,8 @@ TILE_POINTS = 8192
 
 #: launches of the CUDA kernel, counted by :func:`inner_c2c_cuda`
 launches = 0
+#: those of them that wrote an interleaved complex64 output
+cout_launches = 0
 
 
 def tile_width(n: int, L: int) -> int:
@@ -76,14 +80,15 @@ def inner_c2c_torch(xr: torch.Tensor, xi: torch.Tensor,
 
 
 def inner_c2c_cuda(xr: torch.Tensor, xi: Optional[torch.Tensor],
-                   radices: Sequence[int], table: torch.Tensor
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   radices: Sequence[int], table: torch.Tensor,
+                   complex_out: bool = False):
     """Launch the CUDA kernel on split (pre, n, L) f32 planes on one card,
     or with `xi` None on one (pre, n, L) complex64 tensor `xr` read
     interleaved.  ``table`` is ``stockham.device_table(n, radices, sign,
-    device)``.  Returns new (yr, yi); raises on anything the kernel does not
-    take, and when the launch fails."""
-    global launches
+    device)``.  Returns new (yr, yi), or with `complex_out` one new
+    complex64 tensor written interleaved; raises on anything the kernel
+    does not take, and when the launch fails."""
+    global launches, cout_launches
     passes.check_planes("inner_c2c_cuda", xr, xi, table, 3)
     pre, n, L = xr.shape
     radices = [int(r) for r in radices]
@@ -94,22 +99,23 @@ def inner_c2c_cuda(xr: torch.Tensor, xi: Optional[torch.Tensor],
                          f"match schedule {radices}")
     if pre >= 2 ** 31:
         raise ValueError(f"{pre} leading rows exceed the kernel's int count")
-    yr, yi = passes.new_output(xr.shape, xr.device, False)
+    y = passes.new_output(xr.shape, xr.device, complex_out)
     if pre == 0 or L == 0:
-        return yr, yi
+        return y[0] if complex_out else y
     tl = tile_width(n, L)
     gp = planes_per_group(n, L, pre)
     plan = S.level_plan(n, tuple(radices), tl)
-    layout = passes.layout_of(xi, False)
+    layout = passes.layout_of(xi, complex_out)
     passes.launch("inner_c2c", xr.device, S.plan_smem(plan, gp),
                   -(-pre // gp) * -(-L // tl),
-                  (*passes.pointers(xr, xi), yr.data_ptr(), yi.data_ptr(),
+                  (*passes.pointers(xr, xi), *passes.pointers(*y),
                    table.data_ptr(), S.plan_array(plan), pre, n, L, tl, gp,
                    layout),
              f"pre={pre}, n={n}, L={L}, radices={radices}, tl={tl}, gp={gp}, "
              f"layout {layout}")
     launches += 1
-    return yr, yi
+    cout_launches += complex_out
+    return y[0] if complex_out else y
 
 
 def build_pallas_c2c_split_inner(desc: Dict, sign: int, rdtype,
@@ -119,8 +125,8 @@ def build_pallas_c2c_split_inner(desc: Dict, sign: int, rdtype,
     *cols) tensors for a ``{"alg": "pallas", ...}`` descriptor, the
     `columns` trailing dims K2's L columns: its schedule and ``vpu`` pin
     (the twin's stage form; on the card the radix alone picks each stage's
-    form, ``stockham.stage_form``).  K2 reads the complex input itself; its
-    output is planes, combined where the complex output is asked for."""
+    form, ``stockham.stage_form``).  K2 reads the complex input and writes
+    the complex output itself."""
     n = desc["n"]
     radices = list(desc.get("radices") or S.choose_radices(n))
     if not S.radices_ok(n, radices):
@@ -136,5 +142,6 @@ def build_pallas_c2c_split_inner(desc: Dict, sign: int, rdtype,
     return passes.kernel_pass(
         (n,), sign, rdtype, device,
         lambda s, dev: S.device_table(*key, s, dev), twin,
-        lambda xr, xi, table, cout: inner_c2c_cuda(xr, xi, radices, table),
-        columns=columns, reads=True)
+        lambda xr, xi, table, cout: inner_c2c_cuda(xr, xi, radices, table,
+                                                   complex_out=cout),
+        columns=columns, reads=True, writes=True)

@@ -13,7 +13,7 @@ It converts only where its kernel cannot take or give the layout itself:
   negative bit by one complex copy where it is not so already; everything
   else (a twin, K3, a pass with no such form, another dtype) splits it
   into two planes (:func:`kernel_input`, :func:`as_planes`);
-* out: a kernel with an interleaved-output form (K1, K3) writes the
+* out: a kernel with an interleaved-output form (K1, K2, K3) writes the
   complex output itself; everything else combines the planes
   (:func:`as_output`).
 

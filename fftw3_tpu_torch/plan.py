@@ -415,7 +415,8 @@ def _plan_r2c(problem, pl, patience, device, rdtype, vec) -> Plan:
         first = _r2c_along_axis(
             real_ops.build_r2c_split(desc, rdtype, device), last - nd)
         # the non-last axes run on the half spectrum (K2 where the trailing
-        # layout allows), on split planes
+        # layout allows), the last of them asked for the complex output
+        # where the caller wants one
         stages: List[_Stage] = []
         for a in axes[:-1]:
             d = pl.plan_c2c(shape[a], rdtype, patience, batch=vec(a),
@@ -424,17 +425,20 @@ def _plan_r2c(problem, pl, patience, device, rdtype, vec) -> Plan:
             stages.append(_c2c_stage(d, K.FORWARD, rdtype, a, tuple(out),
                                      device))
 
-        def split(x):
+        def split(x, cout=False):
             with trace.span(first_span):
                 yr, yi = first(x)
-            return _run_passes(stages, yr, yi)
+            return _run_passes(stages, yr, yi, cout)
 
     def apply_split(x):
         _check_trailing(shape, x)
         return split(x)
 
     def apply_r2c(x):
-        return passes.as_output(apply_split(x), True)
+        if swapped is not None:
+            return passes.as_output(apply_split(x), True)
+        _check_trailing(shape, x)
+        return split(x, True)
 
     return Plan(problem, descriptors, apply_r2c, shape, tuple(out),
                 _real_dtype(rdtype), c2c_ops.complex_dtype(rdtype), device,
@@ -467,7 +471,9 @@ def _plan_c2r(problem, pl, patience, device, rdtype, vec) -> Plan:
                             last - nd)
 
     def run(xr, xi=None):
-        xr, xi = _run_passes(stages, *passes.as_planes(xr, xi))
+        # the first non-last axis pass takes the caller's tensor (K2 reads
+        # complex64 itself); K6 takes planes
+        xr, xi = _run_passes(stages, xr, xi)
         with trace.span(final_span):
             return final(xr, xi)
 

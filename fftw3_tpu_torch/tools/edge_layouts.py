@@ -12,7 +12,9 @@ against the planar arm's output.  K1 at (65536, 1024) [64, 16], also
 ``in+out`` with the input 8 bytes past a 16-byte boundary (``in@8B``:
 the kernel's 8-byte loads) and 16 bytes past the allocation's start
 (``in@16B``); K1's wide form at (4096, 4096) [64, 64]; K2 at (1, 512,
-262144) [32, 16] (the 512^3 plan's axis 0); K3 at (512, 512, 512)
+262144) [32, 16] (the 512^3 plan's axis 0) and at (8, 2048, 1025) and
+(64, 2048, 1025) [128, 16] (the half spectra of the conv and ns cells'
+2-D real plans, the latter ns's stacked inverse); K3 at (512, 512, 512)
 [32, 16]^2; ``--only`` keeps the kernels whose label starts so.  Each
 round times every arm once with CUDA events (the median of 7 reps of 10
 calls), in order in odd rounds and backwards in even ones; each arm's
@@ -76,6 +78,14 @@ def _arms(torch, dev):
     def planes(x):
         return x.real.contiguous(), x.imag.contiguous()
 
+    def every_layout(run, x):
+        """The arms of a wrapper ``run(xr, xi, cout=False)`` that reads and
+        writes either layout, on `x`."""
+        return {"planes": (run, planes(x)),
+                "in": (run, (x, None)),
+                "out": (lambda a, b: run(a, b, cout=True), planes(x)),
+                "in+out": (lambda z: run(z, None, cout=True), (x,))}
+
     def k1(shape, rad):
         n = shape[-1]
         tab = S.device_table(n, tuple(rad), -1, dev)
@@ -83,10 +93,7 @@ def _arms(torch, dev):
         def run(*a, cout=False):
             return S.stockham_c2c_cuda(*a, rad, tab, complex_out=cout)
         x = _complex(torch, shape, dev)
-        arms = {"planes": (run, planes(x)),
-                "in": (run, (x, None)),
-                "out": (lambda a, b: run(a, b, cout=True), planes(x)),
-                "in+out": (lambda z: run(z, None, cout=True), (x,))}
+        arms = every_layout(run, x)
         if n <= S.MAX_N:
             for label, off in (("in@8B", 1), ("in@16B", 2)):
                 xo = _at_offset(torch, x, off)
@@ -99,10 +106,9 @@ def _arms(torch, dev):
     def k2(shape, rad):
         tab = S.device_table(shape[1], tuple(rad), -1, dev)
 
-        def run(*a):
-            return inner.inner_c2c_cuda(*a, rad, tab)
-        x = _complex(torch, shape, dev)
-        return {"planes": (run, planes(x)), "in": (run, (x, None))}
+        def run(*a, cout=False):
+            return inner.inner_c2c_cuda(*a, rad, tab, complex_out=cout)
+        return every_layout(run, _complex(torch, shape, dev))
 
     def k3(shape, rad):
         tab = fused2d.device_table_2d(shape[1], tuple(rad), shape[2],
@@ -120,6 +126,10 @@ def _arms(torch, dev):
             lambda: k1((4096, 4096), [64, 64]),
             "K2 (1, 512, 262144) [32, 16]":
             lambda: k2((1, 512, 262144), [32, 16]),
+            "K2 (8, 2048, 1025) [128, 16]":
+            lambda: k2((8, 2048, 1025), [128, 16]),
+            "K2 (64, 2048, 1025) [128, 16]":
+            lambda: k2((64, 2048, 1025), [128, 16]),
             "K3 (512, 512, 512) [32, 16]^2":
             lambda: k3((512, 512, 512), [32, 16])}
 

@@ -2,18 +2,21 @@
 gives split planes or one complex tensor and converts only where its
 kernel cannot (``ops/passes.py``), so a c2c plan's first pass reads the
 caller's complex64 tensor itself and its last pass writes the complex
-output itself where their kernels can (K1 on the last axis both, K2 the
-input, K3 the output), and every other edge converts in its span.
+output itself where their kernels can (K1 on the last axis and K2 both,
+K3 the output), and every other edge converts in its span.  A multi-axis
+r2c's last K2 pass writes its complex output and a multi-axis c2r's first
+K2 pass reads its complex input, so neither converts.
 
 The CPU tests run the plans as on the card (the ``forced`` fixture: the
 kernel passes take their kernel branch, with CPU stand-ins of K1, K2 and
 K3 that check the layouts the kernels take): the spans a call records,
 its output bit for bit against the split-planes path, the plans that
-convert as before (CPU, complex128, ``pallas4``, r2c, c2r), the input
-decision (:func:`passes.kernel_input`), the passes' complex layouts
+convert as before (CPU, complex128, ``pallas4``, 1-D r2c and c2r), the
+input decision (:func:`passes.kernel_input`), the passes' complex layouts
 through the twins and autograd, and an empty batch.  The card tests
 (``cuda`` marker) hold ``Plan.execute`` bit for bit against the
-split-planes path and skip without a card.  This file imports no JAX.
+split-planes path, and K2's complex64 output against its planes, and skip
+without a card.  This file imports no JAX.
 """
 from collections import Counter
 
@@ -101,10 +104,16 @@ def _k1(xr, xi, radices, table, complex_out=False):
     return torch.complex(*y) if complex_out else y
 
 
-def _k2(xr, xi, radices, table):
+#: the layouts K2's stand-in was called with: (complex in, complex out)
+K2_CALLS = []
+
+
+def _k2(xr, xi, radices, table, complex_out=False):
     n = xr.shape[-2]
     s = _sign(table, lambda s: S.device_table(n, tuple(radices), s, CPU))
-    return inner.inner_c2c_torch(*_operands("K2", xr, xi), radices, s)
+    K2_CALLS.append((xi is None, complex_out))
+    y = inner.inner_c2c_torch(*_operands("K2", xr, xi), radices, s)
+    return torch.complex(*y) if complex_out else y
 
 
 def _k3(xr, xi, rad1, rad2, table, complex_out=False):
@@ -117,15 +126,21 @@ def _k3(xr, xi, rad1, rad2, table, complex_out=False):
     return torch.complex(*y) if complex_out else y
 
 
-@pytest.fixture
-def forced(cpu_plans, monkeypatch):
-    """CPU plans run as on the card: their kernel passes take the kernel
-    branch (``passes.on_twin`` false), where CPU stand-ins of K1, K2 and
-    K3 take and give the layouts the kernels do and refuse the rest."""
+def _force(monkeypatch):
+    """Kernel passes take the kernel branch (``passes.on_twin`` false),
+    where CPU stand-ins of K1, K2 and K3 take and give the layouts the
+    kernels do and refuse the rest."""
     monkeypatch.setattr(passes, "on_twin", lambda x: False)
     monkeypatch.setattr(S, "stockham_c2c_cuda", _k1)
     monkeypatch.setattr(inner, "inner_c2c_cuda", _k2)
     monkeypatch.setattr(fused2d, "c2c_2d_cuda", _k3)
+    K2_CALLS.clear()
+
+
+@pytest.fixture
+def forced(cpu_plans, monkeypatch):
+    """CPU plans run as on the card (:func:`_force`)."""
+    _force(monkeypatch)
 
 
 def _pinned(shape, axes, desc, dtype="complex64"):
@@ -171,7 +186,7 @@ def _kernel_apply(kernel):
 
 
 @pytest.mark.parametrize("kernel,device,converts", [
-    ("k1", "cuda", ()), ("k2", "cuda", (COMBINE,)),
+    ("k1", "cuda", ()), ("k2", "cuda", ()),
     ("k3", "cuda", (SPLIT,)), ("k4", "cuda", (COMBINE,)),
     ("mixed", "cuda", CONVERT), ("k1", "cpu", CONVERT),
     ("k2", "cpu", CONVERT), ("k3", "cpu", CONVERT),
@@ -181,13 +196,10 @@ def test_edge_forms_by_kernel_and_device(cpu_plans, monkeypatch, kernel,
     """A pass on `kernel` given a complex64 input and asked for the
     complex output, on the card (the stand-ins) or on the CPU (the twins):
     the conversions it runs are those of the layouts its kernel does not
-    take or give (K1 none, K2 the combine, K3 the split, others both), and
-    its output is the split-planes path's bit for bit."""
+    take or give (K1 and K2 none, K3 the split, others both), and its
+    output is the split-planes path's bit for bit."""
     if device == "cuda":
-        monkeypatch.setattr(passes, "on_twin", lambda x: False)
-        monkeypatch.setattr(S, "stockham_c2c_cuda", _k1)
-        monkeypatch.setattr(inner, "inner_c2c_cuda", _k2)
-        monkeypatch.setattr(fused2d, "c2c_2d_cuda", _k3)
+        _force(monkeypatch)
     fn, shape = _kernel_apply(kernel)
     if kernel == "k4":
         x = torch.randn(shape)
@@ -218,7 +230,7 @@ def _x(shape, view="plain", dtype=torch.complex64, device=CPU):
     ((128, 128, 128), (0, 1, 2), ["k2", "k3"], "plain", ()),
     ((128, 4, 128), (0, 2), ["k2", "k1"], "plain", ()),
     ((3, 128, 128), (1, 2), ["k3"], "plain", (SPLIT,)),
-    ((128, 8, 16), (0,), ["k2"], "plain", (COMBINE,)),
+    ((128, 8, 16), (0,), ["k2"], "plain", ()),
     ((16, 1024), (0, 1), ["direct", "k1"], "plain", (SPLIT,)),
     ((128, 2, 64), (0, 2), ["k2", "direct"], "plain", (COMBINE,)),
     ((8, 64), (1,), ["direct"], "plain", CONVERT),
@@ -233,7 +245,7 @@ def test_complex_edges_decision(forced, monkeypatch, shape, axes, route,
                                 view, converts):
     """The conversions of a call on the card by its route and its input:
     none where the first pass reads the input (K1 on the last axis, K2)
-    and the last writes the output (K1, K3); a split where the first
+    and the last writes the output (K1, K2, K3); a split where the first
     cannot read it, or the input is a lazy conjugate, a lazy negative or
     strided (one complex copy), a combine where the last cannot write it;
     both on the CPU.  The output is the split-planes path's bit for
@@ -318,8 +330,8 @@ def test_complex128_and_pallas4_passes_have_no_forms(forced):
 
 @pytest.mark.parametrize("kind", ["r2c", "c2r", "c2c128"])
 def test_other_complex_sides_convert_as_before(forced, kind):
-    """r2c combines at the exit, c2r splits at the entry, complex128
-    does both."""
+    """A 1-D r2c combines at the exit (K4 writes planes), a 1-D c2r splits
+    at the entry (K6 reads planes), complex128 does both."""
     if kind == "r2c":
         plan = ft.plan_dft_r2c((4, 1024), axes=(1,))
         x = torch.randn(4, 1024)
@@ -336,6 +348,113 @@ def test_other_complex_sides_convert_as_before(forced, kind):
     traced, snap = _traced(lambda: plan.execute(x))
     assert torch.equal(plain, traced)
     assert snap["converts"] == Counter(want)
+
+
+@pytest.mark.parametrize("kind", ["r2c", "c2r"])
+@pytest.mark.parametrize("shape,axes,k2", [
+    ((2, 128, 1024), (1, 2), 1),        # K4 or K6 on the last axis
+    ((128, 128, 256), (0, 1, 2), 2),    # the dense real solvers last
+    ((3, 128, 64), (1, 2), 0),          # 64 columns: K1 lifted by movedim
+])
+def test_multi_axis_real_plans_cross_k2_unconverted(forced, kind, shape,
+                                                    axes, k2):
+    """A multi-axis r2c whose last c2c pass is K2 has K2 write its complex
+    output, and a c2r whose first is K2 has K2 read the caller's complex
+    input: no ``fftw.convert.*`` span, the other K2 passes on planes.  With
+    no K2 pass at that edge the r2c combines and the c2r splits, as
+    before.  Either way the output is the conversion path's bit for bit
+    (``torch.complex(*apply_split(x))``, ``apply_split(X.real, X.imag)``)
+    and the input is untouched."""
+    if kind == "r2c":
+        plan = ft.plan_dft_r2c(shape, axes=axes)
+        x = torch.randn(shape, generator=torch.Generator().manual_seed(8))
+        want = torch.complex(*plan.apply_split(x))
+        edge = [(False, False)] * (k2 - 1) + [(False, True)] * (k2 > 0)
+        converts = () if k2 else (COMBINE,)
+    else:
+        plan = ft.plan_dft_c2r(shape, axes=axes)
+        x = _complex(plan.in_shape, seed=8)
+        want = plan.apply_split(x.real, x.imag)
+        edge = [(True, False)] * (k2 > 0) + [(False, False)] * (k2 - 1)
+        converts = () if k2 else (SPLIT,)
+    x0 = x.clone()
+    K2_CALLS.clear()
+    got, snap = _traced(lambda: plan.execute(x))
+    assert torch.equal(got, want) and torch.equal(x, x0)
+    assert K2_CALLS == edge
+    assert snap["spans"].get("fftw.stage.k2", {}).get("count", 0) == k2
+    assert snap["converts"] == Counter(converts)
+
+
+@pytest.mark.parametrize("kind", ["rfftn", "irfftn"])
+def test_real_2d_gradient_matches_the_conversion_path(forced, kind):
+    """The gradient through a 2-D ``rfftn`` (K2 writing the complex
+    output) and ``irfftn`` (K2 reading the complex input) equals the
+    conversion path's, the plan's ``apply_split`` (and irfftn's 1/N)."""
+    shape, half = (2, 128, 1024), (2, 128, 513)
+    gen = torch.Generator().manual_seed(9)
+    if kind == "rfftn":
+        x = torch.randn(shape, generator=gen).requires_grad_()
+        g = _complex(half, seed=10)
+        got, = torch.autograd.grad(ft.rfftn(x, axes=(1, 2)), x, g)
+        plan = ft.plan_dft_r2c(shape, axes=(1, 2))
+        want, = torch.autograd.grad(torch.complex(*plan.apply_split(x)), x,
+                                    g)
+    else:
+        x = _complex(half, seed=9).requires_grad_()
+        g = torch.randn(shape, generator=gen)
+        got, = torch.autograd.grad(ft.irfftn(x, s=shape[1:], axes=(1, 2)),
+                                   x, g)
+        plan = ft.plan_dft_c2r(shape, axes=(1, 2))
+        want, = torch.autograd.grad(plan.apply_split(x.real, x.imag)
+                                    * (1.0 / np.prod(shape[1:])), x, g)
+    assert got.dtype == want.dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("pre", [0, 2])
+@pytest.mark.parametrize("cin,cout", [(False, False), (True, False),
+                                      (False, True), (True, True)])
+def test_k2_wrapper_layouts_and_counters(monkeypatch, pre, cin, cout):
+    """K2's wrapper hands the launch the layout bits of its input and of
+    the output asked for, and the output's pointers: two new planes, or
+    with `complex_out` one new complex64 tensor and no second pointer.  It
+    counts each launch in ``inner.launches`` and, where it writes
+    complex64, in ``inner.cout_launches``; an empty batch launches nothing
+    and gives the layout asked for (the device checks and the launch
+    stubbed, so that it runs on the CPU)."""
+    launched = []
+    monkeypatch.setattr(passes, "check_planes", lambda *a: None)
+    monkeypatch.setattr(passes, "launch",
+                        lambda kernel, device, smem, work, args, what:
+                        launched.append((kernel, args)))
+    n, L = 2048, 1025
+    radices = S.choose_radices(n)
+    table = torch.zeros(S.table_len(n, radices))
+    if cin:
+        x = (torch.zeros(pre, n, L, dtype=torch.complex64), None)
+    else:
+        x = (torch.zeros(pre, n, L), torch.zeros(pre, n, L))
+    before = inner.launches, inner.cout_launches
+    y = inner.inner_c2c_cuda(*x, radices, table, complex_out=cout)
+    assert (inner.launches - before[0], inner.cout_launches - before[1]) \
+        == (int(pre > 0), int(pre > 0 and cout))
+    if cout:
+        assert isinstance(y, torch.Tensor) and y.dtype == torch.complex64
+        assert tuple(y.shape) == (pre, n, L)
+        out = (y.data_ptr(), None)
+    else:
+        assert len(y) == 2 and all(t.dtype == torch.float32 for t in y)
+        assert all(tuple(t.shape) == (pre, n, L) for t in y)
+        out = (y[0].data_ptr(), y[1].data_ptr())
+    if pre == 0:
+        assert launched == []
+        return
+    (kernel, args), = launched
+    assert kernel == "inner_c2c"
+    assert args[:4] == passes.pointers(*x) + out
+    assert args[-1] == (passes.IN_COMPLEX if cin else 0) \
+        | (passes.OUT_COMPLEX if cout else 0)
 
 
 @pytest.mark.parametrize("route,view", [
@@ -371,7 +490,7 @@ def test_a_call_converts_only_where_its_route_cannot(forced, monkeypatch,
     stages = _route(plan)
     first, last = stages[0], stages[-1]
     split = route == "cpu" or view != "plain" or first not in ("k1", "k2")
-    combine = route == "cpu" or last not in ("k1", "k3")
+    combine = route == "cpu" or last not in ("k1", "k2", "k3")
     x = _x(plan.problem.shape, view, getattr(torch, dtype))
     got, snap = _traced(lambda: plan.execute(x))
     assert torch.equal(got, _split_path(plan, x))
@@ -449,18 +568,23 @@ def test_forced_edges_gradient_matches_the_conversion_path(forced, shape,
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("kernel", ["k1", "k2", "k3"])
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k2-card"])
 @pytest.mark.parametrize("cin,cout", [(True, False), (False, True),
                                       (True, True)])
-def test_a_pass_takes_and_gives_every_layout(cpu_plans, kernel, cin, cout):
+def test_a_pass_takes_and_gives_every_layout(cpu_plans, monkeypatch, kernel,
+                                             cin, cout):
     """Each of K1's, K2's and K3's applies takes the complex tensor itself
     (xi None) and gives the complex output (cout), converting where its
     kernel has no form, with the planes' values; its backward gives the
-    gradient in the input's layout."""
+    gradient in the input's layout.  ``k2-card`` runs K2's pass on the
+    card's branch (:func:`_force`), where K2 is handed the layouts as they
+    are, both ways, and no conversion runs."""
     desc = {"alg": "pallas", "n": 128, "radices": [128]}
+    if kernel == "k2-card":
+        _force(monkeypatch)
     if kernel == "k1":
         apply = S.build_pallas_c2c_split(desc, K.FORWARD, np.float32, CPU)
-    elif kernel == "k2":
+    elif kernel.startswith("k2"):
         apply = inner.build_pallas_c2c_split_inner(desc, K.FORWARD,
                                                    np.float32, CPU)
     else:
@@ -468,9 +592,14 @@ def test_a_pass_takes_and_gives_every_layout(cpu_plans, kernel, cin, cout):
                                                   np.float32, desc, desc, CPU)
     x = _complex((2, 128, 128), seed=4).requires_grad_()
     want = torch.complex(*apply(x.real, x.imag))
-    got = apply(x, None, cout) if cin else apply(x.real, x.imag, cout)
+    K2_CALLS.clear()
+    got, snap = _traced(lambda: apply(x, None, cout) if cin
+                        else apply(x.real, x.imag, cout))
     got_c = got if cout else torch.complex(*got)
     assert torch.equal(got_c, want)
+    if kernel == "k2-card":
+        assert K2_CALLS == [(cin, cout)]
+        assert snap["converts"] == Counter()
     g = _complex((2, 128, 128), seed=5)
     d_got, = torch.autograd.grad(got_c, x, g)
     d_want, = torch.autograd.grad(want, x, g)
@@ -739,3 +868,103 @@ def test_card_lazy_and_strided_inputs_make_one_copy(card, view, shape, axes,
     traced, snap = _traced(lambda: plan.execute(x))
     assert torch.equal(traced, want)
     assert snap["converts"] == Counter([SPLIT])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin", [False, True])
+@pytest.mark.parametrize("sign", [K.FORWARD, K.BACKWARD])
+@pytest.mark.parametrize("n,radices,pre,L", [
+    # the half spectra of conv (8 fields) and ns (16, and the stacked 4 x
+    # 16): 256 full tiles of 4 columns and a masked 1-column edge tile a
+    # plane
+    (2048, [128, 16], 8, 1025), (2048, [128, 16], 16, 1025),
+    (2048, [128, 16], 64, 1025),
+    # one column, three planes a block; a dense last level (radix 7)
+    (2048, [128, 16], 3, 1), (112, [16, 7], 5, 130),
+])
+def test_card_k2_complex_out_is_its_planes(card, n, radices, pre, L, sign,
+                                           cin):
+    """K2 writing complex64, from planes or from complex64, is
+    ``torch.complex`` of its planar output bit for bit, and counts one
+    launch in ``inner.launches`` and in ``inner.cout_launches``."""
+    table = S.device_table(n, tuple(radices), sign, card)
+    x = _complex((pre, n, L), seed=pre + L, device=card)
+    xs = (x, None) if cin else (x.real.contiguous(), x.imag.contiguous())
+    planes = inner.inner_c2c_cuda(*xs, radices, table)
+    before = inner.launches, inner.cout_launches
+    got = inner.inner_c2c_cuda(*xs, radices, table, complex_out=True)
+    torch.cuda.synchronize()
+    assert (inner.launches - before[0], inner.cout_launches - before[1]) \
+        == (1, 1)
+    assert got.dtype == torch.complex64 and got.shape == x.shape
+    assert torch.equal(got, torch.complex(*planes))
+
+
+def _real_plans(entry, shape, card):
+    """The r2c and c2r plans of real fields of `shape` over their two
+    trailing axes: as conv's ``plan_many_dft_r2c``/``_c2r`` make them for
+    ``execute``, else as ``plan_dft_r2c``/``_c2r`` of the whole shape."""
+    if entry == "execute":
+        n, howmany = list(shape[-2:]), int(np.prod(shape[:-2]))
+        return (ft.plan_many_dft_r2c(n, howmany, device=card),
+                ft.plan_many_dft_c2r(n, howmany, device=card))
+    axes = (len(shape) - 2, len(shape) - 1)
+    return (ft.plan_dft_r2c(shape, axes=axes, device=card),
+            ft.plan_dft_c2r(shape, axes=axes, device=card))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,shape", [
+    ("execute", (8, 2048, 2048)),       # conv's plans
+    ("api", (16, 2048, 2048)),          # ns's rfftn and irfftn
+    ("api", (4, 16, 2048, 2048)),       # ns's stacked irfftn
+])
+def test_card_real_2d_is_the_conversion_path(card, entry, shape):
+    """``Plan.execute`` of conv's plans and ``rfftn``/``irfftn`` of ns's
+    shapes: bit for bit the conversion path (``torch.complex(*r2c.
+    apply_split(x))``, ``c2r.apply_split(X.real, X.imag)``, irfftn's 1/N
+    after it), no ``fftw.convert.*`` span, one K2 launch a call, which
+    writes complex64 in the r2c and reads it in the c2r."""
+    r2c, c2r = _real_plans(entry, shape, card)
+    x = torch.rand(shape, generator=torch.Generator(card).manual_seed(15),
+                   device=card) - 0.5
+    scale = 1.0
+    if entry == "execute":
+        fwd, inv = r2c.execute, c2r.execute
+    else:
+        fwd = lambda a: ft.rfftn(a, axes=(-2, -1))                # noqa
+        inv = lambda a: ft.irfftn(a, s=shape[-2:], axes=(-2, -1))  # noqa
+        scale = 1.0 / np.prod(shape[-2:])
+    want = torch.complex(*r2c.apply_split(x))
+    for run, arg, check in ((fwd, x, want),
+                            (inv, want, c2r.apply_split(want.real, want.imag)
+                             * scale)):
+        before = inner.launches, inner.cout_launches
+        got, snap = _traced(lambda: run(arg))
+        torch.cuda.synchronize()
+        assert torch.equal(got, check)
+        assert (inner.launches - before[0], inner.cout_launches - before[1]) \
+            == (1, int(run is fwd))
+        assert snap["converts"] == Counter()
+    del want, check
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,axes,cout", [
+    ((512, 512, 512), (0, 1, 2), 0),     # K2 first, reading, then K3
+    ((256, 8, 16), (0,), 1),             # K2 alone, reading and writing
+])
+def test_card_k2_writes_complex_only_where_it_is_last(card, shape, axes,
+                                                      cout):
+    """A c2c plan's K2 pass writes complex64 only where it is the route's
+    last pass: never in the 512^3 route (K2, then K3), once a call where
+    it is alone; the output is the split-planes path's bit for bit."""
+    plan = _card_plan(shape, axes, K.FORWARD)
+    x = _complex(shape, seed=16, device=card)
+    want = _split_path(plan, x)
+    before = inner.launches, inner.cout_launches
+    got = plan.execute(x)
+    torch.cuda.synchronize()
+    assert (inner.launches - before[0], inner.cout_launches - before[1]) \
+        == (1, cout)
+    assert torch.equal(got, want)
