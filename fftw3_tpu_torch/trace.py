@@ -30,9 +30,10 @@ profiler runs, a span
 
 A model's step (``models/``) marks its layers with :func:`model`:
 ``fftw.model.ns_step`` around a Navier-Stokes step and
-``fftw.model.ns.nonlinear`` around each evaluation of its advection term.
-A model span is a profiler range alone: it takes no events and appends no
-record, so a plan called inside a step still opens a root of its own
+``fftw.model.ns.nonlinear`` around each evaluation of its advection term,
+``fftw.model.neumann_solve`` around a Neumann Poisson solve.  A model span
+is a profiler range alone: it takes no events and appends no record, so a
+plan called inside a step still opens a root of its own
 (``fftw.execute``), sampled by its own plan's count.
 
 The record keeps the latest :data:`CAP` spans, the older ones counted as

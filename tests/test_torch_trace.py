@@ -557,6 +557,48 @@ def test_model_span_is_a_range_alone(monkeypatch, name):
     trace.reset()
 
 
+def test_neumann_solve_spans(cpu_plans, monkeypatch):
+    """A Neumann solve opens one ``fftw.model.neumann_solve`` range, and
+    inside it the roots of its six plan calls, each with its one stage
+    span: ``redft10_half`` along the three axes, then ``redft01_half`` (the
+    card's reductions, pinned here by leaving the dense kind matrix out)."""
+    monkeypatch.setattr(ft.planner, "R2R_GENERIC_MAX", 0)
+    api._cached_plan.cache_clear()
+    f = torch.rand(8, 12, 16) - 0.5
+    models.solve_neumann(f)              # plans outside the profiler
+    _, prof = _traced(models.solve_neumann, f)
+    recs = trace.records()
+    assert not any(r.name.startswith("fftw.model.") for r in recs)
+    roots = [r for r in recs if r.root]
+    assert [r.name for r in roots] == ["fftw.execute"] * 6
+    stages = [r for r in recs if r.name.startswith("fftw.stage.")]
+    assert [r.name for r in stages] == ["fftw.stage.redft10_half"] * 3 + [
+        "fftw.stage.redft01_half"] * 3
+    assert [r.parent for r in stages] == roots
+    ranges = _ranges(prof)
+    names = [e.name() for e in ranges]
+    assert names.count("fftw.model.neumann_solve") == 1
+    (head,) = [e for e in ranges if e.name() == "fftw.model.neumann_solve"]
+    inner = [e for e in ranges if e.name() == "fftw.execute"
+             or e.name().startswith("fftw.stage.")]
+    assert len(inner) == 12
+    for e in inner:
+        assert head.start_ns() <= e.start_ns() <= e.end_ns() <= head.end_ns()
+    api._cached_plan.cache_clear()
+
+
+def test_neumann_solve_off_records_nothing(cpu_plans):
+    """With the profiler off the solve's span is the shared no-op, a solve
+    records nothing, and its output is the traced solve's bit for bit."""
+    assert trace.model("fftw.model.neumann_solve") is trace.span("x")
+    f = torch.rand(8, 12, 16) - 0.5
+    u = models.solve_neumann(f)
+    assert trace.records() == [] and trace.snapshot()["calls"] == 0
+    traced, _ = _traced(models.solve_neumann, f)
+    assert torch.equal(traced, u)
+    api._cached_plan.cache_clear()
+
+
 # -- one namespace for the kernels -----------------------------------------
 
 _TOKENS = re.compile(r"namespace\s+(\w+)\s*\{|namespace\s*\{|\{|\}|__global__")
