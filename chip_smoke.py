@@ -63,7 +63,12 @@ launch count set to 0 just before the path and read just after:
   pinned 3-D DCT-II).  Every r2r output is held, over all its
   rows, against float64 (scipy.fft's DCT/DST, its FFT for the DHT and
   halfcomplex kinds), and K4, K6 and K1 against their twins over all rows
-  at the shapes and on the inputs the pinned arms give them.
+  at the shapes and on the inputs the pinned arms give them;
+* K8, the fused DCT-II/DCT-III (phase 45, after the r2r path): both
+  directions at (300, n), n in 256, 512, 2048 and 4096, against the plain
+  version and float64, one launch a pass; ESTIMATE's plan at (262144, 512),
+  one pass of a 512^3 Neumann solve, one launch a call, against the plain
+  version over every row, timed beside it and ``torch.fft.rfft``.
 
 Every path is checked against ``torch.fft`` in complex128 (an oracle only),
 and every kernel route's gradient against its opposite-sign launches.
@@ -183,6 +188,7 @@ from fftw3_tpu_torch.ops import stage4096, swap
 from fftw3_tpu_torch.ops import c2c as c2c_ops
 from fftw3_tpu_torch.ops import df32, fused2d, inner, matrices, r2r
 from fftw3_tpu_torch.ops import real_stockham as RS
+from fftw3_tpu_torch.ops import redft
 from fftw3_tpu_torch.ops import stockham as S
 from fftw3_tpu_torch.ops import unaligned
 from fftw3_tpu_torch.ops.dense import exact_matmul
@@ -269,6 +275,13 @@ R2R_GRID = [("dht", 1024), ("dht", 1021), ("dht", 257), ("r2hc", 512),
             ("redft11", 511), ("rodft10", 512), ("rodft01", 511),
             ("rodft11", 512), ("redft10", 4096), ("redft10", 8192),
             ("dht", 8192), ("rodft11", 8192)]
+
+#: K8 (phase 45): both directions at (K8_ROWS, n) for each n of K8_NS
+#: against the plain version and float64, then timed at the rows of one
+#: pass of a 512^3 Neumann solve
+K8_NS = [256, 512, 2048, 4096]
+K8_ROWS = 300
+K8_PASS = (512 * 512, 512)
 
 #: a ``fftw3_tpu`` wisdom export (reference format) that pins
 #: plan_many_dft([4096], howmany=4096) to the four-step pallas4-32x128: the
@@ -412,7 +425,9 @@ COUNTERS = {"stockham_c2c": (S, "launches"),
             "r2c_inner": (RS, "r2c_inner_launches"),
             "c2r": (RS, "c2r_launches"),
             "df32_c2c": (df32, "launches"),
-            "probe_matmul": (toolchain_probe, "launches")}
+            "probe_matmul": (toolchain_probe, "launches"),
+            "redft": (redft, "launches"),
+            "redft_fixed": (redft, "fixed_launches")}
 
 
 def fail(msg: str) -> None:
@@ -1691,6 +1706,84 @@ def profile_r2r_paths(rng, dev, smi_line) -> None:
     p = ft.plan_r2r_3d(*cube, "redft10", "redft10", "redft10", device="cuda")
     profile_calls(f"plan_r2r_3d{cube} K4 pinned apply_split", p.apply_split,
                   (real_rows(rng, cube, dev),), smi_line, tag="[34]")
+
+
+def k8_phase(rng, dev, smi_line):
+    """Phase 45, K8: each direction at (K8_ROWS, n) for every n of K8_NS
+    against its plain version and float64, one launch a pass (the level
+    plan compiled in at n = 512 alone); then ESTIMATE's plan at a 512^3
+    pass's rows (K8_PASS), one launch a call, against the plain version
+    over every row, and each direction timed beside its plain version and
+    ``torch.fft.rfft``.  Returns the kernels
+    line's row (DCT-II's times; DCT-III's under ``dct3_*``)."""
+    f32 = np.float32
+    worst = (0.0, 0.0)
+    for kind in ("redft10", "redft01"):
+        for n in K8_NS:
+            rad = S.choose_radices(n // 2)
+            fn = r2r.build_r2r({"alg": f"fused_{kind}", "n": n,
+                                "radices": rad}, f32, dev)
+            x = real_rows(rng, (K8_ROWS, n), dev)
+            y, c = run_counted(fn, x)
+            check(launched(c) == {"redft": 1, **({"redft_fixed": 1}
+                                                 if n == 512 else {})},
+                  f"K8 {kind} n={n} launched {launched(c)}")
+            e_t = relerr(y, redft.redft_torch(x, kind, rad))
+            e_o = oracle_err(kind, x, y)
+            print(f"[45] K8 {kind} ({K8_ROWS}, {n}) {S.form_label(rad)}: "
+                  f"kernel-twin {e_t:.2e}, kernel-f64 {e_o:.2e}")
+            check(e_t <= TOL and e_o <= TOL,
+                  f"K8 {kind} n={n}: {e_t:.2e} / {e_o:.2e}")
+            worst = (max(worst[0], e_t), max(worst[1], e_o))
+    B, n = K8_PASS
+    x = real_rows(rng, K8_PASS, dev)
+    rad = S.choose_radices(n // 2)
+    times, max_abs = {}, {}
+    for kind in ("redft10", "redft01"):
+        p, _ = r2r_plan(K8_PASS, kind, f"K8 {kind}")
+        check(p.descriptors == {1: {"alg": f"fused_{kind}", "n": n,
+                                    "radices": rad}},
+              f"ESTIMATE at {K8_PASS}: {p!r}")
+        y, c = run_counted(p.apply_split, x)
+        check(launched(c) == {"redft": 1, "redft_fixed": 1},
+              f"the {kind} plan launched {launched(c)}")
+        e = relerr(y[:ORACLE_ROWS].double().cpu(), torch.from_numpy(
+            r2r_oracle(kind, x[:ORACLE_ROWS].cpu().numpy())))
+        twin = redft.redft_torch(x, kind, rad)
+        max_abs[kind] = float((y - twin).abs().max())
+        e_t = max_abs[kind] / float(twin.abs().max())
+        print(f"[45] K8 {kind} {K8_PASS} ESTIMATE {p!r}: launches "
+              f"{launched(c)}; kernel-twin max abs {max_abs[kind]:.2e}, rel "
+              f"{e_t:.2e} (all rows); kernel-f64 {e:.2e} ({ORACLE_ROWS} "
+              f"rows)")
+        check(e <= TOL and e_t <= TOL, f"K8 {kind} at {K8_PASS}: {e:.2e} / "
+              f"{e_t:.2e}")
+        worst = (max(worst[0], e_t), worst[1])
+        del twin
+        times[kind] = (time_ms(p.apply_split, (x,)), c["redft"],
+                       time_ms(lambda a, k=kind: redft.redft_torch(a, k, rad),
+                               (x,)))
+        del y
+    t_rfft = time_ms(torch.fft.rfft, (x,))
+    b, by = bound(8.0 * B * n, 2.5 * B * n * math.log2(n))
+    for kind, (t, _, tp) in times.items():
+        print(f"[45] K8 {kind} {K8_PASS} (one pass of a 512^3 solve): "
+              f"kernel {t:.3f} ms, plain version {tp:.3f} ms, torch.fft.rfft "
+              f"{t_rfft:.3f} ms, bound {b:.3f} ms ({by}; "
+              f"{100 * b / t:.1f}% of it) ({smi_line})")
+    del x
+    torch.cuda.empty_cache()
+    return {"name": "redft", "route": "cuda",
+            "source": "fftw3_tpu_torch/csrc/redft.cu",
+            "replaces": "fftw3_tpu/ops/r2r.py:186 (no Pallas kernel: "
+                        "redft10_half and redft01_half around K4 and K6)",
+            "launches": times["redft10"][1],
+            "max_abs_err": max(max_abs.values()),
+            "rel_err": worst[0], "f64_rel_err": worst[1],
+            "ms": times["redft10"][0], "plain_ms": times["redft10"][2],
+            "dct3_ms": times["redft01"][0],
+            "dct3_plain_ms": times["redft01"][2],
+            "library_ms": t_rfft, "bound_ms": b, "bound_by": by}
 
 
 # ---------------------------------------------------------------------------
@@ -4106,6 +4199,7 @@ def main() -> None:
     print(f"[26] phases 1-26 done at {time.perf_counter() - t_start:.1f} s",
           flush=True)
     r2r_res = r2r_phases(rng, dev, smi_line, args.seed)
+    k8_row = k8_phase(rng, dev, smi_line)
     measure_rows = measure_phases(rng, dev, smi_line, t_start)
     measure_rows += tensor_core_phases(rng, dev, smi_line, t_start)
     measure_rows += k7_ablation_phase(dev, smi_line, k7_row, args.seed)
@@ -4120,7 +4214,7 @@ def main() -> None:
         if r["name"] in ("r2c", "c2r") and r["shape"][0] != REAL_1D[0]:
             continue
         kernels.append({k: v for k, v in r.items() if k != "shape"})
-    kernels += [wide_row, k7_row, p1_row]
+    kernels += [wide_row, k7_row, p1_row, k8_row]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on its path")
     kernels += e5_rows + e8_rows + measure_rows

@@ -74,6 +74,9 @@ SIGNATURES = {
     "r2c_inner_launch": [_P] * 4 + [_IP] + [_I] * 2 + [_L] + [_I] * 3
     + [_P],
     "r2c_inner_occupancy": [_I, ctypes.POINTER(_I)],
+    # K8: x y tab, plan, rows n rpb dir fixed grid smem, stream
+    "redft_launch": [_P] * 3 + [_IP] + [_I] * 7 + [_P],
+    "redft_occupancy": [_I, ctypes.POINTER(_I)],
     # K7 per pass-kind family, df32_c2c_f<family>, and its timing-only
     # arms, df32_ablate<arm>: xr xi yr yi tab itab, plan, rows n rpb sign
     # grid smem, stream

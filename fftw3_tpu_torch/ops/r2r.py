@@ -5,14 +5,17 @@ Computes").
 
 Every fast solver here is a *reduction to r2c/c2r/c2c* with O(n) pre/post
 passes, the architecture of FFTW's reodft layer, where everything reduces to
-R2HC.  No r2r kind has a kernel of its own: on the card the work runs in
-the children's kernels, K4 (``pallas_r2c``), K6 (``pallas_c2r``) and K1
-(``pallas``), and the passes around them are PyTorch elementwise ops,
-gathers and concatenations, each one read and one write of the planes.
+R2HC.  Apart from DCT-II and DCT-III, which have K8, no r2r kind has a kernel of
+its own: on the card the work runs in the children's kernels, K4
+(``pallas_r2c``), K6 (``pallas_c2r``) and K1 (``pallas``), and the passes
+around them are PyTorch elementwise ops, gathers and concatenations, each
+one read and one write of the planes.
 
 * ``redft10_half`` — DCT-II via Makhoul's even/odd permutation + same-size
   real FFT + quarter-sample twiddle (reodft010e-r2hc analog).
 * ``redft01_half`` — DCT-III, the exact inverse route.
+* ``fused_redft10`` / ``fused_redft01`` (the port's own, on a CUDA device
+  alone) — the same two chains in one kernel, K8 (``ops/redft.py``).
 * ``redft00_ext`` / ``rodft00_ext`` — DCT-I / DST-I via even/odd extension
   to a 2(n∓1)-point real FFT (redft00e-r2hc-pad).
 * ``redft00_split`` / ``rodft00_split`` — odd-n DCT-I / DST-I as a half-size
@@ -59,6 +62,7 @@ from ..utils import primes
 from . import c2c as c2c_ops
 from . import matrices
 from . import real as real_ops
+from . import redft
 from .dense import exact_matmul
 
 Apply = Callable[[torch.Tensor], torch.Tensor]
@@ -72,7 +76,7 @@ KIND_OF = {"dht_via_r2c": "dht", "dht_rader": "dht",
            "rodft00_ext": "rodft00", "rodft00_split": "rodft00",
            "redft11_2n": "redft11", "redft11_odd": "redft11",
            "rodft10_flip": "rodft10", "rodft01_flip": "rodft01",
-           "rodft11_flip": "rodft11"}
+           "rodft11_flip": "rodft11", **redft.KIND_OF}
 
 #: the algs of r2r descriptors
 ALGS = frozenset(KIND_OF) | {"r2r_matmul"}
@@ -167,6 +171,36 @@ def _quarter_twiddle(n: int, sign: int, rdtype, device):
     w = np.exp(sign * 1j * np.pi * k / (2 * n))
     return (c2c_ops._const(w.real, rdtype, device),
             c2c_ops._const(w.imag, rdtype, device))
+
+
+def makhoul_dct2(x: torch.Tensor, r2c: Callable, perm: torch.Tensor,
+                 wr: torch.Tensor, wi: torch.Tensor) -> torch.Tensor:
+    """DCT-II of real (..., n) by Makhoul: the permutation `perm`, the
+    split real FFT ``r2c``, the quarter-sample twiddle (wr, wi) =
+    ``_quarter_twiddle(n, -1)``, and the flip of the upper half."""
+    n = x.shape[-1]
+    vr, vi = r2c(x.index_select(-1, perm))
+    head = 2.0 * (wr * vr - wi * vi)                             # Y[0..n//2]
+    h = (n + 1) // 2
+    tail = -2.0 * (wr[1:h] * vi[..., 1:h] + wi[1:h] * vr[..., 1:h])
+    return torch.cat([head, tail.flip(-1)], -1)
+
+
+def makhoul_dct3(y: torch.Tensor, c2r: Callable, inv: torch.Tensor,
+                 wr: torch.Tensor, wi: torch.Tensor) -> torch.Tensor:
+    """DCT-III of real (..., n), the exact inverse route of
+    :func:`makhoul_dct2`: the half spectrum twiddled by (wr, wi) =
+    ``_quarter_twiddle(n, +1)``, the split inverse real FFT ``c2r``, the
+    inverse permutation `inv`."""
+    n = y.shape[-1]
+    re = y[..., :n // 2 + 1] * 0.5
+    imt = -0.5 * y[..., n // 2 + 1:].flip(-1)
+    zero = torch.zeros_like(y[..., :1])
+    # even n, Nyquist bin: Im t[n/2] = -Re t[n/2] (t[n/2] = e^{-i pi/4}
+    # V[n/2] with V[n/2] real)
+    im = torch.cat([zero, imt] + ([-re[..., -1:]] if n % 2 == 0 else []), -1)
+    v = c2r(wr * re - wi * im, wr * im + wi * re) * 2.0
+    return v.index_select(-1, inv)                               # 2n irfft(V)
 
 
 @lru_cache(maxsize=None)
@@ -281,35 +315,20 @@ def build_r2r(desc: Dict, rdtype, device) -> Apply:
             return child(hc[..., :nre], torch.cat(parts, -1))
         return apply_hc2r
 
+    if alg in redft.KIND_OF:                                     # K8
+        return redft.build_fused_redft(desc, rdtype, device)
+
     if alg == "redft10_half":                                    # DCT-II
         child = real_ops.build_r2c_split(desc["child"], rdtype, device)
         perm = _makhoul_index(n, False, device)
         wr, wi = _quarter_twiddle(n, -1, rdtype, device)
-
-        def apply_dct2(x):
-            vr, vi = child(x.index_select(-1, perm))
-            head = 2.0 * (wr * vr - wi * vi)                     # Y[0..n//2]
-            h = (n + 1) // 2
-            tail = -2.0 * (wr[1:h] * vi[..., 1:h] + wi[1:h] * vr[..., 1:h])
-            return torch.cat([head, tail.flip(-1)], -1)
-        return apply_dct2
+        return lambda x: makhoul_dct2(x, child, perm, wr, wi)
 
     if alg == "redft01_half":                                    # DCT-III
         child = real_ops.build_c2r_split(desc["child"], rdtype, device)
         inv = _makhoul_index(n, True, device)
         wr, wi = _quarter_twiddle(n, +1, rdtype, device)
-
-        def apply_dct3(y):
-            re = y[..., :n // 2 + 1] * 0.5
-            imt = -0.5 * y[..., n // 2 + 1:].flip(-1)
-            zero = torch.zeros_like(y[..., :1])
-            # even n, Nyquist bin: Im t[n/2] = -Re t[n/2] (t[n/2] =
-            # e^{-i pi/4} V[n/2] with V[n/2] real)
-            im = torch.cat([zero, imt] + ([-re[..., -1:]] if n % 2 == 0
-                                          else []), -1)
-            v = child(wr * re - wi * im, wr * im + wi * re) * 2.0
-            return v.index_select(-1, inv)                       # 2n irfft(V)
-        return apply_dct3
+        return lambda y: makhoul_dct3(y, child, inv, wr, wi)
 
     if alg == "redft00_ext":                                     # DCT-I
         child = real_ops.build_r2c_split(desc["child"], rdtype, device)
@@ -418,6 +437,10 @@ def r2r_opcount(desc: Dict) -> Dict[str, float]:
         inner = c2c_ops.c2c_opcount(desc["child"])
     elif alg in ("redft01_half", "hc2r_via_c2r"):
         inner = real_ops.c2r_opcount(desc["child"])
+    elif alg == "fused_redft10":         # the reduction's over K4's count
+        inner = real_ops.r2c_opcount(dict(desc, alg="pallas_r2c"))
+    elif alg == "fused_redft01":         # the reduction's over K6's count
+        inner = real_ops.c2r_opcount(dict(desc, alg="pallas_c2r"))
     else:
         inner = real_ops.r2c_opcount(desc["child"])
     return {"add": inner["add"] + 2.0 * n, "mul": inner["mul"] + 2.0 * n,

@@ -61,7 +61,8 @@ from .ops import real as real_ops
 
 #: the port kernel that a kernel-served descriptor's pass runs
 _KERNEL_OF = {"pallas": "k1", "pallas_r2c": "k4", "pallas_r2c_inner": "k5",
-              "pallas_c2r": "k6", "df32p": "k7"}
+              "pallas_c2r": "k6", "df32p": "k7", "fused_redft10": "k8",
+              "fused_redft01": "k8"}
 
 
 def _stage_span(desc: Dict) -> str:

@@ -32,7 +32,7 @@ from .ops import c2c as c2c_ops
 from .ops import df32
 from .ops import r2r as r2r_ops
 from .ops import real as real_ops
-from .ops import real_stockham, stockham
+from .ops import real_stockham, redft, stockham
 from .utils import primes
 
 # ---------------------------------------------------------------------------
@@ -193,6 +193,11 @@ def _r2r_cost(desc: Dict, hw: HardwareModel = HW, f64: bool = False
     if alg == "r2r_matmul":
         mxu = hw.peak_flops / (_F64_MXU_PENALTY if f64 else 1.0)
         return 8.0 * n / hw.hbm_bw + 2.0 * n * n / (mxu * hw.matmul_eff(n))
+    if alg in redft.KIND_OF:
+        # K8, one fused pass: the bytes of a read and a write, and FFTW's
+        # flops of the transform
+        return (1.1 * 8.0 * n / hw.hbm_bw
+                + 2.5 * n * math.log2(n) / hw.vpu_flops)
     if alg in ("redft00_split", "rodft00_split"):
         # two half-size r2r children + one recombination pass
         return (_r2r_cost(desc["children"][0], hw, f64)
@@ -386,7 +391,8 @@ class Planner:
         """The reference's r2r candidates, in its order: each kind's
         reductions to r2c/c2r/c2c (or to another r2r kind), children
         planned at the same patience and batch, then the dense kind matrix
-        up to R2R_GENERIC_MAX."""
+        up to R2R_GENERIC_MAX; on a CUDA device the port's fused DCT-II
+        and DCT-III (K8) first, where its gate holds."""
         def sub(child_kind, m):
             return self._plan(child_kind, m, rdtype, patience, batch, device)
 
@@ -406,12 +412,17 @@ class Planner:
         elif kind == "hc2r":
             out.append({"alg": "hc2r_via_c2r", "n": n,
                         "child": sub("c2r", n)})
-        elif kind == "redft10":
-            out.append({"alg": "redft10_half", "n": n,
-                        "child": sub("r2c", n)})
-        elif kind == "redft01":
-            out.append({"alg": "redft01_half", "n": n,
-                        "child": sub("c2r", n)})
+        elif kind in ("redft10", "redft01"):
+            if redft.applicable(n, rdtype, device):
+                # the port's own: K8 on a CUDA device
+                out.append({"alg": f"fused_{kind}", "n": n,
+                            "radices": stockham.choose_radices(n // 2)})
+            if kind == "redft10":
+                out.append({"alg": "redft10_half", "n": n,
+                            "child": sub("r2c", n)})
+            else:
+                out.append({"alg": "redft01_half", "n": n,
+                            "child": sub("c2r", n)})
         elif kind == "redft00" and n > 1:
             out.append({"alg": "redft00_ext", "n": n,
                         "child": sub("r2c", 2 * (n - 1))})
@@ -735,6 +746,9 @@ def _validate_r2r(kind: str, n: int, alg: str, desc: Dict) -> bool:
         return False
     if alg == "r2r_matmul":
         return True
+    if alg in redft.KIND_OF:
+        return n % 2 == 0 and stockham.radices_ok(n // 2,
+                                                  desc.get("radices"))
     if alg in ("redft00_split", "rodft00_split"):
         ch = desc.get("children")
         if not (isinstance(ch, list) and len(ch) == 2 and n % 2 == 1):

@@ -365,11 +365,29 @@ PLAIN_CASES = {
 }
 
 
+#: alg -> (kind, n, descriptor) of the port's own algorithms, which only a
+#: CUDA device's planner offers (K8, ``ops/redft.py``), and the reference's
+#: descriptor that computes the same
+FUSED_CASES = {
+    "fused_redft10": ("redft10", 256, {"alg": "fused_redft10", "n": 256,
+                                       "radices": [128]},
+                      KERNEL_CASES["redft10_half"][2]),
+    "fused_redft01": ("redft01", 256, {"alg": "fused_redft01", "n": 256,
+                                       "radices": [128]},
+                      KERNEL_CASES["redft01_half"][2]),
+}
+
+
 def test_cases_cover_every_algorithm():
-    assert set(PLAIN_CASES) == r2r.ALGS
-    assert set(KERNEL_CASES) == r2r.ALGS - {"r2r_matmul", "redft11_odd"}
+    assert set(PLAIN_CASES) | set(FUSED_CASES) == r2r.ALGS
+    assert set(KERNEL_CASES) == r2r.ALGS - {"r2r_matmul", "redft11_odd"} \
+        - set(FUSED_CASES)
     for name, (kind, n, desc) in KERNEL_CASES.items():
         assert planner.validate_desc(kind, n, desc), name
+        assert desc["alg"] == name
+    for name, (kind, n, desc, ref_desc) in FUSED_CASES.items():
+        assert planner.validate_desc(kind, n, desc), name
+        assert ref_planner.validate_desc(kind, n, ref_desc), name
         assert desc["alg"] == name
 
 
@@ -392,6 +410,23 @@ def test_kernel_children_match_reference(alg):
     assert _relerr(got, want) <= TOL
     assert _relerr(got, oracle) <= TOL
     assert _relerr(want, oracle) <= TOL
+
+
+@pytest.mark.parametrize("alg", sorted(FUSED_CASES))
+def test_fused_twins_match_reference(alg):
+    """The port's fused DCT-II/III (its plain version on the CPU) against
+    the reference's Makhoul reduction over its K4/K6 kernels in interpret
+    mode, both against float64."""
+    kind, n, desc, ref_desc = FUSED_CASES[alg]
+    x = _x((5, n), F32, len(alg))
+    got = r2r.build_r2r(desc, F32, "cpu")(torch.from_numpy(x)).numpy()
+    want = np.asarray(jax.jit(ref_r2r.build_r2r(ref_desc, F32))(
+        jnp.asarray(x)))
+    oracle = x.astype(F64) @ ref_matrices.r2r_matrix(kind, n)
+    assert got.dtype == F32 and got.shape == (5, n)
+    assert _relerr(got, want) <= TOL
+    assert _relerr(got, oracle) <= TOL
+    assert r2r.r2r_opcount(desc) == ref_r2r.r2r_opcount(ref_desc)
 
 
 @pytest.mark.parametrize("dtype", [F32, F64])
